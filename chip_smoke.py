@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each of which ends the run with a nonzero exit when it fails:
+
+1. Setup: torch version, the card's name and power limit, and the build of
+   ``cnmf_torch_tpu_torch/csrc/kl_ell.cu`` with ``nvcc`` for ``sm_90a``
+   (build time and the ``-Xptxas -v`` summary of every kernel).
+2. Kernels: each CUDA kernel against its plain torch version on the card,
+   at the main path's shapes (one 5,000-row chunk of the pipeline's data,
+   2,000 HVGs, k in {9, 13}, 20 replicates): f32 at ``rtol 2e-5``, bf16 at
+   ``rtol 2e-2``, two launches bit-identical; then each kernel's time
+   (CUDA events, warmed, median of many launches) beside its bound, its
+   plain version's time and, where one PyTorch call computes the same
+   function, that call's time. A small solve on the card is held against
+   the same solve on the CPU (plain versions).
+3. Pipeline: 10,000 cells x 5,000 genes of synthetic counts from the
+   low-rank Poisson model of ``bench.py`` at ~600 UMI per cell, then
+   prepare (Kullback-Leibler, 2,000 HVGs, chunks of 5,000 cells), factorize
+   over K in {5, 7, 9, 11, 13} x 20 replicates, combine, consensus (k=9)
+   and the K-selection statistics, with the kernels' launch counts set to
+   0 just before and read just after. It checks that the ELL lane ran
+   the CUDA kernels, that every kernel launched, that the consensus refit
+   launched ``h_stats`` again, that the objectives are finite and fall
+   from pass to pass, and that every artifact has its shape.
+
+The last three lines of standard output are the kernels' JSON record,
+the ``nvidia-smi`` name and power-limit line, and the run's JSON verdict.
+Everything the run writes goes under ``build/chip_smoke/`` beside this
+script. There is no CPU mode: without a card the script exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "build", "chip_smoke")
+
+N_CELLS, N_GENES, N_HVG = 10_000, 5_000, 2_000
+KS = [5, 7, 9, 11, 13]
+REPLICATES = 20
+CHUNK = 5_000
+CONSENSUS_K = 9
+SEED = 14
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and f32
+# operations/s outside the tensor cores (the ELL kernels use no tensor core)
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+# the TPU kernels the CUDA kernels replace (kernel bodies)
+REPLACES = {
+    "h_stats": "cnmf_torch_tpu/ops/pallas_kl.py:123",
+    "ratio": "cnmf_torch_tpu/ops/pallas_kl.py:154",
+    "w_numer": "cnmf_torch_tpu/ops/pallas_kl.py:182",
+    "beta_err_partials": "cnmf_torch_tpu/ops/pallas_kl.py:165",
+}
+SOURCE = "cnmf_torch_tpu_torch/csrc/kl_ell.cu"
+
+
+def check(cond, what: str):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str):
+    """One line per compiled kernel: its registers, shared memory and
+    spills from ``-Xptxas -v``."""
+    lines, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"(h_stats|ratio|w_numer|beta_err)_kernel"
+                              r"I?(.*?)EEv", name)
+            name = (short.group(1) + "<" + short.group(2) + ">") if short \
+                else name
+            spill = ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            lines.append(f"  {name}: {m.group(1)} registers{m.group(2)}; "
+                         f"{spill}")
+            name = None
+    return lines
+
+
+def synthetic_counts(n, g, k_true=14, scale=60.0, seed=SEED):
+    """The low-rank Poisson GEP model of ``bench.py`` (Dirichlet usages,
+    gamma spectra) at ``scale`` counts per unit of usage."""
+    rng = np.random.default_rng(seed)
+    usage = rng.dirichlet(np.ones(k_true) * 0.2, size=n)
+    spectra = rng.gamma(0.25, 1.0, size=(k_true, g)) * 40.0 / g
+    counts = rng.poisson(usage @ spectra * scale).astype(np.float32)
+    counts[counts.sum(axis=1) == 0, 0] = 1.0
+    return counts
+
+
+def cuda_ms(fn, iters=40, warmup=5) -> float:
+    """Median time of one call in ms, from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(statistics.median(s.elapsed_time(e) for s, e in pairs))
+
+
+def max_abs_err(got, want, rtol, atol=1e-6) -> float:
+    """Max |got - want|; fails when any element is outside
+    ``atol + rtol * |want|``."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    check(not bool(bad.any()),
+          f"{int(bad.sum())} elements outside rtol {rtol}: max diff "
+          f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def kernel_phase(x, nnz: int, log_rows: list):
+    """Every kernel against its plain version at the main path's shapes;
+    returns the JSON records (k=13, the mode the pipeline runs it in)."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    dev = x.vals.device
+    n, w = x.vals.shape
+    g, wt = x.rows_t.shape
+    R = REPLICATES
+    gen = torch.Generator().manual_seed(SEED)
+    records = {}
+    for k in (9, 13):
+        H = (torch.rand((R, n, k), generator=gen) + 0.1).to(dev)
+        W = (torch.rand((R, k, g), generator=gen) + 0.1).to(dev)
+        vb = x.vals.to(torch.bfloat16)
+        for bf16 in (False, True):
+            tag = f"k={k} {'bf16' if bf16 else 'f32'}"
+            rtol = 2e-2 if bf16 else 2e-5
+            vals = vb if bf16 else x.vals
+            errs = {}
+            # h_stats
+            got = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+            again = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"h_stats {tag} not repeatable")
+            errs["h_stats"] = max_abs_err(
+                got, kl_ell.h_stats_plain(vals, x.cols, H, W, bf16), rtol)
+            # ratio and w_numer (w_numer fed the plain ratio)
+            r = kl_ell.ratio(x.vals, x.cols, H, W, bf16)
+            r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, bf16)
+            check(torch.equal(r, kl_ell.ratio(x.vals, x.cols, H, W, bf16)),
+                  f"ratio {tag} not repeatable")
+            errs["ratio"] = max_abs_err(r, r_plain, rtol)
+            got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
+            check(torch.equal(got, kl_ell.w_numer(x.rows_t, x.perm_t,
+                                                   r_plain, H, bf16)),
+                  f"w_numer {tag} not repeatable")
+            errs["w_numer"] = max_abs_err(
+                got, kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H,
+                                          bf16), rtol)
+            if not bf16:
+                got = kl_ell.kl_beta_err(x, H, W)
+                check(torch.equal(got, kl_ell.kl_beta_err(x, H, W)),
+                      f"beta_err {tag} not repeatable")
+                from cnmf_torch_tpu_torch.ops.sparse import ell_beta_err
+
+                errs["beta_err_partials"] = max_abs_err(
+                    got, ell_beta_err(x, H, W), 2e-5)
+
+            # the pipeline runs the W side and the H solve in bf16, the
+            # objective (and the consensus refit's h_stats) in f32
+            timed = (["h_stats", "ratio", "w_numer"] if bf16
+                     else ["h_stats", "beta_err_partials"])
+            for name in timed:
+                rec = _time_kernel(kl_ell, name, x, vals, r_plain, H, W,
+                                   bf16, nnz)
+                rec["max_abs_err"] = errs[name]
+                log_rows.append(
+                    f"  {name:18s} {tag:9s} kernel {rec['ms']:.4f} ms  "
+                    f"plain {rec['plain_ms']:.4f} ms  library "
+                    f"{rec['library_ms']} ms  bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}")
+                if k == 13 and (bf16 or name == "beta_err_partials"):
+                    rec["variant"] = (
+                        f"{tag}, R={R}, rows={n}, genes={g}, w={w}, "
+                        f"wt={wt}, nnz={nnz}")
+                    records[name] = rec
+    return records
+
+
+def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
+    R, n, k = H.shape
+    g = W.shape[-1]
+    vb = 2 if bf16 else 4
+    rb = 2 if bf16 else 4
+    hw_bytes = R * n * k * 4 + R * k * g * 4
+    library_ms = None
+    if name == "h_stats":
+        fn = lambda: kl_ell.h_stats(vals, x.cols, H, W, bf16)  # noqa: E731
+        plain = lambda: kl_ell.h_stats_plain(  # noqa: E731
+            vals, x.cols, H, W, bf16)
+        nbytes = nnz * (vb + 4) + hw_bytes + R * n * k * 4
+        ops = R * nnz * (4 * k + 1)
+    elif name == "ratio":
+        fn = lambda: kl_ell.ratio(x.vals, x.cols, H, W, bf16)  # noqa: E731
+        plain = lambda: kl_ell.ratio_plain(  # noqa: E731
+            x.vals, x.cols, H, W, bf16)
+        nbytes = nnz * 8 + hw_bytes + R * r_flat.shape[-1] * rb
+        ops = R * nnz * (2 * k + 1)
+    elif name == "w_numer":
+        fn = lambda: kl_ell.w_numer(  # noqa: E731
+            x.rows_t, x.perm_t, r_flat, H, bf16)
+        plain = lambda: kl_ell.w_numer_plain(  # noqa: E731
+            x.rows_t, x.perm_t, r_flat, H, bf16)
+        nbytes = nnz * (8 + R * rb) + R * n * k * 4 + R * k * g * 4
+        ops = R * nnz * 2 * k
+        # one PyTorch call for the same function: the ratio as a batched
+        # sparse (R, genes, rows) matrix times H (R, rows, k)
+        library_ms = _sparse_bmm_ms(x, r_flat, H, bf16)
+    else:
+        fn = lambda: kl_ell.beta_err_partials(  # noqa: E731
+            x.vals, x.cols, H, W)
+        plain = lambda: kl_ell.beta_err_plain(  # noqa: E731
+            x.vals, x.cols, H, W)
+        blocks = fn().shape[-1]
+        nbytes = nnz * 8 + hw_bytes + R * blocks * 4
+        ops = R * nnz * (2 * k + 8)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": 0,
+            "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, iters=10,
+                                                   warmup=2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def _sparse_bmm_ms(x, r_flat, H, bf16):
+    """``torch.bmm`` of the ratio as a sparse COO (R, genes, rows) batch
+    against H (R, rows, k): the W numerator in one library call."""
+    R, n, k = H.shape
+    g, wt = x.rows_t.shape
+    w = x.vals.shape[-1]
+    keep = x.perm_t.reshape(-1) < n * w
+    genes = torch.arange(g, device=H.device).repeat_interleave(wt)[keep]
+    rows = x.rows_t.reshape(-1)[keep].long()
+    pos = x.perm_t.reshape(-1)[keep].long()
+    nz = genes.numel()
+    idx = torch.stack([torch.arange(R, device=H.device).repeat_interleave(nz),
+                       genes.repeat(R), rows.repeat(R)])
+    vals = r_flat[:, pos].reshape(-1).float()
+    A = torch.sparse_coo_tensor(idx, vals, (R, g, n),
+                                check_invariants=False).coalesce()
+    return cuda_ms(lambda: torch.bmm(A, H), iters=10, warmup=2)
+
+
+def small_solve_check(log_rows):
+    """A small online KL solve and a fixed-iteration usage refit on the card
+    (CUDA kernels) against the same solves on the CPU (plain versions)."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
+
+    rng = np.random.default_rng(SEED)
+    X = sp.random(600, 300, density=0.06, format="csr",
+                  random_state=int(rng.integers(1 << 31)),
+                  data_rvs=lambda s: rng.gamma(2.0, 1.0, s) + 0.1)
+    X = X.astype(np.float32)
+    e, pad = ell_chunk_rows(X, 256)
+    k, R = 6, 3
+    H0 = torch.as_tensor(rng.random((R, 600 + pad, k), np.float32) + 0.1)
+    H0[:, 600:] = 0
+    W0 = torch.as_tensor(rng.random((R, k, 300), np.float32) + 0.1)
+    h_tol, n_passes, h_tol_start = nmf.resolve_online_schedule(1.0)
+    errs = {}
+    for dev in ("cuda", "cpu"):
+        _, _, err = nmf.nmf_fit_online(
+            e.to(dev), H0.reshape(R, -1, 256, k).to(dev), W0.to(dev),
+            beta=1.0, h_tol=h_tol, chunk_max_iter=200, n_passes=n_passes,
+            h_tol_start=h_tol_start, bf16_ratio=True)
+        errs[dev] = err.cpu().numpy()
+    rel = np.abs(errs["cuda"] - errs["cpu"]) / errs["cpu"]
+    check(np.isfinite(errs["cuda"]).all() and rel.max() < 5e-2,
+          f"online bf16 solve on the card vs the CPU: rel {rel}")
+    # h_tol 0: both run exactly 50 inner steps
+    xe = csr_to_ell(X, transpose=False)
+    outs = [nmf.fit_h(xe, W0[0].numpy(), H_init=H0[0, :600].numpy(),
+                      chunk_size=256, chunk_max_iter=50, h_tol=0.0,
+                      beta=1.0, device=dev) for dev in ("cuda", "cpu")]
+    check(np.allclose(outs[0], outs[1], rtol=1e-4, atol=1e-6),
+          "fit_h on the card vs the CPU beyond rtol 1e-4: max diff "
+          f"{np.abs(outs[0] - outs[1]).max()}")
+    log_rows.append(f"  small online KL solve (bf16), card vs CPU: max rel "
+                    f"objective diff {rel.max():.3g} (band 5e-2)")
+    log_rows.append(f"  fit_h f32 50 steps, card vs CPU: max abs diff "
+                    f"{np.abs(outs[0] - outs[1]).max():.3g} (rtol 1e-4)")
+
+
+class Stages:
+    """Wall time (host clock after a synchronize) and peak device memory of
+    each pipeline stage."""
+
+    def __init__(self):
+        self.rows = []
+
+    def run(self, name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.rows.append((name, wall, peak))
+        log(f"stage {name}: {wall:.3f} s, peak device memory {peak:.3f} GiB")
+        return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.sparse import ell_chunk_rows
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz, load_matrix
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
+        f"python {sys.version.split()[0]}")
+    log(f"card: {smi}; devices visible: {torch.cuda.device_count()}")
+
+    # -- phase 1: build --------------------------------------------------
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(OUT)
+    kl_ell.build()
+    log(f"built {SOURCE} in {kl_ell.build_info['seconds']:.2f} s: "
+        f"{kl_ell.build_info['command']}")
+    for line in ptxas_summary(kl_ell.build_info["log"]):
+        log(line)
+    with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
+        f.write(kl_ell.build_info["log"])
+
+    # -- data: the pipeline's counts --------------------------------------
+    t0 = time.perf_counter()
+    counts = synthetic_counts(N_CELLS, N_GENES)
+    counts_fn = os.path.join(OUT, "counts.df.npz")
+    save_df_to_npz(Frame(counts,
+                         np.asarray([f"c{i}" for i in range(N_CELLS)]),
+                         np.asarray([f"g{j}" for j in range(N_GENES)])),
+                   counts_fn, compress=False)
+    log(f"synthetic counts {counts.shape}, {counts.sum() / N_CELLS:.1f} "
+        f"UMI per cell, written in {time.perf_counter() - t0:.2f} s")
+    del counts
+
+    # -- phase 2: kernels at the main path's shapes -----------------------
+    # the shapes come from the prepared matrix: a throwaway prepare (it
+    # launches no kernel) in its own run directory
+    probe = cNMF(OUT, "shapes", device="cuda")
+    probe.prepare(counts_fn, components=[CONSENSUS_K], n_iter=1, seed=SEED,
+                  beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+                  batch_size=CHUNK)
+    Xn = load_matrix(probe.paths["normalized_counts"]).X
+    xc, _ = ell_chunk_rows(Xn, CHUNK)
+    x0 = xc.chunk(0).to("cuda")
+    nnz = int((x0.vals > 0).sum())
+    log(f"normalized counts {Xn.shape}: density "
+        f"{Xn.nnz / (Xn.shape[0] * Xn.shape[1]):.4f}, ELL width {xc.width}, "
+        f"per-chunk transpose width {xc.t_width}, chunk-0 nonzeros {nnz}")
+    rows = []
+    records = kernel_phase(x0, nnz, rows)
+    small_solve_check(rows)
+    log("kernels (median of CUDA-event timed launches, L2-warm inputs):")
+    for line in rows:
+        log(line)
+    del x0, xc
+
+    # -- phase 3: the main path --------------------------------------------
+    stages = Stages()
+    obj = cNMF(OUT, "pipeline", device="cuda")
+    kl_ell.reset_launches()
+    stages.run("prepare", lambda: obj.prepare(
+        counts_fn, components=KS, n_iter=REPLICATES, seed=SEED,
+        beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+        batch_size=CHUNK))
+    stages.run("factorize", obj.factorize)
+    after_factorize = dict(kl_ell.launches)
+    stages.run("combine", obj.combine)
+    stages.run("consensus", lambda: obj.consensus(CONSENSUS_K,
+                                                  density_threshold=0.5))
+    after_consensus = dict(kl_ell.launches)
+    stats = stages.run("k_selection", obj.k_selection_stats)
+    launches = dict(kl_ell.launches)
+    log(f"kernel launches: after factorize {after_factorize}; after "
+        f"consensus {after_consensus}; whole path {launches}")
+
+    info = obj.factorize_info
+    check(info["lane"] == "ell", f"factorize lane {info['lane']}")
+    check(info["kernel"] == "ell-cuda", f"kernel label {info['kernel']}")
+    for name in kl_ell.KERNELS:
+        check(after_factorize[name] > 0, f"{name} never launched")
+    check(after_consensus["h_stats"] > after_factorize["h_stats"],
+          "the consensus refit launched no h_stats")
+    rises = 0
+    for k in KS:
+        for trace in info["trace"][k]:
+            check(np.isfinite(trace).all(), f"k={k}: nonfinite objective")
+            # from the second pass on (the first solves against the random
+            # init and is no bound, in the JAX solver too)
+            check((trace[-1] < trace[1]).all(),
+                  f"k={k}: objective did not fall")
+            rises += int((np.diff(trace[1:], axis=0) > 0).sum())
+            log(f"k={k}: {trace.shape[0]} passes max, final objective "
+                f"{np.round(trace[-1], 1).tolist()}")
+        check(np.isfinite(info["errs"][k]).all(), f"k={k}: nonfinite error")
+    log(f"pass-to-pass objective rises after the second pass: {rises}")
+    g_hv = N_HVG
+    dt = "0_5"
+    for k in KS:
+        m = load_df_from_npz(obj.paths["merged_spectra"] % k)
+        check(m.shape == (REPLICATES * k, g_hv), f"merged k={k} {m.shape}")
+    for key, shape in {"consensus_spectra": (CONSENSUS_K, g_hv),
+                       "consensus_usages": (N_CELLS, CONSENSUS_K),
+                       "gene_spectra_tpm": (CONSENSUS_K, N_GENES),
+                       "gene_spectra_score": (CONSENSUS_K, N_GENES),
+                       "starcat_spectra": (CONSENSUS_K, g_hv)}.items():
+        df = load_df_from_npz(obj.paths[key] % (CONSENSUS_K, dt))
+        check(df.shape[1] == shape[1] and df.shape[0] <= shape[0],
+              f"{key} shape {df.shape}")
+        check(np.isfinite(np.asarray(df.values, np.float64)).all(),
+              f"{key} not finite")
+    check(stats.shape == (len(KS), 4) and np.isfinite(stats.values).all(),
+          "k-selection statistics")
+    log("k-selection statistics [k, threshold, silhouette, error]:")
+    for row in stats.values:
+        log("  " + " ".join(f"{v:.6g}" for v in row))
+
+    out = []
+    for name in kl_ell.KERNELS:
+        rec = dict(records[name])
+        rec["launches"] = int(launches[name])
+        out.append(rec)
+    report = {"kernels": out, "stages": [
+        {"stage": s, "seconds": w, "peak_gib": p} for s, w, p in stages.rows],
+        "card": smi, "seconds": time.perf_counter() - t_start}
+    with open(os.path.join(OUT, "report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"total {report['seconds']:.1f} s")
+    print(json.dumps({"kernels": out}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""Kernel dispatch for the ELL KL statistics.
+
+A CUDA tensor launches the hand-written CUDA kernels
+(:mod:`.kl_ell`); a CPU tensor takes their plain torch versions. There is
+no knob and no degrade path: a CUDA launch that fails raises.
+
+:func:`kernel_label` is the one spelling of the engaged inner-loop lane:
+``ell-cuda`` (the kernels), ``ell-torch`` (the plain ELL versions, CPU),
+``dense-bf16`` / ``dense`` (the dense chains, plain torch matmuls).
+"""
+
+from __future__ import annotations
+
+from . import kl_ell
+from .kl_ell import KERNELS, launches, reset_launches
+
+__all__ = ["KERNELS", "kernel_label", "kl_ell", "launches",
+           "reset_launches"]
+
+
+def kernel_label(use_ell: bool, device, bf16_ratio: bool = False) -> str:
+    if use_ell:
+        return "ell-cuda" if str(device).startswith("cuda") else "ell-torch"
+    return "dense-bf16" if bf16_ratio else "dense"

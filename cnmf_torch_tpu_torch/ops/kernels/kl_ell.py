@@ -1,0 +1,312 @@
+"""CUDA kernels for the ELL KL statistics, their wrappers and launch counts.
+
+Source: ``cnmf_torch_tpu_torch/csrc/kl_ell.cu``, built with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` at first use and bound through ctypes
+(a plain C interface: pointers and the stream as ``c_void_p``). Each wrapper
+checks device, dtype, shape and contiguity (on the CPU too, so the CPU
+tests hold callers to the kernels' layout), allocates its outputs,
+launches on ``torch.cuda.current_stream()`` and raises when the launch
+reports an error. A CUDA tensor launches the kernel or raises; a CPU tensor
+takes the kernel's plain torch version (``ops/sparse.py``).
+
+Kernels, and the TPU kernels they replace
+(``cnmf_torch_tpu/ops/pallas_kl.py``). The ELL buffers are shared by all
+``R`` replicates, so their bytes count once while the arithmetic counts
+``R`` times; ``PERF.md`` holds each kernel's time beside its bound.
+
+* ``h_stats`` <- ``pallas_kl_h_stats`` (``_h_stats_body``). One traversal
+  of the stored nonzeros: WH, the ratio and the k numerators, about 4k+1
+  operations per nonzero and replicate, so it is bound by operations at
+  the main path's shapes. Design: one warp per row, lanes striding over
+  the row's slots, the row's H in registers, W[r] staged once per block
+  in shared memory (104 KB at k=13, g=2000) so both k-loops of gathers hit
+  shared memory and not device memory, and warp-shuffle reductions in a
+  fixed order (no atomics: repeated runs are bit-identical).
+* ``ratio`` <- ``pallas_kl_w_numer`` pass 1 (``_ratio_body``). The same
+  traversal without the numerators, writing the ratio to a flat buffer
+  with a zero sentinel slot; bound by the bytes of that output. Same
+  design as ``h_stats``.
+* ``w_numer`` <- ``pallas_kl_w_numer`` pass 2 (``_w_numer_body``). One warp
+  per gene gathers the ratio through ``perm_t`` and the H rows through
+  ``rows_t``; bound by bytes. Padded slots point at the sentinel, so they
+  add exactly +0.0; per-component sums reduce in registers and then by
+  fixed-order shuffles.
+* ``beta_err_partials`` <- ``pallas_kl_beta_err`` (``_obj_body``). The
+  two-regime KL term minus WH over the nonzeros (a log1p or two logs per
+  nonzero: bound by operations), one f32 partial per block from a
+  fixed-order block reduction; the wrapper sums the partials in torch and
+  adds the k-sized ``sum WH`` term, as the JAX wrapper does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from .. import sparse
+
+__all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
+           "h_stats", "ratio", "w_numer", "beta_err_partials",
+           "kl_h_stats", "kl_w_numer", "kl_w_stats", "kl_beta_err",
+           "h_stats_plain", "ratio_plain", "w_numer_plain",
+           "beta_err_plain"]
+
+KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials")
+
+# one plain count per kernel: each wrapper adds one where it launches
+launches = {name: 0 for name in KERNELS}
+
+# the kernels keep a row's k components in registers (kl_ell.cu builds
+# them for k <= 16, 32 and 64)
+MAX_K = 64
+
+# filled by build(): seconds, the nvcc command and its -Xptxas -v output
+build_info: dict = {}
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(_PKG, "csrc", "kl_ell.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built at first use")
+    return found
+
+
+def build():
+    """Compile ``kl_ell.cu`` (once per source content) and load it."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        with open(SOURCE, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"libkl_ell_{digest}.so")
+        tmp = f"{so}.{os.getpid()}.tmp"    # concurrent builds never share it
+        t0 = time.perf_counter()
+        log = ""
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, SOURCE]
+        if not os.path.exists(so):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kl_row_blocks.argtypes = [ci, ci]
+        lib.kl_h_stats.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
+        lib.kl_ratio.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
+        lib.kl_w_numer.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        for fn in (lib.kl_row_blocks, lib.kl_h_stats,
+                   lib.kl_ratio, lib.kl_w_numer, lib.kl_beta_err_partials):
+            fn.restype = ci
+        build_info.update(seconds=time.perf_counter() - t0,
+                          command=" ".join(cmd), log=log, library=so)
+        _lib = lib
+        return lib
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(t, name, dtypes, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
+                        f"{dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed: error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _row_checks(vals, cols, H, W, vals_dtypes):
+    dev = H.device
+    R, n, k = H.shape
+    g = W.shape[-1]
+    w = vals.shape[-1]
+    _check(vals, "vals", vals_dtypes, (n, w), dev)
+    _check(cols, "cols", (torch.int32,), (n, w), dev)
+    _check(H, "H", (torch.float32,), (R, n, k), dev)
+    _check(W, "W", (torch.float32,), (R, k, g), dev)
+    if k > MAX_K:
+        raise ValueError(f"the CUDA ELL kernels take k <= {MAX_K}, got "
+                         f"k={k}")
+    return R, n, w, k, g
+
+
+
+# ---------------------------------------------------------------------------
+# plain versions (ops/sparse.py) — what a CPU tensor runs and what the
+# kernels are held against on the card
+# ---------------------------------------------------------------------------
+
+h_stats_plain = sparse.ell_h_numer
+ratio_plain = sparse.ell_ratio_flat
+w_numer_plain = sparse.ell_w_numer_from_ratio
+
+
+def beta_err_plain(vals, cols, H, W):
+    """Plain ``beta_err_partials``: one partial per replicate, ``(R, 1)``."""
+    return sparse.ell_beta_err_nz(vals, cols, H, W)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def h_stats(vals, cols, H, W, bf16: bool = False):
+    """``numer (R, n, k)`` f32 of the KL H update. ``vals`` is f32, or bf16
+    in bf16 mode (the H solve passes it pre-cast)."""
+    ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    R, n, w, k, g = _row_checks(vals, cols, H, W, ok)
+    if not H.is_cuda:      # the checks put every input on H's device
+        return h_stats_plain(vals, cols, H, W, bf16)
+    lib = build()
+    numer = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
+    err = lib.kl_h_stats(_ptr(vals), int(vals.dtype == torch.bfloat16),
+                         _ptr(cols), _ptr(H), _ptr(W), _ptr(numer),
+                         R, n, w, k, g, int(bool(bf16)), _stream())
+    _raise_on(err, "h_stats")
+    launches["h_stats"] += 1
+    return numer
+
+
+def ratio(vals, cols, H, W, bf16: bool = False):
+    """The flat ratio buffer ``(R, n*w + 1)`` with a zero sentinel slot;
+    bf16 in bf16 mode, else f32."""
+    ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    R, n, w, k, g = _row_checks(vals, cols, H, W, ok)
+    if not H.is_cuda:
+        return ratio_plain(vals, cols, H, W, bf16)
+    lib = build()
+    out = torch.empty((R, n * w + 1),
+                      dtype=torch.bfloat16 if bf16 else torch.float32,
+                      device=H.device)
+    err = lib.kl_ratio(_ptr(vals), int(vals.dtype == torch.bfloat16),
+                       _ptr(cols), _ptr(H), _ptr(W), _ptr(out),
+                       R, n, w, k, g, int(bool(bf16)), _stream())
+    _raise_on(err, "ratio")
+    launches["ratio"] += 1
+    return out
+
+
+def w_numer(rows_t, perm_t, r_flat, H, bf16: bool = False):
+    """``numer (R, k, g)`` f32 of the KL W update from the flat ratio."""
+    dev = H.device
+    R, n, k = H.shape
+    g, wt = rows_t.shape
+    nw1 = r_flat.shape[-1]
+    w = (nw1 - 1) // max(n, 1)
+    if w * n + 1 != nw1:
+        raise ValueError(f"ratio buffer length {nw1} is not n*w + 1 "
+                         f"for n={n}")
+    if k > MAX_K:
+        raise ValueError(f"the CUDA ELL kernels take k <= {MAX_K}, got "
+                         f"k={k}")
+    _check(rows_t, "rows_t", (torch.int32,), (g, wt), dev)
+    _check(perm_t, "perm_t", (torch.int32,), (g, wt), dev)
+    _check(r_flat, "ratio",
+           (torch.bfloat16,) if bf16 else (torch.float32,), (R, nw1), dev)
+    _check(H, "H", (torch.float32,), (R, n, k), dev)
+    if not H.is_cuda:
+        return w_numer_plain(rows_t, perm_t, r_flat, H, bf16)
+    lib = build()
+    numer = torch.empty((R, k, g), dtype=torch.float32, device=dev)
+    err = lib.kl_w_numer(_ptr(rows_t), _ptr(perm_t), _ptr(r_flat), _ptr(H),
+                         _ptr(numer), R, n, w, k, g, wt, int(bool(bf16)),
+                         _stream())
+    _raise_on(err, "w_numer")
+    launches["w_numer"] += 1
+    return numer
+
+
+def beta_err_partials(vals, cols, H, W):
+    """Per-block partial sums ``(R, blocks)`` f32 of the nonzero KL terms
+    (f32 inputs only, like the TPU kernel)."""
+    R, n, w, k, g = _row_checks(vals, cols, H, W, (torch.float32,))
+    if not H.is_cuda:
+        return beta_err_plain(vals, cols, H, W)
+    lib = build()
+    blocks = lib.kl_row_blocks(R, n)
+    partials = torch.empty((R, blocks), dtype=torch.float32, device=H.device)
+    err = lib.kl_beta_err_partials(_ptr(vals), _ptr(cols), _ptr(H), _ptr(W),
+                                   _ptr(partials), R, n, w, k, g, _stream())
+    _raise_on(err, "beta_err_partials")
+    launches["beta_err_partials"] += 1
+    return partials
+
+
+# ---------------------------------------------------------------------------
+# the statistics the solver calls
+# ---------------------------------------------------------------------------
+
+def kl_h_stats(x, H, W, bf16: bool = False):
+    """``(numer, denom)`` of the KL H update; ``denom = W.sum(genes)``
+    broadcast stays torch."""
+    numer = h_stats(x.vals, x.cols, H, W, bf16)
+    return numer, W.sum(-1)[:, None, :].expand(H.shape)
+
+
+def kl_w_numer(x, H, W, bf16: bool = False):
+    if x.rows_t is None:
+        raise ValueError("this EllMatrix has no transpose index set "
+                         "(rows_t/perm_t); encode with transpose=True")
+    r_flat = ratio(x.vals, x.cols, H, W, bf16)
+    return w_numer(x.rows_t, x.perm_t, r_flat, H, bf16)
+
+
+def kl_w_stats(x, H, W, bf16: bool = False):
+    """``(numer, denom)`` of the KL W update; ``denom = H.sum(rows)``
+    broadcast stays torch."""
+    numer = kl_w_numer(x, H, W, bf16)
+    return numer, H.sum(1)[:, :, None].expand(W.shape)
+
+
+def kl_beta_err(x, H, W):
+    """``D_KL(X || HW)`` per replicate ``(R,)`` f32."""
+    partials = beta_err_partials(x.vals, x.cols, H, W)
+    return partials.sum(1) + sparse.total_wh(H, W)

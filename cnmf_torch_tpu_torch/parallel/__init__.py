@@ -1,0 +1,6 @@
+"""Replicate sweeps: the replicate axis as a leading batch dimension."""
+
+from .replicates import (auto_replicates_per_batch, replicate_sweep,
+                         worker_filter)
+
+__all__ = ["auto_replicates_per_batch", "replicate_sweep", "worker_filter"]

@@ -1,0 +1,115 @@
+"""The CUDA ELL KL kernels against their plain torch versions, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels build at
+first use) and skips without one. Run them on the card with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q``
+(``--noconftest`` because ``tests/conftest.py`` imports JAX, which the GPU
+machine does not have). This file imports torch and the port only.
+
+Tolerances: f32 at ``rtol 2e-5`` (the kernels sum in another order than
+the plain versions), bf16 at ``rtol 2e-2`` (the bf16 band of
+``tests/test_pallas.py``); the kernels themselves are deterministic, so
+two launches on the same inputs must agree bit for bit.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from cnmf_torch_tpu_torch.ops import sparse
+from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(n, g, k, R, density, seed, device, zero_rows=0):
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, g, density=density, format="csr",
+                  random_state=int(rng.integers(1 << 31)),
+                  data_rvs=lambda s: (rng.gamma(2.0, 1.0, s) + 0.1))
+    if zero_rows:
+        X = X.tolil()
+        X[:zero_rows, :] = 0.0
+        X = X.tocsr()
+        X.eliminate_zeros()
+    x = sparse.csr_to_ell(X).to(device)
+    H = torch.as_tensor(rng.random((R, n, k), np.float32) + 0.1).to(device)
+    W = torch.as_tensor(rng.random((R, k, g), np.float32) + 0.1).to(device)
+    return x, H, W
+
+
+# (n, g, k, R): ragged row and gene tails; k=20 at g=3000 puts W[r] above
+# the shared-memory staging limit, so the __ldg branch runs too; k=40 runs
+# the kernels built for k <= 64
+SHAPES = [(130, 100, 5, 3), (997, 611, 13, 2), (640, 3000, 20, 2),
+          (300, 700, 40, 2)]
+
+
+def _close(got, want, rtol, atol=1e-6):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_h_stats_matches_plain(cuda_device, n, g, k, R, bf16):
+    x, H, W = _inputs(n, g, k, R, 0.06, 1, cuda_device, zero_rows=3)
+    vals = x.vals.to(torch.bfloat16) if bf16 else x.vals
+    got = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+    again = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+    torch.cuda.synchronize()
+    want = kl_ell.h_stats_plain(vals, x.cols, H, W, bf16)
+    _close(got, want, 2e-2 if bf16 else 2e-5)
+    assert torch.equal(got, again)
+    assert torch.all(got[:, :3] == 0)
+
+
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ratio_and_w_numer_match_plain(cuda_device, n, g, k, R, bf16):
+    x, H, W = _inputs(n, g, k, R, 0.06, 2, cuda_device, zero_rows=3)
+    r = kl_ell.ratio(x.vals, x.cols, H, W, bf16)
+    r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, bf16)
+    _close(r, r_plain, 2e-2 if bf16 else 2e-5)
+    assert float(r[:, -1].abs().max()) == 0.0
+    got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
+    again = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
+    want = kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H, bf16)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-2 if bf16 else 2e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+def test_beta_err_matches_plain(cuda_device, n, g, k, R):
+    x, H, W = _inputs(n, g, k, R, 0.06, 3, cuda_device, zero_rows=3)
+    got = kl_ell.kl_beta_err(x, H, W)
+    again = kl_ell.kl_beta_err(x, H, W)
+    want = sparse.ell_beta_err(x, H, W)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-5)
+    assert torch.equal(got, again)
+
+
+def test_launch_counts_and_no_fallback(cuda_device):
+    x, H, W = _inputs(64, 50, 4, 2, 0.1, 4, cuda_device)
+    kl_ell.reset_launches()
+    kl_ell.kl_h_stats(x, H, W)
+    kl_ell.kl_w_stats(x, H, W)
+    kl_ell.kl_beta_err(x, H, W)
+    assert kl_ell.launches == {"h_stats": 1, "ratio": 1, "w_numer": 1,
+                               "beta_err_partials": 1}
+    # a CUDA tensor launches the kernel or raises: a wrong dtype is refused
+    with pytest.raises(TypeError):
+        kl_ell.h_stats(x.vals.double(), x.cols, H, W)
+    with pytest.raises(ValueError):
+        kl_ell.h_stats(x.vals, x.cols, H.cpu(), W)
