@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -9,27 +9,43 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    ``cnmf_torch_tpu_torch/csrc/kl_ell.cu`` with ``nvcc`` for ``sm_90a``
    (build time and the ``-Xptxas -v`` summary of every kernel).
 2. Kernels: each CUDA kernel against its plain torch version on the card,
-   at the main path's shapes (one 5,000-row chunk of the pipeline's data,
-   2,000 HVGs, k in {9, 13}, 20 replicates): f32 at ``rtol 2e-5``, bf16 at
-   ``rtol 2e-2``, two launches bit-identical; then each kernel's time
-   (CUDA events, warmed, median of many launches) beside its bound, its
-   plain version's time and, where one PyTorch call computes the same
-   function, that call's time. A small solve on the card is held against
-   the same solve on the CPU (plain versions).
-3. Pipeline: 10,000 cells x 5,000 genes of synthetic counts from the
-   low-rank Poisson model of ``bench.py`` at ~600 UMI per cell, then
-   prepare (Kullback-Leibler, 2,000 HVGs, chunks of 5,000 cells), factorize
-   over K in {5, 7, 9, 11, 13} x 20 replicates, combine, consensus (k=9)
-   and the K-selection statistics, with the kernels' launch counts set to
-   0 just before and read just after. It checks that the ELL lane ran
-   the CUDA kernels, that every kernel launched, that the consensus refit
-   launched ``h_stats`` again, that the objectives are finite and fall
-   from pass to pass, and that every artifact has its shape.
+   at the shapes its path gives it, with 20 replicates and k in {9, 13}:
+   the online path's kernels at one 5,000-row chunk of the pipeline's
+   data (f32 at ``rtol 2e-5``, bf16 at ``rtol 2e-2``), and the batch
+   path's at the whole 10,000-row matrix (``h_newton_stats``,
+   ``wh_at_nz``, and the f32 ``ratio``/``w_numer`` on the whole-matrix
+   transpose set, at ``rtol 2e-5``); two launches bit-identical; then each
+   kernel's time (CUDA events, warmed, median of many launches) beside its
+   bound, its plain version's time and, where one PyTorch call computes
+   the same function, that call's time. Small solves on the card (an
+   online KL solve, a usage refit, a batch dna solve) are held against
+   the same solves on the CPU (plain versions).
+3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
+   the low-rank Poisson model of ``bench.py`` at ~600 UMI per cell, then
+   prepare (Kullback-Leibler, 2,000 HVGs, chunks of 5,000 cells),
+   factorize over K in {5, 7, 9, 11, 13} x 20 replicates, combine,
+   consensus (k=9) and the K-selection statistics, with the kernels'
+   launch counts set to 0 just before and read just after. It checks that
+   the ELL lane ran the CUDA kernels, that every kernel of the path
+   launched, that the consensus refit launched ``h_stats`` again, that the
+   objectives are finite and fall from pass to pass, and that every
+   artifact has its shape.
+4. Batch pipeline: a second run directory on the same counts whose
+   run-parameters file says ``"mode": "batch"`` (edited after prepare, as
+   a user would), then factorize, combine, consensus (k=9) and the
+   K-selection statistics, with the launch counts set to 0 just before
+   and read just after. It checks the ``dna`` recipe and the ``ell-cuda``
+   kernel label, that ``h_newton_stats`` and ``wh_at_nz`` launched with
+   two ``wh_at_nz`` per ``h_newton_stats`` in factorize, that every
+   evaluated objective is finite and non-increasing, that every
+   replicate's MU-fallback fraction lies strictly between 0 and 1, and
+   the artifacts' shapes.
 
-The last three lines of standard output are the kernels' JSON record,
-the ``nvidia-smi`` name and power-limit line, and the run's JSON verdict.
-Everything the run writes goes under ``build/chip_smoke/`` beside this
-script. There is no CPU mode: without a card the script exits 2.
+The last three lines of standard output are the kernels' JSON record
+(launches of both pipelines), the ``nvidia-smi`` name and power-limit
+line, and the run's JSON verdict. Everything the run writes goes under
+``build/chip_smoke/`` beside this script. There is no CPU mode: without a
+card the script exits 2.
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ REPLICATES = 20
 CHUNK = 5_000
 CONSENSUS_K = 9
 SEED = 14
+CARD = "cuda"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and f32
 # operations/s outside the tensor cores (the ELL kernels use no tensor core)
@@ -67,7 +84,14 @@ REPLACES = {
     "ratio": "cnmf_torch_tpu/ops/pallas_kl.py:154",
     "w_numer": "cnmf_torch_tpu/ops/pallas_kl.py:182",
     "beta_err_partials": "cnmf_torch_tpu/ops/pallas_kl.py:165",
+    "h_newton_stats": "cnmf_torch_tpu/ops/pallas_kl.py:138",
+    "wh_at_nz": "cnmf_torch_tpu/ops/pallas_kl.py:116",
 }
+# the batch pipeline's objectives may rise by f32 rounding only
+MONOTONE_RTOL = 1e-6
+EVAL_EVERY = 10     # the batch solver evaluates its objective this often
+ONLINE_KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials")
+BATCH_KERNELS = ("h_newton_stats", "wh_at_nz")
 SOURCE = "cnmf_torch_tpu_torch/csrc/kl_ell.cu"
 
 
@@ -97,7 +121,8 @@ def ptxas_summary(text: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(h_stats|ratio|w_numer|beta_err)_kernel"
+            short = re.search(r"(h_stats|ratio|w_numer|beta_err|h_newton"
+                              r"|wh_at_nz)_kernel"
                               r"I?(.*?)EEv", name)
             name = (short.group(1) + "<" + short.group(2) + ">") if short \
                 else name
@@ -223,6 +248,84 @@ def kernel_phase(x, nnz: int, log_rows: list):
     return records
 
 
+def batch_kernel_phase(x, nnz: int, log_rows: list):
+    """The batch path's kernels against their plain versions at its
+    shapes: the whole matrix (unchunked ELL with the whole-matrix
+    transpose set), 20 replicates, k in {9, 13}, strict f32. Returns the
+    JSON records of ``h_newton_stats`` and ``wh_at_nz`` at k=13 and the
+    k=13 rows of the f32 ``ratio``/``w_numer``/``h_stats``/
+    ``beta_err_partials`` timed at these shapes."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    dev = x.vals.device
+    n, w = x.vals.shape
+    g, wt = x.rows_t.shape
+    R = REPLICATES
+    gen = torch.Generator().manual_seed(SEED + 1)
+    records, extra = {}, []
+    for k in (9, 13):
+        H = (torch.rand((R, n, k), generator=gen) + 0.1).to(dev)
+        W = (torch.rand((R, k, g), generator=gen) + 0.1).to(dev)
+        tag = f"k={k} f32 batch"
+        errs = {}
+        numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+        again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+        torch.cuda.synchronize()
+        check(torch.equal(numer, again[0]) and torch.equal(hess, again[1]),
+              f"h_newton_stats {tag} not repeatable")
+        want = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
+        errs["h_newton_stats"] = max(max_abs_err(numer, want[0], 2e-5),
+                                     max_abs_err(hess, want[1], 2e-5))
+        del numer, hess, again, want
+        got = kl_ell.wh_at_nz(x.cols, H, W)
+        check(torch.equal(got, kl_ell.wh_at_nz(x.cols, H, W)),
+              f"wh_at_nz {tag} not repeatable")
+        errs["wh_at_nz"] = max_abs_err(
+            got, kl_ell.wh_at_nz_plain(x.cols, H, W), 2e-5)
+        del got
+        r = kl_ell.ratio(x.vals, x.cols, H, W, False)
+        r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, False)
+        check(torch.equal(r, kl_ell.ratio(x.vals, x.cols, H, W, False)),
+              f"ratio {tag} not repeatable")
+        errs["ratio"] = max_abs_err(r, r_plain, 2e-5)
+        del r
+        got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, False)
+        check(torch.equal(got, kl_ell.w_numer(x.rows_t, x.perm_t, r_plain,
+                                              H, False)),
+              f"w_numer {tag} not repeatable")
+        errs["w_numer"] = max_abs_err(
+            got, kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H,
+                                      False), 2e-5)
+        got = kl_ell.h_stats(x.vals, x.cols, H, W, False)
+        errs["h_stats"] = max_abs_err(
+            got, kl_ell.h_stats_plain(x.vals, x.cols, H, W, False), 2e-5)
+        from cnmf_torch_tpu_torch.ops.sparse import ell_beta_err
+
+        errs["beta_err_partials"] = max_abs_err(
+            kl_ell.kl_beta_err(x, H, W), ell_beta_err(x, H, W), 2e-5)
+        for name in ("h_newton_stats", "wh_at_nz", "ratio", "w_numer",
+                     "h_stats", "beta_err_partials"):
+            rec = _time_kernel(kl_ell, name, x, x.vals, r_plain, H, W,
+                               False, nnz)
+            rec["max_abs_err"] = errs[name]
+            log_rows.append(
+                f"  {name:18s} {tag:15s} kernel {rec['ms']:.4f} ms  "
+                f"plain {rec['plain_ms']:.4f} ms  library "
+                f"{rec['library_ms']} ms  bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}")
+            if k == 13:
+                rec["variant"] = (
+                    f"{tag}, R={R}, rows={n}, genes={g}, w={w}, wt={wt}, "
+                    f"nnz={nnz}" + rec.pop("library_note", ""))
+                if name in ("h_newton_stats", "wh_at_nz"):
+                    records[name] = rec
+                else:
+                    extra.append(rec)
+        del r_plain, H, W
+        torch.cuda.empty_cache()
+    return records, extra
+
+
 def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
     R, n, k = H.shape
     g = W.shape[-1]
@@ -230,7 +333,24 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
     rb = 2 if bf16 else 4
     hw_bytes = R * n * k * 4 + R * k * g * 4
     library_ms = None
-    if name == "h_stats":
+    note = ""
+    if name == "h_newton_stats":
+        fn = lambda: kl_ell.h_newton_stats(  # noqa: E731
+            vals, x.cols, H, W)
+        plain = lambda: kl_ell.h_newton_stats_plain(  # noqa: E731
+            vals, x.cols, H, W)
+        nbytes = nnz * 8 + hw_bytes + 2 * R * n * k * 4
+        ops = R * nnz * (7 * k + 3)
+    elif name == "wh_at_nz":
+        fn = lambda: kl_ell.wh_at_nz(x.cols, H, W)  # noqa: E731
+        plain = lambda: kl_ell.wh_at_nz_plain(x.cols, H, W)  # noqa: E731
+        w = x.cols.shape[-1]
+        nbytes = nnz * 4 + hw_bytes + R * n * w * 4
+        ops = R * nnz * 2 * k
+        # one PyTorch call for the same function: the SDDMM on the CSR
+        # pattern of the stored nonzeros
+        library_ms, note = _sampled_addmm_ms(x, H, W)
+    elif name == "h_stats":
         fn = lambda: kl_ell.h_stats(vals, x.cols, H, W, bf16)  # noqa: E731
         plain = lambda: kl_ell.h_stats_plain(  # noqa: E731
             vals, x.cols, H, W, bf16)
@@ -262,13 +382,53 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
         ops = R * nnz * (2 * k + 8)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
-    return {"name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": 0,
-            "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, iters=10,
-                                                   warmup=2),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+    rec = {"name": name, "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES[name], "launches": 0,
+           "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, iters=10,
+                                                  warmup=2),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms}
+    if note:
+        rec["library_note"] = note
+    return rec
+
+
+def _sampled_addmm_ms(x, H, W):
+    """``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) of H @ W on the
+    CSR pattern of the stored nonzeros: batched over the replicates when
+    the installed PyTorch takes the batch, else one call per replicate
+    (summed). Returns ``(ms, note)``."""
+    R, n, k = H.shape
+    g = W.shape[-1]
+    keep = x.vals > 0
+    counts = keep.sum(1)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=H.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    col = x.cols[keep].long()
+    nz = int(col.numel())
+    vals = torch.ones(nz, dtype=torch.float32, device=H.device)
+    try:
+        A = torch.sparse_csr_tensor(crow.expand(R, n + 1).contiguous(),
+                                    col.expand(R, nz).contiguous(),
+                                    vals.expand(R, nz).contiguous(),
+                                    (R, n, g))
+        torch.sparse.sampled_addmm(A, H, W, beta=0.0)
+        torch.cuda.synchronize()
+        return (cuda_ms(lambda: torch.sparse.sampled_addmm(A, H, W,
+                                                           beta=0.0),
+                        iters=10, warmup=2),
+                "; library: batched sampled_addmm")
+    except (RuntimeError, NotImplementedError) as e:
+        A = torch.sparse_csr_tensor(crow, col, vals, (n, g))
+
+        def per_rep():
+            for r in range(R):
+                torch.sparse.sampled_addmm(A, H[r], W[r], beta=0.0)
+
+        return (cuda_ms(per_rep, iters=5, warmup=1),
+                f"; library: sampled_addmm per replicate x {R} (the "
+                f"batched call refused: {str(e).splitlines()[0][:80]})")
 
 
 def _sparse_bmm_ms(x, r_flat, H, bf16):
@@ -310,20 +470,20 @@ def small_solve_check(log_rows):
     W0 = torch.as_tensor(rng.random((R, k, 300), np.float32) + 0.1)
     h_tol, n_passes, h_tol_start = nmf.resolve_online_schedule(1.0)
     errs = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (CARD, "cpu"):
         _, _, err = nmf.nmf_fit_online(
             e.to(dev), H0.reshape(R, -1, 256, k).to(dev), W0.to(dev),
             beta=1.0, h_tol=h_tol, chunk_max_iter=200, n_passes=n_passes,
             h_tol_start=h_tol_start, bf16_ratio=True)
         errs[dev] = err.cpu().numpy()
-    rel = np.abs(errs["cuda"] - errs["cpu"]) / errs["cpu"]
-    check(np.isfinite(errs["cuda"]).all() and rel.max() < 5e-2,
+    rel = np.abs(errs[CARD] - errs["cpu"]) / errs["cpu"]
+    check(np.isfinite(errs[CARD]).all() and rel.max() < 5e-2,
           f"online bf16 solve on the card vs the CPU: rel {rel}")
     # h_tol 0: both run exactly 50 inner steps
     xe = csr_to_ell(X, transpose=False)
     outs = [nmf.fit_h(xe, W0[0].numpy(), H_init=H0[0, :600].numpy(),
                       chunk_size=256, chunk_max_iter=50, h_tol=0.0,
-                      beta=1.0, device=dev) for dev in ("cuda", "cpu")]
+                      beta=1.0, device=dev) for dev in (CARD, "cpu")]
     check(np.allclose(outs[0], outs[1], rtol=1e-4, atol=1e-6),
           "fit_h on the card vs the CPU beyond rtol 1e-4: max diff "
           f"{np.abs(outs[0] - outs[1]).max()}")
@@ -331,6 +491,52 @@ def small_solve_check(log_rows):
                     f"objective diff {rel.max():.3g} (band 5e-2)")
     log_rows.append(f"  fit_h f32 50 steps, card vs CPU: max abs diff "
                     f"{np.abs(outs[0] - outs[1]).max():.3g} (rtol 1e-4)")
+    # a batch dna solve of a fixed 60 iterations (tol 0), strict f32
+    xb = csr_to_ell(X)
+    final, fb = {}, {}
+    for dev in (CARD, "cpu"):
+        trace = []
+        _, _, err = nmf.nmf_fit_batch(
+            xb.to(dev), H0[:, :600].contiguous().to(dev), W0.to(dev),
+            beta=1.0, tol=0.0, max_iter=60, kl_newton=True, trace=trace)
+        final[dev] = err.cpu().numpy()
+        fb[dev] = trace[0].dna_fallback
+    rel = np.abs(final[CARD] - final["cpu"]) / final["cpu"]
+    check(np.isfinite(final[CARD]).all() and rel.max() < 1e-4,
+          f"batch dna solve on the card vs the CPU: rel {rel}")
+    check(((fb[CARD] > 0) & (fb[CARD] < 1)).all(),
+          f"batch dna fallback fraction on the card {fb[CARD]}")
+    log_rows.append(f"  batch dna solve f32 60 iterations, card vs CPU: "
+                    f"max rel objective diff {rel.max():.3g} (rtol 1e-4); "
+                    f"fallback fraction card {np.round(fb[CARD], 4)} "
+                    f"CPU {np.round(fb['cpu'], 4)}")
+
+
+def check_artifacts(obj, stats):
+    """Every artifact of a pipeline run has its shape and finite values."""
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz
+
+    g_hv = N_HVG
+    dt = "0_5"
+    for k in KS:
+        m = load_df_from_npz(obj.paths["merged_spectra"] % k)
+        check(m.shape == (REPLICATES * k, g_hv), f"merged k={k} {m.shape}")
+    for key, shape in {"consensus_spectra": (CONSENSUS_K, g_hv),
+                       "consensus_usages": (N_CELLS, CONSENSUS_K),
+                       "gene_spectra_tpm": (CONSENSUS_K, N_GENES),
+                       "gene_spectra_score": (CONSENSUS_K, N_GENES),
+                       "starcat_spectra": (CONSENSUS_K, g_hv)}.items():
+        df = load_df_from_npz(obj.paths[key] % (CONSENSUS_K, dt))
+        check(df.shape[1] == shape[1] and df.shape[0] <= shape[0],
+              f"{key} shape {df.shape}")
+        check(np.isfinite(np.asarray(df.values, np.float64)).all(),
+              f"{key} not finite")
+    check(stats.shape == (len(KS), 4) and np.isfinite(stats.values).all(),
+          "k-selection statistics")
+    log(f"{obj.name}: k-selection statistics [k, threshold, silhouette, "
+        "error]:")
+    for row in stats.values:
+        log("  " + " ".join(f"{v:.6g}" for v in row))
 
 
 class Stages:
@@ -360,8 +566,8 @@ def main() -> int:
         return 2
     from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
-    from cnmf_torch_tpu_torch.ops.sparse import ell_chunk_rows
-    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz, load_matrix
+    from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
+    from cnmf_torch_tpu_torch.utils.io import load_matrix
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -396,28 +602,36 @@ def main() -> int:
     # -- phase 2: kernels at the main path's shapes -----------------------
     # the shapes come from the prepared matrix: a throwaway prepare (it
     # launches no kernel) in its own run directory
-    probe = cNMF(OUT, "shapes", device="cuda")
+    probe = cNMF(OUT, "shapes", device=CARD)
     probe.prepare(counts_fn, components=[CONSENSUS_K], n_iter=1, seed=SEED,
                   beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
                   batch_size=CHUNK)
     Xn = load_matrix(probe.paths["normalized_counts"]).X
     xc, _ = ell_chunk_rows(Xn, CHUNK)
-    x0 = xc.chunk(0).to("cuda")
+    x0 = xc.chunk(0).to(CARD)
     nnz = int((x0.vals > 0).sum())
     log(f"normalized counts {Xn.shape}: density "
         f"{Xn.nnz / (Xn.shape[0] * Xn.shape[1]):.4f}, ELL width {xc.width}, "
         f"per-chunk transpose width {xc.t_width}, chunk-0 nonzeros {nnz}")
     rows = []
     records = kernel_phase(x0, nnz, rows)
+    del x0, xc
+    xb = csr_to_ell(Xn).to(CARD)
+    nnz_b = int((xb.vals > 0).sum())
+    log(f"batch shapes: the whole matrix, ELL width {xb.width}, transpose "
+        f"width {xb.t_width}, nonzeros {nnz_b}")
+    batch_records, batch_extra = batch_kernel_phase(xb, nnz_b, rows)
+    records.update(batch_records)
+    del xb
+    torch.cuda.empty_cache()
     small_solve_check(rows)
     log("kernels (median of CUDA-event timed launches, L2-warm inputs):")
     for line in rows:
         log(line)
-    del x0, xc
 
     # -- phase 3: the main path --------------------------------------------
     stages = Stages()
-    obj = cNMF(OUT, "pipeline", device="cuda")
+    obj = cNMF(OUT, "pipeline", device=CARD)
     kl_ell.reset_launches()
     stages.run("prepare", lambda: obj.prepare(
         counts_fn, components=KS, n_iter=REPLICATES, seed=SEED,
@@ -437,8 +651,12 @@ def main() -> int:
     info = obj.factorize_info
     check(info["lane"] == "ell", f"factorize lane {info['lane']}")
     check(info["kernel"] == "ell-cuda", f"kernel label {info['kernel']}")
-    for name in kl_ell.KERNELS:
+    check(info["solver_recipe"] == "mu",
+          f"online recipe {info['solver_recipe']}")
+    for name in ONLINE_KERNELS:
         check(after_factorize[name] > 0, f"{name} never launched")
+    for name in BATCH_KERNELS:
+        check(launches[name] == 0, f"the online path launched {name}")
     check(after_consensus["h_stats"] > after_factorize["h_stats"],
           "the consensus refit launched no h_stats")
     rises = 0
@@ -454,35 +672,77 @@ def main() -> int:
                 f"{np.round(trace[-1], 1).tolist()}")
         check(np.isfinite(info["errs"][k]).all(), f"k={k}: nonfinite error")
     log(f"pass-to-pass objective rises after the second pass: {rises}")
-    g_hv = N_HVG
-    dt = "0_5"
+    check_artifacts(obj, stats)
+
+    # -- phase 4: the batch path -------------------------------------------
+    bobj = cNMF(OUT, "batch", device=CARD)
+    bobj.prepare(counts_fn, components=KS, n_iter=REPLICATES, seed=SEED,
+                 beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+                 batch_size=CHUNK)
+    # prepare writes mode "online"; a user asks for the batch solver by
+    # editing the run-parameters file
+    params_fn = bobj.paths["nmf_run_parameters"]
+    with open(params_fn) as f:
+        params = json.load(f)
+    check(params["mode"] == "online", f"prepare wrote mode {params['mode']}")
+    params["mode"] = "batch"
+    with open(params_fn, "w") as f:
+        json.dump(params, f, indent=1, sort_keys=True)
+    kl_ell.reset_launches()
+    stages.run("batch factorize", bobj.factorize)
+    b_factorize = dict(kl_ell.launches)
+    stages.run("batch combine", bobj.combine)
+    stages.run("batch consensus", lambda: bobj.consensus(
+        CONSENSUS_K, density_threshold=0.5))
+    b_stats = stages.run("batch k_selection", bobj.k_selection_stats)
+    b_launches = dict(kl_ell.launches)
+    log(f"batch kernel launches: after factorize {b_factorize}; whole "
+        f"path {b_launches}")
+    binfo = bobj.factorize_info
+    check((binfo["mode"], binfo["lane"], binfo["solver_recipe"],
+           binfo["kernel"]) == ("batch", "ell", "dna", "ell-cuda"),
+          f"batch factorize ran {binfo['mode']}/{binfo['lane']}/"
+          f"{binfo['solver_recipe']}/{binfo['kernel']}")
+    for name in BATCH_KERNELS + ("ratio", "w_numer", "beta_err_partials"):
+        check(b_factorize[name] > 0, f"batch path: {name} never launched")
+    check(b_factorize["wh_at_nz"] == 2 * b_factorize["h_newton_stats"],
+          "batch factorize: wh_at_nz launches "
+          f"{b_factorize['wh_at_nz']} != 2 x h_newton_stats "
+          f"{b_factorize['h_newton_stats']}")
     for k in KS:
-        m = load_df_from_npz(obj.paths["merged_spectra"] % k)
-        check(m.shape == (REPLICATES * k, g_hv), f"merged k={k} {m.shape}")
-    for key, shape in {"consensus_spectra": (CONSENSUS_K, g_hv),
-                       "consensus_usages": (N_CELLS, CONSENSUS_K),
-                       "gene_spectra_tpm": (CONSENSUS_K, N_GENES),
-                       "gene_spectra_score": (CONSENSUS_K, N_GENES),
-                       "starcat_spectra": (CONSENSUS_K, g_hv)}.items():
-        df = load_df_from_npz(obj.paths[key] % (CONSENSUS_K, dt))
-        check(df.shape[1] == shape[1] and df.shape[0] <= shape[0],
-              f"{key} shape {df.shape}")
-        check(np.isfinite(np.asarray(df.values, np.float64)).all(),
-              f"{key} not finite")
-    check(stats.shape == (len(KS), 4) and np.isfinite(stats.values).all(),
-          "k-selection statistics")
-    log("k-selection statistics [k, threshold, silhouette, error]:")
-    for row in stats.values:
-        log("  " + " ".join(f"{v:.6g}" for v in row))
+        for tm in binfo["trace"][k]:
+            for r in range(tm.iters.shape[0]):
+                n_eval = int(tm.iters[r]) // EVAL_EVERY
+                tr = tm.trace[r, :n_eval]
+                check(np.isfinite(tr).all() and not tm.nonfinite[r],
+                      f"batch k={k} lane {r}: nonfinite objective")
+                rise = np.diff(tr) - MONOTONE_RTOL * np.abs(tr[:-1])
+                check((rise <= 0).all(),
+                      f"batch k={k} lane {r}: objective rose by "
+                      f"{float(np.diff(tr).max())} (trace {tr.tolist()})")
+        fb = binfo["dna_fallback"][k]
+        check(((fb > 0) & (fb < 1)).all(),
+              f"batch k={k}: fallback fraction outside (0, 1): {fb}")
+        check(np.isfinite(binfo["errs"][k]).all(),
+              f"batch k={k}: nonfinite error")
+        iters = np.concatenate([tm.iters for tm in binfo["trace"][k]])
+        log(f"batch k={k}: iterations {int(iters.min())}-{int(iters.max())}"
+            f", fallback fraction {float(fb.min()):.4f}-"
+            f"{float(fb.max()):.4f}, final objective "
+            f"{np.round(binfo['errs'][k], 1).tolist()}")
+    check_artifacts(bobj, b_stats)
 
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
-        rec["launches"] = int(launches[name])
+        rec["launches"] = int(launches[name]) + int(b_launches[name])
         out.append(rec)
-    report = {"kernels": out, "stages": [
-        {"stage": s, "seconds": w, "peak_gib": p} for s, w, p in stages.rows],
-        "card": smi, "seconds": time.perf_counter() - t_start}
+    report = {"kernels": out, "batch_shape_kernels": batch_extra,
+              "launches": {"online": launches, "batch": b_launches,
+                           "batch_factorize": b_factorize},
+              "stages": [{"stage": s, "seconds": w, "peak_gib": p}
+                         for s, w, p in stages.rows],
+              "card": smi, "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s")

@@ -6,7 +6,9 @@ take, so both packages can be fed the same start: an ELL encoding's four
 leaves, stacked replicate inits, a usage-refit init, k-means cluster ids,
 and labelled frames (merged spectra, consensus artifacts). torch cannot
 reproduce JAX's threefry streams, so a parity test draws its inits on the
-JAX side and converts them here. This module imports neither package's JAX
+JAX side and converts them here. Online sweeps take a pre-chunked encoding
+(3-D leaves) and batch sweeps a whole one (2-D leaves); both pass through
+:func:`ell_matrix` unchanged. This module imports neither package's JAX
 code.
 """
 

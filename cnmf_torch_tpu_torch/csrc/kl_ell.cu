@@ -1,11 +1,16 @@
-// Hopper (sm_90a) kernels for the sparse (ELL) KL statistics of the online
-// consensus-NMF solver. They replace the Pallas TPU kernels of
-// cnmf_torch_tpu/ops/pallas_kl.py on the main path:
+// Hopper (sm_90a) kernels for the sparse (ELL) KL statistics of the
+// consensus-NMF solvers. They replace the Pallas TPU kernels of
+// cnmf_torch_tpu/ops/pallas_kl.py:
 //
 //   h_stats            <- pallas_kl_h_stats   (_h_stats_body)
 //   ratio              <- pallas_kl_w_numer pass 1 (_ratio_body)
 //   w_numer            <- pallas_kl_w_numer pass 2 (_w_numer_body)
 //   beta_err_partials  <- pallas_kl_beta_err  (_obj_body)
+//   h_newton_stats     <- pallas_kl_h_newton_stats (_h_newton_body)
+//   wh_at_nz           <- pallas_wh_at_nz     (_wh_body)
+//
+// The first four serve every MU solve; the last two serve the
+// Diagonalized-Newton (dna) recipe of the batch solver.
 //
 // Layout: the ELL buffers (vals, cols: n x w; rows_t, perm_t: g x wt) are
 // shared by every replicate; H (R, n, k), W (R, k, g) and every output
@@ -14,8 +19,9 @@
 // flat ratio buffer (transpose side), so they add exactly +0.0.
 //
 // Design (see ops/kernels/kl_ell.py for the bound of each kernel):
-//   * one warp per row (h_stats, ratio, beta_err) or per gene (w_numer);
-//     lanes stride over the row's w (or the gene's wt) slots;
+//   * one warp per row (h_stats, ratio, beta_err, h_newton_stats,
+//     wh_at_nz) or per gene (w_numer); lanes stride over the row's w (or
+//     the gene's wt) slots;
 //   * the row's H[r, i, :] lives in registers; W[r] is staged once per
 //     block in dynamic shared memory when k*g*4 bytes fit the budget,
 //     otherwise read through the read-only cache (__ldg);
@@ -25,6 +31,10 @@
 //   * bf16 mode rounds where the JAX bf16 chain rounds: operands to bf16,
 //     WH accumulated in bf16, the ratio in bf16, every ratio*W (or ratio*H)
 //     product rounded to bf16 and then summed in f32.
+//
+// Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
+// Newton Hessian may overflow to +inf, and the kernel and its plain
+// version must then agree (grad / inf = 0 keeps the Newton candidate at H).
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launch.
@@ -230,6 +240,107 @@ w_numer_kernel(const int* __restrict__ rows_t, const int* __restrict__ perm_t,
   }
 }
 
+// numer[r, i, c] = sum_j ratio[i, j] * W[r, c, cols[i, j]]
+// hess[r, i, c]  = sum_j (ratio[i, j] / whm[i, j]) * W[r, c, cols[i, j]]^2
+// with whm = max(WH, EPS) and ratio = X / whm, in f32: the MU numerator
+// and the diagonal Hessian of the Diagonalized-Newton H step in one
+// traversal (h_stats' skeleton with a second accumulator per component).
+// Padded slots (value 0) and all-zero rows give exact +0.0 in both.
+template <int KMAX>
+__global__ void __launch_bounds__(THREADS)
+h_newton_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                const float* __restrict__ H, const float* __restrict__ W,
+                float* __restrict__ numer, float* __restrict__ hess, int n,
+                int w, int k, int g, int use_smem) {
+  extern __shared__ float Ws[];
+  const int r = blockIdx.y;
+  const float* Wr = W + (int64_t)r * k * g;
+  if (use_smem) stage_w<false>(Ws, Wr, k * g);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
+       row += gridDim.x * WARPS_PER_BLOCK) {
+    const int64_t hrow = ((int64_t)r * n + row) * k;
+    float h[KMAX];
+    load_h_row<KMAX, false>(h, H + hrow, k);
+    float an[KMAX], ah[KMAX];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) {
+      an[c] = 0.f;
+      ah[c] = 0.f;
+    }
+    const int64_t base = (int64_t)row * w;
+    for (int j = lane; j < w; j += 32) {
+      const int col = __ldg(cols + base + j);
+      const float v = __ldg(vals + base + j);
+      float wh = 0.f;
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) {
+        if (c < k) {
+          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
+          wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
+        }
+      }
+      const float whm = fmaxf(wh, KL_EPS);
+      const float ratio = v / whm;
+      const float r2 = ratio / whm;
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) {
+        if (c < k) {
+          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
+          an[c] += ratio * wv;
+          ah[c] += (r2 * wv) * wv;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) {
+      if (c < k) {
+        const float sn = warp_sum(an[c]);
+        const float sh = warp_sum(ah[c]);
+        if (lane == 0) {
+          numer[hrow + c] = sn;
+          hess[hrow + c] = sh;
+        }
+      }
+    }
+  }
+}
+
+// out[r, i, j] = sum_c H[r, i, c] * W[r, c, cols[i, j]] at every stored
+// slot (the SDDMM); lanes write consecutive slots of a row (coalesced)
+template <int KMAX>
+__global__ void __launch_bounds__(THREADS)
+wh_at_nz_kernel(const int* __restrict__ cols, const float* __restrict__ H,
+                const float* __restrict__ W, float* __restrict__ out, int n,
+                int w, int k, int g, int use_smem) {
+  extern __shared__ float Ws[];
+  const int r = blockIdx.y;
+  const float* Wr = W + (int64_t)r * k * g;
+  if (use_smem) stage_w<false>(Ws, Wr, k * g);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
+       row += gridDim.x * WARPS_PER_BLOCK) {
+    float h[KMAX];
+    load_h_row<KMAX, false>(h, H + ((int64_t)r * n + row) * k, k);
+    const int64_t base = (int64_t)row * w;
+    float* outr = out + (int64_t)r * n * w + base;
+    for (int j = lane; j < w; j += 32) {
+      const int col = __ldg(cols + base + j);
+      float wh = 0.f;
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) {
+        if (c < k) {
+          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
+          wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
+        }
+      }
+      outr[j] = wh;
+    }
+  }
+}
+
 // partials[r, block] = sum over the block's rows of
 //   [X > 0] * (X (u - log1p(u)) or its split-log form  -  WH),  u = WH/X - 1
 template <int KMAX>
@@ -418,6 +529,39 @@ int run_kmax_beta_err(const void* vals, const void* cols, const void* H,
   return (int)cudaGetLastError();
 }
 
+template <int KMAX>
+int run_kmax_h_newton(const void* vals, const void* cols, const void* H,
+                      const void* W, void* numer, void* hess, int R, int n,
+                      int w, int k, int g, cudaStream_t s) {
+  auto kern = h_newton_kernel<KMAX>;
+  size_t smem;
+  int use_smem;
+  dim3 grid;
+  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+  if (e) return e;
+  kern<<<grid, THREADS, smem, s>>>((const float*)vals, (const int*)cols,
+                                   (const float*)H, (const float*)W,
+                                   (float*)numer, (float*)hess, n, w, k, g,
+                                   use_smem);
+  return (int)cudaGetLastError();
+}
+
+template <int KMAX>
+int run_kmax_wh_at_nz(const void* cols, const void* H, const void* W,
+                      void* out, int R, int n, int w, int k, int g,
+                      cudaStream_t s) {
+  auto kern = wh_at_nz_kernel<KMAX>;
+  size_t smem;
+  int use_smem;
+  dim3 grid;
+  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+  if (e) return e;
+  kern<<<grid, THREADS, smem, s>>>((const int*)cols, (const float*)H,
+                                   (const float*)W, (float*)out, n, w, k, g,
+                                   use_smem);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -486,6 +630,34 @@ int kl_beta_err_partials(const void* vals, const void* cols, const void* H,
   if (k <= 64)
     return run_kmax_beta_err<64>(vals, cols, H, W, partials, R, n, w, k, g,
                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int kl_h_newton_stats(const void* vals, const void* cols, const void* H,
+                      const void* W, void* numer, void* hess, int R, int n,
+                      int w, int k, int g, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    return run_kmax_h_newton<16>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s);
+  if (k <= 32)
+    return run_kmax_h_newton<32>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s);
+  if (k <= 64)
+    return run_kmax_h_newton<64>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int kl_wh_at_nz(const void* cols, const void* H, const void* W, void* out,
+                int R, int n, int w, int k, int g, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 16)
+    return run_kmax_wh_at_nz<16>(cols, H, W, out, R, n, w, k, g, s);
+  if (k <= 32)
+    return run_kmax_wh_at_nz<32>(cols, H, W, out, R, n, w, k, g, s);
+  if (k <= 64)
+    return run_kmax_wh_at_nz<64>(cols, H, W, out, R, n, w, k, g, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,10 @@ Every device step runs on ``device`` (default ``"cuda"``; the constructor
 raises when no card is present unless the caller asked for ``"cpu"``). On
 a sparse count matrix with the Kullback-Leibler loss the factorize sweep
 and the consensus usage refit run on the ELL encoding, whose statistics
-are the CUDA kernels of ``csrc/kl_ell.cu`` on the card.
+are the CUDA kernels of ``csrc/kl_ell.cu`` on the card. Factorize runs the
+mode of the run-parameters file: ``online`` (what ``prepare`` writes) or
+``batch`` (set by editing that file), under the solver recipe resolved
+from the env knobs (``ops/recipe.py``: batch KL runs ``dna``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ from ..ops.metrics import silhouette_score
 from ..ops.nmf import (beta_loss_to_float, fit_h, lane_health,
                        resolve_bf16_ratio, resolve_online_schedule)
 from ..ops.ols import ols_all_cols
-from ..ops.sparse import ell_chunk_rows, ell_row_width, resolve_sparse_beta
+from ..ops.recipe import resolve_recipe
+from ..ops.sparse import (csr_to_ell, ell_chunk_rows, ell_row_width,
+                          resolve_sparse_beta)
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
 from ..parallel.replicates import replicate_sweep, worker_filter
@@ -82,8 +87,11 @@ class cNMF:
             name = "%s_%s" % (now.strftime("%Y_%m_%d"), uuid.uuid4().hex[:6])
         self.name = name
         self.paths = build_paths(output_dir, name)
-        # what the last factorize ran: lane, kernel label and, per K, the
-        # per-pass objectives of every replicate (``(passes, R)`` arrays)
+        # what the last factorize ran: lane, kernel label, solver recipe
+        # and, per K, the solver trace of every slice of replicates
+        # (online: ``(passes, R)`` per-pass objectives; batch: a
+        # ``SolverTelemetry``) and, for dna, each replicate's fallback
+        # fraction
         self.factorize_info: dict = {}
 
     # ------------------------------------------------------------------
@@ -252,10 +260,14 @@ class cNMF:
                   replicates_per_batch=None):
         """Run this worker's share of the replicate ledger: the tasks are
         grouped per K and each group runs as one batched replicate sweep
-        (``parallel/replicates.py``). A sparse normalized matrix with a KL
-        ledger takes the ELL lane under the dispatch rule (density <= 0.10
-        and width <= genes / 8). A replicate whose objective or spectra are
-        not finite is reported and not written."""
+        (``parallel/replicates.py``) in the parameters file's ``mode``. A
+        sparse normalized matrix with a KL ledger takes the ELL lane under
+        the dispatch rule (density <= 0.10 and width <= genes / 8): row
+        chunks online, the whole matrix with its transpose index set in
+        batch mode. The solver recipe is resolved once (``ops/recipe.py``)
+        and recorded in ``factorize_info`` and the provenance. A replicate
+        whose objective or spectra are not finite is reported and not
+        written."""
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         norm = load_matrix(self.paths["normalized_counts"])
         kw = self._solver_params()
@@ -271,18 +283,28 @@ class cNMF:
                        and resolve_sparse_beta(beta, density=density,
                                                width=ell_row_width(X), g=g))
         if use_ell:
-            Xe, _ = ell_chunk_rows(X, chunk)
+            Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
+                  else csr_to_ell(X))
             X = Xe.to(self.device)
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."
                   % (beta, density, X.width, g))
-        bf16 = resolve_bf16_ratio(beta, mode)
+        ks = _ledger_ints(ledger, "n_components")
+        recipe = resolve_recipe(
+            beta, mode, algo=kw.get("algo", "mu"), ell=use_ell, n=n, g=g,
+            k=int(ks.max()) if ks.size else None,
+            ell_width=X.width if use_ell else None)
+        bf16 = False if recipe.kl_newton else resolve_bf16_ratio(beta, mode)
         h_tol, n_passes, h_tol_start = resolve_online_schedule(beta)
         self.factorize_info = {
-            "lane": "ell" if use_ell else "dense",
+            "lane": "ell" if use_ell else "dense", "mode": mode,
             "kernel": kernel_label(use_ell, self.device, bf16),
+            "solver_recipe": recipe.label,
+            "inner_repeats": int(recipe.inner_repeats),
+            "kl_newton": bool(recipe.kl_newton),
             "bf16_ratio": bf16, "online_h_tol": h_tol, "n_passes": n_passes,
-            "online_h_tol_start": h_tol_start, "trace": {}, "errs": {}}
+            "online_h_tol_start": h_tol_start, "trace": {}, "errs": {},
+            "dna_fallback": {}}
         with atomic_artifact(self.paths["factorize_provenance"]
                              % int(worker_i)) as tmp:
             with open(tmp, "w") as f:
@@ -293,9 +315,9 @@ class cNMF:
                                {k: v for k, v in kw.items()
                                 if k != "n_jobs"},
                                **{k: v for k, v in self.factorize_info.items()
-                                  if k not in ("trace", "errs")})},
+                                  if k not in ("trace", "errs",
+                                               "dna_fallback")})},
                           f, indent=1, sort_keys=True)
-        ks = _ledger_ints(ledger, "n_components")
         iters = _ledger_ints(ledger, "iter")
         seeds = _ledger_ints(ledger, "nmf_seed")
         by_k: dict[int, list] = {}
@@ -316,10 +338,13 @@ class cNMF:
                 alpha_H=kw.get("alpha_H", 0.0),
                 l1_ratio_H=kw.get("l1_ratio_H", 0.0),
                 replicates_per_batch=replicates_per_batch,
-                n_rows=n if use_ell else None, trace=trace,
+                n_rows=n if use_ell else None, trace=trace, recipe=recipe,
                 device=self.device)
             self.factorize_info["trace"][k] = trace
             self.factorize_info["errs"][k] = errs
+            if recipe.kl_newton and mode == "batch":
+                self.factorize_info["dna_fallback"][k] = np.concatenate(
+                    [t.dna_fallback for t in trace])
             healthy = lane_health(errs, spectra=spectra)
             for r, (it, seed) in enumerate(tasks):
                 if not healthy[r]:

@@ -36,6 +36,20 @@ Kernels, and the TPU kernels they replace
   nonzero: bound by operations), one f32 partial per block from a
   fixed-order block reduction; the wrapper sums the partials in torch and
   adds the k-sized ``sum WH`` term, as the JAX wrapper does.
+* ``h_newton_stats`` <- ``pallas_kl_h_newton_stats`` (``_h_newton_body``).
+  The Diagonalized-Newton H statistics in one traversal, strict f32: WH,
+  ``ratio = X / max(WH, EPS)``, ``r2 = ratio / max(WH, EPS)``, then per
+  component the MU numerator ``ratio * W`` and the diagonal Hessian
+  ``r2 * W * W``; about 7k+3 operations per nonzero and replicate, bound
+  by operations. Same design as ``h_stats`` with two accumulators per
+  component (2k + k registers a lane); padded slots and all-zero rows give
+  exact +0.0 in both outputs, which keeps zero-padded components at zero
+  under the Newton step.
+* ``wh_at_nz`` <- ``pallas_wh_at_nz`` (``_wh_body``). The SDDMM: WH at
+  every stored slot, ``(R, n, w)`` f32, which the DNA step's row
+  objectives read twice per H step. Bound by the bytes of that output.
+  Same row traversal, the lanes of a warp writing consecutive slots of a
+  row (coalesced stores).
 """
 
 from __future__ import annotations
@@ -54,11 +68,13 @@ from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "ratio", "w_numer", "beta_err_partials",
-           "kl_h_stats", "kl_w_numer", "kl_w_stats", "kl_beta_err",
+           "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
+           "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
            "h_stats_plain", "ratio_plain", "w_numer_plain",
-           "beta_err_plain"]
+           "beta_err_plain", "h_newton_stats_plain", "wh_at_nz_plain"]
 
-KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials")
+KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials",
+           "h_newton_stats", "wh_at_nz")
 
 # one plain count per kernel: each wrapper adds one where it launches
 launches = {name: 0 for name in KERNELS}
@@ -68,6 +84,8 @@ launches = {name: 0 for name in KERNELS}
 MAX_K = 64
 
 # filled by build(): seconds, the nvcc command and its -Xptxas -v output
+# (kept beside the library, so a process that finds the library built
+# still reports it)
 build_info: dict = {}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -117,7 +135,14 @@ def build():
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{so}.log")
             os.replace(tmp, so)
+        elif os.path.exists(f"{so}.log"):
+            # built by an earlier process: its -Xptxas -v report
+            with open(f"{so}.log") as f:
+                log = f.read()
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kl_row_blocks.argtypes = [ci, ci]
@@ -125,8 +150,11 @@ def build():
         lib.kl_ratio.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
         lib.kl_w_numer.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         for fn in (lib.kl_row_blocks, lib.kl_h_stats,
-                   lib.kl_ratio, lib.kl_w_numer, lib.kl_beta_err_partials):
+                   lib.kl_ratio, lib.kl_w_numer, lib.kl_beta_err_partials,
+                   lib.kl_h_newton_stats, lib.kl_wh_at_nz):
             fn.restype = ci
         build_info.update(seconds=time.perf_counter() - t0,
                           command=" ".join(cmd), log=log, library=so)
@@ -164,11 +192,14 @@ def _raise_on(err: int, kernel: str):
 
 
 def _row_checks(vals, cols, H, W, vals_dtypes):
+    """Device, dtype, shape and contiguity of a row kernel's inputs;
+    ``vals`` is None for the kernels that read the coordinates only."""
     dev = H.device
     R, n, k = H.shape
     g = W.shape[-1]
-    w = vals.shape[-1]
-    _check(vals, "vals", vals_dtypes, (n, w), dev)
+    w = cols.shape[-1]
+    if vals is not None:
+        _check(vals, "vals", vals_dtypes, (n, w), dev)
     _check(cols, "cols", (torch.int32,), (n, w), dev)
     _check(H, "H", (torch.float32,), (R, n, k), dev)
     _check(W, "W", (torch.float32,), (R, k, g), dev)
@@ -187,6 +218,10 @@ def _row_checks(vals, cols, H, W, vals_dtypes):
 h_stats_plain = sparse.ell_h_numer
 ratio_plain = sparse.ell_ratio_flat
 w_numer_plain = sparse.ell_w_numer_from_ratio
+
+
+h_newton_stats_plain = sparse.ell_h_newton
+wh_at_nz_plain = sparse.ell_wh_slots
 
 
 def beta_err_plain(vals, cols, H, W):
@@ -280,6 +315,37 @@ def beta_err_partials(vals, cols, H, W):
     return partials
 
 
+def h_newton_stats(vals, cols, H, W):
+    """``(numer, hess)``, each ``(R, n, k)`` f32, of the DNA H step (f32
+    inputs only, like the TPU kernel)."""
+    R, n, w, k, g = _row_checks(vals, cols, H, W, (torch.float32,))
+    if not H.is_cuda:
+        return h_newton_stats_plain(vals, cols, H, W)
+    lib = build()
+    numer = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
+    hess = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
+    err = lib.kl_h_newton_stats(_ptr(vals), _ptr(cols), _ptr(H), _ptr(W),
+                                _ptr(numer), _ptr(hess), R, n, w, k, g,
+                                _stream())
+    _raise_on(err, "h_newton_stats")
+    launches["h_newton_stats"] += 1
+    return numer, hess
+
+
+def wh_at_nz(cols, H, W):
+    """``WH`` at every stored slot, ``(R, n, w)`` f32."""
+    R, n, w, k, g = _row_checks(None, cols, H, W, ())
+    if not H.is_cuda:
+        return wh_at_nz_plain(cols, H, W)
+    lib = build()
+    out = torch.empty((R, n, w), dtype=torch.float32, device=H.device)
+    err = lib.kl_wh_at_nz(_ptr(cols), _ptr(H), _ptr(W), _ptr(out), R, n, w,
+                          k, g, _stream())
+    _raise_on(err, "wh_at_nz")
+    launches["wh_at_nz"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the statistics the solver calls
 # ---------------------------------------------------------------------------
@@ -310,3 +376,15 @@ def kl_beta_err(x, H, W):
     """``D_KL(X || HW)`` per replicate ``(R,)`` f32."""
     partials = beta_err_partials(x.vals, x.cols, H, W)
     return partials.sum(1) + sparse.total_wh(H, W)
+
+
+def kl_h_newton_stats(x, H, W):
+    """``(numer, denom, hess)`` of the DNA H step; the ``denom = W.sum(
+    genes)`` broadcast of the MU fallback candidate stays torch."""
+    numer, hess = h_newton_stats(x.vals, x.cols, H, W)
+    return numer, W.sum(-1)[:, None, :].expand(H.shape), hess
+
+
+def kl_wh_at_nz(x, H, W):
+    """``WH`` at the stored coordinates of ``x``, ``(R, n, w)`` f32."""
+    return wh_at_nz(x.cols, H, W)

@@ -1,8 +1,10 @@
-"""Multiplicative-update beta-divergence NMF — the online solver of the
-consensus sweep and the fixed-spectra usage refit.
+"""Beta-divergence NMF solvers — the online and batch solvers of the
+consensus sweep, the nmf-torch style ``run_nmf`` and the fixed-spectra
+usage refit.
 
-Port of the parts of ``cnmf_torch_tpu/ops/nmf.py`` the online KL main path
-reaches (beta in {2, 1}; dense and ELL; bf16 ratio chain and strict f32).
+Port of the parts of ``cnmf_torch_tpu/ops/nmf.py`` the online and batch
+KL paths reach (beta in {2, 1}; dense and ELL; bf16 ratio chain and
+strict f32; the ``mu``, ``amu`` and ``dna`` recipes of ``ops/recipe.py``).
 Model convention as there: ``X (cells x genes) ~= H (cells x k) @ W (k x
 genes)``.
 
@@ -17,27 +19,51 @@ iterations (and once per pass in the pass loop).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
 from .kernels import kl_ell
-from .sparse import (EllMatrix, csr_to_ell, ell_row_width, kl_nz_term,
-                     resolve_sparse_beta)
+from .recipe import SolverRecipe, resolve_recipe
+from .sparse import (EllMatrix, csr_to_ell, ell_chunk_rows, ell_row_width,
+                     kl_nz_term, resolve_sparse_beta)
 
-__all__ = ["EPS", "EVAL_EVERY", "BETA_LOSS", "beta_loss_to_float",
-           "beta_divergence", "resolve_online_schedule",
-           "resolve_bf16_ratio", "split_regularization", "mu_gamma",
+__all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
+           "SolverTelemetry", "beta_loss_to_float", "beta_divergence",
+           "resolve_online_schedule", "resolve_bf16_ratio",
+           "split_regularization", "mu_gamma", "nmf_fit_batch",
            "nmf_fit_online", "random_init", "fit_h", "fit_h_default_init",
-           "lane_health"]
+           "lane_health", "run_nmf", "run_nmf_use_ell"]
 
 EPS = 1e-16
 EVAL_EVERY = 10
+# amu: a repeat whose relative H change drops below this leaves the
+# repeat loop early (its lane only)
+INNER_STAG_TOL = 1e-4
 BETA_LOSS = {"frobenius": 2.0, "kullback-leibler": 1.0, "itakura-saito": 0.0}
 
 # elementwise size below which the beta=2 objective materializes X - HW
 _DENSE_ERR_ELEMS = 1 << 22
+
+
+class SolverTelemetry(NamedTuple):
+    """Per-lane record of one batch solve (numpy), the fields of the JAX
+    package's ``SolverTelemetry``. ``trace``: ``(R, evaluations)``
+    objectives at every ``EVAL_EVERY``-th iteration, NaN once the lane has
+    stopped. ``iters``: iterations the lane ran. ``nonfinite``: an
+    evaluated objective (or the final one) was inf/NaN. ``inner_iters``:
+    inner H updates (amu and dna only, else None). ``dna_fallback``: the
+    mean fraction of rows (and, dense, columns) that took the MU fallback
+    over the lane's iterations (dna only, else None)."""
+
+    trace: np.ndarray
+    iters: np.ndarray
+    nonfinite: np.ndarray
+    inner_iters: np.ndarray | None = None
+    dna_fallback: np.ndarray | None = None
 
 
 def lane_health(errs, spectra=None) -> np.ndarray:
@@ -217,6 +243,92 @@ def _update_W(X, H, W, beta: float, l1: float, l2: float,
 
 
 # ---------------------------------------------------------------------------
+# Diagonalized Newton (beta=1) steps — the dna recipe (arXiv:1301.3389)
+# ---------------------------------------------------------------------------
+
+def _kl_row_obj(X, C, W, l1, l2):
+    """Per-row KL objective ``(R, n)`` of candidate usages ``C`` against
+    fixed ``W``, up to X-only constants (equal across candidates):
+    ``C @ W.sum(genes) - sum_g X log(max(CW, EPS))`` plus the penalties.
+    Rows of D_KL(X || CW) decouple for fixed W, so the per-row argmin over
+    candidates minimizes the objective. An ELL ``X`` takes the log term on
+    its stored nonzeros (``wh_at_nz`` on the card). The linear term is an
+    elementwise product and a last-axis sum, not a batched matvec, so a
+    lane's objective (and its row choices) do not depend on how many lanes
+    share the call."""
+    obj = (C * W.sum(-1)[:, None, :]).sum(-1)
+    if isinstance(X, EllMatrix):
+        wh = kl_ell.kl_wh_at_nz(X, C, W)
+        obj = obj - (X.vals * torch.log(torch.clamp_min(wh, EPS))).sum(-1)
+    else:
+        obj = obj - (X * torch.log(torch.clamp_min(C @ W, EPS))).sum(-1)
+    if l1:
+        obj = obj + l1 * C.sum(-1)
+    if l2:
+        obj = obj + 0.5 * l2 * (C * C).sum(-1)
+    return obj
+
+
+def _kl_col_obj(X, H, C, l1, l2):
+    """Per-column analog ``(R, g)`` of :func:`_kl_row_obj` for candidate
+    spectra ``C`` against fixed ``H`` (dense ``X``)."""
+    obj = (H.sum(1)[:, :, None] * C).sum(1) \
+        - (X * torch.log(torch.clamp_min(H @ C, EPS))).sum(1)
+    if l1:
+        obj = obj + l1 * C.sum(1)
+    if l2:
+        obj = obj + 0.5 * l2 * (C * C).sum(1)
+    return obj
+
+
+def _dna_h_step(X, H, W, l1, l2):
+    """One Diagonalized-Newton KL H step with the per-row MU fallback.
+
+    Both candidates come from one statistics pass (``h_newton_stats`` on
+    the card for an ELL ``X``): the MU update, and the Newton update
+    ``max(H - grad / hess, 0)`` with ``grad = W.sum(genes) - numer (+reg)``
+    and the diagonal Hessian ``hess`` (+l2). A zero-padded component has
+    ``grad = hess = 0`` and stays exactly zero. Each row keeps the
+    candidate with the smaller row objective, so the composite is monotone
+    like MU. Strict f32. Returns ``(H_new, fallback_fraction (R,))``."""
+    s = W.sum(-1)[:, None, :]
+    if isinstance(X, EllMatrix):
+        numer, denom, hess = kl_ell.kl_h_newton_stats(X, H, W)
+    else:
+        WH = torch.clamp_min(H @ W, EPS)
+        ratio = X / WH
+        numer = ratio @ W.mT
+        hess = (ratio / WH) @ (W * W).mT
+        denom = s.expand(H.shape)
+    H_mu = _apply_rate(H, numer, denom, l1, l2)
+    grad = s - numer + l1 + l2 * H
+    H_nt = torch.clamp_min(H - grad / torch.clamp_min(hess + l2, EPS), 0.0)
+    take_nt = (_kl_row_obj(X, H_nt, W, l1, l2)
+               < _kl_row_obj(X, H_mu, W, l1, l2))[..., None]
+    return (torch.where(take_nt, H_nt, H_mu),
+            1.0 - take_nt.float().mean(dim=(1, 2)))
+
+
+def _dna_w_step(X, H, W, l1, l2):
+    """Per-column Diagonalized-Newton KL W step with the MU fallback, the
+    transpose of :func:`_dna_h_step` (dense ``X`` only: the ELL batch
+    recipe keeps the exact MU W step). Returns ``(W_new, fallback_fraction
+    (R,))``."""
+    WH = torch.clamp_min(H @ W, EPS)
+    ratio = X / WH
+    numer = H.mT @ ratio
+    s = H.sum(1)[:, :, None]
+    W_mu = _apply_rate(W, numer, s.expand(W.shape), l1, l2)
+    hess = (H * H).mT @ (ratio / WH)
+    grad = s - numer + l1 + l2 * W
+    W_nt = torch.clamp_min(W - grad / torch.clamp_min(hess + l2, EPS), 0.0)
+    take_nt = (_kl_col_obj(X, H, W_nt, l1, l2)
+               < _kl_col_obj(X, H, W_mu, l1, l2))[:, None, :]
+    return (torch.where(take_nt, W_nt, W_mu),
+            1.0 - take_nt.float().mean(dim=(1, 2)))
+
+
+# ---------------------------------------------------------------------------
 # masked loops
 # ---------------------------------------------------------------------------
 
@@ -231,10 +343,12 @@ def _lane_tensor(v, R, device):
     return torch.full((R,), float(v), dtype=torch.float32, device=device)
 
 
-def _masked_loop(M, step, max_iter: int, tol, active):
+def _masked_loop(M, step, max_iter: int, tol, active,
+                 return_count: bool = False):
     """Iterate ``M <- step(M)`` per lane until the lane's relative change
     drops below ``tol`` or it has run ``max_iter`` steps (the semantics of
-    the JAX ``while_loop``s under ``vmap``)."""
+    the JAX ``while_loop``s under ``vmap``); with ``return_count`` also
+    the steps each lane took, ``(R,)`` int32."""
     R = M.shape[0]
     M = M.contiguous()      # a chunk's block of (R, C, chunk, k) is strided
     tol = _lane_tensor(tol, R, M.device)
@@ -251,14 +365,20 @@ def _masked_loop(M, step, max_iter: int, tol, active):
         steps += 1
         if steps % EVAL_EVERY == 0 and not bool(active.any()):
             break
-    return M
+    return (M, it) if return_count else M
 
 
 def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
-                   bf16_ratio: bool = False, active=None, x_cast=None):
+                   bf16_ratio: bool = False, active=None, x_cast=None,
+                   kl_newton: bool = False):
     """Inner MU loop on one chunk's usage block with W fixed; for beta=2
-    the numerator ``x @ W.T`` is precomputed once."""
-    if beta == 2.0:
+    the numerator ``x @ W.T`` is precomputed once. ``kl_newton`` (beta=1,
+    the dna recipe): each inner step is a Diagonalized-Newton H step with
+    the per-row MU fallback (:func:`_dna_h_step`), strict f32."""
+    if kl_newton and beta == 1.0:
+        def step(hh):
+            return _dna_h_step(x, hh, W, l1, l2)[0]
+    elif beta == 2.0:
         numer0 = x @ W.mT
         numer0 = torch.clamp_min(numer0 - l1, 0.0) if l1 else numer0
 
@@ -297,12 +417,125 @@ def _chunk(Xc, c):
     return Xc.chunk(c) if isinstance(Xc, EllMatrix) else Xc[c]
 
 
+def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
+                  max_iter: int = 200, l1_H: float = 0.0, l2_H: float = 0.0,
+                  l1_W: float = 0.0, l2_W: float = 0.0,
+                  inner_repeats: int = 1, kl_newton: bool = False,
+                  trace: list | None = None):
+    """Alternating updates of ``R`` replicates at once until each lane's
+    relative objective decrease over an ``EVAL_EVERY``-iteration window
+    falls below ``tol``, or ``max_iter``.
+
+    ``X``: a dense ``(n, g)`` tensor or an unchunked :class:`EllMatrix`
+    with its transpose index set, shared by every lane; ``H0 (R, n, k)``,
+    ``W0 (R, k, g)``. Each lane keeps the semantics of its solo JAX
+    ``while_loop``: a per-lane ``active`` latch holds a stopped lane's
+    state while the others go on, and the host reads ``active.any()`` once
+    per objective evaluation. Returns ``(H, W, err (R,))`` with ``err``
+    the exact objective of the returned pair; ``trace`` receives one
+    :class:`SolverTelemetry`.
+
+    Recipes: ``inner_repeats > 1`` (amu) runs up to that many H updates
+    per W update, each lane leaving early once its relative H change falls
+    below ``INNER_STAG_TOL``; ``kl_newton`` (dna, beta=1) runs
+    :func:`_dna_h_step` and, on dense ``X``, :func:`_dna_w_step` (an ELL
+    ``X`` keeps the exact MU W step). ELL statistics are strict f32.
+    """
+    if beta not in (2.0, 1.0):
+        raise _unported(beta)
+    inner_repeats = int(inner_repeats)
+    if kl_newton and beta != 1.0:
+        raise ValueError(
+            f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
+    if kl_newton and inner_repeats != 1:
+        raise ValueError("kl_newton and inner_repeats>1 are exclusive "
+                         "recipes (dna vs amu)")
+    ell = isinstance(X, EllMatrix)
+    R = H0.shape[0]
+    dev = H0.device
+    H, W = H0.contiguous(), W0.contiguous()
+    err0 = beta_divergence(X, H, W, beta=beta)
+    err_prev, err = err0, err0
+
+    def h_step(H, W, active):
+        """``(H_new, inner updates (R,) | 1, fallback (R,) | None)``."""
+        if kl_newton:
+            H_new, fb = _dna_h_step(X, H, W, l1_H, l2_H)
+            return H_new, 1, fb
+        if inner_repeats <= 1:
+            return _update_H(X, H, W, beta, l1_H, l2_H), 1, None
+        if beta == 2.0 and not ell:
+            numer0 = X @ W.mT
+            WWT = W @ W.mT
+
+            def one(h):
+                return _apply_rate(h, numer0, h @ WWT, l1_H, l2_H)
+        else:
+            def one(h):
+                return _update_H(X, h, W, beta, l1_H, l2_H)
+        return (*_masked_loop(H, one, inner_repeats, INNER_STAG_TOL, active,
+                              return_count=True), None)
+
+    def w_step(H, W):
+        if kl_newton and not ell:
+            return _dna_w_step(X, H, W, l1_W, l2_W)
+        return _update_W(X, H, W, beta, l1_W, l2_W), None
+
+    def active_of(err_prev, err, it):
+        not_converged = (err_prev - err) / torch.clamp_min(err0, EPS) >= tol
+        return (not_converged | (it < EVAL_EVERY)) & (it < max_iter)
+
+    accel = kl_newton or inner_repeats > 1
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    iters, inner = zeros, zeros
+    fb_sum = torch.zeros(R, dtype=torch.float32, device=dev)
+    nonfinite = ~torch.isfinite(err0)
+    evals = []
+    active = torch.full((R,), max_iter > 0, dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iter:
+        H_new, inner_n, fb = h_step(H, W, active)
+        W_new, fb_w = w_step(H_new, W)
+        if fb is not None and fb_w is not None:
+            fb = 0.5 * (fb + fb_w)
+        mask = active[:, None, None]
+        H = torch.where(mask, H_new, H)
+        W = torch.where(mask, W_new, W)
+        on = active.to(torch.int32)
+        iters = iters + on
+        inner = inner + on * inner_n
+        if fb is not None:
+            fb_sum = fb_sum + fb * active
+        it += 1
+        if it % EVAL_EVERY == 0:
+            e = beta_divergence(X, H, W, beta=beta)
+            err_prev = torch.where(active, err, err_prev)
+            err = torch.where(active, e, err)
+            nonfinite = nonfinite | (active & ~torch.isfinite(e))
+            evals.append(torch.where(active, e, torch.full_like(e, np.nan)))
+            active = active & active_of(err_prev, err, it)
+            if not bool(active.any()):
+                break
+    err = beta_divergence(X, H, W, beta=beta)
+    if trace is not None:
+        tr = (torch.stack(evals, dim=1) if evals
+              else torch.zeros((R, 0), device=dev))
+        trace.append(SolverTelemetry(
+            trace=tr.cpu().numpy(), iters=iters.cpu().numpy(),
+            nonfinite=(nonfinite | ~torch.isfinite(err)).cpu().numpy(),
+            inner_iters=inner.cpu().numpy() if accel else None,
+            dna_fallback=((fb_sum / torch.clamp_min(iters.float(), 1.0))
+                          .cpu().numpy() if kl_newton else None)))
+    return H, W, err
+
+
 def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                    h_tol: float = 1e-3, chunk_max_iter: int = 1000,
                    n_passes: int = 20, l1_H: float = 0.0, l2_H: float = 0.0,
                    l1_W: float = 0.0, l2_W: float = 0.0,
                    h_tol_start: float | None = None,
-                   bf16_ratio: bool = False, trace: list | None = None):
+                   bf16_ratio: bool = False, trace: list | None = None,
+                   kl_newton: bool = False):
     """Streamed MU over pre-chunked inputs for ``R`` replicates at once.
 
     ``Xc``: ``(C, chunk, genes)`` dense tensor or a pre-chunked
@@ -319,10 +552,17 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
     lane on the relative objective decrease ``< tol`` (never while the
     coarse-to-fine inner tolerance is still above its floor) or at
     ``n_passes``.
+
+    ``kl_newton`` (beta=1, the dna recipe): the chunk usage solves run
+    Diagonalized-Newton steps with the per-row MU fallback; the chunk W
+    steps stay MU, and the bf16 ratio chain is off (strict f32).
     """
     if beta not in (2.0, 1.0):
         raise _unported(beta)
-    bf16 = bool(bf16_ratio) and beta == 1.0
+    if kl_newton and beta != 1.0:
+        raise ValueError(
+            f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
+    bf16 = bool(bf16_ratio) and beta == 1.0 and not kl_newton
     ell = isinstance(Xc, EllMatrix)
     R, C = Hc0.shape[0], Hc0.shape[1]
     dev = W0.device
@@ -359,7 +599,8 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
         for c, x in enumerate(chunks):
             h = _chunk_h_solve(x, Hc[:, c], W, None, beta, l1_H, l2_H,
                                chunk_max_iter, h_tol_p, bf16_ratio=bf16,
-                               active=active, x_cast=casts[c])
+                               active=active, x_cast=casts[c],
+                               kl_newton=kl_newton)
             # the objective stays f32 even when the updates run bf16
             if ell:
                 err_c = kl_ell.kl_beta_err(x, h, W)
@@ -512,3 +753,128 @@ def fit_h(X, W, H_init=None, chunk_size: int = 5000,
                                   int(chunk_max_iter), float(h_tol)))
     H = torch.cat(out, dim=1)[0, :n]
     return H.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# run_nmf — the nmf-torch style entry point
+# ---------------------------------------------------------------------------
+
+def run_nmf_use_ell(X, beta: float, *, init: str = "random",
+                    algo: str = "mu", fp_precision: str = "float") -> bool:
+    """Does :func:`run_nmf` take the ELL lane for this input? A scipy-
+    sparse ``X`` with beta in {1, 0}, the random init, ``algo='mu'``, f32,
+    under the dispatch rule (density <= 0.10, width <= genes/8)."""
+    if not (sp.issparse(X) and init == "random" and algo == "mu"
+            and fp_precision == "float" and float(beta) in (1.0, 0.0)):
+        return False
+    n_s, g_s = X.shape
+    return bool(resolve_sparse_beta(
+        float(beta), density=X.nnz / max(n_s * g_s, 1),
+        width=ell_row_width(X), g=g_s))
+
+
+def run_nmf(X, n_components: int, init: str = "random",
+            beta_loss="frobenius", algo: str = "mu", mode: str = "online",
+            tol: float = 1e-4, n_passes: int | None = None,
+            online_chunk_size: int = 5000, online_chunk_max_iter: int = 1000,
+            batch_max_iter: int = 500, alpha_W: float = 0.0,
+            l1_ratio_W: float = 0.0, alpha_H: float = 0.0,
+            l1_ratio_H: float = 0.0, random_state: int = 0,
+            n_jobs: int = -1, use_gpu: bool = False,
+            fp_precision: str = "float", online_h_tol: float | None = None,
+            recipe: SolverRecipe | None = None, device="cuda"):
+    """One NMF solve with the nmf-torch ``run_nmf`` keyword contract.
+
+    Returns ``(H usages (n, k), W spectra (k, g), err)`` as numpy and a
+    float. ``n_jobs`` and ``use_gpu`` are accepted and ignored; ``device``
+    places the work. A scipy-sparse KL input under the dispatch rule runs
+    on the ELL encoding (the CUDA kernels on the card): unchunked with its
+    transpose index set in batch mode, in row chunks online. ``recipe``:
+    an explicit :class:`SolverRecipe`, else resolved from the env knobs
+    (``CNMF_TPU_ACCEL`` ``auto`` gives batch KL the dna recipe).
+
+    Ported: ``init='random'``, ``algo='mu'``, ``fp_precision='float'``,
+    beta in {2, 1}, the mu, amu and dna recipes. The rest raises
+    ``NotImplementedError`` naming what is not ported.
+    """
+    dev = resolve_device(device)
+    if fp_precision not in ("float", "double"):
+        raise ValueError(
+            f"fp_precision={fp_precision!r}: expected 'float' or 'double'")
+    if fp_precision == "double":
+        raise NotImplementedError(
+            "fp_precision='double' is not ported yet (the port runs f32)")
+    if algo not in ("mu", "halsvar"):
+        raise NotImplementedError(
+            f"algo={algo!r}: 'mu' (all beta losses, batch+online) and "
+            "'halsvar' (frobenius, batch+online) are implemented")
+    beta = beta_loss_to_float(beta_loss)
+    if algo == "halsvar" and beta != 2.0:
+        raise ValueError(
+            "algo='halsvar' optimizes the Frobenius objective; use "
+            "algo='mu' for kullback-leibler / itakura-saito")
+    if algo == "halsvar":
+        raise NotImplementedError(
+            "algo='halsvar' (HALS) is not ported yet (the port runs 'mu')")
+    if init != "random":
+        raise NotImplementedError(
+            f"init={init!r} is not ported yet (the port runs 'random')")
+    if beta not in (2.0, 1.0):
+        raise _unported(beta)
+    if mode not in ("batch", "online"):
+        raise ValueError(f"unknown mode {mode!r}")
+    online_h_tol, n_passes, h_tol_start = resolve_online_schedule(
+        beta, online_h_tol, n_passes)
+    use_ell = run_nmf_use_ell(X, beta, init=init, algo=algo,
+                              fp_precision=fp_precision)
+    if recipe is None:
+        recipe = resolve_recipe(beta, mode, algo=algo, ell=use_ell)
+    if (recipe.kl_newton or recipe.algo == "sketch") and beta != 1.0:
+        raise ValueError(
+            f"recipe {recipe.label!r} requires beta=1 (KL), got "
+            f"beta_loss={beta_loss!r}")
+    if recipe.algo in ("hals", "sketch"):
+        raise NotImplementedError(
+            f"the {recipe.algo} recipe is not ported yet (the port runs "
+            "mu, amu and dna)")
+    k = int(n_components)
+    l1_W, l2_W = split_regularization(alpha_W, l1_ratio_W)
+    l1_H, l2_H = split_regularization(alpha_H, l1_ratio_H)
+    n, g = X.shape
+    chunk = int(min(online_chunk_size, n))
+    if use_ell:
+        x_mean = float(X.sum()) / (n * g)
+        if mode == "online":
+            Xs, pad = ell_chunk_rows(X, chunk)
+        else:
+            Xs = csr_to_ell(X)
+        Xs = Xs.to(dev)
+    else:
+        Xs = dense_on_device(X, dev)
+        x_mean = float(Xs.mean())
+    H0, W0 = random_init(int(random_state) & 0x7FFFFFFF, n, g, k, x_mean,
+                         device=dev)
+    if mode == "batch":
+        H, W, err = nmf_fit_batch(
+            Xs, H0[None], W0[None], beta=beta, tol=float(tol),
+            max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
+            l2_W=l2_W, inner_repeats=int(recipe.inner_repeats),
+            kl_newton=bool(recipe.kl_newton))
+        H = H[0]
+    else:
+        if use_ell:
+            Xc = Xs
+            Hc = torch.nn.functional.pad(H0, (0, 0, 0, pad)).reshape(
+                1, Xc.vals.shape[0], chunk, k)
+        else:
+            Xc, Hc, _ = _chunk_rows(Xs, H0, chunk)
+        Hc, W, err = nmf_fit_online(
+            Xc, Hc, W0[None], beta=beta, tol=float(tol),
+            h_tol=float(online_h_tol),
+            chunk_max_iter=int(online_chunk_max_iter),
+            n_passes=int(n_passes), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
+            l2_W=l2_W, h_tol_start=h_tol_start,
+            bf16_ratio=resolve_bf16_ratio(beta, mode),
+            kl_newton=bool(recipe.kl_newton))
+        H = Hc.reshape(-1, k)[:n]
+    return H.cpu().numpy(), W[0].cpu().numpy(), float(err[0])

@@ -32,7 +32,9 @@ __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_chunk_rows", "ell_row_width", "resolve_sparse_beta",
            "kl_nz_term", "ell_h_numer", "ell_ratio_flat",
            "ell_w_numer_from_ratio", "ell_kl_h_stats", "ell_kl_w_numer",
-           "ell_kl_w_stats", "ell_beta_err", "ell_beta_err_nz", "total_wh"]
+           "ell_kl_w_stats", "ell_beta_err", "ell_beta_err_nz", "total_wh",
+           "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
+           "ell_kl_h_newton_stats"]
 
 EPS = 1e-16
 # auto-dispatch ceiling: <= 10% nonzeros and row width <= g/8
@@ -292,6 +294,44 @@ def ell_kl_h_stats(x: EllMatrix, H, W, bf16: bool = False):
     f32 and the data-independent ``denom = W.sum(-1)`` broadcast."""
     numer = ell_h_numer(x.vals, x.cols, H, W, bf16)
     return numer, W.sum(-1)[:, None, :].expand(H.shape)
+
+
+def ell_wh_slots(cols, H, W):
+    """Plain ``wh_at_nz``: ``wh[r, i, j] = H[r, i, :] @ W[r, :, cols[i,
+    j]]`` at every stored slot (padding included), ``(R, n, w)`` f32."""
+    return _wh_at_nz(cols, H.float(), W.float())
+
+
+def ell_wh_at_nz(x: EllMatrix, H, W):
+    """The SDDMM ``H @ W`` at the stored coordinates, ``(R, n, w)`` f32
+    (``ell_wh_at_nz`` of the JAX package, with the replicate axis)."""
+    return ell_wh_slots(x.cols, H, W)
+
+
+def ell_h_newton(vals, cols, H, W):
+    """Plain ``h_newton_stats``, strict f32: the MU numerator
+    ``numer[r, i, c] = sum_j ratio * W[r, c, col]`` and the diagonal
+    Hessian ``hess[r, i, c] = sum_j (ratio / whm) * W[r, c, col]^2`` with
+    ``whm = max(wh, EPS)`` and ``ratio = X / whm``; ``(R, n, k)`` each.
+    Padded slots (value 0) add exact zeros to both."""
+    wh = _wh_at_nz(cols, H, W)
+    whm = torch.maximum(wh, _eps_like(wh))
+    ratio = vals / whm
+    r2 = ratio / whm
+    numers, hesses = [], []
+    for c in range(W.shape[1]):
+        slab = _slab(W, cols, c)
+        numers.append((ratio * slab).sum(-1))
+        hesses.append((r2 * slab * slab).sum(-1))
+    return torch.stack(numers, dim=-1), torch.stack(hesses, dim=-1)
+
+
+def ell_kl_h_newton_stats(x: EllMatrix, H, W):
+    """KL H statistics of the Diagonalized-Newton recipe on the stored
+    nonzeros: ``(numer, denom, hess)``, the data-independent ``denom =
+    W.sum(-1)`` broadcast for the MU fallback candidate."""
+    numer, hess = ell_h_newton(x.vals, x.cols, H, W)
+    return numer, W.sum(-1)[:, None, :].expand(H.shape), hess
 
 
 def _need_transpose(x: EllMatrix):

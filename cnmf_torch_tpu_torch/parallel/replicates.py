@@ -3,9 +3,12 @@
 Port of ``cnmf_torch_tpu/parallel/replicates.py`` (the single-device lane).
 The JAX package ``vmap``-ed a solo solver over stacked inits; here the
 replicate axis is a leading batch dimension of every factor tensor, and
-the online solver keeps a per-lane ``active`` mask so each replicate's
-result is its solo solve (``ops/nmf.py``). Replicates run in slices sized
-from the card's free memory (:func:`auto_replicates_per_batch`).
+the solvers keep a per-lane ``active`` mask so each replicate's result is
+its solo solve (``ops/nmf.py``). ``mode="online"`` runs the streamed
+solver over row chunks; ``mode="batch"`` runs the batch solver over the
+whole matrix under the resolved recipe (``ops/recipe.py``: batch KL runs
+the dna recipe by default). Replicates run in slices sized from the
+card's free memory (:func:`auto_replicates_per_batch`).
 """
 
 from __future__ import annotations
@@ -15,11 +18,12 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
-from ..ops.nmf import (beta_loss_to_float, dense_on_device, nmf_fit_online,
-                       random_init, resolve_bf16_ratio,
+from ..ops.nmf import (beta_loss_to_float, dense_on_device, nmf_fit_batch,
+                       nmf_fit_online, random_init, resolve_bf16_ratio,
                        resolve_online_schedule, split_regularization)
-from ..ops.sparse import (EllMatrix, ell_chunk_rows, ell_row_width,
-                          resolve_sparse_beta)
+from ..ops.recipe import SolverRecipe, resolve_recipe
+from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
+                          ell_row_width, resolve_sparse_beta)
 
 __all__ = ["worker_filter", "auto_replicates_per_batch", "replicate_sweep",
            "stacked_inits"]
@@ -49,13 +53,16 @@ def auto_replicates_per_batch(n: int, g: int, k: int, beta: float = 2.0,
                               chunk: int | None = None,
                               budget_elems: int | None = None,
                               ell_width: int | None = None,
+                              kl_newton: bool = False,
                               device="cuda") -> int:
     """How many replicates fit one slice under the f32 element budget.
 
     Each replicate carries its factor state (current, next and temporary
     H and W, plus the returned usages). For beta != 2 the dense chains
-    materialize ``chunk x genes`` intermediates per replicate; the ELL lane
-    holds ``(chunk, width)`` ratio and accumulator buffers instead."""
+    materialize ``chunk x genes`` intermediates per replicate (``chunk =
+    n`` in batch mode); the ELL lane holds ``(chunk, width)`` ratio and
+    accumulator buffers instead. ``kl_newton`` (dna) charges two more such
+    buffers for the candidates' reconstructions."""
     if budget_elems is None:
         budget_elems = _device_budget_elems(device)
     per_rep = 3 * (n * k + k * g) + n * k
@@ -63,8 +70,12 @@ def auto_replicates_per_batch(n: int, g: int, k: int, beta: float = 2.0,
         c = n if chunk is None else min(int(chunk), n)
         if ell_width is not None:
             per_rep += c * int(ell_width) * (k + 5)
+            if kl_newton:
+                per_rep += 2 * c * int(ell_width)
         else:
             per_rep += 3 * c * g
+            if kl_newton:
+                per_rep += 2 * c * g
     return max(1, int(budget_elems // max(per_rep, 1)))
 
 
@@ -77,33 +88,56 @@ def stacked_inits(x_mean: float, n: int, g: int, k: int, seeds,
             torch.stack([p[1] for p in pairs]).to(device))
 
 
-def _stage(X, beta: float, init: str, chunk: int, dev):
-    """Host input -> ``(Xc, n)``: the pre-chunked ELL encoding when the
-    dispatch rule engages, else dense row chunks ``(C, chunk, g)``."""
+def _stage(X, beta: float, init: str, mode: str, chunk: int, dev):
+    """Host input -> ``(X staged, n | None)``. Online: the pre-chunked ELL
+    encoding when the dispatch rule engages, else dense row chunks ``(C,
+    chunk, g)``. Batch: the unchunked ELL encoding with its transpose
+    index set, else the dense ``(n, g)`` matrix. A caller-staged
+    :class:`EllMatrix` must be chunked for online and unchunked for batch
+    (``n`` is then None: pass the true cell count as ``n_rows``)."""
     if isinstance(X, EllMatrix):
-        if X.vals.ndim != 3 or X.rows_t is None:
+        want_chunked = mode == "online"
+        if want_chunked != (X.vals.ndim == 3):
             raise ValueError(
-                "sweeps take a pre-chunked EllMatrix with its transpose "
-                "index set (ops.sparse.ell_chunk_rows)")
+                "mode=%r needs %s EllMatrix (build online encodings with "
+                "ops.sparse.ell_chunk_rows at the sweep's "
+                "online_chunk_size, batch encodings with csr_to_ell)"
+                % (mode, "a pre-chunked" if want_chunked else "an unchunked"))
+        if X.rows_t is None:
+            raise ValueError(
+                "sweep EllMatrix needs the transpose index set "
+                "(rows_t/perm_t) for the W updates")
         return X.to(dev), None
     if sp.issparse(X):
         n, g = X.shape
         if init == "random" and resolve_sparse_beta(
                 beta, density=X.nnz / max(n * g, 1),
                 width=ell_row_width(X), g=g):
-            Xe, _ = ell_chunk_rows(X, chunk)
+            if mode == "online":
+                Xe, _ = ell_chunk_rows(X, chunk)
+            else:
+                Xe = csr_to_ell(X)
             return Xe.to(dev), n
     Xt = dense_on_device(X, dev)
     n, g = Xt.shape
+    if mode == "batch":
+        return Xt, n
     C = max(1, -(-n // chunk))
     Xt = torch.nn.functional.pad(Xt, (0, 0, 0, C * chunk - n))
     return Xt.reshape(C, chunk, g), n
+
+
+def _bundle_width(k: int) -> int:
+    """Replicates per bundle of the JAX package's beta=2 batch solver
+    (``nmf_fit_batch_bundled``): as many k-wide blocks as fit 128 lanes."""
+    return max(1, 128 // int(k))
 
 
 def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                     init: str = "random", mode: str = "online",
                     tol: float = 1e-4, online_chunk_size: int = 5000,
                     online_chunk_max_iter: int = 1000,
+                    batch_max_iter: int = 500,
                     n_passes: int | None = None, alpha_W: float = 0.0,
                     l1_ratio_W: float = 0.0, alpha_H: float = 0.0,
                     l1_ratio_H: float = 0.0,
@@ -111,35 +145,59 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                     online_h_tol: float | None = None,
                     n_rows: int | None = None, inits=None,
                     return_usages: bool = False, trace: list | None = None,
-                    device="cuda"):
-    """Run ``len(seeds)`` online-MU replicates at one K.
+                    recipe: SolverRecipe | None = None, device="cuda"):
+    """Run ``len(seeds)`` NMF replicates at one K.
 
-    ``X``: a host matrix (dense, or scipy-sparse — encoded as a chunked
-    ELL matrix when the dispatch rule engages for beta in {1, 0}) or a
-    pre-chunked :class:`EllMatrix` (then pass the true cell count as
-    ``n_rows``). ``inits``: optional explicit ``(H0 (R, n, k), W0 (R, k,
-    g))`` in place of the seeded random draws. ``trace``: a list that
-    receives one ``(passes, r)`` array of per-pass objectives per slice of
-    ``r`` replicates. Returns ``(spectra (R, k, g), usages (R, n, k) |
-    None, errs (R,))`` as numpy in seed order."""
+    ``X``: a host matrix (dense, or scipy-sparse — ELL-encoded when the
+    dispatch rule engages for beta in {1, 0}: row-chunked online, whole
+    with its transpose index set in batch mode) or a caller-staged
+    :class:`EllMatrix` (pre-chunked online, unchunked batch; pass the true
+    cell count as ``n_rows``). ``inits``: optional explicit ``(H0 (R, n,
+    k), W0 (R, k, g))`` in place of the seeded random draws. ``recipe``:
+    the resolved :class:`SolverRecipe`, else resolved from the env knobs
+    (batch KL: ``dna`` by default). ``trace``: a list that receives, per
+    slice of ``r`` replicates, one ``(passes, r)`` array of per-pass
+    objectives (online) or one :class:`~..ops.nmf.SolverTelemetry`
+    (batch). Returns ``(spectra (R, k, g), usages (R, n, k) | None, errs
+    (R,))`` as numpy in seed order."""
     dev = resolve_device(device)
-    if mode != "online":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (this slice runs 'online')")
+    if mode not in ("online", "batch"):
+        raise ValueError(f"unknown mode {mode!r}")
     if init != "random":
         raise NotImplementedError(
-            f"init={init!r} is not ported yet (this slice runs 'random')")
+            f"init={init!r} is not ported yet (the port runs 'random')")
     beta = beta_loss_to_float(beta_loss)
     chunk = int(min(online_chunk_size, X.shape[0]))
-    Xc, n_staged = _stage(X, beta, init, chunk, dev)
-    ell = isinstance(Xc, EllMatrix)
-    g = int(Xc.g if ell else Xc.shape[-1])
-    C, chunk = Xc.shape[0], Xc.shape[1]
+    Xs, n_staged = _stage(X, beta, init, mode, chunk, dev)
+    ell = isinstance(Xs, EllMatrix)
+    g = int(Xs.g if ell else Xs.shape[-1])
+    if mode == "online":
+        C, chunk = Xs.shape[0], Xs.shape[1]
+        n_padded = C * chunk
+    else:
+        n_padded = Xs.shape[0]
     n = int(n_rows if n_rows is not None
-            else (n_staged if n_staged is not None else C * chunk))
+            else (n_staged if n_staged is not None else n_padded))
     k = int(k)
+    if recipe is None:
+        recipe = resolve_recipe(beta, mode, ell=ell, n=n, g=g, k=k,
+                                ell_width=Xs.width if ell else None)
+    if recipe.algo in ("hals", "sketch"):
+        raise NotImplementedError(
+            f"the {recipe.algo} recipe is not ported yet (the port runs "
+            "mu, amu and dna)")
+    if recipe.kl_newton and beta != 1.0:
+        raise ValueError(f"the dna recipe requires beta=1 (KL); this sweep "
+                         f"has beta={beta}")
+    if (mode == "batch" and beta == 2.0 and _bundle_width(k) > 1
+            and recipe.inner_repeats == 1):
+        raise NotImplementedError(
+            "beta=2 batch sweeps run the bundled solver "
+            "(nmf_fit_batch_bundled), which is not ported yet")
     h_tol, n_passes, h_tol_start = resolve_online_schedule(
         beta, online_h_tol, n_passes)
+    bf16 = (False if recipe.kl_newton
+            else resolve_bf16_ratio(beta, mode))
     l1_W, l2_W = split_regularization(alpha_W, l1_ratio_W)
     l1_H, l2_H = split_regularization(alpha_H, l1_ratio_H)
     seeds = [int(s) & 0x7FFFFFFF for s in seeds]
@@ -149,10 +207,11 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                 np.zeros((0, n, k), np.float32) if return_usages else None,
                 np.zeros((0,), np.float32))
     # mean over all n*g entries: padded rows are all-zero and add nothing
-    x_mean = float((Xc.vals.sum() if ell else Xc.sum()) / (n * g))
+    x_mean = float((Xs.vals.sum() if ell else Xs.sum()) / (n * g))
     rpb = replicates_per_batch or auto_replicates_per_batch(
-        n, g, k, beta=beta, chunk=chunk,
-        ell_width=Xc.width if ell else None, device=dev)
+        n, g, k, beta=beta, chunk=chunk if mode == "online" else n,
+        ell_width=Xs.width if ell else None, kl_newton=recipe.kl_newton,
+        device=dev)
     spectra, usages, errs = [], [], []
     for start in range(0, R, rpb):
         sl = seeds[start:start + rpb]
@@ -163,21 +222,30 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                 inits[0][start:start + rpb], np.float32)).to(dev)
             W0 = torch.tensor(np.ascontiguousarray(
                 inits[1][start:start + rpb], np.float32)).to(dev)
-        H0 = torch.nn.functional.pad(H0, (0, 0, 0, C * chunk - n))
-        passes = [] if trace is not None else None
-        Hc, W, err = nmf_fit_online(
-            Xc, H0.reshape(len(sl), C, chunk, k), W0, beta=beta, tol=tol,
-            h_tol=h_tol, chunk_max_iter=int(online_chunk_max_iter),
-            n_passes=n_passes, l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W,
-            h_tol_start=h_tol_start,
-            bf16_ratio=resolve_bf16_ratio(beta, mode), trace=passes)
-        if trace is not None:
-            trace.append(np.stack(passes))
+        H0 = torch.nn.functional.pad(H0, (0, 0, 0, n_padded - n))
+        if mode == "batch":
+            H, W, err = nmf_fit_batch(
+                Xs, H0, W0, beta=beta, tol=tol,
+                max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H,
+                l1_W=l1_W, l2_W=l2_W,
+                inner_repeats=int(recipe.inner_repeats),
+                kl_newton=bool(recipe.kl_newton), trace=trace)
+        else:
+            passes = [] if trace is not None else None
+            Hc, W, err = nmf_fit_online(
+                Xs, H0.reshape(len(sl), C, chunk, k), W0, beta=beta,
+                tol=tol, h_tol=h_tol,
+                chunk_max_iter=int(online_chunk_max_iter),
+                n_passes=n_passes, l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
+                l2_W=l2_W, h_tol_start=h_tol_start, bf16_ratio=bf16,
+                trace=passes, kl_newton=bool(recipe.kl_newton))
+            if trace is not None:
+                trace.append(np.stack(passes))
+            H = Hc.reshape(len(sl), n_padded, k)
         spectra.append(W.cpu().numpy())
         errs.append(err.cpu().numpy())
         if return_usages:
-            usages.append(Hc.reshape(len(sl), C * chunk, k)[:, :n]
-                          .cpu().numpy())
+            usages.append(H[:, :n].cpu().numpy())
     return (np.concatenate(spectra),
             np.concatenate(usages) if return_usages else None,
             np.concatenate(errs))

@@ -1,0 +1,67 @@
+"""The environment knobs the port reads, and their parsers.
+
+Own copy of the readers of ``cnmf_torch_tpu/utils/envknobs.py``
+(``env_int``, ``env_str``, ``env_flag``) with the same parsing, words and
+errors, so the same environment means the same thing to both packages.
+The registry holds only the knobs the port honours; reading any other
+name raises, as it does in the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["KNOBS", "env_int", "env_str", "env_flag"]
+
+_FALSE_WORDS = ("0", "false", "off", "no")
+
+# name -> what it does (the solver recipe knobs of ops/recipe.py)
+KNOBS = {
+    "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
+    "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
+    "CNMF_TPU_KL_NEWTON": "an engaged acceleration picks dna for KL (1)",
+    "CNMF_TPU_SKETCH": "sketched KL W updates: 0 (default), 1 or auto",
+    "CNMF_TPU_SKETCH_DIM": "sampled rows per sketched W update",
+    "CNMF_TPU_SKETCH_EXACT_EVERY": "exact W update cadence of the sketch",
+}
+
+
+def _raw(name: str) -> str | None:
+    if name not in KNOBS:
+        raise ValueError(f"env knob {name!r} is not one the port reads; "
+                         "declare it in cnmf_torch_tpu_torch/utils/"
+                         "envknobs.py")
+    return os.environ.get(name)
+
+
+def env_int(name: str, default: int | None,
+            lo: int | None = None, hi: int | None = None) -> int | None:
+    """Parse an integer knob: empty/unset -> ``default``; non-numeric or
+    outside ``[lo, hi]`` raises ``ValueError`` naming the knob."""
+    raw = (_raw(name) or "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected an integer")
+    if lo is not None and val < lo:
+        raise ValueError(f"{name}={raw!r}: must be >= {lo}")
+    if hi is not None and val > hi:
+        raise ValueError(f"{name}={raw!r}: must be <= {hi}")
+    return val
+
+
+def env_str(name: str, default: str = "") -> str:
+    """Read a string knob verbatim; unset -> ``default``."""
+    raw = _raw(name)
+    return default if raw is None else raw
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """Boolean knob: unset/empty -> ``default``; ``0/false/off/no`` (any
+    case) -> False; anything else -> True."""
+    raw = _raw(name)
+    if raw is None or not raw.strip():
+        return default
+    return raw.strip().lower() not in _FALSE_WORDS

@@ -1,4 +1,5 @@
-"""The CUDA ELL KL kernels against their plain torch versions, on the card.
+"""The CUDA ELL KL kernels against their plain torch versions, on the card
+(the four of the MU solvers and the two of the batch dna recipe).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels build at
 first use) and skips without one. Run them on the card with
@@ -100,16 +101,85 @@ def test_beta_err_matches_plain(cuda_device, n, g, k, R):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+def test_h_newton_stats_matches_plain(cuda_device, n, g, k, R):
+    x, H, W = _inputs(n, g, k, R, 0.06, 5, cuda_device, zero_rows=3)
+    numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+    again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+    want = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
+    torch.cuda.synchronize()
+    _close(numer, want[0], 2e-5)
+    _close(hess, want[1], 2e-5)
+    assert torch.equal(numer, again[0]) and torch.equal(hess, again[1])
+    # all-zero rows: exact +0.0 in both outputs
+    for out in (numer, hess):
+        assert torch.all(out[:, :3] == 0)
+        assert not torch.signbit(out[:, :3]).any()
+
+
+def test_h_newton_stats_where_wh_underflows(cuda_device):
+    """``r2 ~ X / EPS^2`` may overflow the Hessian to inf; the kernel (no
+    fast math) must put inf and finite values where the plain version
+    does."""
+    x, H, W = _inputs(200, 150, 6, 2, 0.08, 6, cuda_device)
+    H[0, :20] = 1e-30
+    numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+    want_n, want_h = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(hess), torch.isinf(want_h))
+    fin = torch.isfinite(want_h)
+    _close(hess[fin], want_h[fin], 2e-5)
+    _close(numer, want_n, 2e-5)
+
+
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+def test_wh_at_nz_matches_plain(cuda_device, n, g, k, R):
+    x, H, W = _inputs(n, g, k, R, 0.06, 7, cuda_device, zero_rows=3)
+    got = kl_ell.wh_at_nz(x.cols, H, W)
+    again = kl_ell.wh_at_nz(x.cols, H, W)
+    want = kl_ell.wh_at_nz_plain(x.cols, H, W)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-5)
+    assert torch.equal(got, again)
+
+
 def test_launch_counts_and_no_fallback(cuda_device):
     x, H, W = _inputs(64, 50, 4, 2, 0.1, 4, cuda_device)
     kl_ell.reset_launches()
     kl_ell.kl_h_stats(x, H, W)
     kl_ell.kl_w_stats(x, H, W)
     kl_ell.kl_beta_err(x, H, W)
+    kl_ell.kl_h_newton_stats(x, H, W)
+    kl_ell.kl_wh_at_nz(x, H, W)
     assert kl_ell.launches == {"h_stats": 1, "ratio": 1, "w_numer": 1,
-                               "beta_err_partials": 1}
-    # a CUDA tensor launches the kernel or raises: a wrong dtype is refused
+                               "beta_err_partials": 1, "h_newton_stats": 1,
+                               "wh_at_nz": 1}
+    # a CUDA tensor launches the kernel or raises: a wrong dtype or a
+    # tensor on another device is refused, never computed on the CPU
     with pytest.raises(TypeError):
         kl_ell.h_stats(x.vals.double(), x.cols, H, W)
     with pytest.raises(ValueError):
         kl_ell.h_stats(x.vals, x.cols, H.cpu(), W)
+    with pytest.raises(TypeError):
+        kl_ell.h_newton_stats(x.vals.to(torch.bfloat16), x.cols, H, W)
+    with pytest.raises(ValueError):
+        kl_ell.wh_at_nz(x.cols, H, W.cpu())
+    assert sum(kl_ell.launches.values()) == 6
+
+
+def test_batch_dna_solve_on_the_card_matches_the_cpu(cuda_device):
+    """A small batch solve under the dna recipe, a fixed 40 iterations,
+    on the card (kernels) and on the CPU (plain versions)."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    x, H, W = _inputs(300, 200, 5, 3, 0.08, 8, cuda_device)
+    errs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        trace = []
+        _, _, err = nmf.nmf_fit_batch(x.to(dev), H.to(dev), W.to(dev),
+                                      beta=1.0, tol=0.0, max_iter=40,
+                                      kl_newton=True, trace=trace)
+        errs.append(err.cpu().numpy())
+        assert ((trace[0].dna_fallback > 0)
+                & (trace[0].dna_fallback < 1)).all()
+    np.testing.assert_allclose(errs[0], errs[1], rtol=1e-4)

@@ -116,6 +116,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         replicate_sweep(np.ones((4, 3), np.float32), [1], 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        replicate_sweep(np.ones((4, 3), np.float32), [1], 2, mode="batch",
+                        beta_loss="kullback-leibler")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnmf.run_nmf(np.ones((4, 3), np.float32), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["combine", "--output-dir", str(tmp_path)])
     # asking for the CPU is the only way to run without a card
     assert cNMF(output_dir=str(tmp_path), name="y",
