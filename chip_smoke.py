@@ -17,9 +17,14 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    transpose set, at ``rtol 2e-5``); two launches bit-identical; then each
    kernel's time (CUDA events, warmed, median of many launches) beside its
    bound, its plain version's time and, where one PyTorch call computes
-   the same function, that call's time. Small solves on the card (an
-   online KL solve, a usage refit, a batch dna solve) are held against
-   the same solves on the CPU (plain versions).
+   the same function, that call's time, and for ``h_stats`` its launch
+   (threads per block, W table bytes, resident blocks per SM); ``h_stats``
+   also at the pipeline's other K (5, 7, 11) on the chunk. Then a sweep of
+   ``h_stats`` over the card tests' edge shapes (k from 1 to 64, R=1 and
+   20, tables too large for shared memory, all-zero and full-width rows)
+   against its plain version. Small solves on the card (an online KL
+   solve, a usage refit, a batch dna solve) are held against the same
+   solves on the CPU (plain versions).
 3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
    the low-rank Poisson model of ``bench.py`` at ~600 UMI per cell, then
    prepare (Kullback-Leibler, 2,000 HVGs, chunks of 5,000 cells),
@@ -29,7 +34,11 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    the ELL lane ran the CUDA kernels, that every kernel of the path
    launched, that the consensus refit launched ``h_stats`` again, that the
    objectives are finite and fall from pass to pass, and that every
-   artifact has its shape.
+   artifact has its shape. Then one ``torch.profiler`` window over an
+   online sweep at k=13 prints ``h_stats``' share of the device time and
+   the device's idle share of the same sweep's unprofiled wall, with the
+   profiler's overhead ("not measured" where the profiler fails or records
+   no device time; no check; a failure of the sweep itself fails the run).
 4. Batch pipeline: a second run directory on the same counts whose
    run-parameters file says ``"mode": "batch"`` (edited after prepare, as
    a user would), then factorize, combine, consensus (k=9) and the
@@ -50,6 +59,7 @@ card the script exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -77,6 +87,9 @@ CARD = "cuda"
 # operations/s outside the tensor cores (the ELL kernels use no tensor core)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# bf16 operations/s outside the tensor cores: bf16x2 instructions, twice
+# the f32 rate (NVIDIA H100 architecture white paper, non-tensor BF16)
+PEAK_BF16 = 2 * PEAK_F32
 
 # the TPU kernels the CUDA kernels replace (kernel bodies)
 REPLACES = {
@@ -235,17 +248,172 @@ def kernel_phase(x, nnz: int, log_rows: list):
                 rec = _time_kernel(kl_ell, name, x, vals, r_plain, H, W,
                                    bf16, nnz)
                 rec["max_abs_err"] = errs[name]
+                launch = (h_stats_launch_note(kl_ell, R, n, k, g, bf16)
+                          if name == "h_stats" else "")
                 log_rows.append(
                     f"  {name:18s} {tag:9s} kernel {rec['ms']:.4f} ms  "
                     f"plain {rec['plain_ms']:.4f} ms  library "
                     f"{rec['library_ms']} ms  bound {rec['bound_ms']:.4f} ms "
-                    f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}")
+                    f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}"
+                    + launch)
                 if k == 13 and (bf16 or name == "beta_err_partials"):
                     rec["variant"] = (
                         f"{tag}, R={R}, rows={n}, genes={g}, w={w}, "
-                        f"wt={wt}, nnz={nnz}")
+                        f"wt={wt}, nnz={nnz}" + launch)
                     records[name] = rec
     return records
+
+
+def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
+    """``h_stats``' launch at these sizes: threads per block, the packed W
+    table's bytes (0: read from device memory), resident blocks per SM."""
+    L = kl_ell.h_stats_launch(R, n, k, g, bf16, bf16)
+    return (f"; launch {L['threads']} threads, table {L['table_bytes']} B"
+            f"{'' if L['table_in_smem'] else ' (device memory)'}, "
+            f"{L['blocks_per_sm']} blocks/SM, grid {L['grid']}")
+
+
+def h_stats_edge_sweep(log_rows: list):
+    """``h_stats`` at the edge shapes of the card tests, both modes,
+    against its plain version: three all-zero rows (exact +0.0) and one
+    row that fills the whole ELL width; two launches bit-identical."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
+                                                             edge_inputs)
+
+    for n, g, k, R in EDGE_SHAPES:
+        x, H, W = edge_inputs(n, g, k, R, 0.06, 1, CARD, zero_rows=3,
+                              full_row=True)
+        check(bool((x.vals[-1] > 0).all()), "edge sweep: no full-width row")
+        for bf16 in (False, True):
+            tag = f"n={n} g={g} k={k} R={R} {'bf16' if bf16 else 'f32'}"
+            vals = x.vals.to(torch.bfloat16) if bf16 else x.vals
+            got = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+            again = kl_ell.h_stats(vals, x.cols, H, W, bf16)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"h_stats {tag} not repeatable")
+            check(bool((got[:, :3] == 0).all())
+                  and not bool(torch.signbit(got[:, :3]).any()),
+                  f"h_stats {tag}: an all-zero row is not +0.0")
+            err = max_abs_err(got, kl_ell.h_stats_plain(vals, x.cols, H, W,
+                                                        bf16),
+                              2e-2 if bf16 else 2e-5)
+            log_rows.append(f"  h_stats edge {tag:28s} max_abs_err "
+                            f"{err:.3g}"
+                            + h_stats_launch_note(kl_ell, R, n, k, g, bf16))
+
+
+def h_stats_k_sweep(x, nnz: int, log_rows: list):
+    """``h_stats`` at the pipeline's other K (phase 2 times k=9 and 13) on
+    the chunk, both modes: checked against its plain version and timed
+    beside its bound. Returns the records."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    n, g = x.vals.shape[0], x.rows_t.shape[0]
+    R = REPLICATES
+    gen = torch.Generator().manual_seed(SEED + 2)
+    out = []
+    for k in (k for k in KS if k not in (9, 13)):
+        H = (torch.rand((R, n, k), generator=gen) + 0.1).to(CARD)
+        W = (torch.rand((R, k, g), generator=gen) + 0.1).to(CARD)
+        for bf16 in (False, True):
+            tag = f"k={k} {'bf16' if bf16 else 'f32'}"
+            vals = x.vals.to(torch.bfloat16) if bf16 else x.vals
+            err = max_abs_err(kl_ell.h_stats(vals, x.cols, H, W, bf16),
+                              kl_ell.h_stats_plain(vals, x.cols, H, W, bf16),
+                              2e-2 if bf16 else 2e-5)
+            rec = _time_kernel(kl_ell, "h_stats", x, vals, None, H, W, bf16,
+                               nnz)
+            rec.update(k=k, mode="bf16" if bf16 else "f32", max_abs_err=err)
+            out.append(rec)
+            log_rows.append(
+                f"  h_stats            {tag:9s} kernel {rec['ms']:.4f} ms  "
+                f"plain {rec['plain_ms']:.4f} ms  bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  max_abs_err "
+                f"{err:.3g}" + h_stats_launch_note(kl_ell, R, n, k, g, bf16))
+    return out
+
+
+def profile_window(Xn, log_rows: list):
+    """One ``torch.profiler`` window over an online replicate sweep at
+    k=13 (20 replicates, the pipeline's chunks): ``h_stats``' share of
+    the device time and the device's idle share (one stream, so the
+    kernels' device times do not overlap and their sum is the busy time).
+    The idle share is taken against the same sweep's wall without the
+    profiler, whose overhead is printed beside it. A failure of the sweep
+    fails the run; where the profiler itself fails or records no device
+    time, both shares read "not measured", which is no failure."""
+    from cnmf_torch_tpu_torch.parallel.replicates import replicate_sweep
+
+    def sweep():
+        replicate_sweep(Xn, list(range(REPLICATES)), 13,
+                        beta_loss="kullback-leibler", mode="online",
+                        online_chunk_size=CHUNK, device=CARD)
+
+    def not_measured(e):
+        log_rows.append(f"  profiler window: not measured ({type(e).__name__}"
+                        f": {str(e).splitlines()[0][:120] if str(e) else ''})")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    out = {"sweep_seconds": plain_wall}
+    try:    # the profiler is untried on this machine
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:
+        not_measured(e)
+        return out
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    except BaseException:
+        with contextlib.suppress(Exception):
+            prof.stop()
+        raise
+    try:
+        prof.stop()
+        dev_us = {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = getattr(evt, "self_cuda_time_total", 0.0)
+            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + float(t)
+    except Exception as e:
+        not_measured(e)
+        return out
+    busy = sum(dev_us.values()) / 1e6
+    out["profiled_seconds"] = wall
+    if busy <= 0:
+        log_rows.append("  profiler window: device time not measured "
+                        "(no device events recorded)")
+        return out
+    hs = sum(t for key, t in dev_us.items() if "h_stats_kernel" in key) / 1e6
+    idle = 1.0 - busy / plain_wall
+    out.update(device_busy_seconds=busy, h_stats_seconds=hs,
+               h_stats_share=hs / busy, idle_share=idle,
+               profiler_overhead_seconds=wall - plain_wall,
+               top={key: t / 1e6 for key, t in sorted(
+                   dev_us.items(), key=lambda kv: -kv[1])[:8]})
+    log_rows.append(
+        f"  profiler window (online sweep, k=13, {REPLICATES} replicates): "
+        f"wall {plain_wall:.3f} s unprofiled, {wall:.3f} s profiled "
+        f"(profiler overhead {wall - plain_wall:.3f} s); device busy "
+        f"{busy:.3f} s; h_stats {hs:.3f} s = {hs / busy:.1%} of device "
+        f"time; device idle {idle:.1%} of the unprofiled wall")
+    for key, t in out["top"].items():
+        log_rows.append(f"    {t * 1e3:9.3f} ms  {key[:100]}")
+    return out
 
 
 def batch_kernel_phase(x, nnz: int, log_rows: list):
@@ -308,15 +476,18 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
             rec = _time_kernel(kl_ell, name, x, x.vals, r_plain, H, W,
                                False, nnz)
             rec["max_abs_err"] = errs[name]
+            launch = (h_stats_launch_note(kl_ell, R, n, k, g, False)
+                      if name == "h_stats" else "")
             log_rows.append(
                 f"  {name:18s} {tag:15s} kernel {rec['ms']:.4f} ms  "
                 f"plain {rec['plain_ms']:.4f} ms  library "
                 f"{rec['library_ms']} ms  bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}")
+                f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}"
+                + launch)
             if k == 13:
                 rec["variant"] = (
                     f"{tag}, R={R}, rows={n}, genes={g}, w={w}, wt={wt}, "
-                    f"nnz={nnz}" + rec.pop("library_note", ""))
+                    f"nnz={nnz}" + rec.pop("library_note", "") + launch)
                 if name in ("h_newton_stats", "wh_at_nz"):
                     records[name] = rec
                 else:
@@ -334,6 +505,7 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
     hw_bytes = R * n * k * 4 + R * k * g * 4
     library_ms = None
     note = ""
+    ops_bf16 = 0
     if name == "h_newton_stats":
         fn = lambda: kl_ell.h_newton_stats(  # noqa: E731
             vals, x.cols, H, W)
@@ -356,6 +528,12 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
             vals, x.cols, H, W, bf16)
         nbytes = nnz * (vb + 4) + hw_bytes + R * n * k * 4
         ops = R * nnz * (4 * k + 1)
+        if bf16:
+            # the kernel runs the k h*w products, the WH sum and the k
+            # ratio*W products in bf16; the k f32 sums and the division
+            # stay f32
+            ops_bf16 = R * nnz * 3 * k
+            ops -= ops_bf16
     elif name == "ratio":
         fn = lambda: kl_ell.ratio(x.vals, x.cols, H, W, bf16)  # noqa: E731
         plain = lambda: kl_ell.ratio_plain(  # noqa: E731
@@ -381,7 +559,7 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
         nbytes = nnz * 8 + hw_bytes + R * blocks * 4
         ops = R * nnz * (2 * k + 8)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
+    t_ops = (ops / PEAK_F32 + ops_bf16 / PEAK_BF16) * 1e3
     rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES[name], "launches": 0,
            "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, iters=10,
@@ -615,6 +793,7 @@ def main() -> int:
         f"per-chunk transpose width {xc.t_width}, chunk-0 nonzeros {nnz}")
     rows = []
     records = kernel_phase(x0, nnz, rows)
+    h_stats_by_k = h_stats_k_sweep(x0, nnz, rows)
     del x0, xc
     xb = csr_to_ell(Xn).to(CARD)
     nnz_b = int((xb.vals > 0).sum())
@@ -624,6 +803,7 @@ def main() -> int:
     records.update(batch_records)
     del xb
     torch.cuda.empty_cache()
+    h_stats_edge_sweep(rows)
     small_solve_check(rows)
     log("kernels (median of CUDA-event timed launches, L2-warm inputs):")
     for line in rows:
@@ -673,6 +853,12 @@ def main() -> int:
         check(np.isfinite(info["errs"][k]).all(), f"k={k}: nonfinite error")
     log(f"pass-to-pass objective rises after the second pass: {rises}")
     check_artifacts(obj, stats)
+    prof_rows = []
+    profile = profile_window(Xn, prof_rows)
+    log("device-time profile (after the online path; its launches are not "
+        "counted):")
+    for line in prof_rows:
+        log(line)
 
     # -- phase 4: the batch path -------------------------------------------
     bobj = cNMF(OUT, "batch", device=CARD)
@@ -742,7 +928,9 @@ def main() -> int:
                            "batch_factorize": b_factorize},
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
                          for s, w, p in stages.rows],
-              "card": smi, "seconds": time.perf_counter() - t_start}
+              "h_stats_by_k": h_stats_by_k,
+              "profile": profile, "card": smi,
+              "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s")

@@ -14,14 +14,15 @@
 //
 // Layout: the ELL buffers (vals, cols: n x w; rows_t, perm_t: g x wt) are
 // shared by every replicate; H (R, n, k), W (R, k, g) and every output
-// carry the replicate axis, which is gridDim.y. Padded slots hold value 0
-// at column 0 (row side) or point at the zero sentinel slot n*w of the
-// flat ratio buffer (transpose side), so they add exactly +0.0.
+// carry the replicate axis (gridDim.y, or the row sequence that h_stats'
+// persistent blocks walk). Padded slots hold value 0 at column 0 (row
+// side, after the row's stored values) or point at the zero sentinel slot
+// n*w of the flat ratio buffer (transpose side), so they add exactly +0.0.
 //
-// Design (see ops/kernels/kl_ell.py for the bound of each kernel):
-//   * one warp per row (h_stats, ratio, beta_err, h_newton_stats,
-//     wh_at_nz) or per gene (w_numer); lanes stride over the row's w (or
-//     the gene's wt) slots;
+// Design of ratio, w_numer, beta_err, h_newton_stats and wh_at_nz (see
+// ops/kernels/kl_ell.py for the bound of each kernel):
+//   * one warp per row (or per gene for w_numer); lanes stride over the
+//     row's w (or the gene's wt) slots;
 //   * the row's H[r, i, :] lives in registers; W[r] is staged once per
 //     block in dynamic shared memory when k*g*4 bytes fit the budget,
 //     otherwise read through the read-only cache (__ldg);
@@ -31,6 +32,31 @@
 //   * bf16 mode rounds where the JAX bf16 chain rounds: operands to bf16,
 //     WH accumulated in bf16, the ratio in bf16, every ratio*W (or ratio*H)
 //     product rounded to bf16 and then summed in f32.
+//
+// h_stats is bound by operations (about 4k+1 a nonzero and replicate).
+// What keeps it from that bound is gathering W (k random values a slot),
+// the padded slots (29% at the main path's shapes) and occupancy; the
+// design above would gather W twice a slot with scalar loads. Its design:
+//   * W[r] is staged as a packed per-gene table, bf16 in bf16 mode (the
+//     chain casts W anyway): a lane gathers its slot's k components with
+//     ceil(k/8) (bf16) or ceil(k/4) (f32) 16-byte shared loads, once, and
+//     keeps them in registers for the WH chain and the k products; the
+//     chunks of a gene are XOR-swizzled so random genes spread over banks;
+//     staging reads W along genes (coalesced) and writes whole chunks;
+//   * bf16 arithmetic runs on bf16x2 pairs: h*w and ratio*w products and
+//     the WH sum have one bf16 rounding each, as the f32-then-round chain
+//     does, so results equal the plain version's bit for bit per product;
+//   * a warp stops at a row's first window of 32 padded slots (padding
+//     sits at the row's tail) and skips padded slots in the last window;
+//   * per-component sums fold across the warp in 5 fixed-order steps that
+//     halve the values each lane holds (16 shuffles at k <= 16, not 5k);
+//   * the grid is one wave of resident blocks from the occupancy
+//     calculator at the table's size; blocks walk contiguous runs of the
+//     (R*n)-row sequence and restage the table when the replicate changes;
+//     the f32 k <= 16 table (128 KB at g=2000) leaves one block an SM, so
+//     that instance runs 16 warps a block;
+//   * a table larger than a block's shared memory is not staged: each lane
+//     reads its slot's column from W in device memory, still once a slot.
 //
 // Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
 // Newton Hessian may overflow to +inf, and the kernel and its plain
@@ -42,6 +68,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -127,47 +154,254 @@ __device__ __forceinline__ void load_h_row(float (&h)[KMAX],
   }
 }
 
-// numer[r, i, c] = sum_j ratio[i, j] * W[r, c, cols[i, j]]
+// ---------------------------------------------------------------------------
+// h_stats: numer[r, i, c] = sum_j ratio[i, j] * W[r, c, cols[i, j]]
+//
+// The packed table: gene `col` owns nq 16-byte chunks holding its k
+// components (bf16 pairs, 8 a chunk, in bf16 mode; f32, 4 a chunk), the
+// tail of the last chunk zero; chunk q sits at position q ^ (col & sw)
+// (sw = nq - 1 when nq is a power of two, else 0).
+// ---------------------------------------------------------------------------
+
+template <bool BF16, int KMAX>
+struct HStatsShape {
+  // 32-bit words a lane holds for its slot's column: bf16 pairs or f32
+  static constexpr int NW = BF16 ? KMAX / 2 : KMAX;
+  static constexpr int NQ = NW / 4;        // 16-byte chunks at most
+  // the f32 k <= 16 table fills most of an SM's shared memory, so one
+  // block of 16 warps holds it; the others run 8 warps a block and more
+  // blocks an SM
+  static constexpr int THREADS = (!BF16 && KMAX <= 16) ? 512 : 256;
+  static constexpr int WARPS = THREADS / 32;
+};
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &p, 4);
+  return u;
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf16x2(unsigned u) {
+  __nv_bfloat162 p;
+  memcpy(&p, &u, 4);
+  return p;
+}
+
+// word i of a column: components 2i, 2i+1 (bf16) or component i (f32)
+template <bool BF16, int KMAX>
+__device__ __forceinline__ unsigned column_word(const float* Wr, int k, int g,
+                                                int col, int i) {
+  if (BF16) {
+    const float lo = (2 * i < k) ? __ldg(Wr + (int64_t)(2 * i) * g + col) : 0.f;
+    const float hi =
+        (2 * i + 1 < k) ? __ldg(Wr + (int64_t)(2 * i + 1) * g + col) : 0.f;
+    return pack_bf16x2(lo, hi);
+  }
+  return __float_as_uint((i < k) ? __ldg(Wr + (int64_t)i * g + col) : 0.f);
+}
+
+// Stage W[r] (k x g, f32) as the packed table: each thread packs whole
+// genes, reading W along genes (coalesced across the warp) and writing
+// 16-byte chunks.
+template <bool BF16, int KMAX>
+__device__ __forceinline__ void stage_packed(uint4* tbl, const float* Wr,
+                                             int k, int g, int nq, int sw) {
+  using S = HStatsShape<BF16, KMAX>;
+  for (int gene = threadIdx.x; gene < g; gene += blockDim.x) {
+    unsigned wv[S::NW];
+#pragma unroll
+    for (int i = 0; i < S::NW; ++i)
+      wv[i] = column_word<BF16, KMAX>(Wr, k, g, gene, i);
+#pragma unroll
+    for (int q = 0; q < S::NQ; ++q) {
+      if (q < nq) {
+        tbl[(int64_t)gene * nq + (q ^ (gene & sw))] =
+            make_uint4(wv[4 * q], wv[4 * q + 1], wv[4 * q + 2], wv[4 * q + 3]);
+      }
+    }
+  }
+}
+
+// Sum N per-lane values over the warp in a fixed order with N/2 + N/4 + ...
+// shuffles instead of 5N: at each offset a lane keeps one half of its
+// values and sends its partner the other half. hstats_store says which
+// lane then holds which component's warp total.
+template <int N, int M, int OFF>
+__device__ __forceinline__ void warp_fold(float (&a)[N], int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (M == 1) {
+      a[0] += __shfl_xor_sync(0xffffffffu, a[0], OFF);
+      warp_fold<N, 1, OFF / 2>(a, lane);
+    } else {
+      constexpr int HALF = M / 2;
+      const bool up = (lane & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        const float send = up ? a[i] : a[i + HALF];
+        const float keep = up ? a[i + HALF] : a[i];
+        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      warp_fold<N, HALF, OFF / 2>(a, lane);
+    }
+  }
+}
+
+// After warp_fold<KMAX, KMAX, 16>: for KMAX <= 32, lane l holds component
+// l / (32 / KMAX) in a[0] (lanes of one group hold the same total); for
+// KMAX = 64, lane l holds components 2l and 2l + 1 in a[0] and a[1].
+template <int KMAX>
+__device__ __forceinline__ void hstats_store(const float (&a)[KMAX], int lane,
+                                             float* out, int k) {
+  if constexpr (KMAX >= 32) {
+    constexpr int PER = KMAX / 32;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = lane * PER + i;
+      if (c < k) out[c] = a[i];
+    }
+  } else {
+    constexpr int GROUP = 32 / KMAX;
+    const int c = lane / GROUP;
+    if (lane % GROUP == 0 && c < k) out[c] = a[0];
+  }
+}
+
 template <typename VT, bool BF16, int KMAX>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void h_stats_row(
+    const VT* __restrict__ vals, const int* __restrict__ cols,
+    const float* __restrict__ Hrow, const float* __restrict__ Wr,
+    const uint4* tbl, float* __restrict__ out, int64_t base, int w, int k,
+    int g, int nq, int sw, bool use_smem, int lane) {
+  using S = HStatsShape<BF16, KMAX>;
+  // the row's H in registers: bf16 pairs or f32
+  unsigned hv[S::NW];
+#pragma unroll
+  for (int i = 0; i < S::NW; ++i) {
+    if (BF16) {
+      const float lo = (2 * i < k) ? __ldg(Hrow + 2 * i) : 0.f;
+      const float hi = (2 * i + 1 < k) ? __ldg(Hrow + 2 * i + 1) : 0.f;
+      hv[i] = pack_bf16x2(lo, hi);
+    } else {
+      hv[i] = __float_as_uint((i < k) ? __ldg(Hrow + i) : 0.f);
+    }
+  }
+  float acc[KMAX];
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
+
+  int j = lane;
+  int col = 0;
+  float v = 0.f;
+  if (j < w) {
+    col = __ldg(cols + base + j);
+    v = load_val(vals + base + j);
+  }
+  // A row's stored values sit first and its padding (value 0) after them,
+  // so a window of 32 slots that is all padding ends the row. A padded
+  // slot in the last window adds exactly +0.0 and is skipped.
+  while (__any_sync(0xffffffffu, v != 0.f)) {
+    const int jn = j + 32;
+    int col_n = 0;
+    float v_n = 0.f;
+    if (jn < w) {   // the next window's coordinate, in flight meanwhile
+      col_n = __ldg(cols + base + jn);
+      v_n = load_val(vals + base + jn);
+    }
+    if (v != 0.f) {
+      unsigned wv[S::NW];
+      if (use_smem) {
+#pragma unroll
+        for (int q = 0; q < S::NQ; ++q) {
+          uint4 u = make_uint4(0u, 0u, 0u, 0u);
+          if (q < nq) u = tbl[(int64_t)col * nq + (q ^ (col & sw))];
+          wv[4 * q] = u.x;
+          wv[4 * q + 1] = u.y;
+          wv[4 * q + 2] = u.z;
+          wv[4 * q + 3] = u.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < S::NW; ++i)
+          wv[i] = column_word<BF16, KMAX>(Wr, k, g, col, i);
+      }
+      // components past k hold 0 in both H and W: their products are +0.0
+      // and leave the WH chain unchanged. The loops run to KMAX: stopping
+      // them at the last chunk k fills cost registers (a spill at
+      // KMAX=16) and time at every k on the H100
+      if (BF16) {
+        // the JAX chain: each h*w rounded to bf16, the sum rounded to
+        // bf16 after every component (one bf16 rounding each, as here)
+        __nv_bfloat162 p = __hmul2(as_bf16x2(hv[0]), as_bf16x2(wv[0]));
+        __nv_bfloat16 wh = __hadd(__low2bfloat16(p), __high2bfloat16(p));
+#pragma unroll
+        for (int i = 1; i < S::NW; ++i) {
+          p = __hmul2(as_bf16x2(hv[i]), as_bf16x2(wv[i]));
+          wh = __hadd(__hadd(wh, __low2bfloat16(p)), __high2bfloat16(p));
+        }
+        const float den = fmaxf(__bfloat162float(wh), round_bf16(KL_EPS));
+        const __nv_bfloat162 r2 =
+            __bfloat162bfloat162(__float2bfloat16_rn(round_bf16(v) / den));
+#pragma unroll
+        for (int i = 0; i < S::NW; ++i) {
+          const __nv_bfloat162 p = __hmul2(r2, as_bf16x2(wv[i]));
+          acc[2 * i] += __low2float(p);
+          acc[2 * i + 1] += __high2float(p);
+        }
+      } else {
+        float wh = 0.f;
+#pragma unroll
+        for (int c = 0; c < KMAX; ++c) {
+          const float hw = __uint_as_float(hv[c]) * __uint_as_float(wv[c]);
+          wh = (c == 0) ? hw : wh + hw;
+        }
+        const float ratio = v / fmaxf(wh, KL_EPS);
+#pragma unroll
+        for (int c = 0; c < KMAX; ++c) acc[c] += ratio * __uint_as_float(wv[c]);
+      }
+    }
+    j = jn;
+    col = col_n;
+    v = v_n;
+  }
+  warp_fold<KMAX, KMAX, 16>(acc, lane);
+  hstats_store<KMAX>(acc, lane, out, k);
+}
+
+// Blocks are persistent: block b walks the rows [b*per, (b+1)*per) of the
+// (R*n)-row sequence, restaging the table when the replicate changes (at
+// most twice when per <= n), its warps taking the rows in turn.
+template <typename VT, bool BF16, int KMAX>
+__global__ void __launch_bounds__(HStatsShape<BF16, KMAX>::THREADS)
 h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
                const float* __restrict__ H, const float* __restrict__ W,
-               float* __restrict__ numer, int n, int w, int k, int g,
-               int use_smem) {
-  extern __shared__ float Ws[];
-  const int r = blockIdx.y;
-  const float* Wr = W + (int64_t)r * k * g;
-  if (use_smem) stage_w<BF16>(Ws, Wr, k * g);
+               float* __restrict__ numer, int R, int n, int w, int k, int g,
+               int nq, int use_smem) {
+  using S = HStatsShape<BF16, KMAX>;
+  extern __shared__ uint4 Wt[];
+  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
-       row += gridDim.x * WARPS_PER_BLOCK) {
-    const int64_t hrow = ((int64_t)r * n + row) * k;
-    float h[KMAX];
-    load_h_row<KMAX, BF16>(h, H + hrow, k);
-    float acc[KMAX];
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
-    const int64_t base = (int64_t)row * w;
-    for (int j = lane; j < w; j += 32) {
-      const int col = __ldg(cols + base + j);
-      const float ratio = ratio_at<KMAX, BF16>(h, k, Ws, Wr, use_smem != 0,
-                                               g, col, load_val(vals + base + j));
-#pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (c < k) {
-          const float wv = w_at<BF16>(Ws, Wr, use_smem != 0, c * g + col);
-          acc[c] += BF16 ? round_bf16(ratio * wv) : ratio * wv;
-        }
-      }
+  const int64_t total = (int64_t)R * n;
+  const int64_t per = (total + gridDim.x - 1) / gridDim.x;
+  int64_t lo = (int64_t)blockIdx.x * per;
+  const int64_t hi = lo + per < total ? lo + per : total;
+  while (lo < hi) {
+    const int r = (int)(lo / n);
+    const int64_t rend = (int64_t)(r + 1) * n < hi ? (int64_t)(r + 1) * n : hi;
+    const float* Wr = W + (int64_t)r * k * g;
+    if (use_smem) {
+      __syncthreads();   // the previous replicate's rows are done
+      stage_packed<BF16, KMAX>(Wt, Wr, k, g, nq, sw);
+      __syncthreads();
     }
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) {
-      if (c < k) {
-        const float s = warp_sum(acc[c]);
-        if (lane == 0) numer[hrow + c] = s;
-      }
+    for (int64_t gi = lo + warp; gi < rend; gi += S::WARPS) {
+      const int64_t row = gi - (int64_t)r * n;
+      h_stats_row<VT, BF16, KMAX>(vals, cols, H + gi * k, Wr, Wt,
+                                  numer + gi * k, row * w, w, k, g, nq, sw,
+                                  use_smem != 0, lane);
     }
+    lo = rend;
   }
 }
 
@@ -395,15 +629,23 @@ beta_err_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
   }
 }
 
-int sm_count() {
+// a device attribute of the current device, read once per device
+template <cudaDeviceAttr ATTR>
+int device_attr(int fallback) {
   static int cached[64] = {0};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 0 && dev < 64 && cached[dev]) return cached[dev];
-  int sms = 132;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (dev >= 0 && dev < 64) cached[dev] = sms;
-  return sms;
+  int v = fallback;
+  cudaDeviceGetAttribute(&v, ATTR, dev);
+  if (dev >= 0 && dev < 64) cached[dev] = v;
+  return v;
+}
+
+int sm_count() { return device_attr<cudaDevAttrMultiProcessorCount>(132); }
+
+int smem_optin() {
+  return device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>(48 * 1024);
 }
 
 // blocks along x: enough to cover the rows (or genes), capped so that the
@@ -431,19 +673,53 @@ int launch_row_kernel(K kernel, int R, int n, int k, int g, size_t* smem,
   return 0;
 }
 
+// h_stats' launch: the table's chunks per gene and bytes, shared memory or
+// device memory, resident blocks per SM (from the occupancy calculator at
+// that table size) and the persistent grid, one wave of resident blocks
+struct HStatsLaunch {
+  int threads, nq, use_smem, table_bytes, blocks_per_sm, grid;
+};
+
+template <typename VT, bool BF16, int KMAX>
+int h_stats_launch(int R, int n, int k, int g, HStatsLaunch* L) {
+  using S = HStatsShape<BF16, KMAX>;
+  auto kern = h_stats_kernel<VT, BF16, KMAX>;
+  L->threads = S::THREADS;
+  L->nq = BF16 ? (k + 7) / 8 : (k + 3) / 4;
+  const size_t bytes = (size_t)g * L->nq * 16;
+  L->use_smem = bytes <= (size_t)smem_optin();
+  L->table_bytes = L->use_smem ? (int)bytes : 0;
+  if (L->table_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L->table_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int nb = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, kern, S::THREADS, L->table_bytes);
+  if (e != cudaSuccess) return (int)e;
+  L->blocks_per_sm = nb > 0 ? nb : 1;
+  const int64_t need = ((int64_t)R * n + S::WARPS - 1) / S::WARPS;
+  const int64_t wave = (int64_t)L->blocks_per_sm * sm_count();
+  L->grid = (int)(need < wave ? (need > 0 ? need : 1) : wave);
+  return 0;
+}
+
 template <typename VT, bool BF16, int KMAX>
 int run_h_stats(const void* vals, const void* cols, const void* H,
                 const void* W, void* numer, int R, int n, int w, int k, int g,
-                cudaStream_t s) {
-  auto kern = h_stats_kernel<VT, BF16, KMAX>;
-  size_t smem;
-  int use_smem;
-  dim3 grid;
-  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+                cudaStream_t s, HStatsLaunch* query) {
+  HStatsLaunch L;
+  int e = h_stats_launch<VT, BF16, KMAX>(R, n, k, g, &L);
   if (e) return e;
-  kern<<<grid, THREADS, smem, s>>>(
+  if (query) {
+    *query = L;
+    return 0;
+  }
+  if ((int64_t)R * n == 0) return 0;
+  h_stats_kernel<VT, BF16, KMAX><<<L.grid, L.threads, L.table_bytes, s>>>(
       (const VT*)vals, (const int*)cols, (const float*)H, (const float*)W,
-      (float*)numer, n, w, k, g, use_smem);
+      (float*)numer, R, n, w, k, g, L.nq, L.use_smem);
   return (int)cudaGetLastError();
 }
 
@@ -466,17 +742,34 @@ int run_ratio(const void* vals, const void* cols, const void* H,
 template <int KMAX>
 int run_kmax_h_stats(const void* vals, int vals_bf16, const void* cols,
                      const void* H, const void* W, void* numer, int R, int n,
-                     int w, int k, int g, int bf16, cudaStream_t s) {
+                     int w, int k, int g, int bf16, cudaStream_t s,
+                     HStatsLaunch* query) {
   if (!bf16) {
     if (vals_bf16) return (int)cudaErrorInvalidValue;
     return run_h_stats<float, false, KMAX>(vals, cols, H, W, numer, R, n, w,
-                                           k, g, s);
+                                           k, g, s, query);
   }
   if (vals_bf16)
     return run_h_stats<__nv_bfloat16, true, KMAX>(vals, cols, H, W, numer, R,
-                                                  n, w, k, g, s);
+                                                  n, w, k, g, s, query);
   return run_h_stats<float, true, KMAX>(vals, cols, H, W, numer, R, n, w, k,
-                                        g, s);
+                                        g, s, query);
+}
+
+int dispatch_h_stats(const void* vals, int vals_bf16, const void* cols,
+                     const void* H, const void* W, void* numer, int R, int n,
+                     int w, int k, int g, int bf16, cudaStream_t s,
+                     HStatsLaunch* query) {
+  if (k <= 16)
+    return run_kmax_h_stats<16>(vals, vals_bf16, cols, H, W, numer, R, n, w,
+                                k, g, bf16, s, query);
+  if (k <= 32)
+    return run_kmax_h_stats<32>(vals, vals_bf16, cols, H, W, numer, R, n, w,
+                                k, g, bf16, s, query);
+  if (k <= 64)
+    return run_kmax_h_stats<64>(vals, vals_bf16, cols, H, W, numer, R, n, w,
+                                k, g, bf16, s, query);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int KMAX>
@@ -572,17 +865,23 @@ int kl_row_blocks(int R, int n) { return grid_x_for(R, n); }
 int kl_h_stats(const void* vals, int vals_bf16, const void* cols,
                const void* H, const void* W, void* numer, int R, int n,
                int w, int k, int g, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    return run_kmax_h_stats<16>(vals, vals_bf16, cols, H, W, numer, R, n, w,
-                                k, g, bf16, s);
-  if (k <= 32)
-    return run_kmax_h_stats<32>(vals, vals_bf16, cols, H, W, numer, R, n, w,
-                                k, g, bf16, s);
-  if (k <= 64)
-    return run_kmax_h_stats<64>(vals, vals_bf16, cols, H, W, numer, R, n, w,
-                                k, g, bf16, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_h_stats(vals, vals_bf16, cols, H, W, numer, R, n, w, k, g,
+                          bf16, (cudaStream_t)stream, nullptr);
+}
+
+// h_stats' launch at these sizes, without launching: out = {threads per
+// block, chunks per gene, table in shared memory (1) or read from device
+// memory (0), table bytes, resident blocks per SM, grid}
+int kl_h_stats_launch(int R, int n, int k, int g, int bf16, int vals_bf16,
+                      int* out) {
+  HStatsLaunch L;
+  int e = dispatch_h_stats(nullptr, vals_bf16, nullptr, nullptr, nullptr,
+                           nullptr, R, n, 0, k, g, bf16, nullptr, &L);
+  if (e) return e;
+  const int v[6] = {L.threads, L.nq, L.use_smem, L.table_bytes,
+                    L.blocks_per_sm, L.grid};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 int kl_ratio(const void* vals, int vals_bf16, const void* cols, const void* H,

@@ -17,15 +17,24 @@ Kernels, and the TPU kernels they replace
 * ``h_stats`` <- ``pallas_kl_h_stats`` (``_h_stats_body``). One traversal
   of the stored nonzeros: WH, the ratio and the k numerators, about 4k+1
   operations per nonzero and replicate, so it is bound by operations at
-  the main path's shapes. Design: one warp per row, lanes striding over
-  the row's slots, the row's H in registers, W[r] staged once per block
-  in shared memory (104 KB at k=13, g=2000) so both k-loops of gathers hit
-  shared memory and not device memory, and warp-shuffle reductions in a
-  fixed order (no atomics: repeated runs are bit-identical).
+  the main path's shapes. What keeps it from that bound is gathering W
+  (k random values a slot), the padded slots (29% at the main path's
+  shapes) and occupancy. Design: one warp per row, the
+  row's H in registers; W[r] staged as a packed per-gene table (bf16 in
+  bf16 mode: 64 KB at k=13, g=2000; f32 128 KB), so a lane gathers its
+  slot's column once with 16-byte shared loads and keeps it for WH and the
+  products; bf16x2 arithmetic with the JAX chain's roundings; a warp stops
+  at its row's first window of 32 padded slots; the per-component sums
+  fold across the warp in a fixed order (no atomics: repeated runs are
+  bit-identical); one wave of persistent blocks sized by the occupancy
+  calculator (``h_stats_launch`` reports it). A table larger than a
+  block's shared memory is read from device memory instead, still once a
+  slot.
 * ``ratio`` <- ``pallas_kl_w_numer`` pass 1 (``_ratio_body``). The same
   traversal without the numerators, writing the ratio to a flat buffer
-  with a zero sentinel slot; bound by the bytes of that output. Same
-  design as ``h_stats``.
+  with a zero sentinel slot; bound by the bytes of that output. One warp
+  per row, lanes striding over its slots, W[r] staged per block as the
+  (k, g) f32 matrix, k scalar gathers a slot.
 * ``w_numer`` <- ``pallas_kl_w_numer`` pass 2 (``_w_numer_body``). One warp
   per gene gathers the ratio through ``perm_t`` and the H rows through
   ``rows_t``; bound by bytes. Padded slots point at the sentinel, so they
@@ -41,15 +50,15 @@ Kernels, and the TPU kernels they replace
   ``ratio = X / max(WH, EPS)``, ``r2 = ratio / max(WH, EPS)``, then per
   component the MU numerator ``ratio * W`` and the diagonal Hessian
   ``r2 * W * W``; about 7k+3 operations per nonzero and replicate, bound
-  by operations. Same design as ``h_stats`` with two accumulators per
-  component (2k + k registers a lane); padded slots and all-zero rows give
-  exact +0.0 in both outputs, which keeps zero-padded components at zero
-  under the Newton step.
+  by operations. ``ratio``'s design with two accumulators per component
+  (2k + k registers a lane); padded slots and all-zero rows give exact
+  +0.0 in both outputs, which keeps zero-padded components at zero under
+  the Newton step.
 * ``wh_at_nz`` <- ``pallas_wh_at_nz`` (``_wh_body``). The SDDMM: WH at
   every stored slot, ``(R, n, w)`` f32, which the DNA step's row
   objectives read twice per H step. Bound by the bytes of that output.
-  Same row traversal, the lanes of a warp writing consecutive slots of a
-  row (coalesced stores).
+  ``ratio``'s row traversal, the lanes of a warp writing consecutive
+  slots of a row (coalesced stores).
 """
 
 from __future__ import annotations
@@ -67,8 +76,8 @@ import torch
 from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
-           "h_stats", "ratio", "w_numer", "beta_err_partials",
-           "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
+           "h_stats", "h_stats_launch", "ratio", "w_numer",
+           "beta_err_partials", "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
            "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
            "h_stats_plain", "ratio_plain", "w_numer_plain",
            "beta_err_plain", "h_newton_stats_plain", "wh_at_nz_plain"]
@@ -147,12 +156,13 @@ def build():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kl_row_blocks.argtypes = [ci, ci]
         lib.kl_h_stats.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
+        lib.kl_h_stats_launch.argtypes = [ci] * 6 + [vp]
         lib.kl_ratio.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
         lib.kl_w_numer.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
-        for fn in (lib.kl_row_blocks, lib.kl_h_stats,
+        for fn in (lib.kl_row_blocks, lib.kl_h_stats, lib.kl_h_stats_launch,
                    lib.kl_ratio, lib.kl_w_numer, lib.kl_beta_err_partials,
                    lib.kl_h_newton_stats, lib.kl_wh_at_nz):
             fn.restype = ci
@@ -248,6 +258,23 @@ def h_stats(vals, cols, H, W, bf16: bool = False):
     _raise_on(err, "h_stats")
     launches["h_stats"] += 1
     return numer
+
+
+H_STATS_LAUNCH = ("threads", "chunks_per_gene", "table_in_smem",
+                  "table_bytes", "blocks_per_sm", "grid")
+
+
+def h_stats_launch(R: int, n: int, k: int, g: int, bf16: bool = False,
+                   vals_bf16: bool = False) -> dict:
+    """How ``h_stats`` launches at these sizes on the current card, without
+    launching: threads per block, 16-byte chunks per gene of the packed W
+    table, whether the table is staged in shared memory, its bytes, the
+    resident blocks per SM at that size and the persistent grid."""
+    out = (ctypes.c_int * len(H_STATS_LAUNCH))()
+    _raise_on(build().kl_h_stats_launch(R, n, k, g, int(bool(bf16)),
+                                        int(bool(vals_bf16)), out),
+              "h_stats (launch query)")
+    return dict(zip(H_STATS_LAUNCH, out))
 
 
 def ratio(vals, cols, H, W, bf16: bool = False):

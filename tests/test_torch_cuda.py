@@ -15,11 +15,12 @@ two launches on the same inputs must agree bit for bit.
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 from cnmf_torch_tpu_torch.ops import sparse
 from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
+                                                         edge_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,39 +32,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(n, g, k, R, density, seed, device, zero_rows=0):
-    rng = np.random.default_rng(seed)
-    X = sp.random(n, g, density=density, format="csr",
-                  random_state=int(rng.integers(1 << 31)),
-                  data_rvs=lambda s: (rng.gamma(2.0, 1.0, s) + 0.1))
-    if zero_rows:
-        X = X.tolil()
-        X[:zero_rows, :] = 0.0
-        X = X.tocsr()
-        X.eliminate_zeros()
-    x = sparse.csr_to_ell(X).to(device)
-    H = torch.as_tensor(rng.random((R, n, k), np.float32) + 0.1).to(device)
-    W = torch.as_tensor(rng.random((R, k, g), np.float32) + 0.1).to(device)
-    return x, H, W
-
-
-# (n, g, k, R): ragged row and gene tails; k=20 at g=3000 puts W[r] above
-# the shared-memory staging limit, so the __ldg branch runs too; k=40 runs
-# the kernels built for k <= 64
-SHAPES = [(130, 100, 5, 3), (997, 611, 13, 2), (640, 3000, 20, 2),
-          (300, 700, 40, 2)]
-
-
 def _close(got, want, rtol, atol=1e-6):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_h_stats_matches_plain(cuda_device, n, g, k, R, bf16):
-    x, H, W = _inputs(n, g, k, R, 0.06, 1, cuda_device, zero_rows=3)
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 1, cuda_device, zero_rows=3,
+                          full_row=True)
+    assert int((x.vals[-1] > 0).sum()) == x.vals.shape[1]
     vals = x.vals.to(torch.bfloat16) if bf16 else x.vals
     got = kl_ell.h_stats(vals, x.cols, H, W, bf16)
     again = kl_ell.h_stats(vals, x.cols, H, W, bf16)
@@ -72,12 +52,26 @@ def test_h_stats_matches_plain(cuda_device, n, g, k, R, bf16):
     _close(got, want, 2e-2 if bf16 else 2e-5)
     assert torch.equal(got, again)
     assert torch.all(got[:, :3] == 0)
+    assert not torch.signbit(got[:, :3]).any()
 
 
-@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_h_stats_table_placement(cuda_device, bf16):
+    """The packed W table sits in shared memory at the pipeline's shapes
+    and is read from device memory where it does not fit."""
+    fits = kl_ell.h_stats_launch(20, 5000, 13, 2000, bf16, bf16)
+    assert fits["table_in_smem"] == 1
+    assert fits["table_bytes"] == 2000 * 16 * (2 if bf16 else 4)
+    assert fits["blocks_per_sm"] >= 1
+    assert fits["chunks_per_gene"] == (2 if bf16 else 4)
+    big = kl_ell.h_stats_launch(2, 120, 64, 2000, bf16, bf16)
+    assert big["table_in_smem"] == 0 and big["table_bytes"] == 0
+
+
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_ratio_and_w_numer_match_plain(cuda_device, n, g, k, R, bf16):
-    x, H, W = _inputs(n, g, k, R, 0.06, 2, cuda_device, zero_rows=3)
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 2, cuda_device, zero_rows=3)
     r = kl_ell.ratio(x.vals, x.cols, H, W, bf16)
     r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, bf16)
     _close(r, r_plain, 2e-2 if bf16 else 2e-5)
@@ -90,9 +84,9 @@ def test_ratio_and_w_numer_match_plain(cuda_device, n, g, k, R, bf16):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 def test_beta_err_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = _inputs(n, g, k, R, 0.06, 3, cuda_device, zero_rows=3)
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 3, cuda_device, zero_rows=3)
     got = kl_ell.kl_beta_err(x, H, W)
     again = kl_ell.kl_beta_err(x, H, W)
     want = sparse.ell_beta_err(x, H, W)
@@ -101,9 +95,9 @@ def test_beta_err_matches_plain(cuda_device, n, g, k, R):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 def test_h_newton_stats_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = _inputs(n, g, k, R, 0.06, 5, cuda_device, zero_rows=3)
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 5, cuda_device, zero_rows=3)
     numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
     again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
     want = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
@@ -121,7 +115,7 @@ def test_h_newton_stats_where_wh_underflows(cuda_device):
     """``r2 ~ X / EPS^2`` may overflow the Hessian to inf; the kernel (no
     fast math) must put inf and finite values where the plain version
     does."""
-    x, H, W = _inputs(200, 150, 6, 2, 0.08, 6, cuda_device)
+    x, H, W = edge_inputs(200, 150, 6, 2, 0.08, 6, cuda_device)
     H[0, :20] = 1e-30
     numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
     want_n, want_h = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
@@ -132,9 +126,9 @@ def test_h_newton_stats_where_wh_underflows(cuda_device):
     _close(numer, want_n, 2e-5)
 
 
-@pytest.mark.parametrize("n,g,k,R", SHAPES)
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 def test_wh_at_nz_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = _inputs(n, g, k, R, 0.06, 7, cuda_device, zero_rows=3)
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 7, cuda_device, zero_rows=3)
     got = kl_ell.wh_at_nz(x.cols, H, W)
     again = kl_ell.wh_at_nz(x.cols, H, W)
     want = kl_ell.wh_at_nz_plain(x.cols, H, W)
@@ -144,7 +138,7 @@ def test_wh_at_nz_matches_plain(cuda_device, n, g, k, R):
 
 
 def test_launch_counts_and_no_fallback(cuda_device):
-    x, H, W = _inputs(64, 50, 4, 2, 0.1, 4, cuda_device)
+    x, H, W = edge_inputs(64, 50, 4, 2, 0.1, 4, cuda_device)
     kl_ell.reset_launches()
     kl_ell.kl_h_stats(x, H, W)
     kl_ell.kl_w_stats(x, H, W)
@@ -172,7 +166,7 @@ def test_batch_dna_solve_on_the_card_matches_the_cpu(cuda_device):
     on the card (kernels) and on the CPU (plain versions)."""
     from cnmf_torch_tpu_torch.ops import nmf
 
-    x, H, W = _inputs(300, 200, 5, 3, 0.08, 8, cuda_device)
+    x, H, W = edge_inputs(300, 200, 5, 3, 0.08, 8, cuda_device)
     errs = []
     for dev in (cuda_device, torch.device("cpu")):
         trace = []

@@ -98,6 +98,28 @@ def test_ell_chunk_rows_equals_jax(chunk):
                                       getattr(want, leaf), err_msg=leaf)
 
 
+@pytest.mark.parametrize("chunk", [None, 32, 500])
+def test_ell_rows_store_their_nonzeros_first(chunk):
+    """Every row keeps its stored values (> 0) in its first slots and its
+    padding (value 0) after them, also where the CSR input carries
+    explicit zeros: the CUDA ``h_stats`` ends a row at its first window of
+    32 padded slots, which is exact only under this layout."""
+    X, _, _ = _fixture(130, 100, 5, 1, seed=5)
+    X = X.tolil()
+    X[10, :7] = 0.0           # explicit zeros inside a row's CSR entries
+    X = X.tocsr()
+    X.data[X.indptr[20]:X.indptr[21]][::2] = 0.0
+    assert (X.data == 0).any()
+    encodings = ([tsp.csr_to_ell(X), jsp.csr_to_ell(X)] if chunk is None
+                 else [tsp.ell_chunk_rows(X, chunk)[0],
+                       jsp.ell_chunk_rows(X, chunk)[0]])
+    for e in encodings:
+        stored = np.asarray(e.vals).reshape(-1, e.vals.shape[-1]) > 0
+        # once a slot is padding, every later slot of the row is too
+        assert not (np.diff(stored.astype(np.int8), axis=1) > 0).any()
+        assert int(stored.sum()) == int((X.data != 0).sum())
+
+
 @pytest.mark.parametrize("beta,density,width,g,want", [
     (1.0, 0.05, 10, 200, True), (1.0, 0.2, 10, 200, False),
     (1.0, 0.05, 30, 200, False), (2.0, 0.01, 1, 200, False),
