@@ -13,18 +13,19 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    the online path's kernels at one 5,000-row chunk of the pipeline's
    data (f32 at ``rtol 2e-5``, bf16 at ``rtol 2e-2``), and the batch
    path's at the whole 10,000-row matrix (``h_newton_stats``,
-   ``wh_at_nz``, and the f32 ``ratio``/``w_numer`` on the whole-matrix
-   transpose set, at ``rtol 2e-5``); two launches bit-identical; then each
-   kernel's time (CUDA events, warmed, median of many launches) beside its
-   bound, its plain version's time and, where one PyTorch call computes
-   the same function, that call's time, and for ``h_stats`` its launch
-   (threads per block, W table bytes, resident blocks per SM); ``h_stats``
-   also at the pipeline's other K (5, 7, 11) on the chunk. Then a sweep of
-   ``h_stats`` over the card tests' edge shapes (k from 1 to 64, R=1 and
-   20, tables too large for shared memory, all-zero and full-width rows)
-   against its plain version. Small solves on the card (an online KL
-   solve, a usage refit, a batch dna solve) are held against the same
-   solves on the CPU (plain versions).
+   ``wh_at_nz``, and the f32 ``w_numer`` on the whole-matrix transpose
+   set, at ``rtol 2e-5``); two launches bit-identical; then each kernel's
+   time (CUDA events, warmed, median of many launches) beside its bound,
+   its plain version's time and, where one PyTorch call computes the same
+   function, that call's time, and for ``h_stats`` its launch (threads
+   per block, W table bytes, resident blocks per SM); ``h_stats`` also at
+   the pipeline's other K (5, 7, 11) on the chunk. Then a sweep of
+   ``h_stats`` and ``w_numer`` over the card tests' edge shapes (k from 1
+   to 64, R=1 and 20, tables too large for shared memory, all-zero and
+   full-width rows, a gene with no stored value and one that fills the
+   transpose width) against their plain versions. Small solves on the
+   card (an online KL solve, a usage refit, a batch dna solve) are held
+   against the same solves on the CPU (plain versions).
 3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
    the low-rank Poisson model of ``bench.py`` at ~600 UMI per cell, then
    prepare (Kullback-Leibler, 2,000 HVGs, chunks of 5,000 cells),
@@ -35,10 +36,11 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    launched, that the consensus refit launched ``h_stats`` again, that the
    objectives are finite and fall from pass to pass, and that every
    artifact has its shape. Then one ``torch.profiler`` window over an
-   online sweep at k=13 prints ``h_stats``' share of the device time and
-   the device's idle share of the same sweep's unprofiled wall, with the
-   profiler's overhead ("not measured" where the profiler fails or records
-   no device time; no check; a failure of the sweep itself fails the run).
+   online sweep at k=13 prints each CUDA kernel's share of the device time
+   and the device's idle share of the same sweep's unprofiled wall, with
+   the profiler's overhead ("not measured" where the profiler fails or
+   records no device time; no check; a failure of the sweep itself fails
+   the run).
 4. Batch pipeline: a second run directory on the same counts whose
    run-parameters file says ``"mode": "batch"`` (edited after prepare, as
    a user would), then factorize, combine, consensus (k=9) and the
@@ -48,7 +50,8 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    two ``wh_at_nz`` per ``h_newton_stats`` in factorize, that every
    evaluated objective is finite and non-increasing, that every
    replicate's MU-fallback fraction lies strictly between 0 and 1, and
-   the artifacts' shapes.
+   the artifacts' shapes. Then a second profiler window, over a batch dna
+   sweep at k=13.
 
 The last three lines of standard output are the kernels' JSON record
 (launches of both pipelines), the ``nvidia-smi`` name and power-limit
@@ -94,8 +97,8 @@ PEAK_BF16 = 2 * PEAK_F32
 # the TPU kernels the CUDA kernels replace (kernel bodies)
 REPLACES = {
     "h_stats": "cnmf_torch_tpu/ops/pallas_kl.py:123",
-    "ratio": "cnmf_torch_tpu/ops/pallas_kl.py:154",
-    "w_numer": "cnmf_torch_tpu/ops/pallas_kl.py:182",
+    # both passes (_ratio_body :154, _w_numer_body :182) in one kernel
+    "w_numer": "cnmf_torch_tpu/ops/pallas_kl.py:259",
     "beta_err_partials": "cnmf_torch_tpu/ops/pallas_kl.py:165",
     "h_newton_stats": "cnmf_torch_tpu/ops/pallas_kl.py:138",
     "wh_at_nz": "cnmf_torch_tpu/ops/pallas_kl.py:116",
@@ -103,7 +106,7 @@ REPLACES = {
 # the batch pipeline's objectives may rise by f32 rounding only
 MONOTONE_RTOL = 1e-6
 EVAL_EVERY = 10     # the batch solver evaluates its objective this often
-ONLINE_KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials")
+ONLINE_KERNELS = ("h_stats", "w_numer", "beta_err_partials")
 BATCH_KERNELS = ("h_newton_stats", "wh_at_nz")
 SOURCE = "cnmf_torch_tpu_torch/csrc/kl_ell.cu"
 
@@ -134,8 +137,8 @@ def ptxas_summary(text: str):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"(h_stats|ratio|w_numer|beta_err|h_newton"
-                              r"|wh_at_nz)_kernel"
+            short = re.search(r"(h_stats|w_numer_prep|w_numer|beta_err"
+                              r"|h_newton|wh_at_nz)_kernel"
                               r"I?(.*?)EEv", name)
             name = (short.group(1) + "<" + short.group(2) + ">") if short \
                 else name
@@ -160,6 +163,31 @@ def synthetic_counts(n, g, k_true=14, scale=60.0, seed=SEED):
     counts = rng.poisson(usage @ spectra * scale).astype(np.float32)
     counts[counts.sum(axis=1) == 0, 0] = 1.0
     return counts
+
+
+def prepared_counts(out: str):
+    """The pipeline's synthetic counts, written under ``out``, and the
+    normalized HVG matrix that ``prepare`` makes of them (a throwaway
+    prepare in its own run directory; it launches no kernel): the matrix
+    whose shapes the kernels get on the main path."""
+    from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
+    from cnmf_torch_tpu_torch.utils.io import load_matrix
+
+    t0 = time.perf_counter()
+    counts = synthetic_counts(N_CELLS, N_GENES)
+    counts_fn = os.path.join(out, "counts.df.npz")
+    save_df_to_npz(Frame(counts,
+                         np.asarray([f"c{i}" for i in range(N_CELLS)]),
+                         np.asarray([f"g{j}" for j in range(N_GENES)])),
+                   counts_fn, compress=False)
+    log(f"synthetic counts {counts.shape}, {counts.sum() / N_CELLS:.1f} "
+        f"UMI per cell, written in {time.perf_counter() - t0:.2f} s")
+    del counts
+    probe = cNMF(out, "shapes", device=CARD)
+    probe.prepare(counts_fn, components=[CONSENSUS_K], n_iter=1, seed=SEED,
+                  beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+                  batch_size=CHUNK)
+    return counts_fn, load_matrix(probe.paths["normalized_counts"]).X
 
 
 def cuda_ms(fn, iters=40, warmup=5) -> float:
@@ -218,19 +246,8 @@ def kernel_phase(x, nnz: int, log_rows: list):
             check(torch.equal(got, again), f"h_stats {tag} not repeatable")
             errs["h_stats"] = max_abs_err(
                 got, kl_ell.h_stats_plain(vals, x.cols, H, W, bf16), rtol)
-            # ratio and w_numer (w_numer fed the plain ratio)
-            r = kl_ell.ratio(x.vals, x.cols, H, W, bf16)
-            r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, bf16)
-            check(torch.equal(r, kl_ell.ratio(x.vals, x.cols, H, W, bf16)),
-                  f"ratio {tag} not repeatable")
-            errs["ratio"] = max_abs_err(r, r_plain, rtol)
-            got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
-            check(torch.equal(got, kl_ell.w_numer(x.rows_t, x.perm_t,
-                                                   r_plain, H, bf16)),
-                  f"w_numer {tag} not repeatable")
-            errs["w_numer"] = max_abs_err(
-                got, kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H,
-                                          bf16), rtol)
+            # the W step passes the f32 values in both modes
+            errs["w_numer"] = w_numer_check(kl_ell, x, H, W, bf16, tag)
             if not bf16:
                 got = kl_ell.kl_beta_err(x, H, W)
                 check(torch.equal(got, kl_ell.kl_beta_err(x, H, W)),
@@ -242,11 +259,12 @@ def kernel_phase(x, nnz: int, log_rows: list):
 
             # the pipeline runs the W side and the H solve in bf16, the
             # objective (and the consensus refit's h_stats) in f32
-            timed = (["h_stats", "ratio", "w_numer"] if bf16
+            timed = (["h_stats", "w_numer"] if bf16
                      else ["h_stats", "beta_err_partials"])
             for name in timed:
-                rec = _time_kernel(kl_ell, name, x, vals, r_plain, H, W,
-                                   bf16, nnz)
+                rec = _time_kernel(kl_ell, name, x,
+                                   x.vals if name == "w_numer" else vals,
+                                   H, W, bf16, nnz)
                 rec["max_abs_err"] = errs[name]
                 launch = (h_stats_launch_note(kl_ell, R, n, k, g, bf16)
                           if name == "h_stats" else "")
@@ -264,6 +282,24 @@ def kernel_phase(x, nnz: int, log_rows: list):
     return records
 
 
+def w_numer_check(kl_ell, x, H, W, bf16, tag, vals=None) -> float:
+    """The fused W numerator against its plain version: two launches
+    bit-identical, a gene with no stored value exactly +0.0; returns the
+    max abs error."""
+    vals = x.vals if vals is None else vals
+    got = kl_ell.w_numer(vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
+    again = kl_ell.w_numer(vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"w_numer {tag} not repeatable")
+    empty = (x.perm_t >= x.vals.numel()).all(1)
+    check(bool((got[:, :, empty] == 0).all())
+          and not bool(torch.signbit(got[:, :, empty]).any()),
+          f"w_numer {tag}: a gene with no stored value is not +0.0")
+    return max_abs_err(got, kl_ell.w_numer_plain(vals, x.cols, x.rows_t,
+                                                 x.perm_t, H, W, bf16),
+                       2e-2 if bf16 else 2e-5)
+
+
 def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
     """``h_stats``' launch at these sizes: threads per block, the packed W
     table's bytes (0: read from device memory), resident blocks per SM."""
@@ -273,10 +309,13 @@ def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
             f"{L['blocks_per_sm']} blocks/SM, grid {L['grid']}")
 
 
-def h_stats_edge_sweep(log_rows: list):
-    """``h_stats`` at the edge shapes of the card tests, both modes,
-    against its plain version: three all-zero rows (exact +0.0) and one
-    row that fills the whole ELL width; two launches bit-identical."""
+def edge_sweep(log_rows: list):
+    """``h_stats`` and ``w_numer`` at the edge shapes of the card tests,
+    both modes, against their plain versions, two launches bit-identical:
+    for ``h_stats`` three all-zero rows (exact +0.0) and one row that
+    fills the whole ELL width; for ``w_numer`` three all-zero rows, a gene
+    with no stored value (exact +0.0) and one stored in every other row,
+    filling the transpose width."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
     from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
                                                              edge_inputs)
@@ -301,6 +340,17 @@ def h_stats_edge_sweep(log_rows: list):
             log_rows.append(f"  h_stats edge {tag:28s} max_abs_err "
                             f"{err:.3g}"
                             + h_stats_launch_note(kl_ell, R, n, k, g, bf16))
+        x, H, W = edge_inputs(n, g, k, R, 0.06, 2, CARD, zero_rows=3,
+                              gene_edges=True)
+        check(bool((x.perm_t[-1] < x.vals.numel()).all()),
+              "edge sweep: no gene fills the transpose width")
+        for bf16 in (False, True):
+            tag = f"n={n} g={g} k={k} R={R} {'bf16' if bf16 else 'f32'}"
+            err = max(w_numer_check(kl_ell, x, H, W, bf16, tag, vals)
+                      for vals in ([x.vals, x.vals.to(torch.bfloat16)]
+                                   if bf16 else [x.vals]))
+            log_rows.append(f"  w_numer edge {tag:28s} max_abs_err "
+                            f"{err:.3g} (wt {x.rows_t.shape[1]})")
 
 
 def h_stats_k_sweep(x, nnz: int, log_rows: list):
@@ -322,8 +372,7 @@ def h_stats_k_sweep(x, nnz: int, log_rows: list):
             err = max_abs_err(kl_ell.h_stats(vals, x.cols, H, W, bf16),
                               kl_ell.h_stats_plain(vals, x.cols, H, W, bf16),
                               2e-2 if bf16 else 2e-5)
-            rec = _time_kernel(kl_ell, "h_stats", x, vals, None, H, W, bf16,
-                               nnz)
+            rec = _time_kernel(kl_ell, "h_stats", x, vals, H, W, bf16, nnz)
             rec.update(k=k, mode="bf16" if bf16 else "f32", max_abs_err=err)
             out.append(rec)
             log_rows.append(
@@ -334,25 +383,24 @@ def h_stats_k_sweep(x, nnz: int, log_rows: list):
     return out
 
 
-def profile_window(Xn, log_rows: list):
-    """One ``torch.profiler`` window over an online replicate sweep at
-    k=13 (20 replicates, the pipeline's chunks): ``h_stats``' share of
-    the device time and the device's idle share (one stream, so the
-    kernels' device times do not overlap and their sum is the busy time).
-    The idle share is taken against the same sweep's wall without the
-    profiler, whose overhead is printed beside it. A failure of the sweep
-    fails the run; where the profiler itself fails or records no device
-    time, both shares read "not measured", which is no failure."""
-    from cnmf_torch_tpu_torch.parallel.replicates import replicate_sweep
+# the port's CUDA kernels as the profiler names them
+PORT_KERNELS = ("h_stats", "w_numer_prep", "w_numer", "beta_err",
+                "h_newton", "wh_at_nz")
 
-    def sweep():
-        replicate_sweep(Xn, list(range(REPLICATES)), 13,
-                        beta_loss="kullback-leibler", mode="online",
-                        online_chunk_size=CHUNK, device=CARD)
+
+def profile_window(label: str, sweep, log_rows: list):
+    """One ``torch.profiler`` window over ``sweep()``: each CUDA kernel's
+    share of the device time and the device's idle share (one stream, so
+    the kernels' device times do not overlap and their sum is the busy
+    time). The idle share is taken against the same sweep's wall without
+    the profiler, whose overhead is printed beside it. A failure of the
+    sweep fails the run; where the profiler itself fails or records no
+    device time, both shares read "not measured", which is no failure."""
 
     def not_measured(e):
-        log_rows.append(f"  profiler window: not measured ({type(e).__name__}"
-                        f": {str(e).splitlines()[0][:120] if str(e) else ''})")
+        log_rows.append(f"  profiler window ({label}): not measured "
+                        f"({type(e).__name__}: "
+                        f"{str(e).splitlines()[0][:120] if str(e) else ''})")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -395,25 +443,39 @@ def profile_window(Xn, log_rows: list):
     busy = sum(dev_us.values()) / 1e6
     out["profiled_seconds"] = wall
     if busy <= 0:
-        log_rows.append("  profiler window: device time not measured "
-                        "(no device events recorded)")
+        log_rows.append(f"  profiler window ({label}): device time not "
+                        "measured (no device events recorded)")
         return out
-    hs = sum(t for key, t in dev_us.items() if "h_stats_kernel" in key) / 1e6
+    kernels = {name: sum(t for key, t in dev_us.items()
+                         if f"{name}_kernel" in key) / 1e6
+               for name in PORT_KERNELS}
     idle = 1.0 - busy / plain_wall
-    out.update(device_busy_seconds=busy, h_stats_seconds=hs,
-               h_stats_share=hs / busy, idle_share=idle,
-               profiler_overhead_seconds=wall - plain_wall,
+    out.update(device_busy_seconds=busy, kernel_seconds=kernels,
+               kernel_shares={n: t / busy for n, t in kernels.items()},
+               idle_share=idle, profiler_overhead_seconds=wall - plain_wall,
                top={key: t / 1e6 for key, t in sorted(
                    dev_us.items(), key=lambda kv: -kv[1])[:8]})
+    other = busy - sum(kernels.values())
     log_rows.append(
-        f"  profiler window (online sweep, k=13, {REPLICATES} replicates): "
-        f"wall {plain_wall:.3f} s unprofiled, {wall:.3f} s profiled "
-        f"(profiler overhead {wall - plain_wall:.3f} s); device busy "
-        f"{busy:.3f} s; h_stats {hs:.3f} s = {hs / busy:.1%} of device "
-        f"time; device idle {idle:.1%} of the unprofiled wall")
+        f"  profiler window ({label}): wall {plain_wall:.3f} s unprofiled, "
+        f"{wall:.3f} s profiled (profiler overhead {wall - plain_wall:.3f} "
+        f"s); device busy {busy:.3f} s; device idle {idle:.1%} of the "
+        "unprofiled wall")
+    log_rows.append("    device time: " + ", ".join(
+        f"{n} {t:.3f} s = {t / busy:.1%}" for n, t in kernels.items()
+        if t > 0) + f", other (torch) {other:.3f} s = {other / busy:.1%}")
     for key, t in out["top"].items():
         log_rows.append(f"    {t * 1e3:9.3f} ms  {key[:100]}")
     return out
+
+
+def sweep_at_13(Xn, mode: str):
+    """A replicate sweep of the pipeline's 20 replicates at k=13."""
+    from cnmf_torch_tpu_torch.parallel.replicates import replicate_sweep
+
+    return lambda: replicate_sweep(
+        Xn, list(range(REPLICATES)), 13, beta_loss="kullback-leibler",
+        mode=mode, online_chunk_size=CHUNK, device=CARD)
 
 
 def batch_kernel_phase(x, nnz: int, log_rows: list):
@@ -421,8 +483,8 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
     shapes: the whole matrix (unchunked ELL with the whole-matrix
     transpose set), 20 replicates, k in {9, 13}, strict f32. Returns the
     JSON records of ``h_newton_stats`` and ``wh_at_nz`` at k=13 and the
-    k=13 rows of the f32 ``ratio``/``w_numer``/``h_stats``/
-    ``beta_err_partials`` timed at these shapes."""
+    k=13 rows of the f32 ``w_numer``/``h_stats``/``beta_err_partials``
+    timed at these shapes."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
 
     dev = x.vals.device
@@ -451,19 +513,7 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
         errs["wh_at_nz"] = max_abs_err(
             got, kl_ell.wh_at_nz_plain(x.cols, H, W), 2e-5)
         del got
-        r = kl_ell.ratio(x.vals, x.cols, H, W, False)
-        r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, False)
-        check(torch.equal(r, kl_ell.ratio(x.vals, x.cols, H, W, False)),
-              f"ratio {tag} not repeatable")
-        errs["ratio"] = max_abs_err(r, r_plain, 2e-5)
-        del r
-        got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, False)
-        check(torch.equal(got, kl_ell.w_numer(x.rows_t, x.perm_t, r_plain,
-                                              H, False)),
-              f"w_numer {tag} not repeatable")
-        errs["w_numer"] = max_abs_err(
-            got, kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H,
-                                      False), 2e-5)
+        errs["w_numer"] = w_numer_check(kl_ell, x, H, W, False, tag)
         got = kl_ell.h_stats(x.vals, x.cols, H, W, False)
         errs["h_stats"] = max_abs_err(
             got, kl_ell.h_stats_plain(x.vals, x.cols, H, W, False), 2e-5)
@@ -471,10 +521,9 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
 
         errs["beta_err_partials"] = max_abs_err(
             kl_ell.kl_beta_err(x, H, W), ell_beta_err(x, H, W), 2e-5)
-        for name in ("h_newton_stats", "wh_at_nz", "ratio", "w_numer",
-                     "h_stats", "beta_err_partials"):
-            rec = _time_kernel(kl_ell, name, x, x.vals, r_plain, H, W,
-                               False, nnz)
+        for name in ("h_newton_stats", "wh_at_nz", "w_numer", "h_stats",
+                     "beta_err_partials"):
+            rec = _time_kernel(kl_ell, name, x, x.vals, H, W, False, nnz)
             rec["max_abs_err"] = errs[name]
             launch = (h_stats_launch_note(kl_ell, R, n, k, g, False)
                       if name == "h_stats" else "")
@@ -492,16 +541,15 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
                     records[name] = rec
                 else:
                     extra.append(rec)
-        del r_plain, H, W
+        del H, W
         torch.cuda.empty_cache()
     return records, extra
 
 
-def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
+def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz):
     R, n, k = H.shape
     g = W.shape[-1]
-    vb = 2 if bf16 else 4
-    rb = 2 if bf16 else 4
+    vb = vals.element_size()
     hw_bytes = R * n * k * 4 + R * k * g * 4
     library_ms = None
     note = ""
@@ -534,22 +582,20 @@ def _time_kernel(kl_ell, name, x, vals, r_flat, H, W, bf16, nnz):
             # stay f32
             ops_bf16 = R * nnz * 3 * k
             ops -= ops_bf16
-    elif name == "ratio":
-        fn = lambda: kl_ell.ratio(x.vals, x.cols, H, W, bf16)  # noqa: E731
-        plain = lambda: kl_ell.ratio_plain(  # noqa: E731
-            x.vals, x.cols, H, W, bf16)
-        nbytes = nnz * 8 + hw_bytes + R * r_flat.shape[-1] * rb
-        ops = R * nnz * (2 * k + 1)
     elif name == "w_numer":
         fn = lambda: kl_ell.w_numer(  # noqa: E731
-            x.rows_t, x.perm_t, r_flat, H, bf16)
+            vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
         plain = lambda: kl_ell.w_numer_plain(  # noqa: E731
-            x.rows_t, x.perm_t, r_flat, H, bf16)
-        nbytes = nnz * (8 + R * rb) + R * n * k * 4 + R * k * g * 4
-        ops = R * nnz * 2 * k
-        # one PyTorch call for the same function: the ratio as a batched
-        # sparse (R, genes, rows) matrix times H (R, rows, k)
-        library_ms = _sparse_bmm_ms(x, r_flat, H, bf16)
+            vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
+        # the stored slots' value, rows_t and perm_t; H and W read once;
+        # the (R, k, g) numerator written once
+        nbytes = nnz * (vb + 8) + hw_bytes + R * k * g * 4
+        ops = R * nnz * (4 * k + 1)
+        if bf16:
+            # the k h*w products, the WH sum and the k ratio*h products in
+            # bf16; the k f32 sums and the division stay f32
+            ops_bf16 = R * nnz * 3 * k
+            ops -= ops_bf16
     else:
         fn = lambda: kl_ell.beta_err_partials(  # noqa: E731
             x.vals, x.cols, H, W)
@@ -607,25 +653,6 @@ def _sampled_addmm_ms(x, H, W):
         return (cuda_ms(per_rep, iters=5, warmup=1),
                 f"; library: sampled_addmm per replicate x {R} (the "
                 f"batched call refused: {str(e).splitlines()[0][:80]})")
-
-
-def _sparse_bmm_ms(x, r_flat, H, bf16):
-    """``torch.bmm`` of the ratio as a sparse COO (R, genes, rows) batch
-    against H (R, rows, k): the W numerator in one library call."""
-    R, n, k = H.shape
-    g, wt = x.rows_t.shape
-    w = x.vals.shape[-1]
-    keep = x.perm_t.reshape(-1) < n * w
-    genes = torch.arange(g, device=H.device).repeat_interleave(wt)[keep]
-    rows = x.rows_t.reshape(-1)[keep].long()
-    pos = x.perm_t.reshape(-1)[keep].long()
-    nz = genes.numel()
-    idx = torch.stack([torch.arange(R, device=H.device).repeat_interleave(nz),
-                       genes.repeat(R), rows.repeat(R)])
-    vals = r_flat[:, pos].reshape(-1).float()
-    A = torch.sparse_coo_tensor(idx, vals, (R, g, n),
-                                check_invariants=False).coalesce()
-    return cuda_ms(lambda: torch.bmm(A, H), iters=10, warmup=2)
 
 
 def small_solve_check(log_rows):
@@ -742,10 +769,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
+    from cnmf_torch_tpu_torch import cNMF
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
     from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
-    from cnmf_torch_tpu_torch.utils.io import load_matrix
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -766,25 +792,9 @@ def main() -> int:
         f.write(kl_ell.build_info["log"])
 
     # -- data: the pipeline's counts --------------------------------------
-    t0 = time.perf_counter()
-    counts = synthetic_counts(N_CELLS, N_GENES)
-    counts_fn = os.path.join(OUT, "counts.df.npz")
-    save_df_to_npz(Frame(counts,
-                         np.asarray([f"c{i}" for i in range(N_CELLS)]),
-                         np.asarray([f"g{j}" for j in range(N_GENES)])),
-                   counts_fn, compress=False)
-    log(f"synthetic counts {counts.shape}, {counts.sum() / N_CELLS:.1f} "
-        f"UMI per cell, written in {time.perf_counter() - t0:.2f} s")
-    del counts
+    counts_fn, Xn = prepared_counts(OUT)
 
     # -- phase 2: kernels at the main path's shapes -----------------------
-    # the shapes come from the prepared matrix: a throwaway prepare (it
-    # launches no kernel) in its own run directory
-    probe = cNMF(OUT, "shapes", device=CARD)
-    probe.prepare(counts_fn, components=[CONSENSUS_K], n_iter=1, seed=SEED,
-                  beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
-                  batch_size=CHUNK)
-    Xn = load_matrix(probe.paths["normalized_counts"]).X
     xc, _ = ell_chunk_rows(Xn, CHUNK)
     x0 = xc.chunk(0).to(CARD)
     nnz = int((x0.vals > 0).sum())
@@ -803,7 +813,7 @@ def main() -> int:
     records.update(batch_records)
     del xb
     torch.cuda.empty_cache()
-    h_stats_edge_sweep(rows)
+    edge_sweep(rows)
     small_solve_check(rows)
     log("kernels (median of CUDA-event timed launches, L2-warm inputs):")
     for line in rows:
@@ -854,7 +864,9 @@ def main() -> int:
     log(f"pass-to-pass objective rises after the second pass: {rises}")
     check_artifacts(obj, stats)
     prof_rows = []
-    profile = profile_window(Xn, prof_rows)
+    profile = {"online": profile_window(
+        f"online sweep, k=13, {REPLICATES} replicates",
+        sweep_at_13(Xn, "online"), prof_rows)}
     log("device-time profile (after the online path; its launches are not "
         "counted):")
     for line in prof_rows:
@@ -889,7 +901,7 @@ def main() -> int:
            binfo["kernel"]) == ("batch", "ell", "dna", "ell-cuda"),
           f"batch factorize ran {binfo['mode']}/{binfo['lane']}/"
           f"{binfo['solver_recipe']}/{binfo['kernel']}")
-    for name in BATCH_KERNELS + ("ratio", "w_numer", "beta_err_partials"):
+    for name in BATCH_KERNELS + ("w_numer", "beta_err_partials"):
         check(b_factorize[name] > 0, f"batch path: {name} never launched")
     check(b_factorize["wh_at_nz"] == 2 * b_factorize["h_newton_stats"],
           "batch factorize: wh_at_nz launches "
@@ -917,6 +929,14 @@ def main() -> int:
             f"{float(fb.max()):.4f}, final objective "
             f"{np.round(binfo['errs'][k], 1).tolist()}")
     check_artifacts(bobj, b_stats)
+    prof_rows = []
+    profile["batch"] = profile_window(
+        f"batch dna sweep, k=13, {REPLICATES} replicates",
+        sweep_at_13(Xn, "batch"), prof_rows)
+    log("device-time profile (after the batch path; its launches are not "
+        "counted):")
+    for line in prof_rows:
+        log(line)
 
     out = []
     for name in kl_ell.KERNELS:

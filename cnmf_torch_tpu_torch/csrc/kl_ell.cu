@@ -3,35 +3,36 @@
 // cnmf_torch_tpu/ops/pallas_kl.py:
 //
 //   h_stats            <- pallas_kl_h_stats   (_h_stats_body)
-//   ratio              <- pallas_kl_w_numer pass 1 (_ratio_body)
-//   w_numer            <- pallas_kl_w_numer pass 2 (_w_numer_body)
+//   w_numer            <- pallas_kl_w_numer, both passes (_ratio_body,
+//                         _w_numer_body)
 //   beta_err_partials  <- pallas_kl_beta_err  (_obj_body)
 //   h_newton_stats     <- pallas_kl_h_newton_stats (_h_newton_body)
 //   wh_at_nz           <- pallas_wh_at_nz     (_wh_body)
 //
-// The first four serve every MU solve; the last two serve the
+// The first three serve every MU solve; the last two serve the
 // Diagonalized-Newton (dna) recipe of the batch solver.
 //
 // Layout: the ELL buffers (vals, cols: n x w; rows_t, perm_t: g x wt) are
 // shared by every replicate; H (R, n, k), W (R, k, g) and every output
-// carry the replicate axis (gridDim.y, or the row sequence that h_stats'
-// persistent blocks walk). Padded slots hold value 0 at column 0 (row
-// side, after the row's stored values) or point at the zero sentinel slot
-// n*w of the flat ratio buffer (transpose side), so they add exactly +0.0.
+// carry the replicate axis (gridDim.y, or the row or (replicate, gene)
+// sequence that h_stats' and w_numer's warps walk). Padded slots hold
+// value 0 at column 0 (row side, after the row's stored values) or the
+// sentinel n*w in perm_t (transpose side, after the gene's stored slots),
+// so they add exactly +0.0 or are skipped.
 //
-// Design of ratio, w_numer, beta_err, h_newton_stats and wh_at_nz (see
+// Design of beta_err, h_newton_stats and wh_at_nz (see
 // ops/kernels/kl_ell.py for the bound of each kernel):
-//   * one warp per row (or per gene for w_numer); lanes stride over the
-//     row's w (or the gene's wt) slots;
+//   * one warp per row; lanes stride over the row's w slots;
 //   * the row's H[r, i, :] lives in registers; W[r] is staged once per
 //     block in dynamic shared memory when k*g*4 bytes fit the budget,
 //     otherwise read through the read-only cache (__ldg);
 //   * per-component sums are reduced across the warp with shuffles in a
 //     fixed order and written by lane 0 — no atomics, so repeated runs are
-//     bit-identical;
-//   * bf16 mode rounds where the JAX bf16 chain rounds: operands to bf16,
-//     WH accumulated in bf16, the ratio in bf16, every ratio*W (or ratio*H)
-//     product rounded to bf16 and then summed in f32.
+//     bit-identical.
+// In bf16 mode (h_stats, w_numer) the kernels round where the JAX bf16
+// chain rounds: operands to bf16, WH accumulated in bf16, the ratio in
+// bf16, every ratio*W (or ratio*H) product rounded to bf16 and then summed
+// in f32.
 //
 // h_stats is bound by operations (about 4k+1 a nonzero and replicate).
 // What keeps it from that bound is gathering W (k random values a slot),
@@ -58,6 +59,29 @@
 //   * a table larger than a block's shared memory is not staged: each lane
 //     reads its slot's column from W in device memory, still once a slot.
 //
+// w_numer is h_stats with H and W swapped, walked from the gene side: at
+// each stored slot WH, the ratio and k products ratio*H, about 4k+1
+// operations a nonzero and replicate. The TPU split it in two passes
+// through a flat ratio buffer (every row's ratio had to exist before a gene
+// reduced it); computing WH at the slot from the row's H and the gene's W
+// column needs no such barrier, so no ratio buffer exists. With all
+// operands in L2, what bounds it is the sectors its gathers touch. Design:
+//   * one warp per (replicate, gene), replicate-major, W[r, :, gene] in
+//     registers (bf16 pairs in bf16 mode); lanes stride over the gene's
+//     slots, reading rows_t and perm_t coalesced;
+//   * a prep kernel of the same entry point packs H into whole 16-byte
+//     chunks a row (bf16 in bf16 mode, k padded to 8 or 4), so a slot
+//     gathers its row's H once, in ceil(k/8) or ceil(k/4) 16-byte loads
+//     (one or two 32-byte sectors at k <= 16), for the WH chain and the
+//     products; and gathers the stored values into the gene-side layout
+//     once for all replicates (one random sector a slot and replicate
+//     fewer: 0.20 -> 0.13 ms a chunk, 0.60 -> 0.43 ms on the whole matrix,
+//     H100);
+//   * h_stats' bf16x2 arithmetic, padded-window stop and warp fold;
+//   * blocks of two warps: a long gene (1,136 slots against a mean of 326
+//     a chunk) holds one other warp's registers, not seven (1 to 8 warps a
+//     block measured within 13% of each other).
+//
 // Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
 // Newton Hessian may overflow to +inf, and the kernel and its plain
 // version must then agree (grad / inf = 0 keeps the Newton candidate at H).
@@ -69,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -118,32 +144,6 @@ __device__ __forceinline__ float w_at(const float* Ws, const float* Wr,
   return BF16 ? round_bf16(v) : v;
 }
 
-// WH at one stored coordinate and the ratio X / max(WH, EPS).
-template <int KMAX, bool BF16>
-__device__ __forceinline__ float ratio_at(const float (&h)[KMAX], int k,
-                                          const float* Ws, const float* Wr,
-                                          bool use_smem, int g, int col,
-                                          float v) {
-  float wh = 0.f;
-#pragma unroll
-  for (int c = 0; c < KMAX; ++c) {
-    if (c < k) {
-      const float wv = w_at<BF16>(Ws, Wr, use_smem, c * g + col);
-      if (BF16) {
-        const float p = round_bf16(h[c] * wv);
-        wh = (c == 0) ? p : round_bf16(wh + p);
-      } else {
-        wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
-      }
-    }
-  }
-  if (BF16) {
-    const float den = fmaxf(wh, round_bf16(KL_EPS));
-    return round_bf16(round_bf16(v) / den);
-  }
-  return v / fmaxf(wh, KL_EPS);
-}
-
 template <int KMAX, bool BF16>
 __device__ __forceinline__ void load_h_row(float (&h)[KMAX],
                                            const float* Hrow, int k) {
@@ -163,11 +163,21 @@ __device__ __forceinline__ void load_h_row(float (&h)[KMAX],
 // (sw = nq - 1 when nq is a power of two, else 0).
 // ---------------------------------------------------------------------------
 
+// k components packed as whole 16-byte chunks (the h_stats W table, the
+// w_numer H rows): 32-bit words per vector (bf16 pairs or f32) and chunks
 template <bool BF16, int KMAX>
-struct HStatsShape {
-  // 32-bit words a lane holds for its slot's column: bf16 pairs or f32
+struct Packed {
   static constexpr int NW = BF16 ? KMAX / 2 : KMAX;
   static constexpr int NQ = NW / 4;        // 16-byte chunks at most
+};
+
+// the chunks k fills: 8 bf16 or 4 f32 components a chunk
+__host__ __device__ __forceinline__ int packed_chunks(int k, bool bf16) {
+  return bf16 ? (k + 7) / 8 : (k + 3) / 4;
+}
+
+template <bool BF16, int KMAX>
+struct HStatsShape : Packed<BF16, KMAX> {
   // the f32 k <= 16 table fills most of an SM's shared memory, so one
   // block of 16 warps holds it; the others run 8 warps a block and more
   // blocks an SM
@@ -225,7 +235,7 @@ __device__ __forceinline__ void stage_packed(uint4* tbl, const float* Wr,
 
 // Sum N per-lane values over the warp in a fixed order with N/2 + N/4 + ...
 // shuffles instead of 5N: at each offset a lane keeps one half of its
-// values and sends its partner the other half. hstats_store says which
+// values and sends its partner the other half. store_folded says which
 // lane then holds which component's warp total.
 template <int N, int M, int OFF>
 __device__ __forceinline__ void warp_fold(float (&a)[N], int lane) {
@@ -250,20 +260,22 @@ __device__ __forceinline__ void warp_fold(float (&a)[N], int lane) {
 // After warp_fold<KMAX, KMAX, 16>: for KMAX <= 32, lane l holds component
 // l / (32 / KMAX) in a[0] (lanes of one group hold the same total); for
 // KMAX = 64, lane l holds components 2l and 2l + 1 in a[0] and a[1].
+// Component c goes to out[c * stride].
 template <int KMAX>
-__device__ __forceinline__ void hstats_store(const float (&a)[KMAX], int lane,
-                                             float* out, int k) {
+__device__ __forceinline__ void store_folded(const float (&a)[KMAX],
+                                             int lane, float* out, int k,
+                                             int64_t stride = 1) {
   if constexpr (KMAX >= 32) {
     constexpr int PER = KMAX / 32;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int c = lane * PER + i;
-      if (c < k) out[c] = a[i];
+      if (c < k) out[c * stride] = a[i];
     }
   } else {
     constexpr int GROUP = 32 / KMAX;
     const int c = lane / GROUP;
-    if (lane % GROUP == 0 && c < k) out[c] = a[0];
+    if (lane % GROUP == 0 && c < k) out[c * stride] = a[0];
   }
 }
 
@@ -365,7 +377,7 @@ __device__ __forceinline__ void h_stats_row(
     v = v_n;
   }
   warp_fold<KMAX, KMAX, 16>(acc, lane);
-  hstats_store<KMAX>(acc, lane, out, k);
+  store_folded<KMAX>(acc, lane, out, k);
 }
 
 // Blocks are persistent: block b walks the rows [b*per, (b+1)*per) of the
@@ -405,73 +417,159 @@ h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
   }
 }
 
-// out[r, i*w + j] = ratio at (i, j); out[r, n*w] = 0 (the sentinel slot)
-template <typename VT, typename OT, bool BF16, int KMAX>
+// ---------------------------------------------------------------------------
+// w_numer: numer[r, c, gene] = sum over the gene's stored slots (i, gene) of
+// ratio(r, i, gene) * H[r, i, c], ratio = X[i, gene] / max(WH, EPS), in one
+// gene-side traversal: no ratio buffer.
+//
+// w_numer_prep_kernel, launched first from the same entry point, writes
+// two scratch arrays the traversal reads instead of scattered data:
+//   Hp: row `row` of the (R*n)-row sequence of H as nq 16-byte chunks,
+//       components 8q..8q+7 as bf16 pairs (bf16 mode: the chain casts H
+//       anyway) or 4q..4q+3 as f32, the tail of the last chunk zero;
+//   Xt: the value of each stored slot in the gene-side layout of perm_t
+//       (g x wt, bf16 in bf16 mode), gathered once for all replicates, so
+//       the traversal reads it along with rows_t and perm_t. Padded slots
+//       are not written and never read.
+// ---------------------------------------------------------------------------
+
+// warps a block of w_numer_kernel, one (replicate, gene) each
+constexpr int W_NUMER_WARPS = 2;
+
+template <typename VT, typename XT, bool BF16>
 __global__ void __launch_bounds__(THREADS)
-ratio_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
-             const float* __restrict__ H, const float* __restrict__ W,
-             OT* __restrict__ out, int n, int w, int k, int g, int use_smem) {
-  extern __shared__ float Ws[];
-  const int r = blockIdx.y;
-  const float* Wr = W + (int64_t)r * k * g;
-  if (use_smem) stage_w<BF16>(Ws, Wr, k * g);
-  const int64_t nw1 = (int64_t)n * w + 1;
-  OT* outr = out + (int64_t)r * nw1;
-  if (blockIdx.x == 0 && threadIdx.x == 0) store_val(outr + nw1 - 1, 0.f);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
-       row += gridDim.x * WARPS_PER_BLOCK) {
-    float h[KMAX];
-    load_h_row<KMAX, BF16>(h, H + ((int64_t)r * n + row) * k, k);
-    const int64_t base = (int64_t)row * w;
-    for (int j = lane; j < w; j += 32) {
-      const int col = __ldg(cols + base + j);
-      store_val(outr + base + j,
-                ratio_at<KMAX, BF16>(h, k, Ws, Wr, use_smem != 0, g, col,
-                                     load_val(vals + base + j)));
+w_numer_prep_kernel(const VT* __restrict__ vals,
+                    const int* __restrict__ perm_t,
+                    const float* __restrict__ H, uint4* __restrict__ Hp,
+                    XT* __restrict__ Xt, int64_t rows, int k, int nq,
+                    int64_t slots, int sentinel) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t i = first; i < rows * nq; i += stride) {
+    const int64_t row = i / nq;
+    const int q = (int)(i - row * nq);
+    const float* h = H + row * k;
+    unsigned u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (BF16) {
+        const int c = 8 * q + 2 * j;
+        u[j] = pack_bf16x2(c < k ? __ldg(h + c) : 0.f,
+                           c + 1 < k ? __ldg(h + c + 1) : 0.f);
+      } else {
+        const int c = 4 * q + j;
+        u[j] = __float_as_uint(c < k ? __ldg(h + c) : 0.f);
+      }
     }
+    Hp[i] = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  for (int64_t i = first; i < slots; i += stride) {
+    const int p = __ldg(perm_t + i);
+    if (p < sentinel) store_val(Xt + i, load_val(vals + p));
   }
 }
 
-// numer[r, c, gene] = sum_t ratio[r, perm_t[gene, t]] * H[r, rows_t[gene, t], c]
-template <typename RT, bool BF16, int KMAX>
-__global__ void __launch_bounds__(THREADS)
-w_numer_kernel(const int* __restrict__ rows_t, const int* __restrict__ perm_t,
-               const RT* __restrict__ ratio, const float* __restrict__ H,
-               float* __restrict__ numer, int n, int w, int k, int g,
-               int wt) {
-  const int r = blockIdx.y;
-  const int64_t nw1 = (int64_t)n * w + 1;
-  const RT* rr = ratio + (int64_t)r * nw1;
-  const float* Hr = H + (int64_t)r * n * k;
+// One warp per (replicate, gene), replicate-major (the warps in flight share
+// a replicate's H); W[r, :, gene] in registers; lanes stride over the gene's
+// slots.
+template <typename XT, bool BF16, int KMAX>
+__global__ void __launch_bounds__(W_NUMER_WARPS * 32)
+w_numer_kernel(const XT* __restrict__ Xt, const int* __restrict__ rows_t,
+               const int* __restrict__ perm_t, const uint4* __restrict__ Hp,
+               const float* __restrict__ W, float* __restrict__ numer,
+               int n, int k, int g, int wt, int nq, int sentinel,
+               int64_t items) {
+  using P = Packed<BF16, KMAX>;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int gene = blockIdx.x * WARPS_PER_BLOCK + warp; gene < g;
-       gene += gridDim.x * WARPS_PER_BLOCK) {
-    float acc[KMAX];
+  const int64_t item =
+      (int64_t)blockIdx.x * W_NUMER_WARPS + (threadIdx.x >> 5);
+  if (item >= items) return;     // the whole warp
+  const int r = (int)(item / g);
+  const int gene = (int)(item - (int64_t)r * g);
+  const float* Wr = W + (int64_t)r * k * g;
+  unsigned wv[P::NW];
 #pragma unroll
-    for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
-    const int64_t base = (int64_t)gene * wt;
-    for (int t = lane; t < wt; t += 32) {
-      const float rv = load_val(rr + __ldg(perm_t + base + t));
-      const float* Hrow = Hr + (int64_t)__ldg(rows_t + base + t) * k;
+  for (int i = 0; i < P::NW; ++i)
+    wv[i] = column_word<BF16, KMAX>(Wr, k, g, gene, i);
+  const uint4* Hr = Hp + (int64_t)r * n * nq;
+  float acc[KMAX];
 #pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (c < k) {
-          const float hv = BF16 ? round_bf16(__ldg(Hrow + c)) : __ldg(Hrow + c);
-          acc[c] += BF16 ? round_bf16(rv * hv) : rv * hv;
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) {
-      if (c < k) {
-        const float s = warp_sum(acc[c]);
-        if (lane == 0) numer[((int64_t)r * k + c) * g + gene] = s;
-      }
-    }
+  for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
+
+  const int64_t base = (int64_t)gene * wt;
+  int t = lane;
+  int row = 0;
+  int p = sentinel;              // perm_t of a padded slot
+  if (t < wt) {
+    row = __ldg(rows_t + base + t);
+    p = __ldg(perm_t + base + t);
   }
+  // A gene's stored slots sit first and its padding (the sentinel) after
+  // them, so a window of 32 padded slots ends the gene; a padded slot in
+  // the last window would add exactly +0.0 and is skipped.
+  while (__any_sync(0xffffffffu, p < sentinel)) {
+    const int tn = t + 32;
+    int row_n = 0;
+    int p_n = sentinel;
+    if (tn < wt) {   // the next window's slot, in flight meanwhile
+      row_n = __ldg(rows_t + base + tn);
+      p_n = __ldg(perm_t + base + tn);
+    }
+    if (p < sentinel) {
+      const float v = load_val(Xt + base + t);
+      // the slot's H row, once, for the WH chain and the k products
+      unsigned hv[P::NW];
+      const uint4* hrow = Hr + (int64_t)row * nq;
+#pragma unroll
+      for (int q = 0; q < P::NQ; ++q) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (q < nq) u = __ldg(hrow + q);
+        hv[4 * q] = u.x;
+        hv[4 * q + 1] = u.y;
+        hv[4 * q + 2] = u.z;
+        hv[4 * q + 3] = u.w;
+      }
+      // components past k hold 0 in both H and W: +0.0 products that leave
+      // the WH chain unchanged (h_stats' loops, with H and W swapped)
+      if (BF16) {
+        // the JAX chain: each h*w rounded to bf16, the sum rounded to bf16
+        // after every component, the ratio bf16 (v is bf16 already), each
+        // ratio*h rounded to bf16 and summed in f32
+        __nv_bfloat162 pr = __hmul2(as_bf16x2(hv[0]), as_bf16x2(wv[0]));
+        __nv_bfloat16 wh = __hadd(__low2bfloat16(pr), __high2bfloat16(pr));
+#pragma unroll
+        for (int i = 1; i < P::NW; ++i) {
+          pr = __hmul2(as_bf16x2(hv[i]), as_bf16x2(wv[i]));
+          wh = __hadd(__hadd(wh, __low2bfloat16(pr)), __high2bfloat16(pr));
+        }
+        const float den = fmaxf(__bfloat162float(wh), round_bf16(KL_EPS));
+        const __nv_bfloat162 r2 =
+            __bfloat162bfloat162(__float2bfloat16_rn(v / den));
+#pragma unroll
+        for (int i = 0; i < P::NW; ++i) {
+          pr = __hmul2(r2, as_bf16x2(hv[i]));
+          acc[2 * i] += __low2float(pr);
+          acc[2 * i + 1] += __high2float(pr);
+        }
+      } else {
+        float wh = 0.f;
+#pragma unroll
+        for (int c = 0; c < KMAX; ++c) {
+          const float hw = __uint_as_float(hv[c]) * __uint_as_float(wv[c]);
+          wh = (c == 0) ? hw : wh + hw;
+        }
+        const float ratio = v / fmaxf(wh, KL_EPS);
+#pragma unroll
+        for (int c = 0; c < KMAX; ++c)
+          acc[c] += ratio * __uint_as_float(hv[c]);
+      }
+    }
+    t = tn;
+    row = row_n;
+    p = p_n;
+  }
+  warp_fold<KMAX, KMAX, 16>(acc, lane);
+  store_folded<KMAX>(acc, lane, numer + (int64_t)r * k * g + gene, k, g);
 }
 
 // numer[r, i, c] = sum_j ratio[i, j] * W[r, c, cols[i, j]]
@@ -685,7 +783,7 @@ int h_stats_launch(int R, int n, int k, int g, HStatsLaunch* L) {
   using S = HStatsShape<BF16, KMAX>;
   auto kern = h_stats_kernel<VT, BF16, KMAX>;
   L->threads = S::THREADS;
-  L->nq = BF16 ? (k + 7) / 8 : (k + 3) / 4;
+  L->nq = packed_chunks(k, BF16);
   const size_t bytes = (size_t)g * L->nq * 16;
   L->use_smem = bytes <= (size_t)smem_optin();
   L->table_bytes = L->use_smem ? (int)bytes : 0;
@@ -723,22 +821,6 @@ int run_h_stats(const void* vals, const void* cols, const void* H,
   return (int)cudaGetLastError();
 }
 
-template <typename VT, typename OT, bool BF16, int KMAX>
-int run_ratio(const void* vals, const void* cols, const void* H,
-              const void* W, void* out, int R, int n, int w, int k, int g,
-              cudaStream_t s) {
-  auto kern = ratio_kernel<VT, OT, BF16, KMAX>;
-  size_t smem;
-  int use_smem;
-  dim3 grid;
-  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
-  if (e) return e;
-  kern<<<grid, THREADS, smem, s>>>(
-      (const VT*)vals, (const int*)cols, (const float*)H, (const float*)W,
-      (OT*)out, n, w, k, g, use_smem);
-  return (int)cudaGetLastError();
-}
-
 template <int KMAX>
 int run_kmax_h_stats(const void* vals, int vals_bf16, const void* cols,
                      const void* H, const void* W, void* numer, int R, int n,
@@ -772,38 +854,55 @@ int dispatch_h_stats(const void* vals, int vals_bf16, const void* cols,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int KMAX>
-int run_kmax_ratio(const void* vals, int vals_bf16, const void* cols,
-                   const void* H, const void* W, void* out, int R, int n,
-                   int w, int k, int g, int bf16, cudaStream_t s) {
-  if (!bf16) {
-    if (vals_bf16) return (int)cudaErrorInvalidValue;
-    return run_ratio<float, float, false, KMAX>(vals, cols, H, W, out, R, n,
-                                                w, k, g, s);
+// w_numer's two launches: the scratch arrays, then the gene-side traversal
+template <typename VT, bool BF16, int KMAX>
+int run_w_numer(const void* vals, const void* rows_t, const void* perm_t,
+                const void* H, const void* W, void* Hp, void* Xt,
+                void* numer, int R, int n, int w, int k, int g, int wt,
+                int nq, cudaStream_t s) {
+  using XT = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  if (nq != packed_chunks(k, BF16)) return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)R * n;
+  const int64_t slots = (int64_t)g * wt;
+  const int64_t work = rows * nq > slots ? rows * nq : slots;
+  if (work > 0) {
+    const int64_t need = (work + THREADS - 1) / THREADS;
+    const int64_t cap = 16 * (int64_t)sm_count();
+    w_numer_prep_kernel<VT, XT, BF16>
+        <<<(unsigned)(need < cap ? need : cap), THREADS, 0, s>>>(
+            (const VT*)vals, (const int*)perm_t, (const float*)H,
+            (uint4*)Hp, (XT*)Xt, rows, k, nq, slots, n * w);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  if (vals_bf16)
-    return run_ratio<__nv_bfloat16, __nv_bfloat16, true, KMAX>(
-        vals, cols, H, W, out, R, n, w, k, g, s);
-  return run_ratio<float, __nv_bfloat16, true, KMAX>(vals, cols, H, W, out,
-                                                     R, n, w, k, g, s);
+  const int64_t items = (int64_t)R * g;
+  if (items == 0) return 0;
+  w_numer_kernel<XT, BF16, KMAX>
+      <<<(unsigned)((items + W_NUMER_WARPS - 1) / W_NUMER_WARPS),
+         W_NUMER_WARPS * 32, 0, s>>>(
+          (const XT*)Xt, (const int*)rows_t, (const int*)perm_t,
+          (const uint4*)Hp, (const float*)W, (float*)numer, n, k, g, wt, nq,
+          n * w, items);
+  return (int)cudaGetLastError();
 }
 
 template <int KMAX>
-int run_kmax_w_numer(const void* rows_t, const void* perm_t,
-                     const void* ratio, const void* H, void* numer, int R,
-                     int n, int w, int k, int g, int wt, int bf16,
-                     cudaStream_t s) {
-  dim3 grid(grid_x_for(R, g), R);
-  if (bf16) {
-    w_numer_kernel<__nv_bfloat16, true, KMAX><<<grid, THREADS, 0, s>>>(
-        (const int*)rows_t, (const int*)perm_t, (const __nv_bfloat16*)ratio,
-        (const float*)H, (float*)numer, n, w, k, g, wt);
-  } else {
-    w_numer_kernel<float, false, KMAX><<<grid, THREADS, 0, s>>>(
-        (const int*)rows_t, (const int*)perm_t, (const float*)ratio,
-        (const float*)H, (float*)numer, n, w, k, g, wt);
+int run_kmax_w_numer(const void* vals, int vals_bf16, const void* rows_t,
+                     const void* perm_t, const void* H, const void* W,
+                     void* Hp, void* Xt, void* numer, int R, int n, int w,
+                     int k, int g, int wt, int nq, int bf16, cudaStream_t s) {
+  if (!bf16) {
+    if (vals_bf16) return (int)cudaErrorInvalidValue;
+    return run_w_numer<float, false, KMAX>(vals, rows_t, perm_t, H, W, Hp,
+                                           Xt, numer, R, n, w, k, g, wt, nq,
+                                           s);
   }
-  return (int)cudaGetLastError();
+  if (vals_bf16)
+    return run_w_numer<__nv_bfloat16, true, KMAX>(vals, rows_t, perm_t, H,
+                                                  W, Hp, Xt, numer, R, n, w,
+                                                  k, g, wt, nq, s);
+  return run_w_numer<float, true, KMAX>(vals, rows_t, perm_t, H, W, Hp, Xt,
+                                        numer, R, n, w, k, g, wt, nq, s);
 }
 
 template <int KMAX>
@@ -884,35 +983,23 @@ int kl_h_stats_launch(int R, int n, int k, int g, int bf16, int vals_bf16,
   return 0;
 }
 
-int kl_ratio(const void* vals, int vals_bf16, const void* cols, const void* H,
-             const void* W, void* out, int R, int n, int w, int k, int g,
-             int bf16, void* stream) {
+// scratch: Hp, R*n*nq 16-byte chunks, nq = ceil(k/8) (bf16) or ceil(k/4)
+// (f32), for the packed copy of H; Xt, g*wt values (bf16 in bf16 mode,
+// else f32) for the gene-side values
+int kl_w_numer(const void* vals, int vals_bf16, const void* rows_t,
+               const void* perm_t, const void* H, const void* W, void* Hp,
+               void* Xt, void* numer, int R, int n, int w, int k, int g,
+               int wt, int nq, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 16)
-    return run_kmax_ratio<16>(vals, vals_bf16, cols, H, W, out, R, n, w, k,
-                              g, bf16, s);
+    return run_kmax_w_numer<16>(vals, vals_bf16, rows_t, perm_t, H, W, Hp,
+                                Xt, numer, R, n, w, k, g, wt, nq, bf16, s);
   if (k <= 32)
-    return run_kmax_ratio<32>(vals, vals_bf16, cols, H, W, out, R, n, w, k,
-                              g, bf16, s);
+    return run_kmax_w_numer<32>(vals, vals_bf16, rows_t, perm_t, H, W, Hp,
+                                Xt, numer, R, n, w, k, g, wt, nq, bf16, s);
   if (k <= 64)
-    return run_kmax_ratio<64>(vals, vals_bf16, cols, H, W, out, R, n, w, k,
-                              g, bf16, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-int kl_w_numer(const void* rows_t, const void* perm_t, const void* ratio,
-               const void* H, void* numer, int R, int n, int w, int k, int g,
-               int wt, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    return run_kmax_w_numer<16>(rows_t, perm_t, ratio, H, numer, R, n, w, k,
-                                g, wt, bf16, s);
-  if (k <= 32)
-    return run_kmax_w_numer<32>(rows_t, perm_t, ratio, H, numer, R, n, w, k,
-                                g, wt, bf16, s);
-  if (k <= 64)
-    return run_kmax_w_numer<64>(rows_t, perm_t, ratio, H, numer, R, n, w, k,
-                                g, wt, bf16, s);
+    return run_kmax_w_numer<64>(vals, vals_bf16, rows_t, perm_t, H, W, Hp,
+                                Xt, numer, R, n, w, k, g, wt, nq, bf16, s);
   return (int)cudaErrorInvalidValue;
 }
 

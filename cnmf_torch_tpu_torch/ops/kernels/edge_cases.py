@@ -1,6 +1,6 @@
 """Edge shapes and inputs at which the ELL kernels are held against their
 plain versions on the card: one table and one input builder for the card
-tests (``tests/test_torch_cuda.py``) and the ``h_stats`` edge sweep of
+tests (``tests/test_torch_cuda.py``) and the edge sweep of
 ``chip_smoke.py``."""
 
 from __future__ import annotations
@@ -25,18 +25,24 @@ EDGE_SHAPES = [(130, 100, 5, 3), (997, 611, 13, 2), (640, 3000, 20, 2),
 
 
 def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
-                full_row=False):
+                full_row=False, gene_edges=False):
     """The ELL encoding of a random ``n x g`` matrix (gamma values) and
     random positive ``H (R, n, k)`` and ``W (R, k, g)``, made from
     ``seed``. ``zero_rows``: the first rows are all zero. ``full_row``:
     the last row gets the most nonzeros and the encoding is exactly that
-    wide, so one row fills the whole width ``w``."""
+    wide, so one row fills the whole width ``w``. ``gene_edges``: gene 0
+    is absent from every row, gene ``g - 1`` is stored in every row but
+    the zero rows, and the transpose side is exactly as wide as the longest
+    gene, so gene ``g - 1`` fills the whole width ``wt``."""
     rng = np.random.default_rng(seed)
     X = sp.random(n, g, density=density, format="csr",
                   random_state=int(rng.integers(1 << 31)),
                   data_rvs=lambda s: (rng.gamma(2.0, 1.0, s) + 0.1))
-    if zero_rows or full_row:
+    if zero_rows or full_row or gene_edges:
         X = X.tolil()
+        if gene_edges:
+            X[:, 0] = 0.0
+            X[:, g - 1] = 1.5
         X[:zero_rows, :] = 0.0
         if full_row:
             most = int(np.diff(X.tocsr().indptr).max()) + 5
@@ -45,7 +51,9 @@ def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
         X = X.tocsr()
         X.eliminate_zeros()
     width = int(np.diff(X.indptr).max()) if full_row else None
-    x = sparse.csr_to_ell(X, width=width).to(device)
+    t_width = (int(np.diff(X.tocsc().indptr).max()) if gene_edges
+               else None)
+    x = sparse.csr_to_ell(X, width=width, t_width=t_width).to(device)
     H = torch.as_tensor(rng.random((R, n, k), np.float32) + 0.1).to(device)
     W = torch.as_tensor(rng.random((R, k, g), np.float32) + 0.1).to(device)
     return x, H, W

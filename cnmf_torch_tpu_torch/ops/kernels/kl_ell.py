@@ -30,16 +30,25 @@ Kernels, and the TPU kernels they replace
   calculator (``h_stats_launch`` reports it). A table larger than a
   block's shared memory is read from device memory instead, still once a
   slot.
-* ``ratio`` <- ``pallas_kl_w_numer`` pass 1 (``_ratio_body``). The same
-  traversal without the numerators, writing the ratio to a flat buffer
-  with a zero sentinel slot; bound by the bytes of that output. One warp
-  per row, lanes striding over its slots, W[r] staged per block as the
-  (k, g) f32 matrix, k scalar gathers a slot.
-* ``w_numer`` <- ``pallas_kl_w_numer`` pass 2 (``_w_numer_body``). One warp
-  per gene gathers the ratio through ``perm_t`` and the H rows through
-  ``rows_t``; bound by bytes. Padded slots point at the sentinel, so they
-  add exactly +0.0; per-component sums reduce in registers and then by
-  fixed-order shuffles.
+* ``w_numer`` <- ``pallas_kl_w_numer`` (both passes: ``_ratio_body`` and
+  ``_w_numer_body``; wrapper ``pallas_kl_w_stats`` too). One gene-side
+  traversal of the stored nonzeros: at each slot WH from the row's H and
+  the gene's W column, the ratio, then k products ``ratio * H``; about
+  4k+1 operations per nonzero and replicate. The TPU split it in two
+  passes through a flat ratio buffer (every row's ratio had to exist
+  before a gene reduced it); a gene-side traversal computes WH where it
+  needs it, so no ratio buffer exists. With the operands in L2, the
+  sectors its gathers touch bound it. Design: one warp per (replicate,
+  gene), its W column in registers (bf16 in bf16 mode), the lanes
+  striding over the gene's ``rows_t``/``perm_t`` slots; a prep kernel of
+  the same call packs H into scratch of whole 16-byte chunks a row (bf16
+  with k rounded up to 8, or f32 to 4), so a slot gathers its row's H once
+  (one or two 32-byte sectors at k <= 16) for WH and the products, and
+  gathers the stored values into the gene-side layout once for all
+  replicates; bf16x2 arithmetic with the JAX chain's roundings; a warp
+  stops at its gene's first window of 32 padded slots (the sentinel
+  ``n*w``); the per-component sums fold across the warp in a fixed order
+  (no atomics). Blocks of two warps, replicate-major.
 * ``beta_err_partials`` <- ``pallas_kl_beta_err`` (``_obj_body``). The
   two-regime KL term minus WH over the nonzeros (a log1p or two logs per
   nonzero: bound by operations), one f32 partial per block from a
@@ -50,15 +59,17 @@ Kernels, and the TPU kernels they replace
   ``ratio = X / max(WH, EPS)``, ``r2 = ratio / max(WH, EPS)``, then per
   component the MU numerator ``ratio * W`` and the diagonal Hessian
   ``r2 * W * W``; about 7k+3 operations per nonzero and replicate, bound
-  by operations. ``ratio``'s design with two accumulators per component
-  (2k + k registers a lane); padded slots and all-zero rows give exact
-  +0.0 in both outputs, which keeps zero-padded components at zero under
-  the Newton step.
+  by operations. One warp per row, lanes striding over its slots, W[r]
+  staged per block as the (k, g) f32 matrix (read through the read-only
+  cache where it does not fit), two accumulators per component (2k + k
+  registers a lane); padded slots and all-zero rows give exact +0.0 in
+  both outputs, which keeps zero-padded components at zero under the
+  Newton step.
 * ``wh_at_nz`` <- ``pallas_wh_at_nz`` (``_wh_body``). The SDDMM: WH at
   every stored slot, ``(R, n, w)`` f32, which the DNA step's row
   objectives read twice per H step. Bound by the bytes of that output.
-  ``ratio``'s row traversal, the lanes of a warp writing consecutive
-  slots of a row (coalesced stores).
+  ``h_newton_stats``' row traversal, the lanes of a warp writing
+  consecutive slots of a row (coalesced stores).
 """
 
 from __future__ import annotations
@@ -76,14 +87,14 @@ import torch
 from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
-           "h_stats", "h_stats_launch", "ratio", "w_numer",
-           "beta_err_partials", "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
+           "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
+           "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
            "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
-           "h_stats_plain", "ratio_plain", "w_numer_plain",
-           "beta_err_plain", "h_newton_stats_plain", "wh_at_nz_plain"]
+           "h_stats_plain", "w_numer_plain", "beta_err_plain",
+           "h_newton_stats_plain", "wh_at_nz_plain"]
 
-KERNELS = ("h_stats", "ratio", "w_numer", "beta_err_partials",
-           "h_newton_stats", "wh_at_nz")
+KERNELS = ("h_stats", "w_numer", "beta_err_partials", "h_newton_stats",
+           "wh_at_nz")
 
 # one plain count per kernel: each wrapper adds one where it launches
 launches = {name: 0 for name in KERNELS}
@@ -157,13 +168,13 @@ def build():
         lib.kl_row_blocks.argtypes = [ci, ci]
         lib.kl_h_stats.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
         lib.kl_h_stats_launch.argtypes = [ci] * 6 + [vp]
-        lib.kl_ratio.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
-        lib.kl_w_numer.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.kl_w_numer.argtypes = ([vp, ci] + [vp] * 7 + [ci] * 8
+                                   + [vp])
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         for fn in (lib.kl_row_blocks, lib.kl_h_stats, lib.kl_h_stats_launch,
-                   lib.kl_ratio, lib.kl_w_numer, lib.kl_beta_err_partials,
+                   lib.kl_w_numer, lib.kl_beta_err_partials,
                    lib.kl_h_newton_stats, lib.kl_wh_at_nz):
             fn.restype = ci
         build_info.update(seconds=time.perf_counter() - t0,
@@ -219,17 +230,13 @@ def _row_checks(vals, cols, H, W, vals_dtypes):
     return R, n, w, k, g
 
 
-
 # ---------------------------------------------------------------------------
 # plain versions (ops/sparse.py) — what a CPU tensor runs and what the
 # kernels are held against on the card
 # ---------------------------------------------------------------------------
 
 h_stats_plain = sparse.ell_h_numer
-ratio_plain = sparse.ell_ratio_flat
-w_numer_plain = sparse.ell_w_numer_from_ratio
-
-
+w_numer_plain = sparse.ell_w_numer
 h_newton_stats_plain = sparse.ell_h_newton
 wh_at_nz_plain = sparse.ell_wh_slots
 
@@ -272,55 +279,48 @@ def h_stats_launch(R: int, n: int, k: int, g: int, bf16: bool = False,
     resident blocks per SM at that size and the persistent grid."""
     out = (ctypes.c_int * len(H_STATS_LAUNCH))()
     _raise_on(build().kl_h_stats_launch(R, n, k, g, int(bool(bf16)),
-                                        int(bool(vals_bf16)), out),
+                                       int(bool(vals_bf16)), out),
               "h_stats (launch query)")
     return dict(zip(H_STATS_LAUNCH, out))
 
 
-def ratio(vals, cols, H, W, bf16: bool = False):
-    """The flat ratio buffer ``(R, n*w + 1)`` with a zero sentinel slot;
-    bf16 in bf16 mode, else f32."""
+def w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
+    """``numer (R, k, g)`` f32 of the KL W update, ``H^T (X / WH)`` through
+    the transpose index set ``rows_t``/``perm_t``. ``vals`` is f32, or bf16
+    in bf16 mode. The kernel reads the gene side only; the row side's
+    ``cols`` feeds the plain version."""
+    if rows_t is None or perm_t is None:
+        raise ValueError("no transpose index set (rows_t/perm_t); encode "
+                         "with transpose=True")
     ok = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
-    R, n, w, k, g = _row_checks(vals, cols, H, W, ok)
-    if not H.is_cuda:
-        return ratio_plain(vals, cols, H, W, bf16)
-    lib = build()
-    out = torch.empty((R, n * w + 1),
-                      dtype=torch.bfloat16 if bf16 else torch.float32,
-                      device=H.device)
-    err = lib.kl_ratio(_ptr(vals), int(vals.dtype == torch.bfloat16),
-                       _ptr(cols), _ptr(H), _ptr(W), _ptr(out),
-                       R, n, w, k, g, int(bool(bf16)), _stream())
-    _raise_on(err, "ratio")
-    launches["ratio"] += 1
-    return out
-
-
-def w_numer(rows_t, perm_t, r_flat, H, bf16: bool = False):
-    """``numer (R, k, g)`` f32 of the KL W update from the flat ratio."""
     dev = H.device
     R, n, k = H.shape
-    g, wt = rows_t.shape
-    nw1 = r_flat.shape[-1]
-    w = (nw1 - 1) // max(n, 1)
-    if w * n + 1 != nw1:
-        raise ValueError(f"ratio buffer length {nw1} is not n*w + 1 "
-                         f"for n={n}")
+    g = W.shape[-1]
+    w = vals.shape[-1]
+    wt = rows_t.shape[-1]
+    _check(vals, "vals", ok, (n, w), dev)
+    _check(cols, "cols", (torch.int32,), (n, w), dev)
+    _check(rows_t, "rows_t", (torch.int32,), (g, wt), dev)
+    _check(perm_t, "perm_t", (torch.int32,), (g, wt), dev)
+    _check(H, "H", (torch.float32,), (R, n, k), dev)
+    _check(W, "W", (torch.float32,), (R, k, g), dev)
     if k > MAX_K:
         raise ValueError(f"the CUDA ELL kernels take k <= {MAX_K}, got "
                          f"k={k}")
-    _check(rows_t, "rows_t", (torch.int32,), (g, wt), dev)
-    _check(perm_t, "perm_t", (torch.int32,), (g, wt), dev)
-    _check(r_flat, "ratio",
-           (torch.bfloat16,) if bf16 else (torch.float32,), (R, nw1), dev)
-    _check(H, "H", (torch.float32,), (R, n, k), dev)
     if not H.is_cuda:
-        return w_numer_plain(rows_t, perm_t, r_flat, H, bf16)
+        return w_numer_plain(vals, cols, rows_t, perm_t, H, W, bf16)
     lib = build()
+    # scratch: H packed as whole 16-byte chunks a row (8 bf16 or 4 f32
+    # components a chunk), and the values in the gene-side layout
+    nq = -(-k // (8 if bf16 else 4))
+    packed = torch.empty((R * n * nq * 4,), dtype=torch.int32, device=dev)
+    vals_t = torch.empty((g, wt), device=dev,
+                         dtype=torch.bfloat16 if bf16 else torch.float32)
     numer = torch.empty((R, k, g), dtype=torch.float32, device=dev)
-    err = lib.kl_w_numer(_ptr(rows_t), _ptr(perm_t), _ptr(r_flat), _ptr(H),
-                         _ptr(numer), R, n, w, k, g, wt, int(bool(bf16)),
-                         _stream())
+    err = lib.kl_w_numer(_ptr(vals), int(vals.dtype == torch.bfloat16),
+                         _ptr(rows_t), _ptr(perm_t), _ptr(H), _ptr(W),
+                         _ptr(packed), _ptr(vals_t), _ptr(numer), R, n, w,
+                         k, g, wt, nq, int(bool(bf16)), _stream())
     _raise_on(err, "w_numer")
     launches["w_numer"] += 1
     return numer
@@ -385,11 +385,7 @@ def kl_h_stats(x, H, W, bf16: bool = False):
 
 
 def kl_w_numer(x, H, W, bf16: bool = False):
-    if x.rows_t is None:
-        raise ValueError("this EllMatrix has no transpose index set "
-                         "(rows_t/perm_t); encode with transpose=True")
-    r_flat = ratio(x.vals, x.cols, H, W, bf16)
-    return w_numer(x.rows_t, x.perm_t, r_flat, H, bf16)
+    return w_numer(x.vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
 
 
 def kl_w_stats(x, H, W, bf16: bool = False):

@@ -31,8 +31,9 @@ import torch
 __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_chunk_rows", "ell_row_width", "resolve_sparse_beta",
            "kl_nz_term", "ell_h_numer", "ell_ratio_flat",
-           "ell_w_numer_from_ratio", "ell_kl_h_stats", "ell_kl_w_numer",
-           "ell_kl_w_stats", "ell_beta_err", "ell_beta_err_nz", "total_wh",
+           "ell_w_numer_from_ratio", "ell_w_numer", "ell_kl_h_stats",
+           "ell_kl_w_numer", "ell_kl_w_stats", "ell_beta_err",
+           "ell_beta_err_nz", "total_wh",
            "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
            "ell_kl_h_newton_stats"]
 
@@ -270,23 +271,30 @@ def ell_h_numer(vals, cols, H, W, bf16: bool = False):
 
 
 def ell_ratio_flat(vals, cols, H, W, bf16: bool = False):
-    """Plain ``ratio``: the ratio at every stored slot, flattened row-major
-    per replicate with one zero sentinel slot appended, ``(R, n*w + 1)``
-    (bf16 in bf16 mode, else f32)."""
+    """The ratio at every stored slot, flattened row-major per replicate
+    with one zero sentinel slot appended, ``(R, n*w + 1)`` (bf16 in bf16
+    mode, else f32)."""
     ratio, _ = _ratio(vals, cols, H, W, bf16)
     R = ratio.shape[0]
     return torch.cat([ratio.reshape(R, -1), ratio.new_zeros((R, 1))], dim=1)
 
 
 def ell_w_numer_from_ratio(rows_t, perm_t, r_flat, H, bf16: bool = False):
-    """Plain ``w_numer``: ``numer[r, c, gene] = sum_t r_flat[r,
-    perm_t[gene, t]] * H[r, rows_t[gene, t], c]``, ``(R, k, g)`` f32."""
+    """``numer[r, c, gene] = sum_t r_flat[r, perm_t[gene, t]] * H[r,
+    rows_t[gene, t], c]``, ``(R, k, g)`` f32."""
     Hc = H.to(torch.bfloat16) if bf16 else H
     r_t = r_flat[:, perm_t.long()]                       # (R, g, wt)
     rows = rows_t.long()
     return torch.stack(
         [(r_t * Hc[:, :, c][:, rows]).float().sum(-1)
          for c in range(H.shape[-1])], dim=1)
+
+
+def ell_w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
+    """Plain ``w_numer``: the KL W-update numerator ``(R, k, g)`` f32, as
+    :func:`ell_ratio_flat` then :func:`ell_w_numer_from_ratio`."""
+    r_flat = ell_ratio_flat(vals, cols, H, W, bf16)
+    return ell_w_numer_from_ratio(rows_t, perm_t, r_flat, H, bf16)
 
 
 def ell_kl_h_stats(x: EllMatrix, H, W, bf16: bool = False):
@@ -344,8 +352,7 @@ def ell_kl_w_numer(x: EllMatrix, H, W, bf16: bool = False):
     """KL W-update numerator ``H^T (X / WH)`` through the transpose index
     set: ``(R, k, g)`` f32."""
     _need_transpose(x)
-    r_flat = ell_ratio_flat(x.vals, x.cols, H, W, bf16)
-    return ell_w_numer_from_ratio(x.rows_t, x.perm_t, r_flat, H, bf16)
+    return ell_w_numer(x.vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
 
 
 def ell_kl_w_stats(x: EllMatrix, H, W, bf16: bool = False):

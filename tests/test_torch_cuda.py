@@ -1,5 +1,5 @@
 """The CUDA ELL KL kernels against their plain torch versions, on the card
-(the four of the MU solvers and the two of the batch dna recipe).
+(the three of the MU solvers and the two of the batch dna recipe).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels build at
 first use) and skips without one. Run them on the card with
@@ -70,18 +70,26 @@ def test_h_stats_table_placement(cuda_device, bf16):
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
 @pytest.mark.parametrize("bf16", [False, True])
-def test_ratio_and_w_numer_match_plain(cuda_device, n, g, k, R, bf16):
-    x, H, W = edge_inputs(n, g, k, R, 0.06, 2, cuda_device, zero_rows=3)
-    r = kl_ell.ratio(x.vals, x.cols, H, W, bf16)
-    r_plain = kl_ell.ratio_plain(x.vals, x.cols, H, W, bf16)
-    _close(r, r_plain, 2e-2 if bf16 else 2e-5)
-    assert float(r[:, -1].abs().max()) == 0.0
-    got = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
-    again = kl_ell.w_numer(x.rows_t, x.perm_t, r_plain, H, bf16)
-    want = kl_ell.w_numer_plain(x.rows_t, x.perm_t, r_plain, H, bf16)
-    torch.cuda.synchronize()
-    _close(got, want, 2e-2 if bf16 else 2e-5)
-    assert torch.equal(got, again)
+@pytest.mark.parametrize("zero_rows", [0, 3])
+def test_w_numer_matches_plain(cuda_device, n, g, k, R, bf16, zero_rows):
+    """The fused W numerator: gene 0 has no stored value (exact +0.0) and
+    gene g-1 one in every row but the zero rows, filling the transpose
+    width ``wt``; the other genes end in windows of padding that the
+    kernel skips. With zero rows, H rows are packed that no slot gathers
+    and whole rows of the row side are padding."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 2, cuda_device,
+                          zero_rows=zero_rows, gene_edges=True)
+    assert int((x.perm_t[-1] < x.vals.numel()).sum()) == x.perm_t.shape[1]
+    for vals in ([x.vals, x.vals.to(torch.bfloat16)] if bf16 else [x.vals]):
+        got = kl_ell.w_numer(vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
+        again = kl_ell.w_numer(vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
+        torch.cuda.synchronize()
+        want = kl_ell.w_numer_plain(vals, x.cols, x.rows_t, x.perm_t, H,
+                                    W, bf16)
+        _close(got, want, 2e-2 if bf16 else 2e-5)
+        assert torch.equal(got, again)
+        assert torch.all(got[:, :, 0] == 0)
+        assert not torch.signbit(got[:, :, 0]).any()
 
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
@@ -145,7 +153,7 @@ def test_launch_counts_and_no_fallback(cuda_device):
     kl_ell.kl_beta_err(x, H, W)
     kl_ell.kl_h_newton_stats(x, H, W)
     kl_ell.kl_wh_at_nz(x, H, W)
-    assert kl_ell.launches == {"h_stats": 1, "ratio": 1, "w_numer": 1,
+    assert kl_ell.launches == {"h_stats": 1, "w_numer": 1,
                                "beta_err_partials": 1, "h_newton_stats": 1,
                                "wh_at_nz": 1}
     # a CUDA tensor launches the kernel or raises: a wrong dtype or a
@@ -158,7 +166,9 @@ def test_launch_counts_and_no_fallback(cuda_device):
         kl_ell.h_newton_stats(x.vals.to(torch.bfloat16), x.cols, H, W)
     with pytest.raises(ValueError):
         kl_ell.wh_at_nz(x.cols, H, W.cpu())
-    assert sum(kl_ell.launches.values()) == 6
+    with pytest.raises(ValueError):
+        kl_ell.w_numer(x.vals, x.cols, x.rows_t.cpu(), x.perm_t, H, W)
+    assert sum(kl_ell.launches.values()) == 5
 
 
 def test_batch_dna_solve_on_the_card_matches_the_cpu(cuda_device):

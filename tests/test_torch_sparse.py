@@ -120,6 +120,81 @@ def test_ell_rows_store_their_nonzeros_first(chunk):
         assert int(stored.sum()) == int((X.data != 0).sum())
 
 
+@pytest.mark.parametrize("chunk", [None, 32, 500])
+def test_ell_genes_store_their_nonzeros_first(chunk):
+    """Every gene keeps its stored slots (``perm_t`` below the sentinel
+    ``n*w``) first in its transpose slot list and the sentinel after them:
+    the CUDA ``w_numer`` ends a gene at its first window of 32 padded
+    slots, which is exact only under this layout."""
+    X, _, _ = _fixture(130, 100, 5, 1, seed=7)
+    encodings = ([tsp.csr_to_ell(X), jsp.csr_to_ell(X)] if chunk is None
+                 else [tsp.ell_chunk_rows(X, chunk)[0],
+                       jsp.ell_chunk_rows(X, chunk)[0]])
+    for e in encodings:
+        n, w = np.asarray(e.vals).shape[-2:]
+        perm_t = np.asarray(e.perm_t).reshape(-1, e.perm_t.shape[-1])
+        stored = perm_t < n * w
+        assert (perm_t[~stored] == n * w).all()
+        # once a slot is padding, every later slot of the gene is too
+        assert not (np.diff(stored.astype(np.int8), axis=1) > 0).any()
+        assert int(stored.sum()) == X.nnz
+
+
+@pytest.mark.parametrize("bf16,vals_bf16", [(False, False), (True, False),
+                                            (True, True)])
+def test_w_numer_on_cpu_is_the_plain_composition(bf16, vals_bf16):
+    """On CPU tensors the fused W numerator's wrapper takes its plain
+    version, which equals the row-side ratio then the transpose reduce
+    (``ell_kl_w_numer``) bit for bit and counts no launch."""
+    X, H, W = _fixture(97, 61, 4, 3, seed=8)
+    xt = _torch_ell(X)
+    vals = xt.vals.to(torch.bfloat16) if vals_bf16 else xt.vals
+    H, W = _t(H), _t(W)
+    kl_ell.reset_launches()
+    got = kl_ell.w_numer(vals, xt.cols, xt.rows_t, xt.perm_t, H, W, bf16)
+    assert got.dtype == torch.float32 and got.shape == (3, 4, 61)
+    assert torch.equal(got, tsp.ell_kl_w_numer(xt.with_vals(vals), H, W,
+                                               bf16))
+    assert torch.equal(got, kl_ell.kl_w_numer(xt.with_vals(vals), H, W,
+                                              bf16))
+    assert kl_ell.launches["w_numer"] == 0
+    assert torch.all(got[:, :, -5:] == 0)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("vals f64", TypeError), ("bf16 vals in f32 mode", TypeError),
+    ("rows_t int64", TypeError), ("cols int64", TypeError),
+    ("H f64", TypeError),
+    ("perm_t narrower than rows_t", ValueError),
+    ("W of other genes", ValueError), ("vals of other rows", ValueError),
+    ("H not contiguous", ValueError), ("no transpose set", ValueError),
+    ("k too large", ValueError)])
+def test_w_numer_wrapper_rejects_what_the_kernel_does_not_take(case, error):
+    X, H, W = _fixture(64, 40, 3, 2, seed=9)
+    xt = _torch_ell(X)
+    args = dict(vals=xt.vals, cols=xt.cols, rows_t=xt.rows_t,
+                perm_t=xt.perm_t, H=_t(H), W=_t(W), bf16=False)
+    k = kl_ell.MAX_K + 1
+    args.update({
+        "vals f64": dict(vals=xt.vals.double()),
+        "bf16 vals in f32 mode": dict(vals=xt.vals.to(torch.bfloat16)),
+        "rows_t int64": dict(rows_t=xt.rows_t.long()),
+        "cols int64": dict(cols=xt.cols.long()),
+        "H f64": dict(H=args["H"].double()),
+        "perm_t narrower than rows_t": dict(perm_t=xt.perm_t[:, :-1]
+                                            .contiguous()),
+        "W of other genes": dict(W=args["W"][:, :, :-1].contiguous()),
+        "vals of other rows": dict(vals=xt.vals[:-1].contiguous()),
+        "H not contiguous": dict(H=args["H"].transpose(1, 2).contiguous()
+                                 .transpose(1, 2)),
+        "no transpose set": dict(rows_t=None, perm_t=None),
+        "k too large": dict(H=torch.ones((2, 64, k)),
+                            W=torch.ones((2, k, 40))),
+    }[case])
+    with pytest.raises(error):
+        kl_ell.w_numer(**args)
+
+
 @pytest.mark.parametrize("beta,density,width,g,want", [
     (1.0, 0.05, 10, 200, True), (1.0, 0.2, 10, 200, False),
     (1.0, 0.05, 30, 200, False), (2.0, 0.01, 1, 200, False),
