@@ -17,13 +17,16 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    set, at ``rtol 2e-5``); two launches bit-identical; then each kernel's
    time (CUDA events, warmed, median of many launches) beside its bound,
    its plain version's time and, where one PyTorch call computes the same
-   function, that call's time, and for ``h_stats`` its launch (threads
-   per block, W table bytes, resident blocks per SM); ``h_stats`` also at
-   the pipeline's other K (5, 7, 11) on the chunk. Then a sweep of
-   ``h_stats`` and ``w_numer`` over the card tests' edge shapes (k from 1
-   to 64, R=1 and 20, tables too large for shared memory, all-zero and
-   full-width rows, a gene with no stored value and one that fills the
-   transpose width) against their plain versions. Small solves on the
+   function, that call's time, and for ``h_stats`` and ``wh_at_nz`` their
+   launch (threads per block, W table bytes, resident blocks per SM);
+   ``h_stats`` also at the pipeline's other K (5, 7, 11) on the chunk.
+   ``wh_at_nz`` must hold one value at every slot of a row whose column is
+   0 (the padding). Then
+   a sweep of ``h_stats``, ``w_numer`` and ``wh_at_nz`` over the card
+   tests' edge shapes (k from 1 to 64, R=1 and 20, tables too large for
+   shared memory, all-zero and full-width rows, a gene with no stored
+   value and one that fills the transpose width, gene 0 stored beside the
+   padding) against their plain versions. Small solves on the
    card (an online KL solve, a usage refit, a batch dna solve) are held
    against the same solves on the CPU (plain versions).
 3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
@@ -300,22 +303,51 @@ def w_numer_check(kl_ell, x, H, W, bf16, tag, vals=None) -> float:
                        2e-2 if bf16 else 2e-5)
 
 
-def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
-    """``h_stats``' launch at these sizes: threads per block, the packed W
-    table's bytes (0: read from device memory), resident blocks per SM."""
-    L = kl_ell.h_stats_launch(R, n, k, g, bf16, bf16)
+def launch_note(L: dict) -> str:
+    """A launch of ``h_stats`` or ``wh_at_nz`` (``kl_ell.h_stats_launch``,
+    ``kl_ell.wh_at_nz_launch``): threads per block, the packed W table's
+    bytes (0: read from device memory), resident blocks per SM, grid."""
     return (f"; launch {L['threads']} threads, table {L['table_bytes']} B"
             f"{'' if L['table_in_smem'] else ' (device memory)'}, "
             f"{L['blocks_per_sm']} blocks/SM, grid {L['grid']}")
 
 
+def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
+    return launch_note(kl_ell.h_stats_launch(R, n, k, g, bf16, bf16))
+
+
+def wh_at_nz_check(kl_ell, x, H, W, tag, twin=False) -> float:
+    """``wh_at_nz`` against its plain version at every slot, padded ones
+    included: two launches bit-identical, every value finite, and every
+    slot of a row whose column is 0 holding the row's one column-0 value.
+    ``twin``: gene 1's W column is gene 0's, and the gathered gene-1 slots
+    must hold those bits too. Returns the max abs error."""
+    got = kl_ell.wh_at_nz(x.cols, H, W)
+    again = kl_ell.wh_at_nz(x.cols, H, W)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"wh_at_nz {tag} not repeatable")
+    check(bool(torch.isfinite(got).all()), f"wh_at_nz {tag}: not finite")
+    at = x.cols <= (1 if twin else 0)
+    first = torch.where(at, got, torch.tensor(np.inf, device=got.device))
+    first = first.amin(-1, keepdim=True).expand_as(got)
+    check(torch.equal(got[:, at], first[:, at]),
+          f"wh_at_nz {tag}: the column-0 slots of a row differ"
+          + (" from the gathered slots of an equal column" if twin else ""))
+    return max_abs_err(got, kl_ell.wh_at_nz_plain(x.cols, H, W), 2e-5)
+
+
 def edge_sweep(log_rows: list):
-    """``h_stats`` and ``w_numer`` at the edge shapes of the card tests,
-    both modes, against their plain versions, two launches bit-identical:
-    for ``h_stats`` three all-zero rows (exact +0.0) and one row that
-    fills the whole ELL width; for ``w_numer`` three all-zero rows, a gene
-    with no stored value (exact +0.0) and one stored in every other row,
-    filling the transpose width."""
+    """``h_stats``, ``w_numer`` and ``wh_at_nz`` at the edge shapes of the
+    card tests, against their plain versions, two launches bit-identical:
+    for ``h_stats`` (both modes) three all-zero rows (exact +0.0) and one
+    row that fills the whole ELL width; for ``w_numer`` (both modes) three
+    all-zero rows, a gene with no stored value (exact +0.0) and one stored
+    in every other row, filling the transpose width; for ``wh_at_nz``
+    three all-zero rows and, in turn, genes 0 and 1 stored in every other
+    row (a width that is a multiple of 4) or a row that fills the width
+    (one that is not), gene 1's W column set to gene 0's, so that every
+    column-0 slot must hold the bits of the gathered gene-1 slots of its
+    row."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
     from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
                                                              edge_inputs)
@@ -351,6 +383,17 @@ def edge_sweep(log_rows: list):
                                    if bf16 else [x.vals]))
             log_rows.append(f"  w_numer edge {tag:28s} max_abs_err "
                             f"{err:.3g} (wt {x.rows_t.shape[1]})")
+        for case in ("gene0", "full_row"):
+            x, H, W = edge_inputs(n, g, k, R, 0.06, 7, CARD, zero_rows=3,
+                                  **{case: True})
+            W[:, :, 1] = W[:, :, 0]
+            tag = f"n={n} g={g} k={k} R={R} {case}"
+            check(bool(((x.cols == 0).any(1) & (x.cols == 1).any(1)).any()),
+                  f"wh_at_nz edge {tag}: no row with both genes")
+            err = wh_at_nz_check(kl_ell, x, H, W, tag, twin=True)
+            log_rows.append(f"  wh_at_nz edge {tag:31s} max_abs_err "
+                            f"{err:.3g} (w {x.cols.shape[1]})"
+                            + launch_note(kl_ell.wh_at_nz_launch(R, n, k, g)))
 
 
 def h_stats_k_sweep(x, nnz: int, log_rows: list):
@@ -482,9 +525,8 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
     """The batch path's kernels against their plain versions at its
     shapes: the whole matrix (unchunked ELL with the whole-matrix
     transpose set), 20 replicates, k in {9, 13}, strict f32. Returns the
-    JSON records of ``h_newton_stats`` and ``wh_at_nz`` at k=13 and the
-    k=13 rows of the f32 ``w_numer``/``h_stats``/``beta_err_partials``
-    timed at these shapes."""
+    JSON records of ``h_newton_stats`` and ``wh_at_nz`` at k=13 and every
+    other kernel row timed at these shapes (k=9 and 13)."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
 
     dev = x.vals.device
@@ -507,12 +549,7 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
         errs["h_newton_stats"] = max(max_abs_err(numer, want[0], 2e-5),
                                      max_abs_err(hess, want[1], 2e-5))
         del numer, hess, again, want
-        got = kl_ell.wh_at_nz(x.cols, H, W)
-        check(torch.equal(got, kl_ell.wh_at_nz(x.cols, H, W)),
-              f"wh_at_nz {tag} not repeatable")
-        errs["wh_at_nz"] = max_abs_err(
-            got, kl_ell.wh_at_nz_plain(x.cols, H, W), 2e-5)
-        del got
+        errs["wh_at_nz"] = wh_at_nz_check(kl_ell, x, H, W, tag)
         errs["w_numer"] = w_numer_check(kl_ell, x, H, W, False, tag)
         got = kl_ell.h_stats(x.vals, x.cols, H, W, False)
         errs["h_stats"] = max_abs_err(
@@ -526,21 +563,22 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
             rec = _time_kernel(kl_ell, name, x, x.vals, H, W, False, nnz)
             rec["max_abs_err"] = errs[name]
             launch = (h_stats_launch_note(kl_ell, R, n, k, g, False)
-                      if name == "h_stats" else "")
+                      if name == "h_stats" else
+                      launch_note(kl_ell.wh_at_nz_launch(R, n, k, g))
+                      if name == "wh_at_nz" else "")
             log_rows.append(
                 f"  {name:18s} {tag:15s} kernel {rec['ms']:.4f} ms  "
                 f"plain {rec['plain_ms']:.4f} ms  library "
                 f"{rec['library_ms']} ms  bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']})  max_abs_err {errs[name]:.3g}"
                 + launch)
-            if k == 13:
-                rec["variant"] = (
-                    f"{tag}, R={R}, rows={n}, genes={g}, w={w}, wt={wt}, "
-                    f"nnz={nnz}" + rec.pop("library_note", "") + launch)
-                if name in ("h_newton_stats", "wh_at_nz"):
-                    records[name] = rec
-                else:
-                    extra.append(rec)
+            rec["variant"] = (
+                f"{tag}, R={R}, rows={n}, genes={g}, w={w}, wt={wt}, "
+                f"nnz={nnz}" + rec.pop("library_note", "") + launch)
+            if k == 13 and name in ("h_newton_stats", "wh_at_nz"):
+                records[name] = rec
+            else:
+                extra.append(rec)
         del H, W
         torch.cuda.empty_cache()
     return records, extra
@@ -564,8 +602,10 @@ def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz):
     elif name == "wh_at_nz":
         fn = lambda: kl_ell.wh_at_nz(x.cols, H, W)  # noqa: E731
         plain = lambda: kl_ell.wh_at_nz_plain(x.cols, H, W)  # noqa: E731
+        # cols read once (every slot, since every slot is written), H and
+        # W once, the (R, n, w) output written once
         w = x.cols.shape[-1]
-        nbytes = nnz * 4 + hw_bytes + R * n * w * 4
+        nbytes = n * w * 4 + hw_bytes + R * n * w * 4
         ops = R * nnz * 2 * k
         # one PyTorch call for the same function: the SDDMM on the CSR
         # pattern of the stored nonzeros

@@ -20,8 +20,8 @@
 // sentinel n*w in perm_t (transpose side, after the gene's stored slots),
 // so they add exactly +0.0 or are skipped.
 //
-// Design of beta_err, h_newton_stats and wh_at_nz (see
-// ops/kernels/kl_ell.py for the bound of each kernel):
+// Design of beta_err and h_newton_stats (see ops/kernels/kl_ell.py for
+// the bound of each kernel):
 //   * one warp per row; lanes stride over the row's w slots;
 //   * the row's H[r, i, :] lives in registers; W[r] is staged once per
 //     block in dynamic shared memory when k*g*4 bytes fit the budget,
@@ -81,6 +81,31 @@
 //   * blocks of two warps: a long gene (1,136 slots against a mean of 326
 //     a chunk) holds one other warp's registers, not seven (1 to 8 warps a
 //     block measured within 13% of each other).
+//
+// wh_at_nz writes WH at every slot of the row side, (R, n, w) f32: the
+// bytes of that output bound it (147 MB a call at the batch path's
+// shapes). What kept it from that bound was the W gather (k scalar shared
+// loads a slot from a (k, g) table, banks colliding across the lanes' random
+// genes), a grid of a few blocks a replicate that each restaged the table,
+// and the padded slots, gathered like stored ones. Its design is h_stats'
+// skeleton:
+//   * the packed f32 per-gene table and the persistent grid (walk_rows):
+//     a slot gathers its gene's k components once, in ceil(k/4) 16-byte
+//     shared loads (or reads the column from device memory where the table
+//     does not fit), and runs the WH chain from registers;
+//   * every slot whose column is 0 has one value, H[r, i, :] . W[r, :, 0]:
+//     the padded slots (value 0 at column 0, 29% of the slots at the batch
+//     path's shapes) and gene 0 where it is stored. A warp computes it once
+//     a row with the same chain as a gathered slot (one product, then
+//     fused multiply-adds in component order, fixed rounding: the same
+//     bits) and stores it at those slots without touching the table;
+//   * a lane takes four consecutive slots at a time where the row pitch
+//     allows (w a multiple of 4, 16-byte aligned buffers): one 16-byte load
+//     of their columns (the next four in flight meanwhile), two pairs of
+//     independent chains, one 16-byte streaming store; consecutive lanes
+//     write consecutive slots;
+//   * 32 warps a block at k <= 16, the table's placement (shared or device
+//     memory) a template argument, so no gather waits behind a branch.
 //
 // Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
 // Newton Hessian may overflow to +inf, and the kernel and its plain
@@ -381,18 +406,15 @@ __device__ __forceinline__ void h_stats_row(
 }
 
 // Blocks are persistent: block b walks the rows [b*per, (b+1)*per) of the
-// (R*n)-row sequence, restaging the table when the replicate changes (at
-// most twice when per <= n), its warps taking the rows in turn.
-template <typename VT, bool BF16, int KMAX>
-__global__ void __launch_bounds__(HStatsShape<BF16, KMAX>::THREADS)
-h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
-               const float* __restrict__ H, const float* __restrict__ W,
-               float* __restrict__ numer, int R, int n, int w, int k, int g,
-               int nq, int use_smem) {
-  using S = HStatsShape<BF16, KMAX>;
-  extern __shared__ uint4 Wt[];
-  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
-  const int lane = threadIdx.x & 31;
+// (R*n)-row sequence, restaging the packed W table when the replicate
+// changes (at most twice when per <= n), its warps taking the rows in turn.
+// row_fn(gi, row, Wr): gi indexes the (R*n)-row sequence, row the
+// replicate's rows, Wr its W.
+template <bool BF16, int KMAX, int WARPS, typename RowFn>
+__device__ __forceinline__ void walk_rows(const float* __restrict__ W,
+                                          uint4* tbl, int R, int n, int k,
+                                          int g, int nq, int sw,
+                                          bool use_smem, RowFn row_fn) {
   const int warp = threadIdx.x >> 5;
   const int64_t total = (int64_t)R * n;
   const int64_t per = (total + gridDim.x - 1) / gridDim.x;
@@ -404,17 +426,31 @@ h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
     const float* Wr = W + (int64_t)r * k * g;
     if (use_smem) {
       __syncthreads();   // the previous replicate's rows are done
-      stage_packed<BF16, KMAX>(Wt, Wr, k, g, nq, sw);
+      stage_packed<BF16, KMAX>(tbl, Wr, k, g, nq, sw);
       __syncthreads();
     }
-    for (int64_t gi = lo + warp; gi < rend; gi += S::WARPS) {
-      const int64_t row = gi - (int64_t)r * n;
-      h_stats_row<VT, BF16, KMAX>(vals, cols, H + gi * k, Wr, Wt,
-                                  numer + gi * k, row * w, w, k, g, nq, sw,
-                                  use_smem != 0, lane);
-    }
+    for (int64_t gi = lo + warp; gi < rend; gi += WARPS)
+      row_fn(gi, gi - (int64_t)r * n, Wr);
     lo = rend;
   }
+}
+
+template <typename VT, bool BF16, int KMAX>
+__global__ void __launch_bounds__(HStatsShape<BF16, KMAX>::THREADS)
+h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
+               const float* __restrict__ H, const float* __restrict__ W,
+               float* __restrict__ numer, int R, int n, int w, int k, int g,
+               int nq, int use_smem) {
+  extern __shared__ uint4 Wt[];
+  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
+  const int lane = threadIdx.x & 31;
+  walk_rows<BF16, KMAX, HStatsShape<BF16, KMAX>::WARPS>(
+      W, Wt, R, n, k, g, nq, sw, use_smem != 0,
+      [&](int64_t gi, int64_t row, const float* Wr) {
+        h_stats_row<VT, BF16, KMAX>(vals, cols, H + gi * k, Wr, Wt,
+                                    numer + gi * k, row * w, w, k, g, nq, sw,
+                                    use_smem != 0, lane);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -639,37 +675,157 @@ h_newton_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
   }
 }
 
-// out[r, i, j] = sum_c H[r, i, c] * W[r, c, cols[i, j]] at every stored
-// slot (the SDDMM); lanes write consecutive slots of a row (coalesced)
+// ---------------------------------------------------------------------------
+// wh_at_nz: out[r, i, j] = sum_c H[r, i, c] * W[r, c, cols[i, j]] at every
+// slot of the row side (the SDDMM), padded slots included: the DNA row
+// objective multiplies every slot by its value (0 where padded), so an
+// unwritten slot would poison it with 0 * NaN.
+// ---------------------------------------------------------------------------
+
+// wh_at_nz's block: 32 warps at k <= 16 (the f32 table of k=13, g=2000
+// leaves one block an SM, and the gathers need the warps in flight: 16 warps
+// ran 4-12% slower at k = 5, 9 and 13 on the H100), else 8
 template <int KMAX>
-__global__ void __launch_bounds__(THREADS)
-wh_at_nz_kernel(const int* __restrict__ cols, const float* __restrict__ H,
-                const float* __restrict__ W, float* __restrict__ out, int n,
-                int w, int k, int g, int use_smem) {
-  extern __shared__ float Ws[];
-  const int r = blockIdx.y;
-  const float* Wr = W + (int64_t)r * k * g;
-  if (use_smem) stage_w<false>(Ws, Wr, k * g);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
-       row += gridDim.x * WARPS_PER_BLOCK) {
-    float h[KMAX];
-    load_h_row<KMAX, false>(h, H + ((int64_t)r * n + row) * k, k);
-    const int64_t base = (int64_t)row * w;
-    float* outr = out + (int64_t)r * n * w + base;
-    for (int j = lane; j < w; j += 32) {
-      const int col = __ldg(cols + base + j);
-      float wh = 0.f;
+struct WhShape {
+  static constexpr int THREADS = KMAX <= 16 ? 1024 : 256;
+  static constexpr int WARPS = THREADS / 32;
+};
+
+// Chunk q (components 4q..4q+3) of gene `col`'s W column: from the packed
+// table (SMEM), or read from W[r] in device memory where it does not fit.
+template <bool SMEM>
+__device__ __forceinline__ float4 w_chunk(const uint4* tbl,
+                                          const float* __restrict__ Wr,
+                                          int k, int g, int nq, int sw,
+                                          int col, int q) {
+  if (SMEM) {
+    const uint4 u = tbl[(int64_t)col * nq + (q ^ (col & sw))];
+    return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                       __uint_as_float(u.z), __uint_as_float(u.w));
+  }
+  float v[4];
 #pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (c < k) {
-          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
-          wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
-        }
+  for (int i = 0; i < 4; ++i) {
+    const int c = 4 * q + i;
+    v[i] = c < k ? __ldg(Wr + (int64_t)c * g + col) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// WH at N slots at once, N independent chains: h . W[:, col[s]] as one
+// product and then fused multiply-adds in component order (explicit
+// roundings, so a gene gets the same bits at every slot and call site).
+// Components past k are 0 in h and in the table and leave a chain as it
+// is. With skip0, a slot whose column is 0 reads nothing (its chain gives
+// 0): the caller stores the row's column-0 value there instead.
+template <int KMAX, int N, bool SMEM>
+__device__ __forceinline__ void slots_wh(const float (&h)[KMAX],
+                                         const uint4* tbl,
+                                         const float* __restrict__ Wr,
+                                         int k, int g, int nq, int sw,
+                                         const int (&col)[N], bool skip0,
+                                         float (&wh)[N]) {
+#pragma unroll
+  for (int q = 0; q < KMAX / 4; ++q) {
+    if (q < nq) {
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!skip0 || col[s] != 0)
+          u = w_chunk<SMEM>(tbl, Wr, k, g, nq, sw, col[s], q);
+        wh[s] = (q == 0) ? __fmul_rn(h[0], u.x)
+                         : __fmaf_rn(h[4 * q], u.x, wh[s]);
+        wh[s] = __fmaf_rn(h[4 * q + 1], u.y, wh[s]);
+        wh[s] = __fmaf_rn(h[4 * q + 2], u.z, wh[s]);
+        wh[s] = __fmaf_rn(h[4 * q + 3], u.w, wh[s]);
       }
-      outr[j] = wh;
     }
+  }
+}
+
+// One row, one warp: the row's H in registers, its column-0 value once,
+// then the slots, four consecutive ones a lane where vec (w % 4 == 0 and
+// 16-byte aligned cols and out; the next four columns in flight while
+// these are computed), else one.
+template <int KMAX, bool SMEM>
+__device__ __forceinline__ void wh_at_nz_row(
+    const int* __restrict__ cols_row, const float* __restrict__ Hrow,
+    const float* __restrict__ Wr, const uint4* tbl,
+    float* __restrict__ out_row, int w, int k, int g, int nq, int sw,
+    bool vec, int lane) {
+  float h[KMAX];
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) h[c] = c < k ? __ldg(Hrow + c) : 0.f;
+  const int col0[1] = {0};
+  float wh0[1];
+  slots_wh<KMAX, 1, SMEM>(h, tbl, Wr, k, g, nq, sw, col0, false, wh0);
+  if (vec) {
+    const int4 none = make_int4(0, 0, 0, 0);
+    int j = 4 * lane;
+    int4 c4 = j < w ? __ldg(reinterpret_cast<const int4*>(cols_row + j))
+                    : none;
+    while (j < w) {
+      const int jn = j + 128;
+      const int4 cn =
+          jn < w ? __ldg(reinterpret_cast<const int4*>(cols_row + jn))
+                 : none;
+      const int col[4] = {c4.x, c4.y, c4.z, c4.w};
+      float v[4] = {wh0[0], wh0[0], wh0[0], wh0[0]};
+      if (c4.x | c4.y | c4.z | c4.w) {
+        // two pairs of chains: four at once hold more of the 64 registers
+        // a thread of a 1024-thread block has (2-4% slower, H100)
+        const int ca[2] = {c4.x, c4.y}, cb[2] = {c4.z, c4.w};
+        float ga[2], gb[2];
+        slots_wh<KMAX, 2, SMEM>(h, tbl, Wr, k, g, nq, sw, ca, true, ga);
+        slots_wh<KMAX, 2, SMEM>(h, tbl, Wr, k, g, nq, sw, cb, true, gb);
+        const float g4[4] = {ga[0], ga[1], gb[0], gb[1]};
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (col[s] != 0) v[s] = g4[s];
+      }
+      __stcs(reinterpret_cast<float4*>(out_row + j),
+             make_float4(v[0], v[1], v[2], v[3]));
+      j = jn;
+      c4 = cn;
+    }
+  } else {
+    for (int j = lane; j < w; j += 32) {
+      const int col[1] = {__ldg(cols_row + j)};
+      float v[1] = {wh0[0]};
+      if (col[0] != 0)
+        slots_wh<KMAX, 1, SMEM>(h, tbl, Wr, k, g, nq, sw, col, true, v);
+      __stcs(out_row + j, v[0]);
+    }
+  }
+}
+
+// The table's placement is uniform over a launch and a template argument
+// of the row, so no load of the chains waits behind a branch on it.
+template <int KMAX>
+__global__ void __launch_bounds__(WhShape<KMAX>::THREADS)
+wh_at_nz_kernel(const int* __restrict__ cols, const float* __restrict__ H,
+                const float* __restrict__ W, float* __restrict__ out, int R,
+                int n, int w, int k, int g, int nq, int use_smem, int vec) {
+  constexpr int WARPS = WhShape<KMAX>::WARPS;
+  extern __shared__ uint4 Wt[];
+  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
+  const int lane = threadIdx.x & 31;
+  if (use_smem) {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, true,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          wh_at_nz_row<KMAX, true>(cols + row * w, H + gi * k, Wr, Wt,
+                                   out + gi * w, w, k, g, nq, sw, vec != 0,
+                                   lane);
+        });
+  } else {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, false,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          wh_at_nz_row<KMAX, false>(cols + row * w, H + gi * k, Wr, Wt,
+                                    out + gi * w, w, k, g, nq, sw, vec != 0,
+                                    lane);
+        });
   }
 }
 
@@ -771,20 +927,20 @@ int launch_row_kernel(K kernel, int R, int n, int k, int g, size_t* smem,
   return 0;
 }
 
-// h_stats' launch: the table's chunks per gene and bytes, shared memory or
-// device memory, resident blocks per SM (from the occupancy calculator at
-// that table size) and the persistent grid, one wave of resident blocks
-struct HStatsLaunch {
+// The launch of a kernel on walk_rows (h_stats, wh_at_nz): the packed
+// table's chunks per gene and bytes, shared memory or device memory,
+// resident blocks per SM (from the occupancy calculator at that table
+// size) and the persistent grid, one wave of resident blocks
+struct RowLaunch {
   int threads, nq, use_smem, table_bytes, blocks_per_sm, grid;
 };
 
-template <typename VT, bool BF16, int KMAX>
-int h_stats_launch(int R, int n, int k, int g, HStatsLaunch* L) {
-  using S = HStatsShape<BF16, KMAX>;
-  auto kern = h_stats_kernel<VT, BF16, KMAX>;
-  L->threads = S::THREADS;
-  L->nq = packed_chunks(k, BF16);
-  const size_t bytes = (size_t)g * L->nq * 16;
+template <typename Kern>
+int row_launch(Kern kern, int threads, int nq, int R, int n, int g,
+               RowLaunch* L) {
+  L->threads = threads;
+  L->nq = nq;
+  const size_t bytes = (size_t)g * nq * 16;
   L->use_smem = bytes <= (size_t)smem_optin();
   L->table_bytes = L->use_smem ? (int)bytes : 0;
   if (L->table_bytes > 48 * 1024) {
@@ -794,20 +950,28 @@ int h_stats_launch(int R, int n, int k, int g, HStatsLaunch* L) {
   }
   int nb = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, kern, S::THREADS, L->table_bytes);
+      &nb, kern, threads, L->table_bytes);
   if (e != cudaSuccess) return (int)e;
   L->blocks_per_sm = nb > 0 ? nb : 1;
-  const int64_t need = ((int64_t)R * n + S::WARPS - 1) / S::WARPS;
+  const int warps = threads / 32;
+  const int64_t need = ((int64_t)R * n + warps - 1) / warps;
   const int64_t wave = (int64_t)L->blocks_per_sm * sm_count();
   L->grid = (int)(need < wave ? (need > 0 ? need : 1) : wave);
   return 0;
 }
 
 template <typename VT, bool BF16, int KMAX>
+int h_stats_launch(int R, int n, int k, int g, RowLaunch* L) {
+  return row_launch(h_stats_kernel<VT, BF16, KMAX>,
+                    HStatsShape<BF16, KMAX>::THREADS, packed_chunks(k, BF16),
+                    R, n, g, L);
+}
+
+template <typename VT, bool BF16, int KMAX>
 int run_h_stats(const void* vals, const void* cols, const void* H,
                 const void* W, void* numer, int R, int n, int w, int k, int g,
-                cudaStream_t s, HStatsLaunch* query) {
-  HStatsLaunch L;
+                cudaStream_t s, RowLaunch* query) {
+  RowLaunch L;
   int e = h_stats_launch<VT, BF16, KMAX>(R, n, k, g, &L);
   if (e) return e;
   if (query) {
@@ -825,7 +989,7 @@ template <int KMAX>
 int run_kmax_h_stats(const void* vals, int vals_bf16, const void* cols,
                      const void* H, const void* W, void* numer, int R, int n,
                      int w, int k, int g, int bf16, cudaStream_t s,
-                     HStatsLaunch* query) {
+                     RowLaunch* query) {
   if (!bf16) {
     if (vals_bf16) return (int)cudaErrorInvalidValue;
     return run_h_stats<float, false, KMAX>(vals, cols, H, W, numer, R, n, w,
@@ -841,7 +1005,7 @@ int run_kmax_h_stats(const void* vals, int vals_bf16, const void* cols,
 int dispatch_h_stats(const void* vals, int vals_bf16, const void* cols,
                      const void* H, const void* W, void* numer, int R, int n,
                      int w, int k, int g, int bf16, cudaStream_t s,
-                     HStatsLaunch* query) {
+                     RowLaunch* query) {
   if (k <= 16)
     return run_kmax_h_stats<16>(vals, vals_bf16, cols, H, W, numer, R, n, w,
                                 k, g, bf16, s, query);
@@ -941,17 +1105,43 @@ int run_kmax_h_newton(const void* vals, const void* cols, const void* H,
 template <int KMAX>
 int run_kmax_wh_at_nz(const void* cols, const void* H, const void* W,
                       void* out, int R, int n, int w, int k, int g,
-                      cudaStream_t s) {
-  auto kern = wh_at_nz_kernel<KMAX>;
-  size_t smem;
-  int use_smem;
-  dim3 grid;
-  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+                      cudaStream_t s, RowLaunch* query) {
+  RowLaunch L;
+  int e = row_launch(wh_at_nz_kernel<KMAX>, WhShape<KMAX>::THREADS,
+                     packed_chunks(k, false), R, n, g, &L);
   if (e) return e;
-  kern<<<grid, THREADS, smem, s>>>((const int*)cols, (const float*)H,
-                                   (const float*)W, (float*)out, n, w, k, g,
-                                   use_smem);
+  if (query) {
+    *query = L;
+    return 0;
+  }
+  if ((int64_t)R * n == 0) return 0;
+  const int vec = w % 4 == 0 && ((uintptr_t)cols & 15) == 0 &&
+                  ((uintptr_t)out & 15) == 0;
+  wh_at_nz_kernel<KMAX><<<L.grid, L.threads, L.table_bytes, s>>>(
+      (const int*)cols, (const float*)H, (const float*)W, (float*)out, R, n,
+      w, k, g, L.nq, L.use_smem, vec);
   return (int)cudaGetLastError();
+}
+
+int dispatch_wh_at_nz(const void* cols, const void* H, const void* W,
+                      void* out, int R, int n, int w, int k, int g,
+                      cudaStream_t s, RowLaunch* query) {
+  if (k <= 16)
+    return run_kmax_wh_at_nz<16>(cols, H, W, out, R, n, w, k, g, s, query);
+  if (k <= 32)
+    return run_kmax_wh_at_nz<32>(cols, H, W, out, R, n, w, k, g, s, query);
+  if (k <= 64)
+    return run_kmax_wh_at_nz<64>(cols, H, W, out, R, n, w, k, g, s, query);
+  return (int)cudaErrorInvalidValue;
+}
+
+// a RowLaunch as the six ints of the launch queries: {threads per block,
+// chunks per gene, table in shared memory (1) or read from device memory
+// (0), table bytes, resident blocks per SM, grid}
+void put_launch(const RowLaunch& L, int* out) {
+  const int v[6] = {L.threads, L.nq, L.use_smem, L.table_bytes,
+                    L.blocks_per_sm, L.grid};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 }  // namespace
@@ -968,18 +1158,15 @@ int kl_h_stats(const void* vals, int vals_bf16, const void* cols,
                           bf16, (cudaStream_t)stream, nullptr);
 }
 
-// h_stats' launch at these sizes, without launching: out = {threads per
-// block, chunks per gene, table in shared memory (1) or read from device
-// memory (0), table bytes, resident blocks per SM, grid}
+// h_stats' launch at these sizes, without launching (put_launch's six
+// ints)
 int kl_h_stats_launch(int R, int n, int k, int g, int bf16, int vals_bf16,
                       int* out) {
-  HStatsLaunch L;
+  RowLaunch L;
   int e = dispatch_h_stats(nullptr, vals_bf16, nullptr, nullptr, nullptr,
                            nullptr, R, n, 0, k, g, bf16, nullptr, &L);
   if (e) return e;
-  const int v[6] = {L.threads, L.nq, L.use_smem, L.table_bytes,
-                    L.blocks_per_sm, L.grid};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  put_launch(L, out);
   return 0;
 }
 
@@ -1037,14 +1224,19 @@ int kl_h_newton_stats(const void* vals, const void* cols, const void* H,
 
 int kl_wh_at_nz(const void* cols, const void* H, const void* W, void* out,
                 int R, int n, int w, int k, int g, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    return run_kmax_wh_at_nz<16>(cols, H, W, out, R, n, w, k, g, s);
-  if (k <= 32)
-    return run_kmax_wh_at_nz<32>(cols, H, W, out, R, n, w, k, g, s);
-  if (k <= 64)
-    return run_kmax_wh_at_nz<64>(cols, H, W, out, R, n, w, k, g, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_wh_at_nz(cols, H, W, out, R, n, w, k, g,
+                           (cudaStream_t)stream, nullptr);
+}
+
+// wh_at_nz's launch at these sizes, without launching (put_launch's six
+// ints)
+int kl_wh_at_nz_launch(int R, int n, int k, int g, int* out) {
+  RowLaunch L;
+  int e = dispatch_wh_at_nz(nullptr, nullptr, nullptr, nullptr, R, n, 0, k, g,
+                            nullptr, &L);
+  if (e) return e;
+  put_launch(L, out);
+  return 0;
 }
 
 }  // extern "C"

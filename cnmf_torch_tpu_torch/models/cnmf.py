@@ -40,11 +40,11 @@ from ..ops.kmeans import kmeans
 from ..ops.metrics import local_density as knn_local_density
 from ..ops.metrics import silhouette_score
 from ..ops.nmf import (beta_loss_to_float, fit_h, lane_health,
-                       resolve_bf16_ratio, resolve_online_schedule)
+                       resolve_bf16_ratio, resolve_online_schedule,
+                       run_nmf_use_ell)
 from ..ops.ols import ols_all_cols
 from ..ops.recipe import resolve_recipe
-from ..ops.sparse import (csr_to_ell, ell_chunk_rows, ell_row_width,
-                          resolve_sparse_beta)
+from ..ops.sparse import csr_to_ell, ell_chunk_rows
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
 from ..parallel.replicates import replicate_sweep, worker_filter
@@ -276,15 +276,14 @@ class cNMF:
         X = norm.X
         n, g = X.shape
         chunk = int(min(kw.get("online_chunk_size", 5000), n))
-        use_ell = False
-        if sp.issparse(X):
-            density = X.nnz / max(n * g, 1)
-            use_ell = (kw.get("init", "random") == "random"
-                       and resolve_sparse_beta(beta, density=density,
-                                               width=ell_row_width(X), g=g))
+        # the JAX planner's lane rule (resolve_encoding): sparse input,
+        # beta in {1, 0}, random init and plain MU, then the dispatch rule
+        use_ell = run_nmf_use_ell(X, beta, init=kw.get("init", "random"),
+                                  algo=kw.get("algo", "mu"))
         if use_ell:
             Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
                   else csr_to_ell(X))
+            density = X.nnz / max(n * g, 1)
             X = Xe.to(self.device)
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."

@@ -25,27 +25,35 @@ EDGE_SHAPES = [(130, 100, 5, 3), (997, 611, 13, 2), (640, 3000, 20, 2),
 
 
 def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
-                full_row=False, gene_edges=False):
+                full_row=False, gene_edges=False, gene0=False):
     """The ELL encoding of a random ``n x g`` matrix (gamma values) and
     random positive ``H (R, n, k)`` and ``W (R, k, g)``, made from
     ``seed``. ``zero_rows``: the first rows are all zero. ``full_row``:
     the last row gets the most nonzeros and the encoding is exactly that
-    wide, so one row fills the whole width ``w``. ``gene_edges``: gene 0
+    wide, so one row fills the whole width ``w`` (no multiple of 4, so
+    ``wh_at_nz`` takes its slot-at-a-time path). ``gene_edges``: gene 0
     is absent from every row, gene ``g - 1`` is stored in every row but
     the zero rows, and the transpose side is exactly as wide as the longest
-    gene, so gene ``g - 1`` fills the whole width ``wt``."""
+    gene, so gene ``g - 1`` fills the whole width ``wt``. ``gene0``: genes
+    0 and 1 are stored in every other row but the zero rows, so column 0
+    holds stored slots beside the padding."""
     rng = np.random.default_rng(seed)
     X = sp.random(n, g, density=density, format="csr",
                   random_state=int(rng.integers(1 << 31)),
                   data_rvs=lambda s: (rng.gamma(2.0, 1.0, s) + 0.1))
-    if zero_rows or full_row or gene_edges:
+    if zero_rows or full_row or gene_edges or gene0:
         X = X.tolil()
         if gene_edges:
             X[:, 0] = 0.0
             X[:, g - 1] = 1.5
+        if gene0:
+            X[::2, 0] = 1.5
+            X[::2, 1] = 2.5
         X[:zero_rows, :] = 0.0
         if full_row:
             most = int(np.diff(X.tocsr().indptr).max()) + 5
+            if most % 4 == 0:
+                most += 1
             X[n - 1, :] = 0.0
             X[n - 1, rng.choice(g, min(most, g), replace=False)] = 1.5
         X = X.tocsr()

@@ -66,10 +66,19 @@ Kernels, and the TPU kernels they replace
   both outputs, which keeps zero-padded components at zero under the
   Newton step.
 * ``wh_at_nz`` <- ``pallas_wh_at_nz`` (``_wh_body``). The SDDMM: WH at
-  every stored slot, ``(R, n, w)`` f32, which the DNA step's row
-  objectives read twice per H step. Bound by the bytes of that output.
-  ``h_newton_stats``' row traversal, the lanes of a warp writing
-  consecutive slots of a row (coalesced stores).
+  every slot of the row side, padded ones included, ``(R, n, w)`` f32,
+  which the DNA step's row objectives read twice per H step. Bound by the
+  bytes of that output (147 MB a call at the batch path's shapes).
+  Design: ``h_stats``' skeleton (the packed per-gene f32 W table, one
+  gather of ``ceil(k/4)`` 16-byte shared loads a slot, device memory where
+  the table does not fit, the persistent grid of ``wh_at_nz_launch``);
+  every slot at column 0 (the padding, and gene 0 where stored) takes the
+  row's column-0 value, computed once a row by the same chain as a
+  gathered slot (one product, then fused multiply-adds in component
+  order: the same bits), without touching the table; where ``w`` is a
+  multiple of 4 a lane takes four consecutive slots at a time (one
+  16-byte column load, two pairs of chains, one 16-byte streaming store),
+  else one; 32 warps a block at k <= 16.
 """
 
 from __future__ import annotations
@@ -88,8 +97,9 @@ from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
-           "h_newton_stats", "wh_at_nz", "kl_h_stats", "kl_w_numer",
-           "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
+           "h_newton_stats", "wh_at_nz", "wh_at_nz_launch", "kl_h_stats",
+           "kl_w_numer", "kl_w_stats", "kl_beta_err", "kl_h_newton_stats",
+           "kl_wh_at_nz",
            "h_stats_plain", "w_numer_plain", "beta_err_plain",
            "h_newton_stats_plain", "wh_at_nz_plain"]
 
@@ -173,9 +183,11 @@ def build():
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        lib.kl_wh_at_nz_launch.argtypes = [ci] * 4 + [vp]
         for fn in (lib.kl_row_blocks, lib.kl_h_stats, lib.kl_h_stats_launch,
                    lib.kl_w_numer, lib.kl_beta_err_partials,
-                   lib.kl_h_newton_stats, lib.kl_wh_at_nz):
+                   lib.kl_h_newton_stats, lib.kl_wh_at_nz,
+                   lib.kl_wh_at_nz_launch):
             fn.restype = ci
         build_info.update(seconds=time.perf_counter() - t0,
                           command=" ".join(cmd), log=log, library=so)
@@ -267,8 +279,14 @@ def h_stats(vals, cols, H, W, bf16: bool = False):
     return numer
 
 
-H_STATS_LAUNCH = ("threads", "chunks_per_gene", "table_in_smem",
-                  "table_bytes", "blocks_per_sm", "grid")
+ROW_LAUNCH = ("threads", "chunks_per_gene", "table_in_smem", "table_bytes",
+              "blocks_per_sm", "grid")
+
+
+def _row_launch(query, name, *args) -> dict:
+    out = (ctypes.c_int * len(ROW_LAUNCH))()
+    _raise_on(query(*args, out), f"{name} (launch query)")
+    return dict(zip(ROW_LAUNCH, out))
 
 
 def h_stats_launch(R: int, n: int, k: int, g: int, bf16: bool = False,
@@ -277,11 +295,8 @@ def h_stats_launch(R: int, n: int, k: int, g: int, bf16: bool = False,
     launching: threads per block, 16-byte chunks per gene of the packed W
     table, whether the table is staged in shared memory, its bytes, the
     resident blocks per SM at that size and the persistent grid."""
-    out = (ctypes.c_int * len(H_STATS_LAUNCH))()
-    _raise_on(build().kl_h_stats_launch(R, n, k, g, int(bool(bf16)),
-                                       int(bool(vals_bf16)), out),
-              "h_stats (launch query)")
-    return dict(zip(H_STATS_LAUNCH, out))
+    return _row_launch(build().kl_h_stats_launch, "h_stats", R, n, k, g,
+                       int(bool(bf16)), int(bool(vals_bf16)))
 
 
 def w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
@@ -359,8 +374,16 @@ def h_newton_stats(vals, cols, H, W):
     return numer, hess
 
 
+def wh_at_nz_launch(R: int, n: int, k: int, g: int) -> dict:
+    """How ``wh_at_nz`` launches at these sizes on the current card, without
+    launching (the fields of :func:`h_stats_launch`; its packed W table is
+    f32)."""
+    return _row_launch(build().kl_wh_at_nz_launch, "wh_at_nz", R, n, k, g)
+
+
 def wh_at_nz(cols, H, W):
-    """``WH`` at every stored slot, ``(R, n, w)`` f32."""
+    """``WH`` at every slot of the row side, padded slots included,
+    ``(R, n, w)`` f32."""
     R, n, w, k, g = _row_checks(None, cols, H, W, ())
     if not H.is_cuda:
         return wh_at_nz_plain(cols, H, W)

@@ -28,6 +28,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.envknobs import env_str
+
 __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_chunk_rows", "ell_row_width", "resolve_sparse_beta",
            "kl_nz_term", "ell_h_numer", "ell_ratio_flat",
@@ -211,17 +213,34 @@ def resolve_sparse_beta(beta: float, density: float | None = None,
                         width: int | None = None, g: int | None = None,
                         override=None) -> bool:
     """Should a beta != 2 solve take the ELL lane? On for beta in {1, 0}
-    at density <= SPARSE_DENSITY_THRESHOLD and width <= g/8; ``override``
-    forces either way."""
+    at density <= SPARSE_DENSITY_THRESHOLD and width <= g/8.
+    ``CNMF_TPU_SPARSE_BETA``: ``0`` forces dense, ``1`` forces ELL (for
+    beta in {1, 0}), a value in (0, 1) replaces the density threshold (the
+    width guard stays); anything else raises. An explicit ``override``
+    wins over the knob."""
     if beta not in (1.0, 0.0):
         return False
     if override is not None:
         return bool(override)
+    threshold = SPARSE_DENSITY_THRESHOLD
+    env = env_str("CNMF_TPU_SPARSE_BETA", "")
+    if env:
+        try:
+            t = float(env)
+        except ValueError:
+            raise ValueError(
+                f"CNMF_TPU_SPARSE_BETA={env!r}: expected 0 (dense), "
+                "1 (force ELL), or a density threshold in (0, 1)")
+        if t <= 0.0:
+            return False
+        if t >= 1.0:
+            return True
+        threshold = t
     if density is None:
         return False
     if width is not None and g is not None and 8 * width > g:
         return False
-    return float(density) <= SPARSE_DENSITY_THRESHOLD
+    return float(density) <= threshold
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from ..ops.nmf import (beta_loss_to_float, dense_on_device, nmf_fit_batch,
 from ..ops.recipe import SolverRecipe, resolve_recipe
 from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width, resolve_sparse_beta)
+from ..utils.envknobs import env_int
 
 __all__ = ["worker_filter", "auto_replicates_per_batch", "replicate_sweep",
            "stacked_inits"]
@@ -40,8 +41,12 @@ def worker_filter(iterable, worker_index: int, total_workers: int):
 
 
 def _device_budget_elems(device) -> int:
-    """30% of the card's free memory in f32 elements
-    (``torch.cuda.mem_get_info``); a fixed 1 GiB on the CPU."""
+    """``CNMF_TPU_BUDGET_ELEMS`` when set; else 30% of the card's free
+    memory in f32 elements (``torch.cuda.mem_get_info``), or a fixed 1 GiB
+    on the CPU."""
+    env = env_int("CNMF_TPU_BUDGET_ELEMS", 0, lo=0)
+    if env:
+        return env
     dev = torch.device(device)
     if dev.type != "cuda":
         return _FALLBACK_BUDGET_ELEMS

@@ -15,7 +15,9 @@ __all__ = ["KNOBS", "env_int", "env_str", "env_flag"]
 
 _FALSE_WORDS = ("0", "false", "off", "no")
 
-# name -> what it does (the solver recipe knobs of ops/recipe.py)
+# name -> what it does (the solver recipe knobs of ops/recipe.py, the
+# lane and precision knobs of ops/sparse.py and ops/nmf.py, the sweep's
+# memory budget of parallel/replicates.py)
 KNOBS = {
     "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
     "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
@@ -23,6 +25,12 @@ KNOBS = {
     "CNMF_TPU_SKETCH": "sketched KL W updates: 0 (default), 1 or auto",
     "CNMF_TPU_SKETCH_DIM": "sampled rows per sketched W update",
     "CNMF_TPU_SKETCH_EXACT_EVERY": "exact W update cadence of the sketch",
+    "CNMF_TPU_SPARSE_BETA": "ELL lane for beta in {1, 0}: 0 dense, 1 ELL, "
+                            "or a density threshold in (0, 1)",
+    "CNMF_TPU_BF16_RATIO": "bf16 ratio chain of online KL/IS (1, the "
+                           "default) or strict f32 (0)",
+    "CNMF_TPU_BUDGET_ELEMS": "f32 element budget of a replicate slice "
+                             "(default: from the card's free memory)",
 }
 
 

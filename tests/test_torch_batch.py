@@ -33,6 +33,8 @@ from cnmf_torch_tpu_torch import convert
 from cnmf_torch_tpu_torch.ops import nmf as tnmf
 from cnmf_torch_tpu_torch.ops import sparse as tsp
 from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
+                                                         edge_inputs)
 from cnmf_torch_tpu_torch.parallel import replicates as trep
 
 F32 = dict(rtol=2e-5, atol=1e-6)
@@ -118,6 +120,40 @@ def test_wh_at_nz_matches_jax(n, g, k, R):
                                    **F32)
         np.testing.assert_allclose(got[r], pk.pallas_wh_at_nz(xj, H[r], W[r]),
                                    **F32)
+
+
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
+@pytest.mark.parametrize("case", ["gene0", "full_row"])
+def test_wh_at_nz_edge_inputs_match_jax(n, g, k, R, case):
+    """The inputs of the card test ``test_wh_at_nz_matches_plain``: three
+    all-zero rows and, in turn, genes 0 and 1 stored in every other row at
+    a width that is a multiple of 4 (the kernel's four-slot path) or one
+    row filling a width that is not (its one-slot path). The plain
+    ``wh_at_nz`` (what a CPU tensor runs, and what the kernel is held
+    against) agrees with the JAX oracle on the same encoding; with gene 1's
+    W column set to gene 0's, every slot of a row at column 0 or 1 holds
+    the same bits, the property the card test asks of the kernel."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 7, "cpu", zero_rows=3,
+                          **{case: True})
+    w = x.cols.shape[1]
+    if case == "full_row":
+        assert int((x.vals[-1] > 0).sum()) == w and w % 4
+    else:
+        assert w % 4 == 0 and bool(((x.cols == 0) & (x.vals > 0)).any())
+    assert bool((x.vals[:3] == 0).all())
+    W[:, :, 1] = W[:, :, 0]
+    got = kl_ell.wh_at_nz(x.cols, H, W)
+    xj = jsp.EllMatrix(jnp.asarray(x.vals.numpy()),
+                       jnp.asarray(x.cols.numpy()), g)
+    for r in range(R):
+        np.testing.assert_allclose(
+            got[r], jsp.ell_wh_at_nz(xj, jnp.asarray(H[r].numpy()),
+                                     jnp.asarray(W[r].numpy())), **F32)
+    at = x.cols <= 1
+    assert bool(((x.cols == 0).any(1) & (x.cols == 1).any(1)).any())
+    ref = torch.where(at, got, torch.tensor(-np.inf))
+    ref = ref.amax(-1, keepdim=True).expand_as(got)
+    assert torch.equal(got[:, at], ref[:, at])
 
 
 @pytest.mark.parametrize("n,g,k,R", [(150, 80, 4, 3), (130, 100, 5, 2)])

@@ -135,14 +135,50 @@ def test_h_newton_stats_where_wh_underflows(cuda_device):
 
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
-def test_wh_at_nz_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = edge_inputs(n, g, k, R, 0.06, 7, cuda_device, zero_rows=3)
+@pytest.mark.parametrize("case", ["gene0", "full_row"])
+def test_wh_at_nz_matches_plain(cuda_device, n, g, k, R, case):
+    """Every slot, padded ones included, beside three all-zero rows: with
+    genes 0 and 1 stored in every other row (a width that is a multiple of
+    4: four slots a lane), or with a row that fills the width (no multiple
+    of 4: one slot a lane). Gene 1's W column is gene 0's, so every slot
+    at column 0 (padded or stored) must hold the bits of the gathered gene
+    1 slots of its row. The k=20 and k=64 shapes read W from device
+    memory."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 7, cuda_device, zero_rows=3,
+                          **{case: True})
+    w = x.cols.shape[1]
+    if case == "full_row":
+        assert int((x.vals[-1] > 0).sum()) == w and w % 4
+    else:
+        assert w % 4 == 0 and bool(((x.cols == 0) & (x.vals > 0)).any())
+    W[:, :, 1] = W[:, :, 0]
     got = kl_ell.wh_at_nz(x.cols, H, W)
     again = kl_ell.wh_at_nz(x.cols, H, W)
     want = kl_ell.wh_at_nz_plain(x.cols, H, W)
     torch.cuda.synchronize()
     _close(got, want, 2e-5)
+    assert torch.isfinite(got).all()
     assert torch.equal(got, again)
+    at = x.cols <= 1
+    both = ((x.cols == 0).any(1) & (x.cols == 1).any(1)).sum()
+    assert int(both) > 0
+    ref = torch.where(at, got, torch.tensor(-np.inf, device=cuda_device))
+    ref = ref.amax(-1, keepdim=True).expand_as(got)
+    assert torch.equal(got[:, at], ref[:, at])
+
+
+def test_wh_at_nz_table_placement(cuda_device):
+    """The f32 table sits in shared memory at the batch path's shapes (one
+    wave of persistent blocks) and is read from device memory where it
+    does not fit."""
+    fits = kl_ell.wh_at_nz_launch(20, 10_000, 13, 2000)
+    assert fits["table_in_smem"] == 1 and fits["chunks_per_gene"] == 4
+    assert fits["table_bytes"] == 2000 * 16 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fits["grid"] == fits["blocks_per_sm"] * sms
+    for args in [(2, 640, 20, 3000), (2, 120, 64, 2000)]:
+        big = kl_ell.wh_at_nz_launch(*args)
+        assert big["table_in_smem"] == 0 and big["table_bytes"] == 0
 
 
 def test_launch_counts_and_no_fallback(cuda_device):
