@@ -7,7 +7,8 @@ Phases, each of which ends the run with a nonzero exit when it fails:
 
 1. Setup: torch version, the card's name and power limit, and the build of
    ``cnmf_torch_tpu_torch/csrc/kl_ell.cu`` with ``nvcc`` for ``sm_90a``
-   (build time and the ``-Xptxas -v`` summary of every kernel).
+   (build time and the ``-Xptxas -v`` registers and spill of every kernel
+   instance, one ``KMAX`` each, also under ``ptxas`` in the report).
 2. Kernels: each CUDA kernel against its plain torch version on the card,
    at the shapes its path gives it, with 20 replicates and k in {9, 13}:
    the online path's kernels at one 5,000-row chunk of the pipeline's
@@ -17,16 +18,19 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    set, at ``rtol 2e-5``); two launches bit-identical; then each kernel's
    time (CUDA events, warmed, median of many launches) beside its bound,
    its plain version's time and, where one PyTorch call computes the same
-   function, that call's time, and for ``h_stats`` and ``wh_at_nz`` their
-   launch (threads per block, W table bytes, resident blocks per SM);
+   function, that call's time, and for ``h_stats``, ``h_newton_stats`` and
+   ``wh_at_nz`` their launch (threads per block, W table bytes, resident
+   blocks per SM);
    ``h_stats`` also at the pipeline's other K (5, 7, 11) on the chunk.
    ``wh_at_nz`` must hold one value at every slot of a row whose column is
-   0 (the padding). Then
-   a sweep of ``h_stats``, ``w_numer`` and ``wh_at_nz`` over the card
-   tests' edge shapes (k from 1 to 64, R=1 and 20, tables too large for
-   shared memory, all-zero and full-width rows, a gene with no stored
-   value and one that fills the transpose width, gene 0 stored beside the
-   padding) against their plain versions. Small solves on the
+   0 (the padding); ``h_newton_stats`` must give exact +0.0 at an
+   all-zero row and +inf in the Hessian exactly where its plain version
+   does. Then a sweep of ``h_stats``, ``w_numer``, ``h_newton_stats`` and
+   ``wh_at_nz`` over the card tests' edge shapes (k from 1 to 64, R=1 and
+   20, tables too large for shared memory, all-zero and full-width rows,
+   a gene with no stored value and one that fills the transpose width,
+   gene 0 stored beside the padding) against their plain versions. Small
+   solves on the
    card (an online KL solve, a usage refit, a batch dna solve) are held
    against the same solves on the CPU (plain versions).
 3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
@@ -304,9 +308,10 @@ def w_numer_check(kl_ell, x, H, W, bf16, tag, vals=None) -> float:
 
 
 def launch_note(L: dict) -> str:
-    """A launch of ``h_stats`` or ``wh_at_nz`` (``kl_ell.h_stats_launch``,
-    ``kl_ell.wh_at_nz_launch``): threads per block, the packed W table's
-    bytes (0: read from device memory), resident blocks per SM, grid."""
+    """A launch of a kernel on the row walk (``kl_ell.h_stats_launch``,
+    ``h_newton_stats_launch``, ``wh_at_nz_launch``): threads per block, the
+    packed W table's bytes (0: read from device memory), resident blocks
+    per SM, grid."""
     return (f"; launch {L['threads']} threads, table {L['table_bytes']} B"
             f"{'' if L['table_in_smem'] else ' (device memory)'}, "
             f"{L['blocks_per_sm']} blocks/SM, grid {L['grid']}")
@@ -314,6 +319,29 @@ def launch_note(L: dict) -> str:
 
 def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
     return launch_note(kl_ell.h_stats_launch(R, n, k, g, bf16, bf16))
+
+
+def h_newton_check(kl_ell, x, H, W, tag) -> float:
+    """``h_newton_stats`` against its plain version: two launches
+    bit-identical, every all-zero row exactly +0.0 in both outputs, +inf in
+    the Hessian exactly where the plain version has it and the finite
+    values within ``rtol 2e-5``. Returns the max abs error."""
+    numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+    again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
+    torch.cuda.synchronize()
+    check(torch.equal(numer, again[0]) and torch.equal(hess, again[1]),
+          f"h_newton_stats {tag} not repeatable")
+    empty = (x.vals == 0).all(1)
+    for out in (numer, hess):
+        check(bool((out[:, empty] == 0).all())
+              and not bool(torch.signbit(out[:, empty]).any()),
+              f"h_newton_stats {tag}: an all-zero row is not +0.0")
+    want_n, want_h = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
+    check(torch.equal(torch.isinf(hess), torch.isinf(want_h)),
+          f"h_newton_stats {tag}: +inf where the plain Hessian has none")
+    fin = torch.isfinite(want_h)
+    return max(max_abs_err(numer, want_n, 2e-5),
+               max_abs_err(hess[fin], want_h[fin], 2e-5))
 
 
 def wh_at_nz_check(kl_ell, x, H, W, tag, twin=False) -> float:
@@ -337,10 +365,12 @@ def wh_at_nz_check(kl_ell, x, H, W, tag, twin=False) -> float:
 
 
 def edge_sweep(log_rows: list):
-    """``h_stats``, ``w_numer`` and ``wh_at_nz`` at the edge shapes of the
-    card tests, against their plain versions, two launches bit-identical:
-    for ``h_stats`` (both modes) three all-zero rows (exact +0.0) and one
-    row that fills the whole ELL width; for ``w_numer`` (both modes) three
+    """``h_stats``, ``w_numer``, ``h_newton_stats`` and ``wh_at_nz`` at the
+    edge shapes of the card tests, against their plain versions, two
+    launches bit-identical: for ``h_stats`` (both modes) and
+    ``h_newton_stats`` three all-zero rows (exact +0.0) and one row that
+    fills the whole ELL width, and for ``h_newton_stats`` also the inputs
+    of ``wh_at_nz`` below; for ``w_numer`` (both modes) three
     all-zero rows, a gene with no stored value (exact +0.0) and one stored
     in every other row, filling the transpose width; for ``wh_at_nz``
     three all-zero rows and, in turn, genes 0 and 1 stored in every other
@@ -372,6 +402,11 @@ def edge_sweep(log_rows: list):
             log_rows.append(f"  h_stats edge {tag:28s} max_abs_err "
                             f"{err:.3g}"
                             + h_stats_launch_note(kl_ell, R, n, k, g, bf16))
+        newton_launch = launch_note(kl_ell.h_newton_stats_launch(R, n, k, g))
+        tag = f"n={n} g={g} k={k} R={R} full_row"
+        err = h_newton_check(kl_ell, x, H, W, tag)
+        log_rows.append(f"  h_newton_stats edge {tag:31s} max_abs_err "
+                        f"{err:.3g} (w {x.cols.shape[1]})" + newton_launch)
         x, H, W = edge_inputs(n, g, k, R, 0.06, 2, CARD, zero_rows=3,
                               gene_edges=True)
         check(bool((x.perm_t[-1] < x.vals.numel()).all()),
@@ -394,6 +429,11 @@ def edge_sweep(log_rows: list):
             log_rows.append(f"  wh_at_nz edge {tag:31s} max_abs_err "
                             f"{err:.3g} (w {x.cols.shape[1]})"
                             + launch_note(kl_ell.wh_at_nz_launch(R, n, k, g)))
+            if case == "gene0":
+                err = h_newton_check(kl_ell, x, H, W, tag)
+                log_rows.append(f"  h_newton_stats edge {tag:31s} "
+                                f"max_abs_err {err:.3g} (w "
+                                f"{x.cols.shape[1]})" + newton_launch)
 
 
 def h_stats_k_sweep(x, nnz: int, log_rows: list):
@@ -540,15 +580,7 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
         W = (torch.rand((R, k, g), generator=gen) + 0.1).to(dev)
         tag = f"k={k} f32 batch"
         errs = {}
-        numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
-        again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
-        torch.cuda.synchronize()
-        check(torch.equal(numer, again[0]) and torch.equal(hess, again[1]),
-              f"h_newton_stats {tag} not repeatable")
-        want = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
-        errs["h_newton_stats"] = max(max_abs_err(numer, want[0], 2e-5),
-                                     max_abs_err(hess, want[1], 2e-5))
-        del numer, hess, again, want
+        errs["h_newton_stats"] = h_newton_check(kl_ell, x, H, W, tag)
         errs["wh_at_nz"] = wh_at_nz_check(kl_ell, x, H, W, tag)
         errs["w_numer"] = w_numer_check(kl_ell, x, H, W, False, tag)
         got = kl_ell.h_stats(x.vals, x.cols, H, W, False)
@@ -564,6 +596,8 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
             rec["max_abs_err"] = errs[name]
             launch = (h_stats_launch_note(kl_ell, R, n, k, g, False)
                       if name == "h_stats" else
+                      launch_note(kl_ell.h_newton_stats_launch(R, n, k, g))
+                      if name == "h_newton_stats" else
                       launch_note(kl_ell.wh_at_nz_launch(R, n, k, g))
                       if name == "wh_at_nz" else "")
             log_rows.append(
@@ -826,7 +860,8 @@ def main() -> int:
     kl_ell.build()
     log(f"built {SOURCE} in {kl_ell.build_info['seconds']:.2f} s: "
         f"{kl_ell.build_info['command']}")
-    for line in ptxas_summary(kl_ell.build_info["log"]):
+    ptxas = ptxas_summary(kl_ell.build_info["log"])
+    for line in ptxas:
         log(line)
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         f.write(kl_ell.build_info["log"])
@@ -989,7 +1024,7 @@ def main() -> int:
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
                          for s, w, p in stages.rows],
               "h_stats_by_k": h_stats_by_k,
-              "profile": profile, "card": smi,
+              "profile": profile, "card": smi, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -20,15 +20,14 @@
 // sentinel n*w in perm_t (transpose side, after the gene's stored slots),
 // so they add exactly +0.0 or are skipped.
 //
-// Design of beta_err and h_newton_stats (see ops/kernels/kl_ell.py for
-// the bound of each kernel):
+// Design of beta_err (see ops/kernels/kl_ell.py for the bound of each
+// kernel):
 //   * one warp per row; lanes stride over the row's w slots;
 //   * the row's H[r, i, :] lives in registers; W[r] is staged once per
 //     block in dynamic shared memory when k*g*4 bytes fit the budget,
 //     otherwise read through the read-only cache (__ldg);
-//   * per-component sums are reduced across the warp with shuffles in a
-//     fixed order and written by lane 0 — no atomics, so repeated runs are
-//     bit-identical.
+//   * sums are reduced across the warp with shuffles in a fixed order and
+//     written by lane 0 — no atomics, so repeated runs are bit-identical.
 // In bf16 mode (h_stats, w_numer) the kernels round where the JAX bf16
 // chain rounds: operands to bf16, WH accumulated in bf16, the ratio in
 // bf16, every ratio*W (or ratio*H) product rounded to bf16 and then summed
@@ -107,9 +106,34 @@
 //   * 32 warps a block at k <= 16, the table's placement (shared or device
 //     memory) a template argument, so no gather waits behind a branch.
 //
+// h_newton_stats is h_stats in strict f32 with a second sum a component:
+// at each stored slot WH, ratio = X / max(WH, EPS), r2 = ratio / max(WH,
+// EPS), then ratio * W and (r2 * W) * W, about 7k+3 operations a nonzero
+// and replicate (bound by operations). What kept it from that bound is
+// what kept h_stats from its own: a (k, g) table read with k scalar shared
+// loads a slot, twice (once for WH, once for the sums), banks colliding
+// across the lanes' random genes; every padded slot gathered; a grid of a
+// few blocks a replicate that each restaged the table; 2k warp sums a
+// row. Its design:
+//   * h_stats' skeleton: the packed f32 per-gene table staged by walk_rows
+//     on one wave of persistent blocks (16 warps a block at k <= 16: the
+//     128 KB table of k=13, g=2000 leaves one block an SM), or the column
+//     read from device memory where the table does not fit; the placement
+//     a template argument, as in wh_at_nz;
+//   * a stored slot gathers its column once, in ceil(k/4) 16-byte loads,
+//     and keeps it in registers for the WH chain and both sums (at KMAX=64
+//     h and the two sums hold 192 registers, so that instance gathers each
+//     chunk a second time for the sums);
+//   * a warp stops at its row's first window of 32 padded slots and skips
+//     padded slots in the last window: all-zero rows stay +0.0;
+//   * the numerator's and the Hessian's sums fold across the warp as one
+//     array of 2*KMAX values in 5 fixed-order steps (31 shuffles at k <=
+//     16, not 10k), so repeated launches are bit-identical.
+//
 // Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
 // Newton Hessian may overflow to +inf, and the kernel and its plain
 // version must then agree (grad / inf = 0 keeps the Newton candidate at H).
+// Every term is >= 0, so the fold makes no NaN of it.
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launch.
@@ -304,6 +328,36 @@ __device__ __forceinline__ void store_folded(const float (&a)[KMAX],
   }
 }
 
+// slot(col, v) at each stored slot of a row, the lanes striding over its w
+// slots. A row's stored values sit first and its padding (value 0) after
+// them, so a window of 32 slots that is all padding ends the row; a padded
+// slot in the last window would add exactly +0.0 and is skipped.
+template <typename VT, typename SlotFn>
+__device__ __forceinline__ void row_slots(const VT* __restrict__ vals_row,
+                                          const int* __restrict__ cols_row,
+                                          int w, int lane, SlotFn slot) {
+  int j = lane;
+  int col = 0;
+  float v = 0.f;
+  if (j < w) {
+    col = __ldg(cols_row + j);
+    v = load_val(vals_row + j);
+  }
+  while (__any_sync(0xffffffffu, v != 0.f)) {
+    const int jn = j + 32;
+    int col_n = 0;
+    float v_n = 0.f;
+    if (jn < w) {   // the next window's coordinate, in flight meanwhile
+      col_n = __ldg(cols_row + jn);
+      v_n = load_val(vals_row + jn);
+    }
+    if (v != 0.f) slot(col, v);
+    j = jn;
+    col = col_n;
+    v = v_n;
+  }
+}
+
 template <typename VT, bool BF16, int KMAX>
 __device__ __forceinline__ void h_stats_row(
     const VT* __restrict__ vals, const int* __restrict__ cols,
@@ -327,80 +381,58 @@ __device__ __forceinline__ void h_stats_row(
 #pragma unroll
   for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
 
-  int j = lane;
-  int col = 0;
-  float v = 0.f;
-  if (j < w) {
-    col = __ldg(cols + base + j);
-    v = load_val(vals + base + j);
-  }
-  // A row's stored values sit first and its padding (value 0) after them,
-  // so a window of 32 slots that is all padding ends the row. A padded
-  // slot in the last window adds exactly +0.0 and is skipped.
-  while (__any_sync(0xffffffffu, v != 0.f)) {
-    const int jn = j + 32;
-    int col_n = 0;
-    float v_n = 0.f;
-    if (jn < w) {   // the next window's coordinate, in flight meanwhile
-      col_n = __ldg(cols + base + jn);
-      v_n = load_val(vals + base + jn);
-    }
-    if (v != 0.f) {
-      unsigned wv[S::NW];
-      if (use_smem) {
+  row_slots(vals + base, cols + base, w, lane, [&](int col, float v) {
+    unsigned wv[S::NW];
+    if (use_smem) {
 #pragma unroll
-        for (int q = 0; q < S::NQ; ++q) {
-          uint4 u = make_uint4(0u, 0u, 0u, 0u);
-          if (q < nq) u = tbl[(int64_t)col * nq + (q ^ (col & sw))];
-          wv[4 * q] = u.x;
-          wv[4 * q + 1] = u.y;
-          wv[4 * q + 2] = u.z;
-          wv[4 * q + 3] = u.w;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < S::NW; ++i)
-          wv[i] = column_word<BF16, KMAX>(Wr, k, g, col, i);
+      for (int q = 0; q < S::NQ; ++q) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (q < nq) u = tbl[(int64_t)col * nq + (q ^ (col & sw))];
+        wv[4 * q] = u.x;
+        wv[4 * q + 1] = u.y;
+        wv[4 * q + 2] = u.z;
+        wv[4 * q + 3] = u.w;
       }
-      // components past k hold 0 in both H and W: their products are +0.0
-      // and leave the WH chain unchanged. The loops run to KMAX: stopping
-      // them at the last chunk k fills cost registers (a spill at
-      // KMAX=16) and time at every k on the H100
-      if (BF16) {
-        // the JAX chain: each h*w rounded to bf16, the sum rounded to
-        // bf16 after every component (one bf16 rounding each, as here)
-        __nv_bfloat162 p = __hmul2(as_bf16x2(hv[0]), as_bf16x2(wv[0]));
-        __nv_bfloat16 wh = __hadd(__low2bfloat16(p), __high2bfloat16(p));
+    } else {
 #pragma unroll
-        for (int i = 1; i < S::NW; ++i) {
-          p = __hmul2(as_bf16x2(hv[i]), as_bf16x2(wv[i]));
-          wh = __hadd(__hadd(wh, __low2bfloat16(p)), __high2bfloat16(p));
-        }
-        const float den = fmaxf(__bfloat162float(wh), round_bf16(KL_EPS));
-        const __nv_bfloat162 r2 =
-            __bfloat162bfloat162(__float2bfloat16_rn(round_bf16(v) / den));
-#pragma unroll
-        for (int i = 0; i < S::NW; ++i) {
-          const __nv_bfloat162 p = __hmul2(r2, as_bf16x2(wv[i]));
-          acc[2 * i] += __low2float(p);
-          acc[2 * i + 1] += __high2float(p);
-        }
-      } else {
-        float wh = 0.f;
-#pragma unroll
-        for (int c = 0; c < KMAX; ++c) {
-          const float hw = __uint_as_float(hv[c]) * __uint_as_float(wv[c]);
-          wh = (c == 0) ? hw : wh + hw;
-        }
-        const float ratio = v / fmaxf(wh, KL_EPS);
-#pragma unroll
-        for (int c = 0; c < KMAX; ++c) acc[c] += ratio * __uint_as_float(wv[c]);
-      }
+      for (int i = 0; i < S::NW; ++i)
+        wv[i] = column_word<BF16, KMAX>(Wr, k, g, col, i);
     }
-    j = jn;
-    col = col_n;
-    v = v_n;
-  }
+    // components past k hold 0 in both H and W: their products are +0.0
+    // and leave the WH chain unchanged. The loops run to KMAX: stopping
+    // them at the last chunk k fills cost registers (a spill at
+    // KMAX=16) and time at every k on the H100
+    if (BF16) {
+      // the JAX chain: each h*w rounded to bf16, the sum rounded to
+      // bf16 after every component (one bf16 rounding each, as here)
+      __nv_bfloat162 p = __hmul2(as_bf16x2(hv[0]), as_bf16x2(wv[0]));
+      __nv_bfloat16 wh = __hadd(__low2bfloat16(p), __high2bfloat16(p));
+#pragma unroll
+      for (int i = 1; i < S::NW; ++i) {
+        p = __hmul2(as_bf16x2(hv[i]), as_bf16x2(wv[i]));
+        wh = __hadd(__hadd(wh, __low2bfloat16(p)), __high2bfloat16(p));
+      }
+      const float den = fmaxf(__bfloat162float(wh), round_bf16(KL_EPS));
+      const __nv_bfloat162 r2 =
+          __bfloat162bfloat162(__float2bfloat16_rn(round_bf16(v) / den));
+#pragma unroll
+      for (int i = 0; i < S::NW; ++i) {
+        const __nv_bfloat162 p = __hmul2(r2, as_bf16x2(wv[i]));
+        acc[2 * i] += __low2float(p);
+        acc[2 * i + 1] += __high2float(p);
+      }
+    } else {
+      float wh = 0.f;
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) {
+        const float hw = __uint_as_float(hv[c]) * __uint_as_float(wv[c]);
+        wh = (c == 0) ? hw : wh + hw;
+      }
+      const float ratio = v / fmaxf(wh, KL_EPS);
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) acc[c] += ratio * __uint_as_float(wv[c]);
+    }
+  });
   warp_fold<KMAX, KMAX, 16>(acc, lane);
   store_folded<KMAX>(acc, lane, out, k);
 }
@@ -608,73 +640,6 @@ w_numer_kernel(const XT* __restrict__ Xt, const int* __restrict__ rows_t,
   store_folded<KMAX>(acc, lane, numer + (int64_t)r * k * g + gene, k, g);
 }
 
-// numer[r, i, c] = sum_j ratio[i, j] * W[r, c, cols[i, j]]
-// hess[r, i, c]  = sum_j (ratio[i, j] / whm[i, j]) * W[r, c, cols[i, j]]^2
-// with whm = max(WH, EPS) and ratio = X / whm, in f32: the MU numerator
-// and the diagonal Hessian of the Diagonalized-Newton H step in one
-// traversal (h_stats' skeleton with a second accumulator per component).
-// Padded slots (value 0) and all-zero rows give exact +0.0 in both.
-template <int KMAX>
-__global__ void __launch_bounds__(THREADS)
-h_newton_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                const float* __restrict__ H, const float* __restrict__ W,
-                float* __restrict__ numer, float* __restrict__ hess, int n,
-                int w, int k, int g, int use_smem) {
-  extern __shared__ float Ws[];
-  const int r = blockIdx.y;
-  const float* Wr = W + (int64_t)r * k * g;
-  if (use_smem) stage_w<false>(Ws, Wr, k * g);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
-       row += gridDim.x * WARPS_PER_BLOCK) {
-    const int64_t hrow = ((int64_t)r * n + row) * k;
-    float h[KMAX];
-    load_h_row<KMAX, false>(h, H + hrow, k);
-    float an[KMAX], ah[KMAX];
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) {
-      an[c] = 0.f;
-      ah[c] = 0.f;
-    }
-    const int64_t base = (int64_t)row * w;
-    for (int j = lane; j < w; j += 32) {
-      const int col = __ldg(cols + base + j);
-      const float v = __ldg(vals + base + j);
-      float wh = 0.f;
-#pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (c < k) {
-          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
-          wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
-        }
-      }
-      const float whm = fmaxf(wh, KL_EPS);
-      const float ratio = v / whm;
-      const float r2 = ratio / whm;
-#pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (c < k) {
-          const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
-          an[c] += ratio * wv;
-          ah[c] += (r2 * wv) * wv;
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) {
-      if (c < k) {
-        const float sn = warp_sum(an[c]);
-        const float sh = warp_sum(ah[c]);
-        if (lane == 0) {
-          numer[hrow + c] = sn;
-          hess[hrow + c] = sh;
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // wh_at_nz: out[r, i, j] = sum_c H[r, i, c] * W[r, c, cols[i, j]] at every
 // slot of the row side (the SDDMM), padded slots included: the DNA row
@@ -829,6 +794,133 @@ wh_at_nz_kernel(const int* __restrict__ cols, const float* __restrict__ H,
   }
 }
 
+// ---------------------------------------------------------------------------
+// h_newton_stats, in strict f32 with whm = max(WH, EPS), ratio = X / whm and
+// r2 = ratio / whm:
+//   numer[r, i, c] = sum_j ratio * W[r, c, cols[i, j]]
+//   hess[r, i, c]  = sum_j (r2 * W[r, c, cols[i, j]]) * W[r, c, cols[i, j]]
+// the MU numerator and the diagonal Hessian of the Diagonalized-Newton H
+// step in one traversal, on h_stats' skeleton with a second accumulator per
+// component. Padded slots are skipped and all-zero rows give exact +0.0 in
+// both outputs.
+// ---------------------------------------------------------------------------
+
+// After warp_fold<2 KMAX, 2 KMAX, 16> of one array holding numer's sums
+// (first KMAX) and hess' (the rest), lane l holds sums PER l .. PER l +
+// PER - 1 (PER = 2 KMAX / 32): at KMAX = 16 lanes 0-15 numer, 16-31 hess.
+template <int KMAX>
+__device__ __forceinline__ void store_folded_pair(const float (&a)[2 * KMAX],
+                                                  int lane, float* numer,
+                                                  float* hess, int k) {
+  static_assert(KMAX >= 16, "one sum a lane at least");
+  constexpr int PER = 2 * KMAX / 32;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int s = lane * PER + i;
+    const int c = s < KMAX ? s : s - KMAX;
+    if (c < k) (s < KMAX ? numer : hess)[c] = a[i];
+  }
+}
+
+// One row, one warp: the row's H in registers, the lanes striding over its
+// slots. A stored slot gathers its gene's column once, in ceil(k/4) chunks
+// (16-byte shared loads from the packed table, or device memory where it
+// does not fit), and keeps it in registers for the WH chain and both sums
+// up to KMAX = 32; at 64, h and the two accumulators alone take 192
+// registers, so the products gather each chunk a second time. Components
+// past k are 0 in h and in the table: +0.0 products, never stored.
+template <int KMAX, bool SMEM>
+__device__ __forceinline__ void h_newton_row(
+    const float* __restrict__ vals_row, const int* __restrict__ cols_row,
+    const float* __restrict__ Hrow, const float* __restrict__ Wr,
+    const uint4* tbl, float* __restrict__ numer, float* __restrict__ hess,
+    int w, int k, int g, int nq, int sw, int lane) {
+  float h[KMAX];
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) h[c] = c < k ? __ldg(Hrow + c) : 0.f;
+  // numer's sums in acc[0, KMAX), hess' in acc[KMAX, 2 KMAX): one array,
+  // folded across the warp at once
+  float acc[2 * KMAX];
+#pragma unroll
+  for (int c = 0; c < 2 * KMAX; ++c) acc[c] = 0.f;
+
+  row_slots(vals_row, cols_row, w, lane, [&](int col, float v) {
+    float wv[KMAX];   // the column, kept up to KMAX = 32
+    float wh = 0.f;
+#pragma unroll
+    for (int q = 0; q < KMAX / 4; ++q) {
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < nq) u = w_chunk<SMEM>(tbl, Wr, k, g, nq, sw, col, q);
+      const float x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * q + i;
+        if constexpr (KMAX <= 32) wv[c] = x[i];
+        const float hw = h[c] * x[i];
+        wh = (c == 0) ? hw : wh + hw;
+      }
+    }
+    const float whm = fmaxf(wh, KL_EPS);
+    const float ratio = v / whm;
+    const float r2 = ratio / whm;
+#pragma unroll
+    for (int q = 0; q < KMAX / 4; ++q) {
+      float x[4];
+      if constexpr (KMAX <= 32) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = wv[4 * q + i];
+      } else {
+        float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < nq) u = w_chunk<SMEM>(tbl, Wr, k, g, nq, sw, col, q);
+        x[0] = u.x;
+        x[1] = u.y;
+        x[2] = u.z;
+        x[3] = u.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * q + i;
+        acc[c] += ratio * x[i];
+        acc[KMAX + c] += (r2 * x[i]) * x[i];
+      }
+    }
+  });
+  warp_fold<2 * KMAX, 2 * KMAX, 16>(acc, lane);
+  store_folded_pair<KMAX>(acc, lane, numer, hess, k);
+}
+
+// h_stats' block (16 warps at k <= 16, whose 128 KB f32 table at g=2000
+// leaves one block an SM), the persistent row walk and the table's
+// placement a template argument of the row, as in wh_at_nz_kernel.
+template <int KMAX>
+__global__ void __launch_bounds__(HStatsShape<false, KMAX>::THREADS)
+h_newton_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                const float* __restrict__ H, const float* __restrict__ W,
+                float* __restrict__ numer, float* __restrict__ hess, int R,
+                int n, int w, int k, int g, int nq, int use_smem) {
+  constexpr int WARPS = HStatsShape<false, KMAX>::WARPS;
+  extern __shared__ uint4 Wt[];
+  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
+  const int lane = threadIdx.x & 31;
+  if (use_smem) {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, true,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          h_newton_row<KMAX, true>(vals + row * w, cols + row * w, H + gi * k,
+                                   Wr, Wt, numer + gi * k, hess + gi * k, w,
+                                   k, g, nq, sw, lane);
+        });
+  } else {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, false,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          h_newton_row<KMAX, false>(vals + row * w, cols + row * w,
+                                    H + gi * k, Wr, Wt, numer + gi * k,
+                                    hess + gi * k, w, k, g, nq, sw, lane);
+        });
+  }
+}
+
 // partials[r, block] = sum over the block's rows of
 //   [X > 0] * (X (u - log1p(u)) or its split-log form  -  WH),  u = WH/X - 1
 template <int KMAX>
@@ -927,10 +1019,10 @@ int launch_row_kernel(K kernel, int R, int n, int k, int g, size_t* smem,
   return 0;
 }
 
-// The launch of a kernel on walk_rows (h_stats, wh_at_nz): the packed
-// table's chunks per gene and bytes, shared memory or device memory,
-// resident blocks per SM (from the occupancy calculator at that table
-// size) and the persistent grid, one wave of resident blocks
+// The launch of a kernel on walk_rows (h_stats, h_newton_stats, wh_at_nz):
+// the packed table's chunks per gene and bytes, shared memory or device
+// memory, resident blocks per SM (from the occupancy calculator at that
+// table size) and the persistent grid, one wave of resident blocks
 struct RowLaunch {
   int threads, nq, use_smem, table_bytes, blocks_per_sm, grid;
 };
@@ -1088,18 +1180,36 @@ int run_kmax_beta_err(const void* vals, const void* cols, const void* H,
 template <int KMAX>
 int run_kmax_h_newton(const void* vals, const void* cols, const void* H,
                       const void* W, void* numer, void* hess, int R, int n,
-                      int w, int k, int g, cudaStream_t s) {
-  auto kern = h_newton_kernel<KMAX>;
-  size_t smem;
-  int use_smem;
-  dim3 grid;
-  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+                      int w, int k, int g, cudaStream_t s,
+                      RowLaunch* query) {
+  RowLaunch L;
+  int e = row_launch(h_newton_kernel<KMAX>, HStatsShape<false, KMAX>::THREADS,
+                     packed_chunks(k, false), R, n, g, &L);
   if (e) return e;
-  kern<<<grid, THREADS, smem, s>>>((const float*)vals, (const int*)cols,
-                                   (const float*)H, (const float*)W,
-                                   (float*)numer, (float*)hess, n, w, k, g,
-                                   use_smem);
+  if (query) {
+    *query = L;
+    return 0;
+  }
+  if ((int64_t)R * n == 0) return 0;
+  h_newton_kernel<KMAX><<<L.grid, L.threads, L.table_bytes, s>>>(
+      (const float*)vals, (const int*)cols, (const float*)H, (const float*)W,
+      (float*)numer, (float*)hess, R, n, w, k, g, L.nq, L.use_smem);
   return (int)cudaGetLastError();
+}
+
+int dispatch_h_newton(const void* vals, const void* cols, const void* H,
+                      const void* W, void* numer, void* hess, int R, int n,
+                      int w, int k, int g, cudaStream_t s, RowLaunch* query) {
+  if (k <= 16)
+    return run_kmax_h_newton<16>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s, query);
+  if (k <= 32)
+    return run_kmax_h_newton<32>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s, query);
+  if (k <= 64)
+    return run_kmax_h_newton<64>(vals, cols, H, W, numer, hess, R, n, w, k,
+                                 g, s, query);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int KMAX>
@@ -1209,17 +1319,19 @@ int kl_beta_err_partials(const void* vals, const void* cols, const void* H,
 int kl_h_newton_stats(const void* vals, const void* cols, const void* H,
                       const void* W, void* numer, void* hess, int R, int n,
                       int w, int k, int g, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    return run_kmax_h_newton<16>(vals, cols, H, W, numer, hess, R, n, w, k,
-                                 g, s);
-  if (k <= 32)
-    return run_kmax_h_newton<32>(vals, cols, H, W, numer, hess, R, n, w, k,
-                                 g, s);
-  if (k <= 64)
-    return run_kmax_h_newton<64>(vals, cols, H, W, numer, hess, R, n, w, k,
-                                 g, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_h_newton(vals, cols, H, W, numer, hess, R, n, w, k, g,
+                           (cudaStream_t)stream, nullptr);
+}
+
+// h_newton_stats' launch at these sizes, without launching (put_launch's
+// six ints)
+int kl_h_newton_stats_launch(int R, int n, int k, int g, int* out) {
+  RowLaunch L;
+  int e = dispatch_h_newton(nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, R, n, 0, k, g, nullptr, &L);
+  if (e) return e;
+  put_launch(L, out);
+  return 0;
 }
 
 int kl_wh_at_nz(const void* cols, const void* H, const void* W, void* out,

@@ -59,12 +59,17 @@ Kernels, and the TPU kernels they replace
   ``ratio = X / max(WH, EPS)``, ``r2 = ratio / max(WH, EPS)``, then per
   component the MU numerator ``ratio * W`` and the diagonal Hessian
   ``r2 * W * W``; about 7k+3 operations per nonzero and replicate, bound
-  by operations. One warp per row, lanes striding over its slots, W[r]
-  staged per block as the (k, g) f32 matrix (read through the read-only
-  cache where it does not fit), two accumulators per component (2k + k
-  registers a lane); padded slots and all-zero rows give exact +0.0 in
-  both outputs, which keeps zero-padded components at zero under the
-  Newton step.
+  by operations. Design: ``h_stats``' skeleton with a second accumulator
+  a component: the packed per-gene f32 W table on the persistent grid of
+  ``h_newton_stats_launch`` (16 warps a block at k <= 16), device memory
+  where the table does not fit, its placement a template argument; a
+  stored slot gathers its column once (``ceil(k/4)`` 16-byte loads) and
+  keeps it in registers for WH and both sums (at k > 32 it gathers each
+  chunk again for the sums, to stay within 255 registers); a warp stops
+  at its row's first window of 32 padded slots and skips padded slots in
+  the last, so all-zero rows give exact +0.0 in both outputs, which keeps
+  zero-padded components at zero under the Newton step; the two sums fold
+  across the warp as one array in a fixed order (no atomics).
 * ``wh_at_nz`` <- ``pallas_wh_at_nz`` (``_wh_body``). The SDDMM: WH at
   every slot of the row side, padded ones included, ``(R, n, w)`` f32,
   which the DNA step's row objectives read twice per H step. Bound by the
@@ -97,9 +102,9 @@ from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
-           "h_newton_stats", "wh_at_nz", "wh_at_nz_launch", "kl_h_stats",
-           "kl_w_numer", "kl_w_stats", "kl_beta_err", "kl_h_newton_stats",
-           "kl_wh_at_nz",
+           "h_newton_stats", "h_newton_stats_launch", "wh_at_nz",
+           "wh_at_nz_launch", "kl_h_stats", "kl_w_numer", "kl_w_stats",
+           "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
            "h_stats_plain", "w_numer_plain", "beta_err_plain",
            "h_newton_stats_plain", "wh_at_nz_plain"]
 
@@ -182,11 +187,13 @@ def build():
                                    + [vp])
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.kl_h_newton_stats_launch.argtypes = [ci] * 4 + [vp]
         lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.kl_wh_at_nz_launch.argtypes = [ci] * 4 + [vp]
         for fn in (lib.kl_row_blocks, lib.kl_h_stats, lib.kl_h_stats_launch,
                    lib.kl_w_numer, lib.kl_beta_err_partials,
-                   lib.kl_h_newton_stats, lib.kl_wh_at_nz,
+                   lib.kl_h_newton_stats, lib.kl_h_newton_stats_launch,
+                   lib.kl_wh_at_nz,
                    lib.kl_wh_at_nz_launch):
             fn.restype = ci
         build_info.update(seconds=time.perf_counter() - t0,
@@ -372,6 +379,14 @@ def h_newton_stats(vals, cols, H, W):
     _raise_on(err, "h_newton_stats")
     launches["h_newton_stats"] += 1
     return numer, hess
+
+
+def h_newton_stats_launch(R: int, n: int, k: int, g: int) -> dict:
+    """How ``h_newton_stats`` launches at these sizes on the current card,
+    without launching (the fields of :func:`h_stats_launch`; its packed W
+    table is f32)."""
+    return _row_launch(build().kl_h_newton_stats_launch, "h_newton_stats",
+                       R, n, k, g)
 
 
 def wh_at_nz_launch(R: int, n: int, k: int, g: int) -> dict:

@@ -156,10 +156,29 @@ def test_wh_at_nz_edge_inputs_match_jax(n, g, k, R, case):
     assert torch.equal(got[:, at], ref[:, at])
 
 
-@pytest.mark.parametrize("n,g,k,R", [(150, 80, 4, 3), (130, 100, 5, 2)])
-def test_h_newton_stats_match_jax(n, g, k, R):
-    X, H, W = _stat_fixture(n, g, k, R, seed=1)
-    xj, xt = _ell_pair(X)
+# the card tests' edge shapes small enough for interpret mode: with three
+# all-zero rows and a row that fills the whole ELL width, the inputs at
+# which the kernel is held against the plain version on the card
+NEWTON_EDGE = [pytest.param(*shape, True,
+                            id="edge-" + "-".join(map(str, shape)))
+               for shape in EDGE_SHAPES if shape[0] <= 300 and shape[1] <= 700]
+
+
+@pytest.mark.parametrize("n,g,k,R,edge", [
+    pytest.param(150, 80, 4, 3, False, id="150-80-4-3"),
+    pytest.param(130, 100, 5, 2, False, id="130-100-5-2")] + NEWTON_EDGE)
+def test_h_newton_stats_match_jax(n, g, k, R, edge):
+    if edge:
+        x, Ht, Wt = edge_inputs(n, g, k, R, 0.06, 5, "cpu", zero_rows=3,
+                                full_row=True)
+        assert int((x.vals[-1] > 0).sum()) == x.vals.shape[1]
+        xt, H, W, zero_rows = x, Ht.numpy(), Wt.numpy(), 3
+        xj = jsp.EllMatrix(jnp.asarray(x.vals.numpy()),
+                           jnp.asarray(x.cols.numpy()), g)
+    else:
+        X, H, W = _stat_fixture(n, g, k, R, seed=1)
+        xj, xt = _ell_pair(X)
+        zero_rows = 4
     numer, denom, hess = tsp.ell_kl_h_newton_stats(xt, _t(H), _t(W))
     kn, kd, kh = kl_ell.kl_h_newton_stats(xt, _t(H), _t(W))
     assert torch.equal(kn, numer) and torch.equal(kh, hess)
@@ -173,7 +192,7 @@ def test_h_newton_stats_match_jax(n, g, k, R):
     # all-zero cells: exact +0.0 in both outputs (the DNA step keeps
     # zero-padded components at zero through grad = hess = 0)
     for out in (numer, hess):
-        zero = out[:, :4]
+        zero = out[:, :zero_rows]
         assert torch.all(zero == 0) and not torch.signbit(zero).any()
 
 

@@ -104,8 +104,17 @@ def test_beta_err_matches_plain(cuda_device, n, g, k, R):
 
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
-def test_h_newton_stats_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = edge_inputs(n, g, k, R, 0.06, 5, cuda_device, zero_rows=3)
+@pytest.mark.parametrize("case", ["zero_rows", "full_row", "gene0"])
+def test_h_newton_stats_matches_plain(cuda_device, n, g, k, R, case):
+    """Three all-zero rows (exact +0.0 in both outputs), alone or beside a
+    row that fills a width that is no multiple of 4 (its last window holds
+    padding) or genes 0 and 1 stored in every other row (a stored slot at
+    column 0 beside the padding). The k=20 and k=64 shapes read W from
+    device memory."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 5, cuda_device, zero_rows=3,
+                          **({} if case == "zero_rows" else {case: True}))
+    if case == "full_row":
+        assert int((x.vals[-1] > 0).sum()) == x.vals.shape[1]
     numer, hess = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
     again = kl_ell.h_newton_stats(x.vals, x.cols, H, W)
     want = kl_ell.h_newton_stats_plain(x.vals, x.cols, H, W)
@@ -178,6 +187,20 @@ def test_wh_at_nz_table_placement(cuda_device):
     assert fits["grid"] == fits["blocks_per_sm"] * sms
     for args in [(2, 640, 20, 3000), (2, 120, 64, 2000)]:
         big = kl_ell.wh_at_nz_launch(*args)
+        assert big["table_in_smem"] == 0 and big["table_bytes"] == 0
+
+
+def test_h_newton_stats_table_placement(cuda_device):
+    """The f32 table sits in shared memory at the batch path's shapes (one
+    wave of persistent blocks) and is read from device memory where it
+    does not fit."""
+    fits = kl_ell.h_newton_stats_launch(20, 10_000, 13, 2000)
+    assert fits["table_in_smem"] == 1 and fits["chunks_per_gene"] == 4
+    assert fits["table_bytes"] == 2000 * 16 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fits["grid"] == fits["blocks_per_sm"] * sms
+    for args in [(2, 640, 20, 3000), (2, 120, 64, 2000)]:
+        big = kl_ell.h_newton_stats_launch(*args)
         assert big["table_in_smem"] == 0 and big["table_bytes"] == 0
 
 
