@@ -18,19 +18,20 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    set, at ``rtol 2e-5``); two launches bit-identical; then each kernel's
    time (CUDA events, warmed, median of many launches) beside its bound,
    its plain version's time and, where one PyTorch call computes the same
-   function, that call's time, and for ``h_stats``, ``h_newton_stats`` and
-   ``wh_at_nz`` their launch (threads per block, W table bytes, resident
-   blocks per SM);
-   ``h_stats`` also at the pipeline's other K (5, 7, 11) on the chunk.
+   function, that call's time, and for the four kernels on the row walk
+   (``h_stats``, ``beta_err_partials``, ``h_newton_stats``, ``wh_at_nz``)
+   their launch (threads per block, W table bytes, resident blocks per
+   SM); ``h_stats`` also at the pipeline's other K (5, 7, 11) on the chunk.
    ``wh_at_nz`` must hold one value at every slot of a row whose column is
    0 (the padding); ``h_newton_stats`` must give exact +0.0 at an
    all-zero row and +inf in the Hessian exactly where its plain version
-   does. Then a sweep of ``h_stats``, ``w_numer``, ``h_newton_stats`` and
-   ``wh_at_nz`` over the card tests' edge shapes (k from 1 to 64, R=1 and
-   20, tables too large for shared memory, all-zero and full-width rows,
-   a gene with no stored value and one that fills the transpose width,
-   gene 0 stored beside the padding) against their plain versions. Small
-   solves on the
+   does; ``beta_err_partials`` is held row by row and in total, an
+   all-zero row's term exactly +0.0. Then a sweep of all five kernels over
+   the card tests' edge shapes (k from 1 to 64, R=1 and 20, tables too
+   large for shared memory, all-zero and full-width rows, a gene with no
+   stored value and one that fills the transpose width, gene 0 stored
+   beside the padding, rows in the KL term's split-log regime, a stored
+   negative value) against their plain versions. Small solves on the
    card (an online KL solve, a usage refit, a batch dna solve) are held
    against the same solves on the CPU (plain versions).
 3. Online pipeline: 10,000 cells x 5,000 genes of synthetic counts from
@@ -256,13 +257,8 @@ def kernel_phase(x, nnz: int, log_rows: list):
             # the W step passes the f32 values in both modes
             errs["w_numer"] = w_numer_check(kl_ell, x, H, W, bf16, tag)
             if not bf16:
-                got = kl_ell.kl_beta_err(x, H, W)
-                check(torch.equal(got, kl_ell.kl_beta_err(x, H, W)),
-                      f"beta_err {tag} not repeatable")
-                from cnmf_torch_tpu_torch.ops.sparse import ell_beta_err
-
-                errs["beta_err_partials"] = max_abs_err(
-                    got, ell_beta_err(x, H, W), 2e-5)
+                errs["beta_err_partials"], total_err = beta_err_check(
+                    kl_ell, x, H, W, tag)
 
             # the pipeline runs the W side and the H solve in bf16, the
             # objective (and the consensus refit's h_stats) in f32
@@ -274,7 +270,10 @@ def kernel_phase(x, nnz: int, log_rows: list):
                                    H, W, bf16, nnz)
                 rec["max_abs_err"] = errs[name]
                 launch = (h_stats_launch_note(kl_ell, R, n, k, g, bf16)
-                          if name == "h_stats" else "")
+                          if name == "h_stats" else
+                          beta_err_launch_note(kl_ell, R, n, k, g,
+                                               total_err)
+                          if name == "beta_err_partials" else "")
                 log_rows.append(
                     f"  {name:18s} {tag:9s} kernel {rec['ms']:.4f} ms  "
                     f"plain {rec['plain_ms']:.4f} ms  library "
@@ -309,7 +308,8 @@ def w_numer_check(kl_ell, x, H, W, bf16, tag, vals=None) -> float:
 
 def launch_note(L: dict) -> str:
     """A launch of a kernel on the row walk (``kl_ell.h_stats_launch``,
-    ``h_newton_stats_launch``, ``wh_at_nz_launch``): threads per block, the
+    ``beta_err_launch``, ``h_newton_stats_launch``, ``wh_at_nz_launch``):
+    threads per block, the
     packed W table's bytes (0: read from device memory), resident blocks
     per SM, grid."""
     return (f"; launch {L['threads']} threads, table {L['table_bytes']} B"
@@ -319,6 +319,32 @@ def launch_note(L: dict) -> str:
 
 def h_stats_launch_note(kl_ell, R, n, k, g, bf16) -> str:
     return launch_note(kl_ell.h_stats_launch(R, n, k, g, bf16, bf16))
+
+
+def beta_err_launch_note(kl_ell, R, n, k, g, total_err) -> str:
+    return (f"; total's max_abs_err {total_err:.3g}"
+            + launch_note(kl_ell.beta_err_launch(R, n, k, g)))
+
+
+def beta_err_check(kl_ell, x, H, W, tag):
+    """``beta_err_partials`` against its plain version, each row's term and
+    the objective per replicate (``kl_beta_err`` against ``ell_beta_err``)
+    at ``rtol 2e-5``: two launches bit-identical, every all-zero row's term
+    exactly +0.0. Returns the rows' and the totals' max abs errors."""
+    from cnmf_torch_tpu_torch.ops.sparse import ell_beta_err
+
+    rows = kl_ell.beta_err_partials(x.vals, x.cols, H, W)
+    again = kl_ell.beta_err_partials(x.vals, x.cols, H, W)
+    torch.cuda.synchronize()
+    check(torch.equal(rows, again), f"beta_err {tag} not repeatable")
+    empty = (x.vals == 0).all(1)
+    check(bool((rows[:, empty] == 0).all())
+          and not bool(torch.signbit(rows[:, empty]).any()),
+          f"beta_err {tag}: an all-zero row is not +0.0")
+    return (max_abs_err(rows, kl_ell.beta_err_plain(x.vals, x.cols, H, W),
+                        2e-5),
+            max_abs_err(kl_ell.kl_beta_err(x, H, W), ell_beta_err(x, H, W),
+                        2e-5))
 
 
 def h_newton_check(kl_ell, x, H, W, tag) -> float:
@@ -365,9 +391,11 @@ def wh_at_nz_check(kl_ell, x, H, W, tag, twin=False) -> float:
 
 
 def edge_sweep(log_rows: list):
-    """``h_stats``, ``w_numer``, ``h_newton_stats`` and ``wh_at_nz`` at the
-    edge shapes of the card tests, against their plain versions, two
-    launches bit-identical: for ``h_stats`` (both modes) and
+    """The five kernels at the edge shapes of the card tests, against their
+    plain versions, two launches bit-identical: for ``beta_err_partials``
+    three all-zero rows (exact +0.0), alone and, in turn, beside a row that
+    fills the whole ELL width, three rows in the split-log regime or one
+    stored negative value; for ``h_stats`` (both modes) and
     ``h_newton_stats`` three all-zero rows (exact +0.0) and one row that
     fills the whole ELL width, and for ``h_newton_stats`` also the inputs
     of ``wh_at_nz`` below; for ``w_numer`` (both modes) three
@@ -383,6 +411,16 @@ def edge_sweep(log_rows: list):
                                                              edge_inputs)
 
     for n, g, k, R in EDGE_SHAPES:
+        for case in ("zero_rows", "full_row", "tiny", "negative"):
+            x, H, W = edge_inputs(
+                n, g, k, R, 0.06, 3, CARD, zero_rows=3,
+                **({} if case == "zero_rows" else {case: True}))
+            tag = f"n={n} g={g} k={k} R={R} {case}"
+            err, total_err = beta_err_check(kl_ell, x, H, W, tag)
+            log_rows.append(f"  beta_err edge {tag:31s} max_abs_err "
+                            f"{err:.3g} (w {x.cols.shape[1]})"
+                            + beta_err_launch_note(kl_ell, R, n, k, g,
+                                                   total_err))
         x, H, W = edge_inputs(n, g, k, R, 0.06, 1, CARD, zero_rows=3,
                               full_row=True)
         check(bool((x.vals[-1] > 0).all()), "edge sweep: no full-width row")
@@ -586,10 +624,8 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
         got = kl_ell.h_stats(x.vals, x.cols, H, W, False)
         errs["h_stats"] = max_abs_err(
             got, kl_ell.h_stats_plain(x.vals, x.cols, H, W, False), 2e-5)
-        from cnmf_torch_tpu_torch.ops.sparse import ell_beta_err
-
-        errs["beta_err_partials"] = max_abs_err(
-            kl_ell.kl_beta_err(x, H, W), ell_beta_err(x, H, W), 2e-5)
+        errs["beta_err_partials"], total_err = beta_err_check(kl_ell, x, H,
+                                                              W, tag)
         for name in ("h_newton_stats", "wh_at_nz", "w_numer", "h_stats",
                      "beta_err_partials"):
             rec = _time_kernel(kl_ell, name, x, x.vals, H, W, False, nnz)
@@ -599,7 +635,9 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
                       launch_note(kl_ell.h_newton_stats_launch(R, n, k, g))
                       if name == "h_newton_stats" else
                       launch_note(kl_ell.wh_at_nz_launch(R, n, k, g))
-                      if name == "wh_at_nz" else "")
+                      if name == "wh_at_nz" else
+                      beta_err_launch_note(kl_ell, R, n, k, g, total_err)
+                      if name == "beta_err_partials" else "")
             log_rows.append(
                 f"  {name:18s} {tag:15s} kernel {rec['ms']:.4f} ms  "
                 f"plain {rec['plain_ms']:.4f} ms  library "
@@ -675,8 +713,9 @@ def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz):
             x.vals, x.cols, H, W)
         plain = lambda: kl_ell.beta_err_plain(  # noqa: E731
             x.vals, x.cols, H, W)
-        blocks = fn().shape[-1]
-        nbytes = nnz * 8 + hw_bytes + R * blocks * 4
+        # the stored slots' value and column, H and W once, the (R, n) row
+        # terms written once; a log1p counted as one operation
+        nbytes = nnz * 8 + hw_bytes + R * n * 4
         ops = R * nnz * (2 * k + 8)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (ops / PEAK_F32 + ops_bf16 / PEAK_BF16) * 1e3

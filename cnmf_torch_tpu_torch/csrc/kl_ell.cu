@@ -14,20 +14,14 @@
 //
 // Layout: the ELL buffers (vals, cols: n x w; rows_t, perm_t: g x wt) are
 // shared by every replicate; H (R, n, k), W (R, k, g) and every output
-// carry the replicate axis (gridDim.y, or the row or (replicate, gene)
-// sequence that h_stats' and w_numer's warps walk). Padded slots hold
+// carry the replicate axis (the (R*n)-row sequence that the row kernels'
+// warps walk, or w_numer's (replicate, gene) sequence). Padded slots hold
 // value 0 at column 0 (row side, after the row's stored values) or the
 // sentinel n*w in perm_t (transpose side, after the gene's stored slots),
-// so they add exactly +0.0 or are skipped.
+// so they add exactly +0.0 or are skipped. Every sum is reduced in a fixed
+// order with shuffles, no atomics, so repeated runs are bit-identical (see
+// ops/kernels/kl_ell.py for the bound of each kernel).
 //
-// Design of beta_err (see ops/kernels/kl_ell.py for the bound of each
-// kernel):
-//   * one warp per row; lanes stride over the row's w slots;
-//   * the row's H[r, i, :] lives in registers; W[r] is staged once per
-//     block in dynamic shared memory when k*g*4 bytes fit the budget,
-//     otherwise read through the read-only cache (__ldg);
-//   * sums are reduced across the warp with shuffles in a fixed order and
-//     written by lane 0 — no atomics, so repeated runs are bit-identical.
 // In bf16 mode (h_stats, w_numer) the kernels round where the JAX bf16
 // chain rounds: operands to bf16, WH accumulated in bf16, the ratio in
 // bf16, every ratio*W (or ratio*H) product rounded to bf16 and then summed
@@ -35,8 +29,8 @@
 //
 // h_stats is bound by operations (about 4k+1 a nonzero and replicate).
 // What keeps it from that bound is gathering W (k random values a slot),
-// the padded slots (29% at the main path's shapes) and occupancy; the
-// design above would gather W twice a slot with scalar loads. Its design:
+// the padded slots (29% at the main path's shapes) and occupancy; a (k, g)
+// table read with scalar loads would gather W twice a slot. Its design:
 //   * W[r] is staged as a packed per-gene table, bf16 in bf16 mode (the
 //     chain casts W anyway): a lane gathers its slot's k components with
 //     ceil(k/8) (bf16) or ceil(k/4) (f32) 16-byte shared loads, once, and
@@ -130,10 +124,37 @@
 //     array of 2*KMAX values in 5 fixed-order steps (31 shuffles at k <=
 //     16, not 10k), so repeated launches are bit-identical.
 //
+// beta_err_partials writes the nonzero part of each row's KL term, (R, n)
+// f32: at each stored slot WH, the two-regime term (a division and a
+// log1p, or two logs where WH/X < 1e-6) minus WH, about 2k+8 operations a
+// nonzero and replicate (bound by operations; the log1p counted as one).
+// What kept it from that bound is what kept h_stats from its own: a (k, g)
+// table read with k scalar shared loads a slot, every padded slot visited,
+// a grid of a few blocks a replicate that each restaged the table, and a
+// block reduction that tied the output to the grid. Its design:
+//   * h_stats' skeleton: the packed f32 per-gene table staged by walk_rows
+//     on one wave of persistent blocks, or the column read from device
+//     memory where the table does not fit, the placement a template
+//     argument, as in wh_at_nz;
+//   * a stored slot gathers its column once, in ceil(k/4) 16-byte loads,
+//     and consumes each chunk in the WH chain as it arrives: nothing needs
+//     the column after WH, so KMAX=64 holds only h in registers;
+//   * a warp stops at its row's first window of 32 padded slots and skips
+//     padded slots in the last window; a negative stored value adds
+//     nothing, as under the JAX body's where(vals > 0, ...);
+//   * a slot's WH and term are rounded as the plain version rounds them
+//     (no fused multiply-add), and each lane adds its slots' terms in f64,
+//     the warp sums them in 5 fixed-order steps and lane 0 stores the
+//     row's value, rounded to f32 once: one value a row, whatever the grid
+//     (a block that spans two replicates needs no special case, an
+//     all-zero row is exactly +0.0), that matches the plain version's f64
+//     row sum also where the row's terms cancel.
+//
 // Strict IEEE f32 arithmetic (no fast math): where WH underflows, the
 // Newton Hessian may overflow to +inf, and the kernel and its plain
 // version must then agree (grad / inf = 0 keeps the Newton candidate at H).
-// Every term is >= 0, so the fold makes no NaN of it.
+// Every term is >= 0, so the fold makes no NaN of it. The KL term's
+// division, logf and log1pf are the IEEE ones too, in both regimes.
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launch.
@@ -148,10 +169,8 @@
 namespace {
 
 constexpr float KL_EPS = 1e-16f;
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr int THREADS = WARPS_PER_BLOCK * 32;
-// stage W[r] in shared memory up to this many bytes; above, use __ldg
-constexpr int SMEM_W_LIMIT = 200 * 1024;
+// threads a block of w_numer_prep_kernel
+constexpr int PREP_THREADS = 256;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -167,40 +186,13 @@ __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
+// lane 0 gets the warp's sum, in a fixed order
+__device__ __forceinline__ double warp_sum(double s) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     s += __shfl_down_sync(0xffffffffu, s, off);
   }
   return s;
-}
-
-// Stage W[r] (k x g) into shared memory, rounded to bf16 in bf16 mode.
-template <bool BF16>
-__device__ __forceinline__ void stage_w(float* Ws, const float* Wr, int kg) {
-  for (int i = threadIdx.x; i < kg; i += blockDim.x) {
-    const float v = __ldg(Wr + i);
-    Ws[i] = BF16 ? round_bf16(v) : v;
-  }
-  __syncthreads();
-}
-
-template <bool BF16>
-__device__ __forceinline__ float w_at(const float* Ws, const float* Wr,
-                                      bool use_smem, int idx) {
-  if (use_smem) return Ws[idx];
-  const float v = __ldg(Wr + idx);
-  return BF16 ? round_bf16(v) : v;
-}
-
-template <int KMAX, bool BF16>
-__device__ __forceinline__ void load_h_row(float (&h)[KMAX],
-                                           const float* Hrow, int k) {
-#pragma unroll
-  for (int c = 0; c < KMAX; ++c) {
-    const float v = (c < k) ? __ldg(Hrow + c) : 0.f;
-    h[c] = BF16 ? round_bf16(v) : v;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -505,7 +497,7 @@ h_stats_kernel(const VT* __restrict__ vals, const int* __restrict__ cols,
 constexpr int W_NUMER_WARPS = 2;
 
 template <typename VT, typename XT, bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PREP_THREADS)
 w_numer_prep_kernel(const VT* __restrict__ vals,
                     const int* __restrict__ perm_t,
                     const float* __restrict__ H, uint4* __restrict__ Hp,
@@ -921,57 +913,114 @@ h_newton_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
   }
 }
 
-// partials[r, block] = sum over the block's rows of
-//   [X > 0] * (X (u - log1p(u)) or its split-log form  -  WH),  u = WH/X - 1
+// ---------------------------------------------------------------------------
+// beta_err_partials: partials[r, i] = sum over the stored slots of row i
+// with X > 0 of
+//   xp (u - log1p(max(u, -1))) - WH,  or  xp (u + log xp - log whs) - WH
+//   where whs / xp < 1e-6,
+// xp = max(X, EPS), whs = max(WH, EPS), u = whs / xp - 1: the nonzero part
+// of row i's KL term, one value a row; the wrapper sums the rows and adds
+// sum WH in torch.
+// ---------------------------------------------------------------------------
+
+// beta_err's block at k <= 16: 32 warps (the 128 KB f32 table of k=13,
+// g=2000 leaves one block an SM, and the gathers need the warps in flight:
+// 16 warps ran 26-36% slower at k=9 and 13 on the H100, though the 64
+// registers a thread of 32 warps has cost a 40-byte spill), else 8
+constexpr int BETA_ERR_THREADS_K16 = 1024;
+
 template <int KMAX>
-__global__ void __launch_bounds__(THREADS)
-beta_err_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                const float* __restrict__ H, const float* __restrict__ W,
-                float* __restrict__ partials, int n, int w, int k, int g,
-                int use_smem) {
-  extern __shared__ float Ws[];
-  __shared__ float red[WARPS_PER_BLOCK];
-  const int r = blockIdx.y;
-  const float* Wr = W + (int64_t)r * k * g;
-  if (use_smem) stage_w<false>(Ws, Wr, k * g);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float local = 0.f;
-  for (int row = blockIdx.x * WARPS_PER_BLOCK + warp; row < n;
-       row += gridDim.x * WARPS_PER_BLOCK) {
-    float h[KMAX];
-    load_h_row<KMAX, false>(h, H + ((int64_t)r * n + row) * k, k);
-    const int64_t base = (int64_t)row * w;
-    for (int j = lane; j < w; j += 32) {
-      const float v = __ldg(vals + base + j);
-      if (v > 0.f) {
-        const int col = __ldg(cols + base + j);
-        float wh = 0.f;
+struct BetaErrShape {
+  static constexpr int THREADS = KMAX <= 16 ? BETA_ERR_THREADS_K16 : 256;
+  static constexpr int WARPS = THREADS / 32;
+};
+
+// One stored slot's term, v > 0: the two regimes of the JAX body, with the
+// IEEE division, logf and log1pf (no fast math), each operation rounded as
+// the plain version rounds it (no fused multiply-add).
+__device__ __forceinline__ float kl_slot_term(float v, float wh) {
+  const float xp = fmaxf(v, KL_EPS);
+  const float whs = fmaxf(wh, KL_EPS);
+  const float ratio = whs / xp;
+  const float u = ratio - 1.f;
+  float term;
+  if (ratio < 1e-6f)
+    term = u + logf(xp) - logf(whs);
+  else
+    term = u - log1pf(fmaxf(u, -1.f));
+  return __fsub_rn(__fmul_rn(xp, term), wh);
+}
+
+// One row, one warp: the row's H in registers, the lanes striding over its
+// stored slots. A slot gathers its gene's column in ceil(k/4) chunks
+// (16-byte shared loads from the packed table, or device memory where it
+// does not fit) and runs the WH chain in component order, each product
+// rounded and then added, as the plain version does: a slot's WH and term
+// have its bits. Components past k are 0 in h and in the table and leave
+// the chain as it is. Each lane adds its slots' terms in order in f64 and
+// lane 0 gets the row's sum, rounded to f32 once: a row whose terms cancel
+// (a slot's term changes sign where WH = X/e) then agrees with the plain
+// version's f64 row sum within one rounding of its value, whatever order
+// either sums in.
+template <int KMAX, bool SMEM>
+__device__ __forceinline__ float beta_err_row(
+    const float* __restrict__ vals_row, const int* __restrict__ cols_row,
+    const float* __restrict__ Hrow, const float* __restrict__ Wr,
+    const uint4* tbl, int w, int k, int g, int nq, int sw, int lane) {
+  float h[KMAX];
 #pragma unroll
-        for (int c = 0; c < KMAX; ++c) {
-          if (c < k) {
-            const float wv = w_at<false>(Ws, Wr, use_smem != 0, c * g + col);
-            wh = (c == 0) ? h[c] * wv : wh + h[c] * wv;
-          }
-        }
-        const float xp = fmaxf(v, KL_EPS);
-        const float whs = fmaxf(wh, KL_EPS);
-        const float ratio = whs / xp;
-        const float u = ratio - 1.f;
-        const float term =
-            (ratio < 1e-6f) ? (u + logf(xp) - logf(whs))
-                            : (u - log1pf(fmaxf(u, -1.f)));
-        local += xp * term - wh;
+  for (int c = 0; c < KMAX; ++c) h[c] = c < k ? __ldg(Hrow + c) : 0.f;
+  double sum = 0.0;
+  row_slots(vals_row, cols_row, w, lane, [&](int col, float v) {
+    if (!(v > 0.f)) return;   // a negative stored value adds nothing
+    float wh = 0.f;
+#pragma unroll
+    for (int q = 0; q < KMAX / 4; ++q) {
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < nq) u = w_chunk<SMEM>(tbl, Wr, k, g, nq, sw, col, q);
+      const float x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * q + i;
+        const float hw = __fmul_rn(h[c], x[i]);
+        wh = (c == 0) ? hw : __fadd_rn(wh, hw);
       }
     }
-  }
-  local = warp_sum(local);
-  if (lane == 0) red[warp] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int i = 0; i < WARPS_PER_BLOCK; ++i) s += red[i];
-    partials[(int64_t)r * gridDim.x + blockIdx.x] = s;
+    sum += (double)kl_slot_term(v, wh);
+  });
+  return (float)warp_sum(sum);
+}
+
+// The persistent row walk and the table's placement a template argument of
+// the row, as in h_newton_kernel; one value a row, stored by lane 0.
+template <int KMAX>
+__global__ void __launch_bounds__(BetaErrShape<KMAX>::THREADS)
+beta_err_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                const float* __restrict__ H, const float* __restrict__ W,
+                float* __restrict__ partials, int R, int n, int w, int k,
+                int g, int nq, int use_smem) {
+  constexpr int WARPS = BetaErrShape<KMAX>::WARPS;
+  extern __shared__ uint4 Wt[];
+  const int sw = (nq & (nq - 1)) ? 0 : nq - 1;
+  const int lane = threadIdx.x & 31;
+  if (use_smem) {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, true,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          const float s = beta_err_row<KMAX, true>(
+              vals + row * w, cols + row * w, H + gi * k, Wr, Wt, w, k, g,
+              nq, sw, lane);
+          if (lane == 0) partials[gi] = s;
+        });
+  } else {
+    walk_rows<false, KMAX, WARPS>(
+        W, Wt, R, n, k, g, nq, sw, false,
+        [&](int64_t gi, int64_t row, const float* Wr) {
+          const float s = beta_err_row<KMAX, false>(
+              vals + row * w, cols + row * w, H + gi * k, Wr, Wt, w, k, g,
+              nq, sw, lane);
+          if (lane == 0) partials[gi] = s;
+        });
   }
 }
 
@@ -994,32 +1043,8 @@ int smem_optin() {
   return device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>(48 * 1024);
 }
 
-// blocks along x: enough to cover the rows (or genes), capped so that the
-// whole (x, R) grid is about 4 blocks per SM — each block then walks
-// several rows and stages W once for all of them
-int grid_x_for(int R, int items) {
-  const int need = (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  int cap = (4 * sm_count()) / (R > 0 ? R : 1);
-  if (cap < 1) cap = 1;
-  return need < cap ? (need > 0 ? need : 1) : cap;
-}
-
-template <typename K>
-int launch_row_kernel(K kernel, int R, int n, int k, int g, size_t* smem,
-                      int* use_smem, dim3* grid) {
-  const size_t bytes = (size_t)k * g * sizeof(float);
-  *use_smem = bytes <= (size_t)SMEM_W_LIMIT;
-  *smem = *use_smem ? bytes : 0;
-  if (*smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  *grid = dim3(grid_x_for(R, n), R);
-  return 0;
-}
-
-// The launch of a kernel on walk_rows (h_stats, h_newton_stats, wh_at_nz):
+// The launch of a kernel on walk_rows (h_stats, h_newton_stats, wh_at_nz,
+// beta_err):
 // the packed table's chunks per gene and bytes, shared memory or device
 // memory, resident blocks per SM (from the occupancy calculator at that
 // table size) and the persistent grid, one wave of resident blocks
@@ -1122,10 +1147,10 @@ int run_w_numer(const void* vals, const void* rows_t, const void* perm_t,
   const int64_t slots = (int64_t)g * wt;
   const int64_t work = rows * nq > slots ? rows * nq : slots;
   if (work > 0) {
-    const int64_t need = (work + THREADS - 1) / THREADS;
+    const int64_t need = (work + PREP_THREADS - 1) / PREP_THREADS;
     const int64_t cap = 16 * (int64_t)sm_count();
     w_numer_prep_kernel<VT, XT, BF16>
-        <<<(unsigned)(need < cap ? need : cap), THREADS, 0, s>>>(
+        <<<(unsigned)(need < cap ? need : cap), PREP_THREADS, 0, s>>>(
             (const VT*)vals, (const int*)perm_t, (const float*)H,
             (uint4*)Hp, (XT*)Xt, rows, k, nq, slots, n * w);
     const cudaError_t e = cudaGetLastError();
@@ -1164,17 +1189,35 @@ int run_kmax_w_numer(const void* vals, int vals_bf16, const void* rows_t,
 template <int KMAX>
 int run_kmax_beta_err(const void* vals, const void* cols, const void* H,
                       const void* W, void* partials, int R, int n, int w,
-                      int k, int g, cudaStream_t s) {
-  auto kern = beta_err_kernel<KMAX>;
-  size_t smem;
-  int use_smem;
-  dim3 grid;
-  int e = launch_row_kernel(kern, R, n, k, g, &smem, &use_smem, &grid);
+                      int k, int g, cudaStream_t s, RowLaunch* query) {
+  RowLaunch L;
+  int e = row_launch(beta_err_kernel<KMAX>, BetaErrShape<KMAX>::THREADS,
+                     packed_chunks(k, false), R, n, g, &L);
   if (e) return e;
-  kern<<<grid, THREADS, smem, s>>>((const float*)vals, (const int*)cols,
-                                   (const float*)H, (const float*)W,
-                                   (float*)partials, n, w, k, g, use_smem);
+  if (query) {
+    *query = L;
+    return 0;
+  }
+  if ((int64_t)R * n == 0) return 0;
+  beta_err_kernel<KMAX><<<L.grid, L.threads, L.table_bytes, s>>>(
+      (const float*)vals, (const int*)cols, (const float*)H, (const float*)W,
+      (float*)partials, R, n, w, k, g, L.nq, L.use_smem);
   return (int)cudaGetLastError();
+}
+
+int dispatch_beta_err(const void* vals, const void* cols, const void* H,
+                      const void* W, void* partials, int R, int n, int w,
+                      int k, int g, cudaStream_t s, RowLaunch* query) {
+  if (k <= 16)
+    return run_kmax_beta_err<16>(vals, cols, H, W, partials, R, n, w, k, g,
+                                 s, query);
+  if (k <= 32)
+    return run_kmax_beta_err<32>(vals, cols, H, W, partials, R, n, w, k, g,
+                                 s, query);
+  if (k <= 64)
+    return run_kmax_beta_err<64>(vals, cols, H, W, partials, R, n, w, k, g,
+                                 s, query);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int KMAX>
@@ -1258,9 +1301,6 @@ void put_launch(const RowLaunch& L, int* out) {
 
 extern "C" {
 
-// number of (R, blocks) partials kl_beta_err_partials writes
-int kl_row_blocks(int R, int n) { return grid_x_for(R, n); }
-
 int kl_h_stats(const void* vals, int vals_bf16, const void* cols,
                const void* H, const void* W, void* numer, int R, int n,
                int w, int k, int g, int bf16, void* stream) {
@@ -1300,20 +1340,23 @@ int kl_w_numer(const void* vals, int vals_bf16, const void* rows_t,
   return (int)cudaErrorInvalidValue;
 }
 
+// partials (R, n): the nonzero part of each row's KL term
 int kl_beta_err_partials(const void* vals, const void* cols, const void* H,
                          const void* W, void* partials, int R, int n, int w,
                          int k, int g, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 16)
-    return run_kmax_beta_err<16>(vals, cols, H, W, partials, R, n, w, k, g,
-                                 s);
-  if (k <= 32)
-    return run_kmax_beta_err<32>(vals, cols, H, W, partials, R, n, w, k, g,
-                                 s);
-  if (k <= 64)
-    return run_kmax_beta_err<64>(vals, cols, H, W, partials, R, n, w, k, g,
-                                 s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_beta_err(vals, cols, H, W, partials, R, n, w, k, g,
+                           (cudaStream_t)stream, nullptr);
+}
+
+// beta_err_partials' launch at these sizes, without launching (put_launch's
+// six ints)
+int kl_beta_err_launch(int R, int n, int k, int g, int* out) {
+  RowLaunch L;
+  int e = dispatch_beta_err(nullptr, nullptr, nullptr, nullptr, nullptr, R, n,
+                            0, k, g, nullptr, &L);
+  if (e) return e;
+  put_launch(L, out);
+  return 0;
 }
 
 int kl_h_newton_stats(const void* vals, const void* cols, const void* H,

@@ -25,7 +25,8 @@ EDGE_SHAPES = [(130, 100, 5, 3), (997, 611, 13, 2), (640, 3000, 20, 2),
 
 
 def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
-                full_row=False, gene_edges=False, gene0=False):
+                full_row=False, gene_edges=False, gene0=False, tiny=False,
+                negative=False):
     """The ELL encoding of a random ``n x g`` matrix (gamma values) and
     random positive ``H (R, n, k)`` and ``W (R, k, g)``, made from
     ``seed``. ``zero_rows``: the first rows are all zero. ``full_row``:
@@ -36,7 +37,10 @@ def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
     the zero rows, and the transpose side is exactly as wide as the longest
     gene, so gene ``g - 1`` fills the whole width ``wt``. ``gene0``: genes
     0 and 1 are stored in every other row but the zero rows, so column 0
-    holds stored slots beside the padding."""
+    holds stored slots beside the padding. ``tiny``: the three rows after
+    the zero rows get ``H`` scaled by 1e-9, so ``WH/X < 1e-6`` at their
+    slots (the KL term's split-log regime). ``negative``: the first stored
+    value of the middle row is negative (the KL objective skips it)."""
     rng = np.random.default_rng(seed)
     X = sp.random(n, g, density=density, format="csr",
                   random_state=int(rng.integers(1 << 31)),
@@ -58,10 +62,17 @@ def edge_inputs(n, g, k, R, density, seed, device, zero_rows=0,
             X[n - 1, rng.choice(g, min(most, g), replace=False)] = 1.5
         X = X.tocsr()
         X.eliminate_zeros()
+    if negative:
+        mid = n // 2
+        if X.indptr[mid + 1] == X.indptr[mid]:
+            raise ValueError("edge_inputs: the middle row stores no value")
+        X.data[X.indptr[mid]] = -1.5
     width = int(np.diff(X.indptr).max()) if full_row else None
     t_width = (int(np.diff(X.tocsc().indptr).max()) if gene_edges
                else None)
     x = sparse.csr_to_ell(X, width=width, t_width=t_width).to(device)
     H = torch.as_tensor(rng.random((R, n, k), np.float32) + 0.1).to(device)
     W = torch.as_tensor(rng.random((R, k, g), np.float32) + 0.1).to(device)
+    if tiny:
+        H[:, zero_rows:zero_rows + 3] *= 1e-9
     return x, H, W

@@ -50,10 +50,23 @@ Kernels, and the TPU kernels they replace
   ``n*w``); the per-component sums fold across the warp in a fixed order
   (no atomics). Blocks of two warps, replicate-major.
 * ``beta_err_partials`` <- ``pallas_kl_beta_err`` (``_obj_body``). The
-  two-regime KL term minus WH over the nonzeros (a log1p or two logs per
-  nonzero: bound by operations), one f32 partial per block from a
-  fixed-order block reduction; the wrapper sums the partials in torch and
-  adds the k-sized ``sum WH`` term, as the JAX wrapper does.
+  nonzero part of each row's KL term, ``(R, n)`` f32: at each stored slot
+  with ``X > 0`` WH, then the two-regime term (a division and a log1p, or
+  two logs where ``WH/X < 1e-6``) minus WH; about 2k+8 operations per
+  nonzero and replicate (the log1p counted as one), bound by operations.
+  Design: ``h_stats``' skeleton (the packed per-gene f32 W table on the
+  persistent grid of ``beta_err_launch``, device memory where the table
+  does not fit, its placement a template argument); a stored slot gathers
+  its column once (``ceil(k/4)`` 16-byte loads), each chunk consumed by the
+  WH chain as it arrives; a warp stops at its row's first window of 32
+  padded slots; a slot's WH and term are rounded as the plain version
+  rounds them (no fused multiply-add), each lane adds its slots' terms in
+  f64 and the warp sums them in a fixed order (no atomics), rounding the
+  row's value to f32 once: it does not depend on the grid, an all-zero
+  row is exactly +0.0, and a row whose terms cancel still matches the
+  plain version's f64 row sum. 32 warps a block at k <= 16. The wrapper
+  sums the rows in torch and adds the k-sized ``sum WH`` term, as the JAX
+  wrapper does.
 * ``h_newton_stats`` <- ``pallas_kl_h_newton_stats`` (``_h_newton_body``).
   The Diagonalized-Newton H statistics in one traversal, strict f32: WH,
   ``ratio = X / max(WH, EPS)``, ``r2 = ratio / max(WH, EPS)``, then per
@@ -102,9 +115,9 @@ from .. import sparse
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
-           "h_newton_stats", "h_newton_stats_launch", "wh_at_nz",
-           "wh_at_nz_launch", "kl_h_stats", "kl_w_numer", "kl_w_stats",
-           "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
+           "beta_err_launch", "h_newton_stats", "h_newton_stats_launch",
+           "wh_at_nz", "wh_at_nz_launch", "kl_h_stats", "kl_w_numer",
+           "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
            "h_stats_plain", "w_numer_plain", "beta_err_plain",
            "h_newton_stats_plain", "wh_at_nz_plain"]
 
@@ -180,21 +193,20 @@ def build():
                 log = f.read()
         lib = ctypes.CDLL(so)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kl_row_blocks.argtypes = [ci, ci]
         lib.kl_h_stats.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 6 + [vp]
         lib.kl_h_stats_launch.argtypes = [ci] * 6 + [vp]
         lib.kl_w_numer.argtypes = ([vp, ci] + [vp] * 7 + [ci] * 8
                                    + [vp])
         lib.kl_beta_err_partials.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.kl_beta_err_launch.argtypes = [ci] * 4 + [vp]
         lib.kl_h_newton_stats.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         lib.kl_h_newton_stats_launch.argtypes = [ci] * 4 + [vp]
         lib.kl_wh_at_nz.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.kl_wh_at_nz_launch.argtypes = [ci] * 4 + [vp]
-        for fn in (lib.kl_row_blocks, lib.kl_h_stats, lib.kl_h_stats_launch,
-                   lib.kl_w_numer, lib.kl_beta_err_partials,
+        for fn in (lib.kl_h_stats, lib.kl_h_stats_launch, lib.kl_w_numer,
+                   lib.kl_beta_err_partials, lib.kl_beta_err_launch,
                    lib.kl_h_newton_stats, lib.kl_h_newton_stats_launch,
-                   lib.kl_wh_at_nz,
-                   lib.kl_wh_at_nz_launch):
+                   lib.kl_wh_at_nz, lib.kl_wh_at_nz_launch):
             fn.restype = ci
         build_info.update(seconds=time.perf_counter() - t0,
                           command=" ".join(cmd), log=log, library=so)
@@ -256,13 +268,9 @@ def _row_checks(vals, cols, H, W, vals_dtypes):
 
 h_stats_plain = sparse.ell_h_numer
 w_numer_plain = sparse.ell_w_numer
+beta_err_plain = sparse.ell_beta_err_rows
 h_newton_stats_plain = sparse.ell_h_newton
 wh_at_nz_plain = sparse.ell_wh_slots
-
-
-def beta_err_plain(vals, cols, H, W):
-    """Plain ``beta_err_partials``: one partial per replicate, ``(R, 1)``."""
-    return sparse.ell_beta_err_nz(vals, cols, H, W)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -349,19 +357,26 @@ def w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
 
 
 def beta_err_partials(vals, cols, H, W):
-    """Per-block partial sums ``(R, blocks)`` f32 of the nonzero KL terms
-    (f32 inputs only, like the TPU kernel)."""
+    """The nonzero part of each row's KL term, ``(R, n)`` f32 (f32 inputs
+    only, like the TPU kernel); an all-zero row gives exactly +0.0."""
     R, n, w, k, g = _row_checks(vals, cols, H, W, (torch.float32,))
     if not H.is_cuda:
         return beta_err_plain(vals, cols, H, W)
     lib = build()
-    blocks = lib.kl_row_blocks(R, n)
-    partials = torch.empty((R, blocks), dtype=torch.float32, device=H.device)
+    partials = torch.empty((R, n), dtype=torch.float32, device=H.device)
     err = lib.kl_beta_err_partials(_ptr(vals), _ptr(cols), _ptr(H), _ptr(W),
                                    _ptr(partials), R, n, w, k, g, _stream())
     _raise_on(err, "beta_err_partials")
     launches["beta_err_partials"] += 1
     return partials
+
+
+def beta_err_launch(R: int, n: int, k: int, g: int) -> dict:
+    """How ``beta_err_partials`` launches at these sizes on the current
+    card, without launching (the fields of :func:`h_stats_launch`; its
+    packed W table is f32)."""
+    return _row_launch(build().kl_beta_err_launch, "beta_err_partials", R,
+                       n, k, g)
 
 
 def h_newton_stats(vals, cols, H, W):
@@ -435,8 +450,8 @@ def kl_w_stats(x, H, W, bf16: bool = False):
 
 def kl_beta_err(x, H, W):
     """``D_KL(X || HW)`` per replicate ``(R,)`` f32."""
-    partials = beta_err_partials(x.vals, x.cols, H, W)
-    return partials.sum(1) + sparse.total_wh(H, W)
+    rows = beta_err_partials(x.vals, x.cols, H, W)
+    return rows.sum(1) + sparse.total_wh(H, W)
 
 
 def kl_h_newton_stats(x, H, W):

@@ -35,7 +35,7 @@ __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "kl_nz_term", "ell_h_numer", "ell_ratio_flat",
            "ell_w_numer_from_ratio", "ell_w_numer", "ell_kl_h_stats",
            "ell_kl_w_numer", "ell_kl_w_stats", "ell_beta_err",
-           "ell_beta_err_nz", "total_wh",
+           "ell_beta_err_nz", "ell_beta_err_rows", "total_wh",
            "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
            "ell_kl_h_newton_stats"]
 
@@ -389,17 +389,25 @@ def kl_nz_term(Xp, WHs):
     return Xp * torch.where(ratio < 1e-6, tiny, stable)
 
 
-def ell_beta_err_nz(vals, cols, H, W):
-    """Plain ``beta_err``: the nonzero-supported part of
-    ``D_KL(X || HW)`` per replicate, ``(R,)`` f32:
-    ``sum_{X>0} [kl_nz_term - WH]``."""
+def ell_beta_err_rows(vals, cols, H, W):
+    """Plain ``beta_err_partials``: the nonzero-supported part of each
+    row's ``D_KL(X || HW)`` term, ``(R, n)`` f32:
+    ``sum_{X>0} [kl_nz_term - WH]`` over the row's slots, the f32 terms
+    summed in f64 and rounded once (a row's terms change sign where
+    ``WH = X/e`` and may cancel; the CUDA kernel sums them so too)."""
     vals = vals.float()
     wh = _wh_at_nz(cols, H.float(), W.float())
     nz = torch.where(
         vals > 0,
         kl_nz_term(torch.clamp_min(vals, EPS), torch.clamp_min(wh, EPS))
         - wh, torch.zeros((), dtype=wh.dtype, device=wh.device))
-    return nz.sum(dim=(1, 2))
+    return nz.sum(-1, dtype=torch.float64).float()
+
+
+def ell_beta_err_nz(vals, cols, H, W):
+    """The nonzero-supported part of ``D_KL(X || HW)`` per replicate,
+    ``(R,)`` f32: the rows of :func:`ell_beta_err_rows` summed."""
+    return ell_beta_err_rows(vals, cols, H, W).sum(1)
 
 
 def total_wh(H, W):

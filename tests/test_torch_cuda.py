@@ -93,14 +93,50 @@ def test_w_numer_matches_plain(cuda_device, n, g, k, R, bf16, zero_rows):
 
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
-def test_beta_err_matches_plain(cuda_device, n, g, k, R):
-    x, H, W = edge_inputs(n, g, k, R, 0.06, 3, cuda_device, zero_rows=3)
-    got = kl_ell.kl_beta_err(x, H, W)
-    again = kl_ell.kl_beta_err(x, H, W)
-    want = sparse.ell_beta_err(x, H, W)
+@pytest.mark.parametrize("case", ["zero_rows", "full_row", "tiny",
+                                  "negative"])
+def test_beta_err_matches_plain(cuda_device, n, g, k, R, case):
+    """Each row's term against the plain version, beside three all-zero
+    rows (exactly +0.0): alone, or with a row that fills a width that is
+    no multiple of 4, three rows in the split-log regime (WH/X < 1e-6), or
+    one stored negative value (which adds nothing). The k=20 and k=64
+    shapes read W from device memory."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 3, cuda_device, zero_rows=3,
+                          **({} if case == "zero_rows" else {case: True}))
+    if case == "full_row":
+        assert int((x.vals[-1] > 0).sum()) == x.vals.shape[1]
+        assert x.vals.shape[1] % 4
+    elif case == "tiny":
+        stored = x.vals[3:6] > 0
+        wh = kl_ell.wh_at_nz_plain(x.cols, H, W)[:, 3:6]
+        assert bool(stored.any())
+        assert bool((wh[:, stored] / x.vals[3:6][stored] < 1e-6).all())
+    elif case == "negative":
+        assert int((x.vals < 0).sum()) == 1
+    rows = kl_ell.beta_err_partials(x.vals, x.cols, H, W)
+    again = kl_ell.beta_err_partials(x.vals, x.cols, H, W)
+    total = kl_ell.kl_beta_err(x, H, W)
     torch.cuda.synchronize()
-    _close(got, want, 2e-5)
-    assert torch.equal(got, again)
+    assert rows.shape == (R, n)
+    _close(rows, kl_ell.beta_err_plain(x.vals, x.cols, H, W), 2e-5)
+    _close(total, sparse.ell_beta_err(x, H, W), 2e-5)
+    assert torch.equal(rows, again)
+    assert torch.all(rows[:, :3] == 0)
+    assert not torch.signbit(rows[:, :3]).any()
+
+
+def test_beta_err_table_placement(cuda_device):
+    """The f32 table sits in shared memory at the pipeline's shapes (one
+    wave of persistent blocks) and is read from device memory where it
+    does not fit."""
+    fits = kl_ell.beta_err_launch(20, 5000, 13, 2000)
+    assert fits["table_in_smem"] == 1 and fits["chunks_per_gene"] == 4
+    assert fits["table_bytes"] == 2000 * 16 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fits["grid"] == fits["blocks_per_sm"] * sms
+    for args in [(2, 640, 20, 3000), (2, 120, 64, 2000)]:
+        big = kl_ell.beta_err_launch(*args)
+        assert big["table_in_smem"] == 0 and big["table_bytes"] == 0
 
 
 @pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)

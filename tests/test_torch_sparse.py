@@ -263,6 +263,42 @@ def test_beta_err_matches_jax(n, g, k, R):
         assert float(got[r]) == pytest.approx(kern, rel=2e-5)
 
 
+@pytest.mark.parametrize("n,g,k,R", SHAPES)
+def test_beta_err_rows_match_jax(n, g, k, R):
+    """Each row's term of ``beta_err_partials`` (on the CPU, its plain
+    version ``ell_beta_err_rows``) plus that row's ``sum WH`` is the JAX
+    objective of the row's one-row encoding, from its oracle and from its
+    Pallas kernel in interpret mode: at the four all-zero rows (exactly
+    +0.0), at a row whose H is scaled by 1e-9 (every slot in the split-log
+    regime, WH/X < 1e-6) and at a few others."""
+    X, H, W = _fixture(n, g, k, R, seed=10)
+    tiny = 5
+    H[:, tiny] *= np.float32(1e-9)
+    xt = _torch_ell(X)
+    Ht, Wt = _t(H), _t(W)
+    kl_ell.reset_launches()
+    rows = kl_ell.beta_err_partials(xt.vals, xt.cols, Ht, Wt)
+    assert rows.dtype == torch.float32 and rows.shape == (R, n)
+    assert kl_ell.launches["beta_err_partials"] == 0
+    assert torch.equal(rows, tsp.ell_beta_err_rows(xt.vals, xt.cols, Ht, Wt))
+    assert torch.equal(rows.sum(1),
+                       tsp.ell_beta_err_nz(xt.vals, xt.cols, Ht, Wt))
+    assert torch.all(rows[:, :4] == 0)
+    assert not torch.signbit(rows[:, :4]).any()
+    stored = xt.vals[tiny] > 0
+    wh = tsp.ell_wh_slots(xt.cols, Ht, Wt)[:, tiny][:, stored]
+    assert bool(stored.any())
+    assert bool((wh / xt.vals[tiny][stored] < 1e-6).all())
+    for i in (0, 3, tiny, n // 2, n - 1):
+        xj = _jax_ell(X[i:i + 1])
+        for r in range(R):
+            got = float(rows[r, i] + Ht[r, i] @ Wt[r].sum(1))
+            want = float(jsp.ell_beta_err(xj, H[r, i:i + 1], W[r], 1.0))
+            kern = float(pk.pallas_kl_beta_err(xj, H[r, i:i + 1], W[r]))
+            assert got == pytest.approx(want, rel=2e-5)
+            assert got == pytest.approx(kern, rel=2e-5)
+
+
 def test_kl_nz_term_matches_jax_in_both_regimes():
     rng = np.random.default_rng(5)
     xp = rng.gamma(2.0, 1.0, 64).astype(np.float32) + 0.1
