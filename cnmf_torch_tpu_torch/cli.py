@@ -84,6 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch_size", type=int, default=5000,
                         help="[prepare] Size of batch for online NMF "
                              "learning.")
+    parser.add_argument("--per-k-programs", action="store_true",
+                        default=False,
+                        help="[factorize] Pin the per-K sweeps (the JAX "
+                             "package's flag; the port always runs one "
+                             "sweep per K and records the packed rule's "
+                             "choice in the provenance)")
     parser.add_argument("--local-density-threshold", type=float,
                         default=0.5,
                         help="[consensus] Threshold for the local density "
@@ -123,7 +129,8 @@ def main(argv=None):
             use_gpu=args.use_gpu, batch_size=args.batch_size)
     elif args.command == "factorize":
         obj.factorize(worker_i=args.worker_index,
-                      total_workers=max(args.total_workers, 1))
+                      total_workers=max(args.total_workers, 1),
+                      packed=False if args.per_k_programs else None)
     elif args.command == "combine":
         obj.combine(components=args.components)
     elif args.command == "consensus":

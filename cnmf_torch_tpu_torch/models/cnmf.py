@@ -13,12 +13,14 @@ JSON at the ``.yaml`` path (JSON is valid YAML).
 
 Every device step runs on ``device`` (default ``"cuda"``; the constructor
 raises when no card is present unless the caller asked for ``"cpu"``). On
-a sparse count matrix with the Kullback-Leibler loss the factorize sweep
-and the consensus usage refit run on the ELL encoding, whose statistics
-are the CUDA kernels of ``csrc/kl_ell.cu`` on the card. Factorize runs the
-mode of the run-parameters file: ``online`` (what ``prepare`` writes) or
-``batch`` (set by editing that file), under the solver recipe resolved
-from the env knobs (``ops/recipe.py``: batch KL runs ``dna``).
+a sparse count matrix with the Kullback-Leibler or Itakura-Saito loss the
+factorize sweep and the consensus usage refit run on the ELL encoding,
+whose KL statistics are the CUDA kernels of ``csrc/kl_ell.cu`` on the
+card (IS is the dense-WH hybrid, plain torch). Factorize runs the mode and
+``algo`` of the run-parameters file: ``online`` and ``mu`` (what
+``prepare`` writes), or ``batch`` and ``halsvar`` (set by editing that
+file), under the solver recipe resolved from the env knobs
+(``ops/recipe.py``: batch KL runs ``dna``, batch IS ``amu``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from ..ops.recipe import resolve_recipe
 from ..ops.sparse import csr_to_ell, ell_chunk_rows
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
-from ..parallel.replicates import replicate_sweep, worker_filter
+from ..parallel.replicates import (_auto_packed, replicate_sweep,
+                                   worker_filter)
 from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
                         load_df_from_npz, load_df_from_text, load_matrix,
                         save_df_to_npz, save_df_to_text, save_matrix)
@@ -257,29 +260,62 @@ class cNMF:
     # ------------------------------------------------------------------
 
     def factorize(self, worker_i=0, total_workers=1,
-                  replicates_per_batch=None):
+                  replicates_per_batch=None, packed=None):
         """Run this worker's share of the replicate ledger: the tasks are
         grouped per K and each group runs as one batched replicate sweep
         (``parallel/replicates.py``) in the parameters file's ``mode``. A
-        sparse normalized matrix with a KL ledger takes the ELL lane under
-        the dispatch rule (density <= 0.10 and width <= genes / 8): row
-        chunks online, the whole matrix with its transpose index set in
+        sparse normalized matrix with a KL or IS ledger takes the ELL lane
+        under the dispatch rule (density <= 0.10 and width <= genes / 8):
+        row chunks online, the whole matrix with its transpose index set in
         batch mode. The solver recipe is resolved once (``ops/recipe.py``)
         and recorded in ``factorize_info`` and the provenance. A replicate
         whose objective or spectra are not finite is reported and not
-        written."""
+        written.
+
+        ``packed`` (default None: the JAX planner's rule, a dense
+        random-init ``mu`` ledger of >= 4 Ks with <= 32 replicates a K
+        across the workers; ``True``/``False`` pin it, CLI
+        ``--per-k-programs`` is ``False``) is accepted for parity with the
+        JAX package, with its refusals, and recorded in ``factorize_info``
+        and the provenance (``batched-packed``). It selects no other work:
+        the JAX package packs the Ks into one program so that XLA compiles
+        once, and eager PyTorch compiles nothing per K, so a packed run is
+        the per-K sweeps and writes their iter spectra."""
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         norm = load_matrix(self.paths["normalized_counts"])
         kw = self._solver_params()
         beta = beta_loss_to_float(kw["beta_loss"])
         mode = kw.get("mode", "online")
+        init = kw.get("init", "random")
+        algo = kw.get("algo", "mu")
         X = norm.X
         n, g = X.shape
         chunk = int(min(kw.get("online_chunk_size", 5000), n))
         # the JAX planner's lane rule (resolve_encoding): sparse input,
         # beta in {1, 0}, random init and plain MU, then the dispatch rule
-        use_ell = run_nmf_use_ell(X, beta, init=kw.get("init", "random"),
-                                  algo=kw.get("algo", "mu"))
+        use_ell = run_nmf_use_ell(X, beta, init=init, algo=algo)
+        if use_ell and packed:
+            raise ValueError(
+                "packed K-sweeps run dense only; set CNMF_TPU_SPARSE_BETA=0 "
+                "to keep packed=True, or drop packed for the ELL path")
+        if packed and init != "random":
+            raise ValueError(
+                "packed K-sweeps require init='random' (the nndsvd family's "
+                "SVD base is K-truncated); rerun with packed=False / "
+                "--per-k-programs")
+        ks = _ledger_ints(ledger, "n_components")
+        iters = _ledger_ints(ledger, "iter")
+        seeds = _ledger_ints(ledger, "nmf_seed")
+        by_k: dict[int, list] = {}
+        for idx in worker_filter(range(len(ks)), worker_i, total_workers):
+            by_k.setdefault(int(ks[idx]), []).append(
+                (int(iters[idx]), int(seeds[idx])))
+        if packed is None:
+            packed = _auto_packed(
+                use_ell, algo, init, len(by_k),
+                max((len(t) for t in by_k.values()), default=0),
+                total_workers)
+        packed = bool(packed)
         if use_ell:
             Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
                   else csr_to_ell(X))
@@ -288,16 +324,16 @@ class cNMF:
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."
                   % (beta, density, X.width, g))
-        ks = _ledger_ints(ledger, "n_components")
         recipe = resolve_recipe(
-            beta, mode, algo=kw.get("algo", "mu"), ell=use_ell, n=n, g=g,
+            beta, mode, algo=algo, ell=use_ell, n=n, g=g,
             k=int(ks.max()) if ks.size else None,
             ell_width=X.width if use_ell else None)
         bf16 = False if recipe.kl_newton else resolve_bf16_ratio(beta, mode)
         h_tol, n_passes, h_tol_start = resolve_online_schedule(beta)
         self.factorize_info = {
             "lane": "ell" if use_ell else "dense", "mode": mode,
-            "kernel": kernel_label(use_ell, self.device, bf16),
+            "packed": packed,
+            "kernel": kernel_label(use_ell, self.device, bf16, beta),
             "solver_recipe": recipe.label,
             "inner_repeats": int(recipe.inner_repeats),
             "kl_newton": bool(recipe.kl_newton),
@@ -309,6 +345,7 @@ class cNMF:
             with open(tmp, "w") as f:
                 json.dump({"worker_index": int(worker_i),
                            "engaged_path": "batched-" + (
+                               "packed" if packed else
                                "ell" if use_ell else "dense"),
                            "effective_params": dict(
                                {k: v for k, v in kw.items()
@@ -317,20 +354,14 @@ class cNMF:
                                   if k not in ("trace", "errs",
                                                "dna_fallback")})},
                           f, indent=1, sort_keys=True)
-        iters = _ledger_ints(ledger, "iter")
-        seeds = _ledger_ints(ledger, "nmf_seed")
-        by_k: dict[int, list] = {}
-        for idx in worker_filter(range(len(ks)), worker_i, total_workers):
-            by_k.setdefault(int(ks[idx]), []).append(
-                (int(iters[idx]), int(seeds[idx])))
         for k, tasks in sorted(by_k.items()):
             print("[Worker %d]. Running %d replicates for k=%d as one "
                   "batched solve." % (worker_i, len(tasks), k))
             trace: list = []
             spectra, _, errs = replicate_sweep(
                 X, [t[1] for t in tasks], k, beta_loss=kw["beta_loss"],
-                init=kw.get("init", "random"), mode=mode,
-                tol=kw.get("tol", 1e-4), online_chunk_size=chunk,
+                init=init, mode=mode, tol=kw.get("tol", 1e-4),
+                online_chunk_size=chunk,
                 online_chunk_max_iter=kw.get("online_chunk_max_iter", 1000),
                 alpha_W=kw.get("alpha_W", 0.0),
                 l1_ratio_W=kw.get("l1_ratio_W", 0.0),

@@ -2,11 +2,12 @@
 consensus sweep, the nmf-torch style ``run_nmf`` and the fixed-spectra
 usage refit.
 
-Port of the parts of ``cnmf_torch_tpu/ops/nmf.py`` the online and batch
-KL paths reach (beta in {2, 1}; dense and ELL; bf16 ratio chain and
-strict f32; the ``mu``, ``amu`` and ``dna`` recipes of ``ops/recipe.py``).
-Model convention as there: ``X (cells x genes) ~= H (cells x k) @ W (k x
-genes)``.
+Port of ``cnmf_torch_tpu/ops/nmf.py`` for every beta (Frobenius,
+Kullback-Leibler, Itakura-Saito, a generic beta on the dense lane; the
+ELL lane for beta in {1, 0}); the bf16 ratio chain and strict f32; the
+``mu``, ``amu``, ``dna`` and ``hals`` recipes of ``ops/recipe.py``; the
+bundle-packed beta=2 batch solver. Model convention as there: ``X (cells
+x genes) ~= H (cells x k) @ W (k x genes)``.
 
 The replicate axis is explicit: ``H`` is ``(R, n, k)`` and ``W`` is
 ``(R, k, g)`` everywhere below (JAX ``vmap``-ed a solo solver instead).
@@ -30,13 +31,16 @@ from ..device import resolve_device
 from ..utils.envknobs import env_flag
 from .kernels import kl_ell
 from .recipe import SolverRecipe, resolve_recipe
-from .sparse import (EllMatrix, csr_to_ell, ell_chunk_rows, ell_row_width,
-                     kl_nz_term, resolve_sparse_beta)
+from .sparse import (EllMatrix, csr_to_ell, ell_beta_err, ell_chunk_rows,
+                     ell_is_h_stats, ell_is_w_stats, ell_row_width,
+                     is_per_elem, kl_nz_term, resolve_sparse_beta)
 
 __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "SolverTelemetry", "beta_loss_to_float", "beta_divergence",
            "resolve_online_schedule", "resolve_bf16_ratio",
            "split_regularization", "mu_gamma", "nmf_fit_batch",
+           "nmf_fit_batch_hals", "nmf_fit_batch_bundled", "bundle_width",
+           "bundle_stacks", "unbundle_stacks", "bundled_beta2_update",
            "nmf_fit_online", "random_init", "fit_h", "fit_h_default_init",
            "lane_health", "run_nmf", "run_nmf_use_ell"]
 
@@ -92,35 +96,38 @@ def beta_loss_to_float(beta_loss) -> float:
     raise ValueError("beta_loss must be a string or numeric value.")
 
 
-def _unported(beta):
-    return NotImplementedError(
-        f"beta={beta} is not ported yet (this slice runs beta in {{2, 1}})")
-
-
 # ---------------------------------------------------------------------------
 # objective
 # ---------------------------------------------------------------------------
 
 def _beta_div_dense(X, WH, beta: float):
-    """Per-lane beta-divergence sum for a materialized ``WH (R, n, g)``."""
+    """Per-lane beta-divergence sum for a materialized ``WH (R, n, g)``:
+    the cancellation-safe two-regime terms for KL and IS (zero counts
+    EPS-floored), the plain formula for any other beta."""
     if beta == 1.0:
         per_elem = torch.where(
             X > 0, kl_nz_term(torch.clamp_min(X, EPS),
                               torch.clamp_min(WH, EPS)), WH)
         return per_elem.sum(dim=(1, 2))
+    if beta == 0.0:
+        return is_per_elem(torch.clamp_min(X, EPS),
+                           torch.clamp_min(WH, EPS)).sum(dim=(1, 2))
     if beta == 2.0:
         return 0.5 * ((X - WH) ** 2).sum(dim=(1, 2))
-    raise _unported(beta)
+    Xs, WHs, b = torch.clamp_min(X, EPS), torch.clamp_min(WH, EPS), beta
+    return ((Xs ** b + (b - 1.0) * WHs ** b - b * Xs * WHs ** (b - 1.0))
+            / (b * (b - 1.0))).sum(dim=(1, 2))
 
 
 def beta_divergence(X, H, W, beta: float = 2.0):
     """``D_beta(X || HW)`` per replicate, ``(R,)`` f32. ``X`` may be an
-    :class:`EllMatrix` for beta=1 (the nonzero terms run in the
-    ``beta_err_partials`` kernel on the card)."""
+    :class:`EllMatrix` for beta in {1, 0}: KL's nonzero terms run in the
+    ``beta_err_partials`` kernel on the card, IS is the dense-WH hybrid
+    (``ops/sparse.py:ell_beta_err``)."""
     if isinstance(X, EllMatrix):
-        if beta != 1.0:
-            raise _unported(beta)
-        return kl_ell.kl_beta_err(X, H, W)
+        if beta == 1.0:
+            return kl_ell.kl_beta_err(X, H, W)
+        return ell_beta_err(X, H, W, beta)
     if beta == 2.0:
         if X.shape[-2] * X.shape[-1] <= _DENSE_ERR_ELEMS:
             Rm = X - H @ W
@@ -212,12 +219,16 @@ def _bf16_eps(t):
 def _update_H(X, H, W, beta: float, l1: float, l2: float,
               bf16_ratio: bool = False):
     """One MU step of the usages. ``X`` is a dense ``(n, g)`` tensor or an
-    :class:`EllMatrix`; bf16 mode expects ``X`` already cast (the solvers
-    cast once per chunk)."""
+    :class:`EllMatrix` (beta in {1, 0}); bf16 mode expects ``X`` already
+    cast (the solvers cast once per chunk)."""
     if isinstance(X, EllMatrix):
-        if beta != 1.0:
-            raise _unported(beta)
-        numer, denom = kl_ell.kl_h_stats(X, H, W, bf16_ratio)
+        if beta == 1.0:
+            numer, denom = kl_ell.kl_h_stats(X, H, W, bf16_ratio)
+        elif beta == 0.0:
+            numer, denom = ell_is_h_stats(X, H, W, bf16_ratio)
+        else:
+            raise NotImplementedError(
+                f"ELL updates implement beta in {{1, 0}}, got {beta}")
         return _apply_rate(H, numer, denom, l1, l2, gamma=mu_gamma(beta))
     if beta == 2.0:
         numer = X @ W.mT
@@ -231,8 +242,20 @@ def _update_H(X, H, W, beta: float, l1: float, l2: float,
     elif beta == 1.0:
         numer = (X / torch.clamp_min(H @ W, EPS)) @ W.mT
         denom = W.sum(-1)[:, None, :].expand(H.shape)
+    elif beta == 0.0 and bf16_ratio:
+        wb = W.to(torch.bfloat16)
+        wh = H.to(torch.bfloat16) @ wb
+        inv = 1.0 / torch.maximum(wh, _bf16_eps(wh))
+        numer = (X.to(torch.bfloat16) * inv * inv).float() @ wb.float().mT
+        denom = inv.float() @ wb.float().mT
+    elif beta == 0.0:
+        WH = torch.clamp_min(H @ W, EPS)
+        numer = (X / (WH * WH)) @ W.mT
+        denom = (1.0 / WH) @ W.mT
     else:
-        raise _unported(beta)
+        WH = torch.clamp_min(H @ W, EPS)
+        numer = (X * WH ** (beta - 2.0)) @ W.mT
+        denom = (WH ** (beta - 1.0)) @ W.mT
     return _apply_rate(H, numer, denom, l1, l2, gamma=mu_gamma(beta))
 
 
@@ -241,9 +264,13 @@ def _update_W(X, H, W, beta: float, l1: float, l2: float,
     """One MU step of the spectra (same conventions as :func:`_update_H`;
     the ELL kernels cast f32 values to bf16 themselves)."""
     if isinstance(X, EllMatrix):
-        if beta != 1.0:
-            raise _unported(beta)
-        numer, denom = kl_ell.kl_w_stats(X, H, W, bf16_ratio)
+        if beta == 1.0:
+            numer, denom = kl_ell.kl_w_stats(X, H, W, bf16_ratio)
+        elif beta == 0.0:
+            numer, denom = ell_is_w_stats(X, H, W, bf16_ratio)
+        else:
+            raise NotImplementedError(
+                f"ELL updates implement beta in {{1, 0}}, got {beta}")
         return _apply_rate(W, numer, denom, l1, l2, gamma=mu_gamma(beta))
     if beta == 2.0:
         numer = H.mT @ X
@@ -257,8 +284,20 @@ def _update_W(X, H, W, beta: float, l1: float, l2: float,
     elif beta == 1.0:
         numer = H.mT @ (X / torch.clamp_min(H @ W, EPS))
         denom = H.sum(1)[:, :, None].expand(W.shape)
+    elif beta == 0.0 and bf16_ratio:
+        hb = H.to(torch.bfloat16)
+        wh = hb @ W.to(torch.bfloat16)
+        inv = 1.0 / torch.maximum(wh, _bf16_eps(wh))
+        numer = hb.float().mT @ (X.to(torch.bfloat16) * inv * inv).float()
+        denom = hb.float().mT @ inv.float()
+    elif beta == 0.0:
+        WH = torch.clamp_min(H @ W, EPS)
+        numer = H.mT @ (X / (WH * WH))
+        denom = H.mT @ (1.0 / WH)
     else:
-        raise _unported(beta)
+        WH = torch.clamp_min(H @ W, EPS)
+        numer = H.mT @ (X * WH ** (beta - 2.0))
+        denom = H.mT @ (WH ** (beta - 1.0))
     return _apply_rate(W, numer, denom, l1, l2, gamma=mu_gamma(beta))
 
 
@@ -433,8 +472,115 @@ def _solve_w_from_stats(W, A, B, l1_W, l2_W, max_iter, tol, active):
         active)
 
 
+def _solve_w_from_stats_hals(W, A, B, l1_W, l2_W, max_iter, tol, active):
+    """HALS analog of :func:`_solve_w_from_stats`: row sweeps of W from the
+    pass statistics ``A = H^T X``, ``B = H^T H`` alone."""
+    return _masked_loop(
+        W, lambda M: _hals_sweep(M.mT, B, A.mT, l1_W, l2_W).mT, max_iter,
+        tol, active)
+
+
+def _chunk_h_hals_solve(x, h, W, WWT, l1, l2, max_iter, h_tol, active):
+    """HALS analog of :func:`_chunk_h_solve` (Frobenius only): column
+    sweeps of one chunk's usage block with W fixed, per lane until its
+    relative change drops below ``h_tol`` or ``max_iter``."""
+    XWt = x @ W.mT
+    return _masked_loop(h, lambda hh: _hals_sweep(hh, WWT, XWt, l1, l2),
+                        max_iter, h_tol, active)
+
+
 def _chunk(Xc, c):
     return Xc.chunk(c) if isinstance(Xc, EllMatrix) else Xc[c]
+
+
+def _hals_sweep(M, G, C, l1, l2):
+    """One HALS sweep over the k columns of ``M (R, m, k)`` against the
+    Gram ``G (R, k, k)`` and target ``C (R, m, k)``, columns in order 0..k-1:
+    ``M[..., j] <- max((C[..., j] - M G[:, j] + G[j, j] M[..., j] - l1) /
+    (G[j, j] + l2 + EPS), 0)``. H sweeps directly (against ``W W^T`` and
+    ``X W^T``), W through its transpose (against ``H^T H`` and ``(H^T
+    X)^T``). Returns a new tensor; each column is written in place on this
+    sweep's own copy."""
+    M = M.clone()
+    for j in range(M.shape[-1]):
+        g = G[:, :, j]
+        gjj = g[:, j]
+        numer = (C[..., j] - (M @ g[:, :, None])[..., 0]
+                 + gjj[:, None] * M[..., j] - l1)
+        M[..., j] = torch.clamp_min(numer / (gjj + l2 + EPS)[:, None], 0.0)
+    return M
+
+
+def _batch_loop(X, H0, W0, beta, tol, max_iter, step, trace,
+                with_inner=False, with_fallback=False, errs=None,
+                select=None):
+    """The batch solvers' outer loop: ``step(H, W, active) -> (H_new,
+    W_new, inner updates (R,) | 1, fallback (R,) | None)`` until each
+    lane's relative objective decrease over an ``EVAL_EVERY``-iteration
+    window falls below ``tol``, or ``max_iter``. A per-lane ``active``
+    latch holds a stopped lane's state while the others go on (each lane's
+    result is its solo solve); the host reads ``active.any()`` once per
+    objective evaluation. ``errs(H, W) -> (R,)`` gives the lanes'
+    objectives (default: :func:`beta_divergence` of ``(R, n, k)``, ``(R,
+    k, g)`` stacks) and ``select(active, (H_new, W_new), (H, W)) -> (H,
+    W)`` keeps the active lanes' new state (default: by leading-axis
+    lane), so a solver whose state packs several lanes into one stack
+    reuses the loop. Returns ``(H, W, err (R,))``, ``err`` the exact
+    objective of the returned pair; ``trace`` receives one
+    :class:`SolverTelemetry`."""
+    if errs is None:
+        def errs(H, W):
+            return beta_divergence(X, H, W, beta=beta)
+    if select is None:
+        def select(active, new, old):
+            mask = active[:, None, None]
+            return tuple(torch.where(mask, a, b) for a, b in zip(new, old))
+    H, W = H0.contiguous(), W0.contiguous()
+    err0 = errs(H, W)
+    R = err0.shape[0]
+    dev = err0.device
+    err_prev, err = err0, err0
+
+    def active_of(err_prev, err, it):
+        not_converged = (err_prev - err) / torch.clamp_min(err0, EPS) >= tol
+        return (not_converged | (it < EVAL_EVERY)) & (it < max_iter)
+
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    iters, inner = zeros, zeros
+    fb_sum = torch.zeros(R, dtype=torch.float32, device=dev)
+    nonfinite = ~torch.isfinite(err0)
+    evals = []
+    active = torch.full((R,), max_iter > 0, dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iter:
+        H_new, W_new, inner_n, fb = step(H, W, active)
+        H, W = select(active, (H_new, W_new), (H, W))
+        on = active.to(torch.int32)
+        iters = iters + on
+        inner = inner + on * inner_n
+        if fb is not None:
+            fb_sum = fb_sum + fb * active
+        it += 1
+        if it % EVAL_EVERY == 0:
+            e = errs(H, W)
+            err_prev = torch.where(active, err, err_prev)
+            err = torch.where(active, e, err)
+            nonfinite = nonfinite | (active & ~torch.isfinite(e))
+            evals.append(torch.where(active, e, torch.full_like(e, np.nan)))
+            active = active & active_of(err_prev, err, it)
+            if not bool(active.any()):
+                break
+    err = errs(H, W)
+    if trace is not None:
+        tr = (torch.stack(evals, dim=1) if evals
+              else torch.zeros((R, 0), device=dev))
+        trace.append(SolverTelemetry(
+            trace=tr.cpu().numpy(), iters=iters.cpu().numpy(),
+            nonfinite=(nonfinite | ~torch.isfinite(err)).cpu().numpy(),
+            inner_iters=inner.cpu().numpy() if with_inner else None,
+            dna_fallback=((fb_sum / torch.clamp_min(iters.float(), 1.0))
+                          .cpu().numpy() if with_fallback else None)))
+    return H, W, err
 
 
 def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
@@ -442,18 +588,13 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
                   l1_W: float = 0.0, l2_W: float = 0.0,
                   inner_repeats: int = 1, kl_newton: bool = False,
                   trace: list | None = None):
-    """Alternating updates of ``R`` replicates at once until each lane's
-    relative objective decrease over an ``EVAL_EVERY``-iteration window
-    falls below ``tol``, or ``max_iter``.
+    """Alternating MU updates of ``R`` replicates at once (:func:`_batch_loop`
+    stops each lane as its solo JAX ``while_loop`` would).
 
     ``X``: a dense ``(n, g)`` tensor or an unchunked :class:`EllMatrix`
-    with its transpose index set, shared by every lane; ``H0 (R, n, k)``,
-    ``W0 (R, k, g)``. Each lane keeps the semantics of its solo JAX
-    ``while_loop``: a per-lane ``active`` latch holds a stopped lane's
-    state while the others go on, and the host reads ``active.any()`` once
-    per objective evaluation. Returns ``(H, W, err (R,))`` with ``err``
-    the exact objective of the returned pair; ``trace`` receives one
-    :class:`SolverTelemetry`.
+    with its transpose index set (beta in {1, 0}), shared by every lane;
+    ``H0 (R, n, k)``, ``W0 (R, k, g)``. Returns ``(H, W, err (R,))``;
+    ``trace`` receives one :class:`SolverTelemetry`.
 
     Recipes: ``inner_repeats > 1`` (amu) runs up to that many H updates
     per W update, each lane leaving early once its relative H change falls
@@ -461,8 +602,6 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
     :func:`_dna_h_step` and, on dense ``X``, :func:`_dna_w_step` (an ELL
     ``X`` keeps the exact MU W step). ELL statistics are strict f32.
     """
-    if beta not in (2.0, 1.0):
-        raise _unported(beta)
     inner_repeats = int(inner_repeats)
     if kl_newton and beta != 1.0:
         raise ValueError(
@@ -471,11 +610,6 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
         raise ValueError("kl_newton and inner_repeats>1 are exclusive "
                          "recipes (dna vs amu)")
     ell = isinstance(X, EllMatrix)
-    R = H0.shape[0]
-    dev = H0.device
-    H, W = H0.contiguous(), W0.contiguous()
-    err0 = beta_divergence(X, H, W, beta=beta)
-    err_prev, err = err0, err0
 
     def h_step(H, W, active):
         """``(H_new, inner updates (R,) | 1, fallback (R,) | None)``."""
@@ -496,57 +630,139 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
         return (*_masked_loop(H, one, inner_repeats, INNER_STAG_TOL, active,
                               return_count=True), None)
 
-    def w_step(H, W):
-        if kl_newton and not ell:
-            return _dna_w_step(X, H, W, l1_W, l2_W)
-        return _update_W(X, H, W, beta, l1_W, l2_W), None
-
-    def active_of(err_prev, err, it):
-        not_converged = (err_prev - err) / torch.clamp_min(err0, EPS) >= tol
-        return (not_converged | (it < EVAL_EVERY)) & (it < max_iter)
-
-    accel = kl_newton or inner_repeats > 1
-    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
-    iters, inner = zeros, zeros
-    fb_sum = torch.zeros(R, dtype=torch.float32, device=dev)
-    nonfinite = ~torch.isfinite(err0)
-    evals = []
-    active = torch.full((R,), max_iter > 0, dtype=torch.bool, device=dev)
-    it = 0
-    while it < max_iter:
+    def step(H, W, active):
         H_new, inner_n, fb = h_step(H, W, active)
-        W_new, fb_w = w_step(H_new, W)
-        if fb is not None and fb_w is not None:
+        if kl_newton and not ell:
+            W_new, fb_w = _dna_w_step(X, H_new, W, l1_W, l2_W)
             fb = 0.5 * (fb + fb_w)
-        mask = active[:, None, None]
-        H = torch.where(mask, H_new, H)
-        W = torch.where(mask, W_new, W)
-        on = active.to(torch.int32)
-        iters = iters + on
-        inner = inner + on * inner_n
-        if fb is not None:
-            fb_sum = fb_sum + fb * active
-        it += 1
-        if it % EVAL_EVERY == 0:
-            e = beta_divergence(X, H, W, beta=beta)
-            err_prev = torch.where(active, err, err_prev)
-            err = torch.where(active, e, err)
-            nonfinite = nonfinite | (active & ~torch.isfinite(e))
-            evals.append(torch.where(active, e, torch.full_like(e, np.nan)))
-            active = active & active_of(err_prev, err, it)
-            if not bool(active.any()):
-                break
-    err = beta_divergence(X, H, W, beta=beta)
-    if trace is not None:
-        tr = (torch.stack(evals, dim=1) if evals
-              else torch.zeros((R, 0), device=dev))
-        trace.append(SolverTelemetry(
-            trace=tr.cpu().numpy(), iters=iters.cpu().numpy(),
-            nonfinite=(nonfinite | ~torch.isfinite(err)).cpu().numpy(),
-            inner_iters=inner.cpu().numpy() if accel else None,
-            dna_fallback=((fb_sum / torch.clamp_min(iters.float(), 1.0))
-                          .cpu().numpy() if kl_newton else None)))
-    return H, W, err
+        else:
+            W_new = _update_W(X, H_new, W, beta, l1_W, l2_W)
+        return H_new, W_new, inner_n, fb
+
+    return _batch_loop(X, H0, W0, beta, tol, max_iter, step, trace,
+                       with_inner=kl_newton or inner_repeats > 1,
+                       with_fallback=kl_newton)
+
+
+def nmf_fit_batch_hals(X, H0, W0, tol: float = 1e-4, max_iter: int = 200,
+                       l1_H: float = 0.0, l2_H: float = 0.0,
+                       l1_W: float = 0.0, l2_W: float = 0.0,
+                       trace: list | None = None):
+    """Hierarchical ALS (Cichocki & Phan 2009) for the Frobenius objective,
+    ``R`` replicates at once: each iteration one :func:`_hals_sweep` of H
+    (against ``W W^T``, ``X W^T``) then one of W (against ``H^T H``, ``(H^T
+    X)^T``). Dense ``X``; the stopping rule, the per-lane latch and the
+    telemetry are :func:`nmf_fit_batch`'s (one sweep counts as one inner
+    update). Returns ``(H, W, err (R,))``."""
+    def step(H, W, active):
+        H_new = _hals_sweep(H, W @ W.mT, X @ W.mT, l1_H, l2_H)
+        W_new = _hals_sweep(W.mT, H_new.mT @ H_new, (H_new.mT @ X).mT,
+                            l1_W, l2_W).mT
+        return H_new, W_new, 1, None
+
+    return _batch_loop(X, H0, W0, 2.0, tol, max_iter, step, trace,
+                       with_inner=True)
+
+
+# ---------------------------------------------------------------------------
+# bundle-packed replicate batch solver (beta=2)
+# ---------------------------------------------------------------------------
+
+def bundle_width(k: int) -> int:
+    """Replicates per bundle of the packed beta=2 batch solver: as many
+    k-wide factor blocks as fit 128 columns (the JAX package's TPU lane
+    width, kept as it is)."""
+    return max(1, 128 // int(k))
+
+
+def _bundle_mask(per_b: int, k: int, device=None):
+    """``(per_b*k, per_b*k)`` block-diagonal 0/1 mask: the bundle Grams are
+    computed at full width and their cross-replicate blocks masked to
+    exact zeros."""
+    eye = torch.eye(per_b, dtype=torch.float32, device=device)
+    return eye.repeat_interleave(k, 0).repeat_interleave(k, 1)
+
+
+def bundle_stacks(H, W, per_b: int):
+    """``(R, n, k), (R, k, g) -> (B, n, per_b*k), (B, per_b*k, g)``; ``R``
+    pads to a bundle multiple by tiling the real replicates (the padded
+    lanes recompute real replicates and :func:`unbundle_stacks` drops
+    them)."""
+    R, n, k = H.shape
+    g = W.shape[2]
+    R_b = -(-R // per_b) * per_b
+    if R_b > R:
+        idx = torch.cat([torch.arange(R), torch.arange(R_b - R) % R]).to(
+            H.device)
+        H, W = H[idx], W[idx]
+    B = R_b // per_b
+    Hb = H.reshape(B, per_b, n, k).transpose(1, 2).reshape(B, n, per_b * k)
+    return Hb, W.reshape(B, per_b * k, g)
+
+
+def unbundle_stacks(Hb, Wb, R: int, k: int):
+    """Inverse of :func:`bundle_stacks` (a permutation: values exact)."""
+    B, n, w = Hb.shape
+    per_b = w // k
+    g = Wb.shape[2]
+    H = Hb.reshape(B, n, per_b, k).transpose(1, 2).reshape(B * per_b, n, k)
+    return H[:R], Wb.reshape(B * per_b, k, g)[:R]
+
+
+def bundled_beta2_update(X, Hb, Wb, mask, l1_H: float, l2_H: float,
+                         l1_W: float, l2_W: float):
+    """One alternating beta=2 MU step of every bundled replicate: the
+    numerators are single ``(n, g) x (g, w)``-class matmuls, the
+    denominators go through masked bundle Grams whose cross-replicate terms
+    are exact zeros, so each replicate gets its own update up to the
+    matmuls' summation order."""
+    numer = X @ Wb.mT
+    denom = Hb @ ((Wb @ Wb.mT) * mask)
+    Hb = _apply_rate(Hb, numer, denom, l1_H, l2_H)
+    numer2 = Hb.mT @ X
+    denom2 = ((Hb.mT @ Hb) * mask) @ Wb
+    return Hb, _apply_rate(Wb, numer2, denom2, l1_W, l2_W)
+
+
+def nmf_fit_batch_bundled(X, H0, W0, tol: float = 1e-4,
+                          max_iter: int = 200, l1_H: float = 0.0,
+                          l2_H: float = 0.0, l1_W: float = 0.0,
+                          l2_W: float = 0.0, trace: list | None = None):
+    """``R``-replicate beta=2 batch MU with bundle-packed contractions, in
+    place of :func:`nmf_fit_batch` at beta=2 over dense ``X (n, g)``,
+    ``H0 (R, n, k)``, ``W0 (R, k, g)``: the same stopping rule per
+    replicate, a stopped replicate's columns frozen by selects, the host
+    reading ``any(active)`` once per ``EVAL_EVERY`` iterations. Returns
+    ``(H, W, errs (R,))``; ``trace`` receives one :class:`SolverTelemetry`
+    (``trace``, ``iters``, ``nonfinite``)."""
+    R, _, k = H0.shape
+    per_b = bundle_width(k)
+    Hb, Wb = bundle_stacks(H0, W0, per_b)
+    B = Hb.shape[0]
+    mask = _bundle_mask(per_b, k, H0.device)
+
+    def errs(Hb, Wb):
+        H, W = unbundle_stacks(Hb, Wb, B * per_b, k)
+        return beta_divergence(X, H.contiguous(), W, beta=2.0)
+
+    def select(active, new, old):
+        cols = active.reshape(B, per_b).repeat_interleave(k, dim=1)
+        return (torch.where(cols[:, None, :], new[0], old[0]),
+                torch.where(cols[:, :, None], new[1], old[1]))
+
+    def step(Hb, Wb, active):
+        return (*bundled_beta2_update(X, Hb, Wb, mask, l1_H, l2_H, l1_W,
+                                      l2_W), 1, None)
+
+    lanes = [] if trace is not None else None
+    Hb, Wb, err = _batch_loop(X, Hb, Wb, 2.0, tol, max_iter, step, lanes,
+                              errs=errs, select=select)
+    if trace is not None:   # drop the lanes that pad R to a bundle multiple
+        tm = lanes[0]
+        trace.append(tm._replace(trace=tm.trace[:R], iters=tm.iters[:R],
+                                 nonfinite=tm.nonfinite[:R]))
+    H, W = unbundle_stacks(Hb, Wb, R, k)
+    return H.contiguous(), W.contiguous(), err[:R]
 
 
 def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
@@ -555,7 +771,7 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                    l1_W: float = 0.0, l2_W: float = 0.0,
                    h_tol_start: float | None = None,
                    bf16_ratio: bool = False, trace: list | None = None,
-                   kl_newton: bool = False):
+                   kl_newton: bool = False, algo: str = "mu"):
     """Streamed MU over pre-chunked inputs for ``R`` replicates at once.
 
     ``Xc``: ``(C, chunk, genes)`` dense tensor or a pre-chunked
@@ -566,10 +782,12 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
 
     beta=2: per pass every chunk's usage block is solved with W frozen
     while ``A = H^T X`` and ``B = H^T H`` accumulate; W is then solved
-    from (A, B). beta=1: each chunk's usage block is solved, its f32
-    objective taken, then W takes one MU step from that chunk's
-    statistics (bf16 ratio chain with ``bf16_ratio``). Passes stop per
-    lane on the relative objective decrease ``< tol`` (never while the
+    from (A, B); ``algo="halsvar"`` runs both solves as HALS sweeps
+    (:func:`_chunk_h_hals_solve`, :func:`_solve_w_from_stats_hals`).
+    beta != 2: each chunk's usage block is solved, its f32 objective
+    taken, then W takes one MU step from that chunk's statistics (the
+    bf16 ratio chain with ``bf16_ratio``, beta in {1, 0}). Passes stop
+    per lane on the relative objective decrease ``< tol`` (never while the
     coarse-to-fine inner tolerance is still above its floor) or at
     ``n_passes``.
 
@@ -577,12 +795,14 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
     Diagonalized-Newton steps with the per-row MU fallback; the chunk W
     steps stay MU, and the bf16 ratio chain is off (strict f32).
     """
-    if beta not in (2.0, 1.0):
-        raise _unported(beta)
     if kl_newton and beta != 1.0:
         raise ValueError(
             f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
-    bf16 = bool(bf16_ratio) and beta == 1.0 and not kl_newton
+    if algo not in ("mu", "halsvar"):
+        raise ValueError(f"unknown online algo {algo!r}")
+    if algo == "halsvar" and beta != 2.0:
+        raise ValueError("algo='halsvar' optimizes the Frobenius objective")
+    bf16 = bool(bf16_ratio) and beta in (1.0, 0.0) and not kl_newton
     ell = isinstance(Xc, EllMatrix)
     R, C = Hc0.shape[0], Hc0.shape[1]
     dev = W0.device
@@ -607,14 +827,21 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
             B = torch.zeros((R, W.shape[1], W.shape[1]), dtype=W.dtype,
                             device=dev)
             for c, x in enumerate(chunks):
-                h = _chunk_h_solve(x, Hc[:, c], W, WWT, beta, l1_H, l2_H,
-                                   chunk_max_iter, h_tol_p, active=active)
+                if algo == "halsvar":
+                    h = _chunk_h_hals_solve(x, Hc[:, c], W, WWT, l1_H, l2_H,
+                                            chunk_max_iter, h_tol_p, active)
+                else:
+                    h = _chunk_h_solve(x, Hc[:, c], W, WWT, beta, l1_H,
+                                       l2_H, chunk_max_iter, h_tol_p,
+                                       active=active)
                 A = A + h.mT @ x
                 B = B + h.mT @ h
                 err = err + beta_divergence(x, h, W, beta=2.0)
                 Hc[:, c] = h
-            W_new = _solve_w_from_stats(W, A, B, l1_W, l2_W, chunk_max_iter,
-                                        h_tol_p, active)
+            w_solve = (_solve_w_from_stats_hals if algo == "halsvar"
+                       else _solve_w_from_stats)
+            W_new = w_solve(W, A, B, l1_W, l2_W, chunk_max_iter, h_tol_p,
+                            active)
             return Hc, torch.where(active[:, None, None], W_new, W), err
         for c, x in enumerate(chunks):
             h = _chunk_h_solve(x, Hc[:, c], W, None, beta, l1_H, l2_H,
@@ -623,7 +850,7 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                                kl_newton=kl_newton)
             # the objective stays f32 even when the updates run bf16
             if ell:
-                err_c = kl_ell.kl_beta_err(x, h, W)
+                err_c = beta_divergence(x, h, W, beta=beta)
             else:
                 err_c = _beta_div_dense(x, torch.clamp_min(h @ W, EPS), beta)
             W_new = _update_W(x, h, W, beta, l1_W, l2_W, bf16_ratio=bf16)
@@ -748,12 +975,14 @@ def fit_h(X, W, H_init=None, chunk_size: int = 5000,
     """Fit usages H for fixed spectra W: one pass over row chunks, an inner
     MU loop per chunk with relative-change tolerance ``h_tol``; uniform
     init (:func:`fit_h_default_init`) when ``H_init`` is None, else
-    ``H_init`` clamped at zero. A scipy-sparse ``X`` with beta=1 under the
-    ELL rule runs on the ELL kernels (f32). Returns numpy ``(n, k)``."""
+    ``H_init`` clamped at zero. A scipy-sparse ``X`` with beta in {1, 0}
+    under the ELL rule runs on the ELL statistics (f32; KL on the
+    kernels). Returns numpy ``(n, k)``."""
     dev = resolve_device(device)
     beta = float(beta)
-    if isinstance(X, EllMatrix) and beta != 1.0:
-        raise ValueError(f"EllMatrix inputs require beta=1, got {beta}")
+    if isinstance(X, EllMatrix) and beta not in (1.0, 0.0):
+        raise ValueError(
+            f"EllMatrix inputs require beta in {{1, 0}}, got {beta}")
     X = stage_matrix(X, beta, dev)
     Wt = torch.tensor(np.ascontiguousarray(W, dtype=np.float32)).to(dev)
     n = X.shape[0]
@@ -808,14 +1037,17 @@ def run_nmf(X, n_components: int, init: str = "random",
     Returns ``(H usages (n, k), W spectra (k, g), err)`` as numpy and a
     float. ``n_jobs`` and ``use_gpu`` are accepted and ignored; ``device``
     places the work. A scipy-sparse KL input under the dispatch rule runs
-    on the ELL encoding (the CUDA kernels on the card): unchunked with its
-    transpose index set in batch mode, in row chunks online. ``recipe``:
-    an explicit :class:`SolverRecipe`, else resolved from the env knobs
-    (``CNMF_TPU_ACCEL`` ``auto`` gives batch KL the dna recipe).
+    on the ELL encoding (the CUDA kernels on the card; IS is the
+    dense-WH hybrid): unchunked with its transpose index set in batch
+    mode, in row chunks online. ``recipe``: an explicit
+    :class:`SolverRecipe`, else resolved from the env knobs
+    (``CNMF_TPU_ACCEL`` ``auto`` gives batch KL the dna recipe, batch IS
+    amu); a caller-pinned ``hals`` recipe runs the ``halsvar`` lane.
 
-    Ported: ``init='random'``, ``algo='mu'``, ``fp_precision='float'``,
-    beta in {2, 1}, the mu, amu and dna recipes. The rest raises
-    ``NotImplementedError`` naming what is not ported.
+    Ported: ``init='random'``, ``fp_precision='float'``, every beta,
+    ``algo`` ``'mu'`` and ``'halsvar'`` (Frobenius), the mu, amu, dna and
+    hals recipes. ``init='nndsvd'``, ``fp_precision='double'`` and the
+    sketch recipe raise ``NotImplementedError`` naming themselves.
     """
     dev = resolve_device(device)
     if fp_precision not in ("float", "double"):
@@ -833,14 +1065,9 @@ def run_nmf(X, n_components: int, init: str = "random",
         raise ValueError(
             "algo='halsvar' optimizes the Frobenius objective; use "
             "algo='mu' for kullback-leibler / itakura-saito")
-    if algo == "halsvar":
-        raise NotImplementedError(
-            "algo='halsvar' (HALS) is not ported yet (the port runs 'mu')")
     if init != "random":
         raise NotImplementedError(
             f"init={init!r} is not ported yet (the port runs 'random')")
-    if beta not in (2.0, 1.0):
-        raise _unported(beta)
     if mode not in ("batch", "online"):
         raise ValueError(f"unknown mode {mode!r}")
     online_h_tol, n_passes, h_tol_start = resolve_online_schedule(
@@ -849,14 +1076,20 @@ def run_nmf(X, n_components: int, init: str = "random",
                               fp_precision=fp_precision)
     if recipe is None:
         recipe = resolve_recipe(beta, mode, algo=algo, ell=use_ell)
+    elif recipe.algo == "hals" and algo == "mu":
+        if beta != 2.0:
+            raise ValueError(
+                "the hals recipe optimizes the Frobenius objective; use "
+                "algo='mu' recipes for kullback-leibler / itakura-saito")
+        algo = "halsvar"
     if (recipe.kl_newton or recipe.algo == "sketch") and beta != 1.0:
         raise ValueError(
             f"recipe {recipe.label!r} requires beta=1 (KL), got "
             f"beta_loss={beta_loss!r}")
-    if recipe.algo in ("hals", "sketch"):
+    if recipe.algo == "sketch":
         raise NotImplementedError(
-            f"the {recipe.algo} recipe is not ported yet (the port runs "
-            "mu, amu and dna)")
+            "the sketch recipe is not ported yet (the port runs mu, amu, "
+            "dna and hals)")
     k = int(n_components)
     l1_W, l2_W = split_regularization(alpha_W, l1_ratio_W)
     l1_H, l2_H = split_regularization(alpha_H, l1_ratio_H)
@@ -874,7 +1107,13 @@ def run_nmf(X, n_components: int, init: str = "random",
         x_mean = float(Xs.mean())
     H0, W0 = random_init(int(random_state) & 0x7FFFFFFF, n, g, k, x_mean,
                          device=dev)
-    if mode == "batch":
+    if mode == "batch" and algo == "halsvar":
+        H, W, err = nmf_fit_batch_hals(
+            Xs, H0[None], W0[None], tol=float(tol),
+            max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
+            l2_W=l2_W)
+        H = H[0]
+    elif mode == "batch":
         H, W, err = nmf_fit_batch(
             Xs, H0[None], W0[None], beta=beta, tol=float(tol),
             max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
@@ -895,6 +1134,6 @@ def run_nmf(X, n_components: int, init: str = "random",
             n_passes=int(n_passes), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
             l2_W=l2_W, h_tol_start=h_tol_start,
             bf16_ratio=resolve_bf16_ratio(beta, mode),
-            kl_newton=bool(recipe.kl_newton))
+            kl_newton=bool(recipe.kl_newton), algo=algo)
         H = Hc.reshape(-1, k)[:n]
     return H.cpu().numpy(), W[0].cpu().numpy(), float(err[0])

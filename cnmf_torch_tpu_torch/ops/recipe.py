@@ -11,8 +11,9 @@ and errors, so one environment resolves one recipe in both packages:
   diagonal-Hessian H steps clipped at zero, with a per-row MU fallback
   chosen by comparing the two candidates' exact row objectives, so the
   composite is monotone like MU;
-* ``hals`` and ``sketch`` resolve here as they do in the JAX package; the
-  port's solvers do not run them yet and raise ``NotImplementedError``.
+* ``hals`` — hierarchical ALS for the Frobenius loss (``algo="halsvar"``);
+* ``sketch`` resolves here as it does in the JAX package; the port's
+  solvers do not run it yet and raise ``NotImplementedError``.
 
 Resolution order: explicit caller arguments > env knobs > the auto
 heuristic. Knobs (``utils/envknobs.py``): ``CNMF_TPU_ACCEL`` (``auto`` by

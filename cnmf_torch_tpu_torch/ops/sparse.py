@@ -1,4 +1,5 @@
-"""Fixed-width dual-ELL encoding and the plain torch KL (beta=1) statistics.
+"""Fixed-width dual-ELL encoding and the plain torch KL (beta=1) and
+Itakura-Saito (beta=0) statistics.
 
 Port of ``cnmf_torch_tpu/ops/sparse.py``. The encoding is built on the host
 in numpy exactly as the JAX package builds it (so the two encodings are
@@ -18,6 +19,13 @@ is ``(R, n, k)``, ``W`` is ``(R, k, g)`` and the encoding is shared by all
 ``R`` lanes. With ``bf16`` the operands and the ratio chain round to
 bfloat16 at the same places as the JAX bf16 chain, and every numerator
 product is rounded to bf16 before an f32 sum.
+
+The Itakura-Saito statistics (:func:`ell_is_h_stats`,
+:func:`ell_is_w_stats`, :func:`ell_beta_err` at beta=0) are the JAX
+package's hybrid form: their denominators and objective are supported on
+every entry, so ``WH`` is one dense ``(R, n, g)`` matmul, and only the
+numerators gather at the stored slots. They are plain torch on every
+device (the JAX package ran them without Pallas too).
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_kl_w_numer", "ell_kl_w_stats", "ell_beta_err",
            "ell_beta_err_nz", "ell_beta_err_rows", "total_wh",
            "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
-           "ell_kl_h_newton_stats"]
+           "ell_kl_h_newton_stats", "is_per_elem", "ell_is_h_stats",
+           "ell_is_w_stats"]
 
 EPS = 1e-16
 # auto-dispatch ceiling: <= 10% nonzeros and row width <= g/8
@@ -280,22 +289,33 @@ def _ratio(vals, cols, H, W, bf16: bool):
     return vals / torch.maximum(wh, _eps_like(wh)), Wc
 
 
+def _h_numer(cols, ratio, W):
+    """``ratio @ W^T`` with the ratio supported on the stored slots: each
+    product in the operands' dtype, summed in f32, ``(R, n, k)``."""
+    return torch.stack(
+        [(ratio * _slab(W, cols, c)).float().sum(-1)
+         for c in range(W.shape[1])], dim=-1)
+
+
 def ell_h_numer(vals, cols, H, W, bf16: bool = False):
     """Plain ``h_stats``: ``numer[r, i, c] = sum_j ratio[r, i, j] *
     W[r, c, cols[i, j]]``, ``(R, n, k)`` f32."""
     ratio, Wc = _ratio(vals, cols, H, W, bf16)
-    return torch.stack(
-        [(ratio * _slab(Wc, cols, c)).float().sum(-1)
-         for c in range(W.shape[1])], dim=-1)
+    return _h_numer(cols, ratio, Wc)
+
+
+def _flat(ratio):
+    """``(R, n, w)`` slot values flattened row-major per replicate with one
+    zero sentinel slot appended, ``(R, n*w + 1)``."""
+    R = ratio.shape[0]
+    return torch.cat([ratio.reshape(R, -1), ratio.new_zeros((R, 1))], dim=1)
 
 
 def ell_ratio_flat(vals, cols, H, W, bf16: bool = False):
     """The ratio at every stored slot, flattened row-major per replicate
     with one zero sentinel slot appended, ``(R, n*w + 1)`` (bf16 in bf16
     mode, else f32)."""
-    ratio, _ = _ratio(vals, cols, H, W, bf16)
-    R = ratio.shape[0]
-    return torch.cat([ratio.reshape(R, -1), ratio.new_zeros((R, 1))], dim=1)
+    return _flat(_ratio(vals, cols, H, W, bf16)[0])
 
 
 def ell_w_numer_from_ratio(rows_t, perm_t, r_flat, H, bf16: bool = False):
@@ -379,6 +399,65 @@ def ell_kl_w_stats(x: EllMatrix, H, W, bf16: bool = False):
     return numer, H.sum(1)[:, :, None].expand(W.shape)
 
 
+# ---------------------------------------------------------------------------
+# Itakura-Saito (beta=0): the hybrid of a dense WH and the stored slots
+# ---------------------------------------------------------------------------
+
+def _wh_dense(H, W, bf16: bool):
+    """``max(H @ W, EPS)`` ``(R, n, g)``; bf16 operands and output in bf16
+    mode (the JAX chain's ``preferred_element_type=bf16``)."""
+    if bf16:
+        wh = H.to(torch.bfloat16) @ W.to(torch.bfloat16)
+    else:
+        wh = H @ W
+    return torch.maximum(wh, _eps_like(wh))
+
+
+def _is_ratio(x: EllMatrix, inv):
+    """``X / WH^2`` at the stored slots from the dense ``1/WH``, rounded
+    after each product in ``inv``'s dtype."""
+    R = inv.shape[0]
+    cols = x.cols.long().expand(R, *x.cols.shape)
+    inv_nz = torch.gather(inv, -1, cols)
+    return x.vals.to(inv.dtype) * inv_nz * inv_nz
+
+
+def ell_is_h_stats(x: EllMatrix, H, W, bf16: bool = False):
+    """IS H-update statistics: the numerator ``(X/WH^2) @ W^T`` on the
+    stored slots (:func:`_h_numer`) and the dense denominator ``(1/WH) @
+    W^T``, both ``(R, n, k)`` f32. In bf16 mode ``WH``, ``1/WH`` and the
+    slot ratio are bf16 and the products are summed in f32."""
+    inv = 1.0 / _wh_dense(H, W, bf16)
+    Wb = W.to(torch.bfloat16) if bf16 else W
+    denom = inv.float() @ Wb.float().mT
+    return _h_numer(x.cols, _is_ratio(x, inv), Wb), denom
+
+
+def ell_is_w_stats(x: EllMatrix, H, W, bf16: bool = False):
+    """IS W-update statistics: the numerator ``H^T (X/WH^2)`` through the
+    transpose index set (:func:`ell_w_numer_from_ratio`) and the dense
+    denominator ``H^T (1/WH)``, both ``(R, k, g)`` f32."""
+    _need_transpose(x)
+    inv = 1.0 / _wh_dense(H, W, bf16)
+    Hb = H.to(torch.bfloat16) if bf16 else H
+    denom = Hb.float().mT @ inv.float()
+    numer = ell_w_numer_from_ratio(x.rows_t, x.perm_t,
+                                   _flat(_is_ratio(x, inv)), H, bf16)
+    return numer, denom
+
+
+def is_per_elem(Xs, WHs):
+    """Itakura-Saito term ``x/wh - log(x/wh) - 1`` of EPS-floored operands:
+    ``v - log1p(v)`` (``v = x/wh - 1``) near convergence, and the logs
+    split where the ratio is below 1e-6 (an EPS-floored zero count, where
+    ``v`` rounds to -1 and ``log1p(-1)`` is ``-inf``)."""
+    ratio = Xs / WHs
+    v = ratio - 1.0
+    stable = v - torch.log1p(torch.clamp_min(v, -1.0 + EPS))
+    tiny = v + torch.log(WHs) - torch.log(Xs)
+    return torch.where(ratio < 1e-6, tiny, stable)
+
+
 def kl_nz_term(Xp, WHs):
     """Cancellation-safe KL term for X > 0: ``X (u - log1p(u))`` with
     ``u = WH/X - 1``, logs split where ``WH/X`` underflows."""
@@ -415,6 +494,23 @@ def total_wh(H, W):
     return (H.float().sum(1) * W.float().sum(-1)).sum(-1)
 
 
-def ell_beta_err(x: EllMatrix, H, W):
-    """``D_KL(X || HW)`` per replicate from the ELL encoding (f32)."""
-    return ell_beta_err_nz(x.vals, x.cols, H, W) + total_wh(H, W)
+def ell_beta_err(x: EllMatrix, H, W, beta: float = 1.0):
+    """``D_beta(X || HW)`` per replicate from the ELL encoding (f32), for
+    beta in {1, 0}. KL: the stored slots' terms plus ``sum_all WH``. IS:
+    every entry's term with an EPS-floored X from the dense ``WH``, then
+    the stored slots' terms swapped in for their EPS-floored ones."""
+    if beta == 1.0:
+        return ell_beta_err_nz(x.vals, x.cols, H, W) + total_wh(H, W)
+    if beta != 0.0:
+        raise NotImplementedError(
+            f"ELL objective implements beta in {{1, 0}}, got {beta}")
+    WH = _wh_dense(H.float(), W.float(), False)
+    eps = _eps_like(WH)
+    base = is_per_elem(eps, WH).sum(dim=(1, 2))
+    vals = x.vals.float()
+    wh_nz = torch.gather(WH, -1, x.cols.long().expand(WH.shape[0],
+                                                      *x.cols.shape))
+    corr = torch.where(
+        vals > 0, is_per_elem(torch.clamp_min(vals, EPS), wh_nz)
+        - is_per_elem(eps, wh_nz), torch.zeros((), device=WH.device))
+    return base + corr.sum(dim=(1, 2))

@@ -7,8 +7,11 @@ the solvers keep a per-lane ``active`` mask so each replicate's result is
 its solo solve (``ops/nmf.py``). ``mode="online"`` runs the streamed
 solver over row chunks; ``mode="batch"`` runs the batch solver over the
 whole matrix under the resolved recipe (``ops/recipe.py``: batch KL runs
-the dna recipe by default). Replicates run in slices sized from the
-card's free memory (:func:`auto_replicates_per_batch`).
+the dna recipe by default, batch IS amu, and a beta=2 batch sweep at
+k <= 21 the bundle-packed solver). Replicates run in slices sized from
+the card's free memory (:func:`auto_replicates_per_batch`).
+:func:`replicate_sweep_packed` gives a multi-K sweep the JAX package's
+packed contract over the per-K sweeps.
 """
 
 from __future__ import annotations
@@ -18,19 +21,28 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
-from ..ops.nmf import (beta_loss_to_float, dense_on_device, nmf_fit_batch,
-                       nmf_fit_online, random_init, resolve_bf16_ratio,
-                       resolve_online_schedule, split_regularization)
+from ..ops.nmf import (beta_loss_to_float, bundle_width, dense_on_device,
+                       nmf_fit_batch, nmf_fit_batch_bundled,
+                       nmf_fit_batch_hals, nmf_fit_online, random_init,
+                       resolve_bf16_ratio, resolve_online_schedule,
+                       split_regularization)
 from ..ops.recipe import SolverRecipe, resolve_recipe
 from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width, resolve_sparse_beta)
 from ..utils.envknobs import env_int
 
 __all__ = ["worker_filter", "auto_replicates_per_batch", "replicate_sweep",
-           "stacked_inits"]
+           "replicate_sweep_packed", "stacked_inits"]
 
 # f32 element budget when the device reports no free memory (the CPU)
 _FALLBACK_BUDGET_ELEMS = 1 << 28
+# a beta=2 batch sweep runs the bundled solver where a bundle holds at
+# least this many replicates (k <= 21; the JAX package bundles wherever
+# two fit). On an NVIDIA H100 (20 replicates, 10,000 x 2,000) it beat the
+# per-replicate solve 3.0x at k=5 down to 1.18x at k=21 and tied it within
+# 2% at 4 and 2 a bundle (k=32, 64): chip_smoke.py's phase 5 prints these
+# times.
+BUNDLE_MIN_WIDTH = 6
 
 
 def worker_filter(iterable, worker_index: int, total_workers: int):
@@ -66,7 +78,8 @@ def auto_replicates_per_batch(n: int, g: int, k: int, beta: float = 2.0,
     H and W, plus the returned usages). For beta != 2 the dense chains
     materialize ``chunk x genes`` intermediates per replicate (``chunk =
     n`` in batch mode); the ELL lane holds ``(chunk, width)`` ratio and
-    accumulator buffers instead. ``kl_newton`` (dna) charges two more such
+    accumulator buffers instead, and the IS hybrid (beta=0) a dense ``WH``
+    and its reciprocal besides. ``kl_newton`` (dna) charges two more such
     buffers for the candidates' reconstructions."""
     if budget_elems is None:
         budget_elems = _device_budget_elems(device)
@@ -75,6 +88,8 @@ def auto_replicates_per_batch(n: int, g: int, k: int, beta: float = 2.0,
         c = n if chunk is None else min(int(chunk), n)
         if ell_width is not None:
             per_rep += c * int(ell_width) * (k + 5)
+            if beta == 0.0:
+                per_rep += 2 * c * g
             if kl_newton:
                 per_rep += 2 * c * int(ell_width)
         else:
@@ -132,10 +147,13 @@ def _stage(X, beta: float, init: str, mode: str, chunk: int, dev):
     return Xt.reshape(C, chunk, g), n
 
 
-def _bundle_width(k: int) -> int:
-    """Replicates per bundle of the JAX package's beta=2 batch solver
-    (``nmf_fit_batch_bundled``): as many k-wide blocks as fit 128 lanes."""
-    return max(1, 128 // int(k))
+def _auto_packed(use_ell: bool, algo: str, init: str, n_ks: int,
+                 max_replicates: int, total_workers: int = 1) -> bool:
+    """The JAX planner's packed-K-sweep rule (``runtime/planner.py:
+    _auto_packed``): a dense random-init ``mu`` ledger of at least 4 Ks with
+    at most 32 replicates a K across the workers."""
+    return (not use_ell and algo == "mu" and init == "random"
+            and n_ks >= 4 and max_replicates * max(1, total_workers) <= 32)
 
 
 def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
@@ -155,16 +173,20 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
 
     ``X``: a host matrix (dense, or scipy-sparse — ELL-encoded when the
     dispatch rule engages for beta in {1, 0}: row-chunked online, whole
-    with its transpose index set in batch mode) or a caller-staged
-    :class:`EllMatrix` (pre-chunked online, unchunked batch; pass the true
-    cell count as ``n_rows``). ``inits``: optional explicit ``(H0 (R, n,
-    k), W0 (R, k, g))`` in place of the seeded random draws. ``recipe``:
-    the resolved :class:`SolverRecipe`, else resolved from the env knobs
-    (batch KL: ``dna`` by default). ``trace``: a list that receives, per
-    slice of ``r`` replicates, one ``(passes, r)`` array of per-pass
-    objectives (online) or one :class:`~..ops.nmf.SolverTelemetry`
-    (batch). Returns ``(spectra (R, k, g), usages (R, n, k) | None, errs
-    (R,))`` as numpy in seed order."""
+    with its transpose index set in batch mode), a dense tensor, or a
+    caller-staged :class:`EllMatrix` (pre-chunked online, unchunked batch;
+    pass the true cell count as ``n_rows``). ``inits``: optional explicit
+    ``(H0 (R, n, k), W0 (R, k, g))`` in place of the seeded random draws.
+    ``recipe``: the resolved :class:`SolverRecipe`, else resolved from the
+    env knobs (batch KL: ``dna`` by default, batch IS ``amu``); ``hals``
+    runs the HALS solvers (beta=2). A beta=2 batch sweep under plain MU
+    runs :func:`~..ops.nmf.nmf_fit_batch_bundled` when at least
+    ``BUNDLE_MIN_WIDTH`` replicates fit a bundle, else the per-replicate
+    :func:`~..ops.nmf.nmf_fit_batch`. ``trace``: a list
+    that receives, per slice of ``r`` replicates, one ``(passes, r)`` array
+    of per-pass objectives (online) or one
+    :class:`~..ops.nmf.SolverTelemetry` (batch). Returns ``(spectra (R, k,
+    g), usages (R, n, k) | None, errs (R,))`` as numpy in seed order."""
     dev = resolve_device(device)
     if mode not in ("online", "batch"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -187,18 +209,20 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     if recipe is None:
         recipe = resolve_recipe(beta, mode, ell=ell, n=n, g=g, k=k,
                                 ell_width=Xs.width if ell else None)
-    if recipe.algo in ("hals", "sketch"):
+    if recipe.algo == "hals" and beta != 2.0:
+        raise ValueError("the hals recipe optimizes the Frobenius "
+                         "objective; this sweep has beta=%g" % beta)
+    if recipe.algo == "sketch":
         raise NotImplementedError(
-            f"the {recipe.algo} recipe is not ported yet (the port runs "
-            "mu, amu and dna)")
+            "the sketch recipe is not ported yet (the port runs mu, amu, "
+            "dna and hals)")
     if recipe.kl_newton and beta != 1.0:
         raise ValueError(f"the dna recipe requires beta=1 (KL); this sweep "
                          f"has beta={beta}")
-    if (mode == "batch" and beta == 2.0 and _bundle_width(k) > 1
-            and recipe.inner_repeats == 1):
-        raise NotImplementedError(
-            "beta=2 batch sweeps run the bundled solver "
-            "(nmf_fit_batch_bundled), which is not ported yet")
+    hals = recipe.algo == "hals"
+    bundled = (mode == "batch" and beta == 2.0 and not hals
+               and bundle_width(k) >= BUNDLE_MIN_WIDTH
+               and recipe.inner_repeats == 1)
     h_tol, n_passes, h_tol_start = resolve_online_schedule(
         beta, online_h_tol, n_passes)
     bf16 = (False if recipe.kl_newton
@@ -217,6 +241,7 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
         n, g, k, beta=beta, chunk=chunk if mode == "online" else n,
         ell_width=Xs.width if ell else None, kl_newton=recipe.kl_newton,
         device=dev)
+    reg = dict(l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
     spectra, usages, errs = [], [], []
     for start in range(0, R, rpb):
         sl = seeds[start:start + rpb]
@@ -229,21 +254,26 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                 inits[1][start:start + rpb], np.float32)).to(dev)
         H0 = torch.nn.functional.pad(H0, (0, 0, 0, n_padded - n))
         if mode == "batch":
-            H, W, err = nmf_fit_batch(
-                Xs, H0, W0, beta=beta, tol=tol,
-                max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H,
-                l1_W=l1_W, l2_W=l2_W,
-                inner_repeats=int(recipe.inner_repeats),
-                kl_newton=bool(recipe.kl_newton), trace=trace)
+            batch_kw = dict(tol=tol, max_iter=int(batch_max_iter),
+                            trace=trace, **reg)
+            if hals:
+                H, W, err = nmf_fit_batch_hals(Xs, H0, W0, **batch_kw)
+            elif bundled:
+                H, W, err = nmf_fit_batch_bundled(Xs, H0, W0, **batch_kw)
+            else:
+                H, W, err = nmf_fit_batch(
+                    Xs, H0, W0, beta=beta,
+                    inner_repeats=int(recipe.inner_repeats),
+                    kl_newton=bool(recipe.kl_newton), **batch_kw)
         else:
             passes = [] if trace is not None else None
             Hc, W, err = nmf_fit_online(
                 Xs, H0.reshape(len(sl), C, chunk, k), W0, beta=beta,
                 tol=tol, h_tol=h_tol,
                 chunk_max_iter=int(online_chunk_max_iter),
-                n_passes=n_passes, l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
-                l2_W=l2_W, h_tol_start=h_tol_start, bf16_ratio=bf16,
-                trace=passes, kl_newton=bool(recipe.kl_newton))
+                n_passes=n_passes, h_tol_start=h_tol_start, bf16_ratio=bf16,
+                trace=passes, kl_newton=bool(recipe.kl_newton),
+                algo="halsvar" if hals else "mu", **reg)
             if trace is not None:
                 trace.append(np.stack(passes))
             H = Hc.reshape(len(sl), n_padded, k)
@@ -254,3 +284,104 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     return (np.concatenate(spectra),
             np.concatenate(usages) if return_usages else None,
             np.concatenate(errs))
+
+
+def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",
+                           init: str = "random", mode: str = "online",
+                           tol: float = 1e-4, online_chunk_size: int = 5000,
+                           online_chunk_max_iter: int = 1000,
+                           batch_max_iter: int = 500,
+                           n_passes: int | None = None,
+                           alpha_W: float = 0.0, l1_ratio_W: float = 0.0,
+                           alpha_H: float = 0.0, l1_ratio_H: float = 0.0,
+                           return_usages: bool = False,
+                           replicates_per_batch: int | None = None,
+                           online_h_tol: float | None = None,
+                           on_slice=None, trace: list | None = None,
+                           recipe: SolverRecipe | None = None,
+                           device="cuda"):
+    """Run a multi-K sweep of ``len(seeds)`` (k, seed) tasks with the JAX
+    package's packed contract: results in task order, ``spectra (R, K_max,
+    g)`` with exact zeros beyond each task's k, ``usages (R, n, K_max) |
+    None``, ``errs (R,)``, and per-(seed, k) spectra bit-identical to the
+    per-K sweeps'.
+
+    An adapter over :func:`replicate_sweep`, for the API's sake: the JAX
+    package runs every task at ``K_max`` with zero-padded components so
+    that XLA compiles one executable for every K. Eager PyTorch compiles
+    nothing per K, so here the tasks of each K run as that K's
+    :func:`replicate_sweep` (in slices of ``replicates_per_batch`` when it
+    is given) and the outputs are padded to ``K_max``. ``cNMF.factorize``
+    does not call it: its per-K sweeps are the same work.
+
+    ``X`` is dense or scipy-sparse (densified on the device once; ELL
+    input is refused, as are ``init != 'random'`` and the hals and sketch
+    recipes). ``on_slice(task_indices, spectra (r, K_max, g), errs (r,))``
+    is called with numpy results as each slice completes, and the function
+    then returns ``None``. ``trace`` receives each slice's entries (as
+    :func:`replicate_sweep`'s) before ``on_slice`` is called for it."""
+    if isinstance(X, EllMatrix):
+        raise ValueError(
+            "replicate_sweep_packed does not support ELL-encoded X; use "
+            "per-K replicate_sweep calls (packed=False)")
+    if init != "random":
+        raise ValueError("packed K-sweeps require init='random'")
+    if mode not in ("online", "batch"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev = resolve_device(device)
+    Xd = dense_on_device(X, dev)
+    n, g = Xd.shape
+    beta = beta_loss_to_float(beta_loss)
+    if recipe is None:
+        recipe = resolve_recipe(beta, mode, n=n, g=g,
+                                k=max((int(v) for v in ks), default=None))
+    if recipe.algo == "hals":
+        raise ValueError("packed K-sweeps run the mu-family recipes only; "
+                         "use per-K replicate_sweep calls for hals")
+    if recipe.algo == "sketch":
+        raise ValueError("packed K-sweeps run the exact mu-family "
+                         "programs; use per-K replicate_sweep calls for "
+                         "the sketch recipe")
+    ks = [int(v) for v in ks]
+    if len(ks) != len(seeds):
+        raise ValueError("ks and seeds must have equal length")
+    if not seeds:
+        return (np.zeros((0, 0, g), np.float32),
+                np.zeros((0, n, 0), np.float32) if return_usages else None,
+                np.zeros((0,), np.float32))
+    kmax = max(ks)
+    by_k: dict[int, list[int]] = {}
+    for i, kv in enumerate(ks):
+        by_k.setdefault(kv, []).append(i)
+    kw = dict(beta_loss=beta_loss, mode=mode, tol=tol,
+              online_chunk_size=online_chunk_size,
+              online_chunk_max_iter=online_chunk_max_iter,
+              batch_max_iter=batch_max_iter, n_passes=n_passes,
+              alpha_W=alpha_W, l1_ratio_W=l1_ratio_W, alpha_H=alpha_H,
+              l1_ratio_H=l1_ratio_H, online_h_tol=online_h_tol,
+              replicates_per_batch=replicates_per_batch,
+              return_usages=return_usages, trace=trace, recipe=recipe,
+              device=dev)
+    order, parts = [], []
+    for kv in sorted(by_k):
+        idxs = by_k[kv]
+        step = replicates_per_batch or len(idxs)
+        for start in range(0, len(idxs), step):
+            sl_idx = idxs[start:start + step]
+            spectra, usages, errs = replicate_sweep(
+                Xd, [seeds[i] for i in sl_idx], kv, **kw)
+            spectra = np.pad(spectra, ((0, 0), (0, kmax - kv), (0, 0)))
+            if return_usages:
+                usages = np.pad(usages, ((0, 0), (0, 0), (0, kmax - kv)))
+            if on_slice is not None:
+                on_slice(sl_idx, spectra, errs)
+                continue
+            order.extend(sl_idx)
+            parts.append((usages, spectra, errs))
+    if on_slice is not None:
+        return None
+    inv = np.argsort(np.asarray(order))
+    return (np.concatenate([p[1] for p in parts])[inv],
+            (np.concatenate([p[0] for p in parts])[inv]
+             if return_usages else None),
+            np.concatenate([p[2] for p in parts])[inv])

@@ -425,14 +425,28 @@ def test_run_nmf_online_with_forced_dna_matches_jax(accel_env):
 
 def test_run_nmf_refuses_what_is_not_ported():
     X = np.ones((6, 5), np.float32)
-    for kw, what in [(dict(algo="halsvar"), "halsvar"),
-                     (dict(init="nndsvd"), "nndsvd"),
-                     (dict(fp_precision="double"), "double"),
-                     (dict(beta_loss="itakura-saito"), "beta=0.0")]:
+    for kw, what in [(dict(init="nndsvd"), "nndsvd"),
+                     (dict(fp_precision="double"), "double")]:
         with pytest.raises(NotImplementedError, match=what):
             tnmf.run_nmf(X, 2, device="cpu", **kw)
     with pytest.raises(ValueError):
         tnmf.run_nmf(X, 2, mode="sideways", device="cpu")
+
+
+def test_the_sketch_recipe_still_raises(accel_env):
+    """``CNMF_TPU_SKETCH=1`` resolves the sketch recipe for KL in both
+    packages; the port's solvers name it and refuse it."""
+    from cnmf_torch_tpu_torch.ops.recipe import resolve_recipe
+
+    accel_env.setenv("CNMF_TPU_SKETCH", "1")
+    assert resolve_recipe(1.0, "batch", n=160).algo == "sketch"
+    X, _, _ = _counts(n=160, g=320, R=1, seed=9)
+    with pytest.raises(NotImplementedError, match="sketch"):
+        tnmf.run_nmf(X, 3, beta_loss="kullback-leibler", mode="batch",
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="sketch"):
+        trep.replicate_sweep(X, [1], 3, beta_loss="kullback-leibler",
+                             mode="batch", device="cpu")
 
 
 def _jax_sweep_inits(X, k, seeds):
@@ -492,9 +506,13 @@ def test_replicate_sweep_batch_staging_rules(accel_env):
         trep.replicate_sweep(tsp.csr_to_ell(X), [1], 3,
                              beta_loss="kullback-leibler", mode="online",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="bundled"):
-        trep.replicate_sweep(X.toarray(), [1], 3, mode="batch",
-                             device="cpu")
+    # a beta=2 batch sweep runs the bundled solver
+    trace = []
+    spectra, _, errs = trep.replicate_sweep(
+        X.toarray(), [1, 2], 3, mode="batch", batch_max_iter=30,
+        trace=trace, device="cpu")
+    assert spectra.shape == (2, 3, 90) and np.isfinite(errs).all()
+    assert trace[0].inner_iters is None and trace[0].iters.shape == (2,)
     # a caller-staged unchunked encoding runs with its true cell count
     spectra, _, errs = trep.replicate_sweep(
         tsp.csr_to_ell(X), [1, 2], 3, beta_loss="kullback-leibler",

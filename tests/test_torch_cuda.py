@@ -282,3 +282,106 @@ def test_batch_dna_solve_on_the_card_matches_the_cpu(cuda_device):
         assert ((trace[0].dna_fallback > 0)
                 & (trace[0].dna_fallback < 1)).all()
     np.testing.assert_allclose(errs[0], errs[1], rtol=1e-4)
+
+
+def _lowrank(n, g, k=4, R=2, seed=0, density=0.08):
+    """Poisson counts of a low-rank model (dense numpy) and stacked inits:
+    the card tests' input for the dense and IS solvers."""
+    rng = np.random.default_rng(seed)
+    usage = rng.dirichlet(np.ones(k) * 0.3, size=n)
+    spectra = rng.gamma(0.3, 1.0, size=(k, g)) * 40.0 / g
+    lam = usage @ spectra
+    X = rng.poisson(lam * -np.log(1.0 - density) / lam.mean()).astype(
+        np.float32)
+    X[X.sum(axis=1) == 0, 0] = 1.0
+    H = torch.as_tensor(rng.random((R, n, k), np.float32) + 0.1)
+    W = torch.as_tensor(rng.random((R, k, g), np.float32) + 0.1)
+    return X, H, W
+
+
+def _solve_both(cuda_device, solve):
+    """``solve(device)`` on the card and on the CPU; no CUDA kernel of
+    ``kl_ell`` may launch on these plain-torch paths."""
+    kl_ell.reset_launches()
+    out = [solve(cuda_device), solve(torch.device("cpu"))]
+    assert sum(kl_ell.launches.values()) == 0, kl_ell.launches
+    return out
+
+
+def test_bundled_solve_on_the_card_matches_the_cpu(cuda_device):
+    """The beta=2 bundled batch solver, a fixed 60 iterations (tol 0), at
+    ``rtol 1e-4``; R=7 at k=5 is no bundle multiple."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    X, H, W = _lowrank(400, 300, k=5, R=7, density=0.3)
+
+    def solve(dev):
+        trace = []
+        _, W_o, err = nmf.nmf_fit_batch_bundled(
+            torch.as_tensor(X).to(dev), H.to(dev), W.to(dev), tol=0.0,
+            max_iter=60, trace=trace)
+        return err.cpu().numpy(), W_o.cpu().numpy()
+
+    card, cpu = _solve_both(cuda_device, solve)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["batch", "online"])
+def test_hals_solve_on_the_card_matches_the_cpu(cuda_device, mode):
+    """Batch HALS a fixed 40 sweeps (tol 0), and online HALS, at ``rtol
+    1e-4`` in the objective."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    X, H, W = _lowrank(256, 200, density=0.3)
+
+    def solve(dev):
+        x = torch.as_tensor(X).to(dev)
+        if mode == "batch":
+            _, _, err = nmf.nmf_fit_batch_hals(x, H.to(dev), W.to(dev),
+                                               tol=0.0, max_iter=40)
+        else:
+            _, _, err = nmf.nmf_fit_online(
+                x.reshape(2, 128, 200), H.reshape(2, 2, 128, 4).to(dev),
+                W.to(dev), beta=2.0, h_tol=3e-3, chunk_max_iter=200,
+                n_passes=20, algo="halsvar")
+        return err.cpu().numpy()
+
+    card, cpu = _solve_both(cuda_device, solve)
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ell", [False, True])
+@pytest.mark.parametrize("mode", ["batch", "online"])
+def test_is_solve_on_the_card_matches_the_cpu(cuda_device, ell, mode):
+    """Itakura-Saito on the dense lane and on the ELL hybrid (plain torch on
+    the card, no kernel launch): a batch ``amu`` solve of a fixed 40
+    iterations (tol 0) at ``rtol 1e-4``, an online solve of one chunk under
+    the bf16 ratio chain within 5%."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    X, H, W = _lowrank(240, 400, density=0.05)
+    x_host = (sparse.csr_to_ell(X) if ell else torch.as_tensor(X))
+
+    def solve(dev):
+        x = x_host.to(dev)
+        if mode == "batch":
+            _, _, err = nmf.nmf_fit_batch(x, H.to(dev), W.to(dev), beta=0.0,
+                                          tol=0.0, max_iter=40,
+                                          inner_repeats=3)
+        else:
+            x = (sparse.EllMatrix(x.vals[None], x.cols[None], x.g,
+                                  x.rows_t[None], x.perm_t[None])
+                 if ell else x[None])
+            h_tol, n_passes, h0 = nmf.resolve_online_schedule(0.0)
+            _, _, err = nmf.nmf_fit_online(
+                x, H[:, None].to(dev), W.to(dev), beta=0.0, h_tol=h_tol,
+                chunk_max_iter=200, n_passes=n_passes, h_tol_start=h0,
+                bf16_ratio=True)
+        return err.cpu().numpy()
+
+    card, cpu = _solve_both(cuda_device, solve)
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4 if mode == "batch"
+                               else 5e-2)

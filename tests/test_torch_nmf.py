@@ -191,3 +191,31 @@ def test_inits_are_seeded_and_device_independent():
     U = tnmf.fit_h_default_init(50, 3)
     assert torch.equal(U, tnmf.fit_h_default_init(50, 3))
     assert 0.0 <= float(U.min()) and float(U.max()) < 1.0
+
+
+def test_beta2_trace_identity_and_online_lane_above_threshold_match_jax():
+    """The default loss on large inputs: above ``_DENSE_ERR_ELEMS`` both
+    packages take the objective from the trace identity (no ``n x g``
+    residual), per replicate and per online chunk. Objective at ``rtol
+    1e-5``; a 2-chunk online solve whose chunks are above the threshold at
+    ``rtol 1e-4``."""
+    rng = np.random.default_rng(3)
+    n, g, k, chunk = 4098, 2048, 3, 2049
+    assert chunk * g > tnmf._DENSE_ERR_ELEMS
+    X = (rng.random((n, 5)) @ rng.random((5, g))
+         + 0.1 * rng.random((n, g))).astype(np.float32)
+    H = (rng.random((2, n, k)) + 0.1).astype(np.float32)
+    W = (rng.random((2, k, g)) + 0.1).astype(np.float32)
+    got = tnmf.beta_divergence(_t(X), _t(H), _t(W), beta=2.0)
+    for r in range(2):
+        want = float(jnmf.beta_divergence(jnp.asarray(X), H[r], W[r], 2.0))
+        assert float(got[r]) == pytest.approx(want, rel=1e-5)
+    Xc = X.reshape(2, chunk, g)
+    Hc = H.reshape(2, 2, chunk, k)
+    h_tol, n_passes, h_tol_start = tnmf.resolve_online_schedule(2.0)
+    kw = dict(beta=2.0, tol=1e-4, h_tol=h_tol, chunk_max_iter=200,
+              n_passes=n_passes, h_tol_start=h_tol_start)
+    _, _, err_t = tnmf.nmf_fit_online(_t(Xc), _t(Hc), _t(W), **kw)
+    for r in range(2):
+        _, _, err_j = jnmf.nmf_fit_online(jnp.asarray(Xc), Hc[r], W[r], **kw)
+        assert float(err_t[r]) == pytest.approx(float(err_j), rel=1e-4)
