@@ -31,7 +31,15 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    large for shared memory, all-zero and full-width rows, a gene with no
    stored value and one that fills the transpose width, gene 0 stored
    beside the padding, rows in the KL term's split-log regime, a stored
-   negative value) against their plain versions. Small solves on the
+   negative value) against their plain versions. The sketch recipe's
+   sampled-row W statistics (``kl_ell.kl_w_stats_rows``: the rows'
+   transpose index set built on the card by ``sparse.ell_take_rows``, then
+   the ``w_numer`` kernel) at its shapes, 1,250 rows drawn as the recipe
+   draws them from the chunk (online) and from the whole matrix (batch),
+   k in {9, 13}, 20 replicates: the index set equal to the one built on
+   the CPU, two launches bit-identical, and the statistics against
+   ``sparse.ell_kl_w_stats_rows`` on the CPU at ``rtol 2e-5`` (the
+   report's ``sketch_rows_check``). Small solves on the
    card (an online KL solve, a usage refit, a batch dna solve, the
    bundled beta=2 solver, batch and online HALS, IS on the dense lane and
    on the ELL hybrid) are held against the same solves on the CPU.
@@ -82,7 +90,39 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    each with combine and consensus (k=9). It checks the recipes and labels,
    that no CUDA kernel launched, finite spectra and the artifacts' shapes.
    Phases 5 and 6 print each stage's wall and peak memory beside the
-   card's name and power limit.
+   card's name and power limit. A HALS run must need no retry; an IS
+   replicate that ends NaN is retried at a derived seed and quarantined
+   when its retries fail too (the report's ``phase6_retries``).
+7. Resilience and the rest of factorize, on the same counts (KL online on
+   the ELL lane unless named), the launch counts set to 0 before each
+   sub-phase: (a) ``CNMF_TPU_FAULT_SPEC="nonfinite:k=9,iter=3"`` at K=9:
+   iter 3 is retried once at ``seed ^ 1`` and written, the resilience
+   ledger records it, and the retry wave launches ``h_stats``,
+   ``w_numer`` and ``beta_err_partials``; (b) iter 4 poisoned at all
+   three attempts: it is quarantined, combine without
+   ``skip_missing_files`` skips it and consensus runs on 19 replicates;
+   with ``CNMF_TPU_MIN_HEALTHY_FRAC=1.0`` factorize must raise
+   ``UnhealthySweepError``; (c) at K in {9, 13}, one iter file torn
+   (``torn:artifact=iter_``): ``factorize(skip_completed_runs=True)``
+   reruns only its K group and every iter file is then bit for bit the
+   run without a fault's, and a resume with nothing torn launches no
+   kernel; (d) the sequential lane (``batched=False``) at K in {9, 13}, 5
+   replicates each, under strict f32 (``CNMF_TPU_BF16_RATIO=0``) and
+   under the default bf16 ratio chain: the kernels launch, the provenance
+   reads ``sequential``, and under strict f32 each objective is within
+   ``rtol 1e-4`` of the batched lane's at the same seed (same init); the
+   gaps under the bf16 chain, and to the batched lane at one replicate a
+   batch, are logged; (e) a dense Frobenius batch factorize
+   from ``init="nndsvd"`` at K in {5, 9, 13} (distinct, finite
+   replicates) beside the random init's, and the SVD's wall; (f)
+   ``run_nmf(fp_precision="double")`` at k=9 for beta 2 and 1 (f64
+   outputs, objective within 1e-3 of the f32 plain-MU solve from the
+   same seed); (g) ``CNMF_TPU_SKETCH=1``, batch and online at K in {9,
+   13}: the kernels launch on the exact steps, two runs are
+   bit-identical, each objective within 5% of plain MU's (strict f32)
+   from the same inits; then consensus at k=9 and the K-selection
+   statistics with the sketch engaged (dim 256), the decisions read from
+   ``consensus_info``. Phase 7 prints its stage walls and peaks.
 
 The last three lines of standard output are the kernels' JSON record
 (launches of both pipelines), the ``nvidia-smi`` name and power-limit
@@ -331,6 +371,55 @@ def w_numer_check(kl_ell, x, H, W, bf16, tag, vals=None) -> float:
     return max_abs_err(got, kl_ell.w_numer_plain(vals, x.cols, x.rows_t,
                                                  x.perm_t, H, W, bf16),
                        2e-2 if bf16 else 2e-5)
+
+
+def sketch_rows_check(x, m: int, step: int, stream: int,
+                      log_rows: list) -> dict:
+    """The sketch recipe's sampled-row W statistics at one of its shapes:
+    ``m`` rows of the encoding ``x`` drawn as the recipe draws its sketched
+    step ``step`` of ``stream`` (0 batch, 1 online; repeats allowed), 20
+    replicates, k in {9, 13}. The rows' transpose index set built on the
+    card must equal the one built on the CPU, two launches must agree bit
+    for bit, and numerator and denominator must hold against the plain
+    version on the CPU at ``rtol 2e-5``; returns the max abs error per
+    k."""
+    from cnmf_torch_tpu_torch.ops import sparse
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.nmf import _sketch_rows
+
+    dev = x.vals.device
+    n = x.vals.shape[0]
+    g = x.rows_t.shape[0]
+    R = REPLICATES
+    gen = torch.Generator().manual_seed(SEED + 2)
+    idx = _sketch_rows(step, m, n, stream, None, dev)
+    xc = x.to("cpu")
+    sub = sparse.ell_take_rows(x, idx)
+    sub_cpu = sparse.ell_take_rows(xc, idx.cpu())
+    check(torch.equal(sub.rows_t.cpu(), sub_cpu.rows_t)
+          and torch.equal(sub.perm_t.cpu(), sub_cpu.perm_t),
+          f"ell_take_rows: the transpose set of {m} of {n} rows built on "
+          "the card differs from the CPU's")
+    errs = {}
+    for k in (9, 13):
+        H = (torch.rand((R, n, k), generator=gen) + 0.1).to(dev)
+        W = (torch.rand((R, k, g), generator=gen) + 0.1).to(dev)
+        tag = f"k={k}, {m} of {n} rows"
+        got = kl_ell.kl_w_stats_rows(x, H, W, idx)
+        again = kl_ell.kl_w_stats_rows(x, H, W, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]),
+              f"kl_w_stats_rows {tag} not repeatable")
+        want = sparse.ell_kl_w_stats_rows(xc, H.cpu(), W.cpu(), idx.cpu())
+        errs[k] = max(max_abs_err(got[0].cpu(), want[0], 2e-5),
+                      max_abs_err(got[1].cpu(), want[1], 2e-5))
+        log_rows.append(f"  kl_w_stats_rows    {tag} (w_numer on the "
+                        f"sampled rows' transpose set of width "
+                        f"{sub.rows_t.shape[1]}): max_abs_err "
+                        f"{errs[k]:.3g}, two launches bit-identical")
+        del H, W, got, again
+    return {"rows": m, "of": n, "step": step, "stream": stream,
+            "t_width": int(sub.rows_t.shape[1]), "max_abs_err": errs}
 
 
 def launch_note(L: dict) -> str:
@@ -973,19 +1062,20 @@ def check_artifacts(obj, stats, ks=KS, written=None, dt="0_5"):
 
 
 def prepared_run(name, counts_fn, ks, beta_loss=None, stages=None,
-                 **params):
+                 n_iter=REPLICATES, **params):
     """A run directory prepared on the pipeline's counts (``prepare`` timed
     as a stage when ``stages`` is given; without ``beta_loss`` prepare
-    takes its default, which must write Frobenius), its run-parameters
-    file then edited as a user would (``params``, e.g. ``mode="batch"``,
-    ``algo="halsvar"``)."""
+    takes its default, which must write Frobenius; ``n_iter`` replicates
+    a K), its run-parameters file then edited as a user would
+    (``params``, e.g. ``mode="batch"``, ``algo="halsvar"``,
+    ``init="nndsvd"``)."""
     from cnmf_torch_tpu_torch import cNMF
 
     obj = cNMF(OUT, name, device=CARD)
     loss = {} if beta_loss is None else {"beta_loss": beta_loss}
 
     def prepare():
-        obj.prepare(counts_fn, components=ks, n_iter=REPLICATES, seed=SEED,
+        obj.prepare(counts_fn, components=ks, n_iter=n_iter, seed=SEED,
                     num_highvar_genes=N_HVG, batch_size=CHUNK, **loss)
 
     if stages is None:
@@ -1189,9 +1279,8 @@ def other_solvers_phase(counts_fn, stages) -> dict:
     """Phase 6: HALS online and batch, then Itakura-Saito online (bf16
     chain) and batch (amu) on the ELL hybrid; returns the launch counts."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
-    from cnmf_torch_tpu_torch.ops.nmf import lane_health
 
-    launches = {}
+    launches, retries = {}, {}
     runs = [("hals", "frobenius", {"algo": "halsvar"},
              ("online", "dense", "dense", "hals")),
             ("hals_batch", "frobenius", {"algo": "halsvar", "mode": "batch"},
@@ -1211,12 +1300,20 @@ def other_solvers_phase(counts_fn, stages) -> dict:
               f"{name} factorize ran {got}, packed={info['packed']}")
         # IS inherits the JAX solvers' collapse on zero-heavy data (online
         # most of all): an update floors WH at stored counts (objectives
-        # near 1e17) or overflows to NaN, so unhealthy replicates are
-        # reported and not written, and consensus keeps every spectrum
-        # (threshold 2)
+        # near 1e17) or overflows to NaN; a NaN replicate is retried at a
+        # derived seed and quarantined when its retries fail too, and
+        # consensus keeps every spectrum (threshold 2). A HALS replicate
+        # must need no retry.
         lenient = beta_loss == "itakura-saito"
-        written = {k: int(lane_health(info["errs"][k]).sum())
-                   for k in OTHER_KS}
+        written = {k: int(info["written"].get(k, 0)) for k in OTHER_KS}
+        retries[name] = {"retries": info["retries"],
+                         "quarantined": info["quarantined"]}
+        log(f"{name}: retries {info['retries']}; quarantined "
+            f"{info['quarantined']}")
+        check(lenient or (info["retries"] == []
+                          and info["quarantined"] == []),
+              f"{name}: a replicate went nonfinite: retries "
+              f"{info['retries']}, quarantined {info['quarantined']}")
         for k in OTHER_KS:
             check(written[k] == REPLICATES or (lenient and written[k] > 0),
                   f"{name} k={k}: {REPLICATES - written[k]} nonfinite "
@@ -1247,7 +1344,461 @@ def other_solvers_phase(counts_fn, stages) -> dict:
         check(sum(launches[name].values()) == 0,
               f"the {name} path launched a kernel: {launches[name]}")
     log(f"phase 6 kernel launches: {launches}")
-    return launches
+    return launches, retries
+
+
+# -- phase 7: retries, quarantine and resume, the sequential lane, nndsvd,
+#    double and the sketch ---------------------------------------------------
+
+RESUME_KS = [9, 13]
+SEQ_KS = [9, 13]
+SEQ_REPLICATES = 5
+NNDSVD_KS = [5, 9, 13]
+SKETCH_KS = [9, 13]
+# 7b poisons iter 4 at its first attempt and both retries
+QUARANTINE_SPEC = ("nonfinite:k=9,iter=4;nonfinite:k=9,iter=4,attempt=1;"
+                   "nonfinite:k=9,iter=4,attempt=2")
+
+
+@contextlib.contextmanager
+def knobs(**env):
+    """The env knobs ``env`` set for the block, the old values restored
+    after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def iter_bytes(obj, ks, n_iter=REPLICATES) -> dict:
+    """Every iter spectra file's values as bytes, by ``(k, iter)``."""
+    out = {}
+    for k in ks:
+        for it in range(n_iter):
+            with np.load(obj.paths["iter_spectra"] % (k, it),
+                         allow_pickle=True) as f:
+                out[(k, it)] = f["data"].tobytes()
+    return out
+
+
+def read_ledger(obj) -> dict:
+    with open(obj.paths["resilience_ledger"] % 0) as f:
+        return json.load(f)
+
+
+def ledger_seed(obj, k, it) -> int:
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz
+
+    led = load_df_from_npz(obj.paths["nmf_replicate_parameters"])
+    ks = np.asarray(led.column("n_components"), np.int64)
+    its = np.asarray(led.column("iter"), np.int64)
+    return int(np.asarray(led.column("nmf_seed"),
+                          np.int64)[(ks == k) & (its == it)][0])
+
+
+def retry_phase(counts_fn, stages) -> dict:
+    """7a and 7b: a retried lane, then a quarantined one and the floor."""
+    import warnings
+
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.runtime import resilience
+
+    out = {}
+    # 7a: iter 3 is poisoned at its first attempt and retried once
+    obj = prepared_run("retry", counts_fn, [9], "kullback-leibler")
+    wave = {}
+    real = obj._finish_resilience
+
+    def spy(*a, **kw):
+        before = dict(kl_ell.launches)
+        try:
+            return real(*a, **kw)
+        finally:
+            wave.update({n: kl_ell.launches[n] - before[n]
+                         for n in kl_ell.KERNELS})
+
+    obj._finish_resilience = spy
+    kl_ell.reset_launches()
+    with knobs(CNMF_TPU_FAULT_SPEC="nonfinite:k=9,iter=3"):
+        stages.run("7a retry factorize (k=9)", obj.factorize)
+    out["retry_launches"] = dict(kl_ell.launches)
+    out["retry_wave_launches"] = wave
+    seed = ledger_seed(obj, 9, 3)
+    ledger = read_ledger(obj)
+    want = [{"k": 9, "iter": 3, "seed": seed, "attempt": 1,
+             "derived_seed": (seed ^ 1) & 0x7FFFFFFF, "healthy": True}]
+    check(ledger["retries"] == want and ledger["quarantined"] == [],
+          f"7a ledger {ledger}")
+    check(resilience.probe_spectra_file(obj.paths["iter_spectra"] % (9, 3),
+                                        k=9, n_genes=N_HVG) is None,
+          "7a: the retried replicate was not written")
+    check(obj.factorize_info["written"] == {9: REPLICATES},
+          f"7a written {obj.factorize_info['written']}")
+    for name in ONLINE_KERNELS:
+        check(wave[name] > 0, f"7a: the retry wave launched no {name}")
+    out["retry_ledger"] = ledger
+    log(f"7a retry: ledger {ledger['retries']}; retry wave launches {wave}")
+
+    # 7b: iter 4 fails all three attempts and is quarantined
+    qobj = prepared_run("quarantine", counts_fn, [9], "kullback-leibler")
+    kl_ell.reset_launches()
+    with knobs(CNMF_TPU_FAULT_SPEC=QUARANTINE_SPEC), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stages.run("7b quarantine factorize (k=9)", qobj.factorize)
+    check(any("quarantined" in str(w.message) for w in caught),
+          "7b: no quarantine warning")
+    ledger = read_ledger(qobj)
+    seed = ledger_seed(qobj, 9, 4)
+    check([(q["k"], q["iter"], q["seed"], q["attempts"])
+           for q in ledger["quarantined"]] == [(9, 4, seed, 2)],
+          f"7b quarantine {ledger['quarantined']}")
+    check([(r["attempt"], r["derived_seed"], r["healthy"])
+           for r in ledger["retries"]]
+          == [(1, (seed ^ 1) & 0x7FFFFFFF, False),
+              (2, (seed ^ 2) & 0x7FFFFFFF, False)],
+          f"7b retries {ledger['retries']}")
+    check(not os.path.exists(qobj.paths["iter_spectra"] % (9, 4)),
+          "7b: the quarantined replicate was written")
+    stages.run("7b combine (no skip flag)", qobj.combine)
+    stages.run("7b consensus (k=9, 19 replicates)", lambda: qobj.consensus(
+        CONSENSUS_K, density_threshold=0.5))
+    check_artifacts(qobj, None, [9], {9: REPLICATES - 1})
+    out["quarantine_launches"] = dict(kl_ell.launches)
+    out["quarantine_ledger"] = ledger
+    log(f"7b quarantine: {ledger['quarantined']}; consensus on "
+        f"{REPLICATES - 1} replicates")
+    kl_ell.reset_launches()
+    raised = None
+    with knobs(CNMF_TPU_FAULT_SPEC=QUARANTINE_SPEC,
+               CNMF_TPU_MIN_HEALTHY_FRAC="1.0"), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        try:
+            qobj.factorize()
+        except resilience.UnhealthySweepError as exc:
+            raised = str(exc)
+        torch.cuda.synchronize()
+    check(raised is not None, "7b: the healthy-fraction floor did not raise")
+    out["floor_launches"] = dict(kl_ell.launches)
+    out["floor_error"] = raised
+    log(f"7b floor (CNMF_TPU_MIN_HEALTHY_FRAC=1.0) raised in "
+        f"{time.perf_counter() - t0:.3f} s: {raised[:160]}")
+    return out
+
+
+def resume_phase(counts_fn, stages) -> dict:
+    """7c: a torn iter file, a resume that reruns its K group only, bit for
+    bit the run without a fault; then a resume with nothing to do."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.runtime import resilience
+
+    out = {}
+    obj = prepared_run("resume", counts_fn, RESUME_KS, "kullback-leibler")
+    kl_ell.reset_launches()
+    stages.run("7c factorize (no fault)", obj.factorize)
+    clean = iter_bytes(obj, RESUME_KS)
+    with knobs(CNMF_TPU_FAULT_SPEC="torn:artifact=iter_"):
+        stages.run("7c factorize (one file torn)", obj.factorize)
+    torn = [key for key in clean if resilience.probe_spectra_file(
+        obj.paths["iter_spectra"] % key, k=key[0], n_genes=N_HVG)]
+    check(len(torn) == 1, f"7c: torn files {torn}")
+    kl_ell.reset_launches()
+    stages.run("7c resume", lambda: obj.factorize(skip_completed_runs=True))
+    out["resume_launches"] = dict(kl_ell.launches)
+    info = obj.factorize_info
+    check(info["jobs"] == REPLICATES and sorted(info["trace"]) == [torn[0][0]],
+          f"7c: the resume solved {info['jobs']} replicates at K "
+          f"{sorted(info['trace'])}, torn {torn}")
+    check(iter_bytes(obj, RESUME_KS) == clean,
+          "7c: the resumed iter files differ from the run without a fault")
+    for name in ONLINE_KERNELS:
+        check(out["resume_launches"][name] > 0,
+              f"7c: the resume launched no {name}")
+    kl_ell.reset_launches()
+    stages.run("7c resume (nothing torn)",
+               lambda: obj.factorize(skip_completed_runs=True))
+    out["noop_launches"] = dict(kl_ell.launches)
+    check(obj.factorize_info["jobs"] == 0
+          and sum(out["noop_launches"].values()) == 0,
+          f"7c: a resume with nothing torn launched {out['noop_launches']}")
+    out["torn"] = [list(t) for t in torn]
+    log(f"7c resume: torn {torn}, reran K={torn[0][0]} "
+        f"({REPLICATES} replicates), {len(clean)} iter files bit for bit "
+        "the run without a fault; a resume with nothing torn launched "
+        "no kernel")
+    return out
+
+
+def sequential_phase(counts_fn, Xn, stages) -> dict:
+    """7d: the sequential lane against the batched lane at the same seeds
+    (the same init), under strict f32 (gated at ``rtol 1e-4``) and under
+    the default bf16 ratio chain (logged), and against the batched lane at
+    one replicate a batch (logged): a lane's reductions batched over 5
+    replicates round otherwise than over 1, and a bf16 rounding can turn
+    that last-bit difference into a relative 2**-8 in one ratio. Also
+    logs how far the init scale that both lanes take (the f32 sum of the
+    staged encoding on the card) lies from the host mean that the JAX
+    package's sequential lane takes."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.nmf import sweep_x_mean
+    from cnmf_torch_tpu_torch.ops.sparse import ell_chunk_rows
+
+    n, g = Xn.shape
+    host = float(Xn.sum()) / (n * g)
+    staged = sweep_x_mean(ell_chunk_rows(Xn, CHUNK)[0].to(CARD), n, g)
+    out = {"launches": {}, "init_scale": {
+        "host_mean": host, "staged_sum": staged,
+        "rel_gap": abs(staged - host) / host}}
+    log(f"7d init scale: host mean {host!r}, the staged encoding's f32 sum "
+        f"{staged!r}, relative gap {out['init_scale']['rel_gap']:.3g}")
+    obj = prepared_run("sequential", counts_fn, SEQ_KS, "kullback-leibler",
+                       n_iter=SEQ_REPLICATES)
+    errs = {}
+    for chain, env in (("f32", {"CNMF_TPU_BF16_RATIO": "0"}),
+                       ("bf16", {})):
+        with knobs(**env):
+            kl_ell.reset_launches()
+            stages.run(f"7d sequential factorize, {chain} (2 Ks x 5)",
+                       lambda: obj.factorize(batched=False))
+            launches = dict(kl_ell.launches)
+            for name in ONLINE_KERNELS:
+                check(launches[name] > 0, f"7d {chain}: the sequential "
+                      f"lane launched no {name}")
+                out["launches"][name] = (out["launches"].get(name, 0)
+                                         + launches[name])
+            with open(obj.paths["factorize_provenance"] % 0) as f:
+                prov = json.load(f)
+            info = obj.factorize_info
+            check(prov["engaged_path"] == "sequential"
+                  and info["kernel"] == "ell-cuda"
+                  and info["bf16_ratio"] == (chain == "bf16"),
+                  f"7d {chain}: provenance {prov['engaged_path']}, kernel "
+                  f"{info['kernel']}, bf16 {info['bf16_ratio']}")
+            errs[chain, "sequential"] = info["errs"]
+            stages.run(f"7d batched factorize, {chain} (2 Ks x 5)",
+                       obj.factorize)
+            errs[chain, "batched"] = obj.factorize_info["errs"]
+            stages.run(f"7d batched factorize, {chain}, 1 replicate a "
+                       "batch", lambda: obj.factorize(replicates_per_batch=1))
+            errs[chain, "batched_r1"] = obj.factorize_info["errs"]
+    gaps, equal = {}, {}
+    for chain in ("f32", "bf16"):
+        seq = errs[chain, "sequential"]
+        for lane in ("batched", "batched_r1"):
+            other = errs[chain, lane]
+            gaps[f"{chain} vs {lane}"] = {k: float(np.max(
+                np.abs(np.asarray(seq[k], np.float64) - other[k])
+                / np.abs(np.asarray(other[k], np.float64))))
+                for k in SEQ_KS}
+            equal[f"{chain} vs {lane}"] = all(np.array_equal(
+                np.asarray(seq[k], np.float32),
+                np.asarray(other[k], np.float32)) for k in SEQ_KS)
+    check(max(gaps["f32 vs batched"].values()) <= 1e-4,
+          f"7d: under strict f32 the sequential and batched objectives "
+          f"differ by {gaps['f32 vs batched']}")
+    out.update(max_rel_gap=gaps, bit_equal=equal,
+               objectives={f"{c} {lane}": {k: np.asarray(v[k]).tolist()
+                                           for k in SEQ_KS}
+                           for (c, lane), v in errs.items()})
+    for key in gaps:
+        log(f"7d sequential lane {key}: per K the largest relative "
+            f"objective gap {gaps[key]}; bit-equal: {equal[key]}")
+    return out
+
+
+def nndsvd_phase(counts_fn, Xn, stages) -> dict:
+    """7e: a dense Frobenius batch factorize from ``init="nndsvd"``, the
+    same with the random init, and the SVD's wall."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    out = {}
+    runs = {}
+    for init in ("nndsvd", "random"):
+        obj = prepared_run(f"init_{init}", counts_fn, NNDSVD_KS,
+                           mode="batch", init=init)
+        kl_ell.reset_launches()
+        stages.run(f"7e factorize init={init} (3 Ks x 20, batch)",
+                   obj.factorize)
+        check(sum(kl_ell.launches.values()) == 0,
+              f"7e: the dense lane launched {kl_ell.launches}")
+        runs[init] = {k: np.asarray(v, np.float64)
+                      for k, v in obj.factorize_info["errs"].items()}
+        if init == "nndsvd":
+            spectra = iter_bytes(obj, NNDSVD_KS)
+    for k in NNDSVD_KS:
+        e = runs["nndsvd"][k]
+        distinct = len({spectra[(k, it)] for it in range(REPLICATES)})
+        check(np.isfinite(e).all() and distinct == REPLICATES,
+              f"7e k={k}: {distinct} distinct nndsvd replicates, "
+              f"objectives {e}")
+    X = nmf.dense_on_device(Xn, CARD)
+    svd = {}
+    for k in NNDSVD_KS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nmf.nndsvd_base(X, k)
+        torch.cuda.synchronize()
+        svd[k] = time.perf_counter() - t0
+    del X
+    out["svd_s"] = svd
+    out["objective"] = {k: {"nndsvd_median": float(np.median(
+        runs["nndsvd"][k])), "random_median": float(np.median(
+            runs["random"][k]))} for k in NNDSVD_KS}
+    log(f"7e nndsvd: torch.linalg.svd base of the 10,000 x 2,000 HVG "
+        f"matrix {', '.join(f'k={k} {t:.3f} s' for k, t in svd.items())}; "
+        "median objective nndsvd / random: " + ", ".join(
+            f"k={k} {v['nndsvd_median']:.6g} / {v['random_median']:.6g}"
+            for k, v in out["objective"].items()))
+    return out
+
+
+def double_phase(Xn, stages) -> dict:
+    """7f: ``run_nmf(fp_precision="double")`` at k=9, one replicate per
+    loss, against the f32 solve (plain MU) from the same seed."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.nmf import run_nmf
+    from cnmf_torch_tpu_torch.ops.recipe import SolverRecipe
+
+    out = {}
+    for loss in ("frobenius", "kullback-leibler"):
+        kl_ell.reset_launches()
+        H, W, e64 = stages.run(f"7f run_nmf double ({loss}, k=9)",
+                               lambda: run_nmf(
+                                   Xn, 9, beta_loss=loss, mode="batch",
+                                   fp_precision="double",
+                                   random_state=SEED, device=CARD))
+        wall64 = stages.rows[-1][1]
+        check(H.dtype == np.float64 and W.dtype == np.float64
+              and sum(kl_ell.launches.values()) == 0,
+              f"7f {loss}: outputs {H.dtype}/{W.dtype}, launches "
+              f"{kl_ell.launches}")
+        _, _, e32 = stages.run(f"7f run_nmf float ({loss}, k=9, mu)",
+                               lambda: run_nmf(
+                                   Xn, 9, beta_loss=loss, mode="batch",
+                                   random_state=SEED, recipe=SolverRecipe(),
+                                   device=CARD))
+        wall32 = stages.rows[-1][1]
+        rel = abs(e64 - e32) / abs(e64)
+        check(np.isfinite(e64) and rel < 1e-3,
+              f"7f {loss}: f64 objective {e64} vs f32 {e32} ({rel:.3g})")
+        out[loss] = {"f64_s": wall64, "f32_s": wall32, "objective_f64": e64,
+                     "objective_f32": e32, "rel_gap": rel}
+        log(f"7f {loss}: f64 {wall64:.3f} s, objective {e64:.9g}; f32 "
+            f"{wall32:.3f} s, objective {e32:.9g}; relative gap {rel:.3g}")
+    return out
+
+
+def sketch_phase(counts_fn, stages) -> dict:
+    """7g: the sketch recipe, batch and online, against plain MU from the
+    same inits; two runs bit-identical; consensus with the sketch."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    out = {}
+    sketch_obj = None
+    for mode in ("batch", "online"):
+        obj = prepared_run(f"sketch_{mode}", counts_fn, SKETCH_KS,
+                           "kullback-leibler", mode=mode)
+        errs, files = [], []
+        with knobs(CNMF_TPU_SKETCH="1"):
+            for rep in range(2):
+                kl_ell.reset_launches()
+                stages.run(f"7g sketch {mode} factorize #{rep + 1}",
+                           obj.factorize)
+                launches = dict(kl_ell.launches)
+                errs.append(obj.factorize_info["errs"])
+                files.append(iter_bytes(obj, SKETCH_KS))
+        info = obj.factorize_info
+        check(info["solver_recipe"].startswith("sketch(")
+              and info["kernel"] == "ell-cuda",
+              f"7g {mode}: recipe {info['solver_recipe']}, kernel "
+              f"{info['kernel']}")
+        for name in ONLINE_KERNELS:
+            check(launches[name] > 0, f"7g {mode}: no {name} launched")
+        check(files[0] == files[1], f"7g {mode}: two runs differ")
+        # the mu recipe as factorize runs it with the sketch off (online:
+        # its default bf16 ratio chain), and strict f32, as the sketch
+        # lane runs; the same seeds give the same inits
+        mu_errs = {}
+        for label, env in (("mu", {"CNMF_TPU_ACCEL": "0"}),
+                           ("mu_f32", {"CNMF_TPU_ACCEL": "0",
+                                       "CNMF_TPU_BF16_RATIO": "0"})):
+            if mode == "batch" and label == "mu_f32":
+                continue        # the batch solver is strict f32 already
+            mobj = prepared_run(f"{label}_{mode}", counts_fn, SKETCH_KS,
+                                "kullback-leibler", mode=mode)
+            with knobs(**env):
+                stages.run(f"7g {label} {mode} factorize", mobj.factorize)
+            check(mobj.factorize_info["solver_recipe"] == "mu",
+                  f"7g: the reference ran "
+                  f"{mobj.factorize_info['solver_recipe']}")
+            mu_errs[label] = mobj.factorize_info["errs"]
+        gaps = {label: {k: float(np.max(
+            np.abs(np.asarray(errs[0][k], np.float64) - np.asarray(e[k]))
+            / np.asarray(e[k], np.float64))) for k in SKETCH_KS}
+            for label, e in mu_errs.items()}
+        check(max(gaps["mu"].values()) < 0.05,
+              f"7g {mode}: sketch vs mu objectives differ by {gaps}")
+        out[mode] = {"recipe": info["solver_recipe"], "launches": launches,
+                     "max_rel_gap": gaps, "bit_identical": True,
+                     "objective_median": {k: float(np.median(errs[0][k]))
+                                          for k in SKETCH_KS}}
+        log(f"7g sketch {mode}: recipe {info['solver_recipe']}, launches "
+            f"{launches}, two runs bit-identical, largest relative "
+            f"objective gap to the mu recipe {gaps}")
+        if mode == "batch":
+            sketch_obj = obj
+    with knobs(CNMF_TPU_SKETCH="1"):
+        stages.run("7g combine", sketch_obj.combine)
+        stages.run("7g consensus (k=9, sketched)",
+                   lambda: sketch_obj.consensus(CONSENSUS_K,
+                                                density_threshold=0.5))
+        rec = dict(sketch_obj.consensus_info[CONSENSUS_K])
+        stages.run("7g k_selection (sketched)",
+                   sketch_obj.k_selection_stats)
+    check(rec["stage"] == "consensus" and rec["sketch"]
+          and rec["sketch_dim"] == 256
+          and rec["distance_width"] == 256,
+          f"7g consensus decision {rec}")
+    check(sketch_obj.consensus_info["k_selection"]["sketch"],
+          f"7g k-selection decision "
+          f"{sketch_obj.consensus_info['k_selection']}")
+    check_artifacts(sketch_obj, None, SKETCH_KS)
+    out["consensus"] = dict(sketch_obj.consensus_info, consensus_stage=rec)
+    log(f"7g consensus decision {rec}; k-selection decisions "
+        f"{sketch_obj.consensus_info}")
+    return out
+
+
+def phase7(counts_fn, Xn, stages) -> dict:
+    """Phase 7, each sub-phase with the launch counts set to 0 just before
+    its runs and read just after."""
+    out = {"retry": retry_phase(counts_fn, stages)}
+    out["resume"] = resume_phase(counts_fn, stages)
+    out["sequential"] = sequential_phase(counts_fn, Xn, stages)
+    out["nndsvd"] = nndsvd_phase(counts_fn, Xn, stages)
+    out["double"] = double_phase(Xn, stages)
+    out["sketch"] = sketch_phase(counts_fn, stages)
+    return out
+
+
+def phase7_launches(p7) -> dict:
+    """The kernel launches of phase 7's paths, summed."""
+    parts = [p7["retry"][key] for key in ("retry_launches",
+                                          "quarantine_launches",
+                                          "floor_launches")]
+    parts += [p7["resume"]["resume_launches"],
+              p7["sequential"]["launches"]]
+    parts += [p7["sketch"][m]["launches"] for m in ("batch", "online")]
+    return {name: sum(int(p.get(name, 0)) for p in parts)
+            for name in parts[0]}
 
 
 class Stages:
@@ -1277,6 +1828,7 @@ def main() -> int:
         return 2
     from cnmf_torch_tpu_torch import cNMF
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.recipe import auto_sketch_rows
     from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
 
     t_start = time.perf_counter()
@@ -1311,12 +1863,20 @@ def main() -> int:
     rows = []
     records = kernel_phase(x0, nnz, rows)
     h_stats_by_k = h_stats_k_sweep(x0, nnz, rows)
+    # the sketch recipe's rows: m = n / 8 of the whole matrix, at most a
+    # chunk; its first sketched online step is pass 1's chunk 0, its first
+    # sketched batch step iteration 1
+    m_sketch = auto_sketch_rows(Xn.shape[0])
+    n_chunks = xc.vals.shape[0]
+    sketch_rows = {"online": sketch_rows_check(
+        x0, min(m_sketch, CHUNK), n_chunks, 1, rows)}
     del x0, xc
     xb = csr_to_ell(Xn).to(CARD)
     nnz_b = int((xb.vals > 0).sum())
     log(f"batch shapes: the whole matrix, ELL width {xb.width}, transpose "
         f"width {xb.t_width}, nonzeros {nnz_b}")
     batch_records, batch_extra = batch_kernel_phase(xb, nnz_b, rows)
+    sketch_rows["batch"] = sketch_rows_check(xb, m_sketch, 1, 0, rows)
     records.update(batch_records)
     del xb
     torch.cuda.empty_cache()
@@ -1424,26 +1984,39 @@ def main() -> int:
         log(line)
 
     # -- phase 6: HALS and Itakura-Saito ------------------------------------
-    other = other_solvers_phase(counts_fn, stages)
+    other, other_retries = other_solvers_phase(counts_fn, stages)
     log(f"phases 5-6 stages on {smi}:")
     for name, wall, peak in stages.rows[n_stages:]:
         log(f"  {name:32s} {wall:8.3f} s  peak {peak:7.3f} GiB")
 
+    # -- phase 7: retries, quarantine, resume, sequential, nndsvd, double,
+    #    sketch -------------------------------------------------------------
+    n_stages = len(stages.rows)
+    p7 = phase7(counts_fn, Xn, stages)
+    p7_launches = phase7_launches(p7)
+    log(f"phase 7 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 7 kernel launches: {p7_launches}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
-        rec["launches"] = int(launches[name]) + int(b_launches[name])
+        rec["launches"] = (int(launches[name]) + int(b_launches[name])
+                           + int(p7_launches[name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
                            "batch_factorize": b_factorize,
                            "frobenius": frob["launches"],
-                           "other_solvers": other},
+                           "other_solvers": other, "phase7": p7_launches},
+              "phase6_retries": other_retries, "phase7": p7,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
                          for s, w, p in stages.rows],
               "h_stats_by_k": h_stats_by_k,
+              "sketch_rows_check": sketch_rows,
               "profile": profile, "card": smi, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:

@@ -5,12 +5,16 @@ plus ``--device`` (default ``cuda``; there is no CPU fallback, pass
 
 Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection`` writes the
 K-selection statistics (``<name>.k_selection_stats.df.npz``); the figure is
-not ported.
+not ported. ``factorize`` exits with ``UNHEALTHY_EXIT_CODE`` (3) when a K
+ends below ``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates after its
+retries, as the JAX package's CLI does: a rerun would draw the same
+derived seeds, so a launcher must not respawn on it.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 __all__ = ["main", "build_parser"]
 
@@ -84,6 +88,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch_size", type=int, default=5000,
                         help="[prepare] Size of batch for online NMF "
                              "learning.")
+    parser.add_argument("--skip-completed-runs", action="store_true",
+                        default=False,
+                        help="[factorize] Resume: skip replicates whose "
+                             "artifacts probe AND validate on disk (torn "
+                             "files are rerun, quarantined lanes stay "
+                             "excluded). No prepare re-run needed.")
+    parser.add_argument("--sequential", action="store_true", default=False,
+                        help="[factorize] Run replicates one at a time "
+                             "instead of as one batched solve per K")
     parser.add_argument("--per-k-programs", action="store_true",
                         default=False,
                         help="[factorize] Pin the per-K sweeps (the JAX "
@@ -128,9 +141,18 @@ def main(argv=None):
             init=args.init, total_workers=args.total_workers,
             use_gpu=args.use_gpu, batch_size=args.batch_size)
     elif args.command == "factorize":
-        obj.factorize(worker_i=args.worker_index,
-                      total_workers=max(args.total_workers, 1),
-                      packed=False if args.per_k_programs else None)
+        from .runtime.resilience import (UNHEALTHY_EXIT_CODE,
+                                         UnhealthySweepError)
+
+        try:
+            obj.factorize(worker_i=args.worker_index,
+                          total_workers=max(args.total_workers, 1),
+                          skip_completed_runs=args.skip_completed_runs,
+                          batched=not args.sequential,
+                          packed=False if args.per_k_programs else None)
+        except UnhealthySweepError as exc:
+            print(f"factorize: {exc}", file=sys.stderr)
+            sys.exit(UNHEALTHY_EXIT_CODE)
     elif args.command == "combine":
         obj.combine(components=args.components)
     elif args.command == "consensus":

@@ -20,12 +20,20 @@ card (IS is the dense-WH hybrid, plain torch). Factorize runs the mode and
 ``algo`` of the run-parameters file: ``online`` and ``mu`` (what
 ``prepare`` writes), or ``batch`` and ``halsvar`` (set by editing that
 file), under the solver recipe resolved from the env knobs
-(``ops/recipe.py``: batch KL runs ``dna``, batch IS ``amu``).
+(``ops/recipe.py``: batch KL runs ``dna``, batch IS ``amu``), as one
+batched sweep per K or, with ``batched=False``, one ``run_nmf`` call a
+task. Both lanes report each replicate's health to one
+``runtime/resilience.py`` guard: an unhealthy replicate is retried at
+derived seeds and quarantined when its retries fail, and
+``skip_completed_runs`` resumes a run from its validated artifacts.
+With ``CNMF_TPU_SKETCH`` engaged, consensus clusters a seeded
+projection of the spectra (``ops/sketch.py``).
 """
 
 from __future__ import annotations
 
 import datetime
+import errno
 import itertools
 import json
 import os
@@ -41,16 +49,18 @@ from ..ops.kernels import kernel_label
 from ..ops.kmeans import kmeans
 from ..ops.metrics import local_density as knn_local_density
 from ..ops.metrics import silhouette_score
-from ..ops.nmf import (beta_loss_to_float, fit_h, lane_health,
-                       resolve_bf16_ratio, resolve_online_schedule,
-                       run_nmf_use_ell)
+from ..ops.nmf import (beta_loss_to_float, fit_h, resolve_bf16_ratio,
+                       resolve_online_schedule, run_nmf, run_nmf_use_ell,
+                       sweep_x_mean)
 from ..ops.ols import ols_all_cols
 from ..ops.recipe import resolve_recipe
-from ..ops.sparse import csr_to_ell, ell_chunk_rows
+from ..ops.sketch import project_rows, resolve_consensus_sketch
+from ..ops.sparse import EllMatrix, csr_to_ell, ell_chunk_rows
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
 from ..parallel.replicates import (_auto_packed, replicate_sweep,
                                    worker_filter)
+from ..runtime import faults, resilience
 from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
                         load_df_from_npz, load_df_from_text, load_matrix,
                         save_df_to_npz, save_df_to_text, save_matrix)
@@ -94,8 +104,11 @@ class cNMF:
         # and, per K, the solver trace of every slice of replicates
         # (online: ``(passes, R)`` per-pass objectives; batch: a
         # ``SolverTelemetry``) and, for dna, each replicate's fallback
-        # fraction
+        # fraction; and what the retries and quarantines did
         self.factorize_info: dict = {}
+        # per K, the consensus stage's sketch decision (and, under
+        # "k_selection", the sweep-level one of k_selection_stats)
+        self.consensus_info: dict = {}
 
     # ------------------------------------------------------------------
     # prepare
@@ -260,17 +273,31 @@ class cNMF:
     # ------------------------------------------------------------------
 
     def factorize(self, worker_i=0, total_workers=1,
+                  skip_completed_runs=False, batched=True,
                   replicates_per_batch=None, packed=None):
-        """Run this worker's share of the replicate ledger: the tasks are
-        grouped per K and each group runs as one batched replicate sweep
-        (``parallel/replicates.py``) in the parameters file's ``mode``. A
-        sparse normalized matrix with a KL or IS ledger takes the ELL lane
-        under the dispatch rule (density <= 0.10 and width <= genes / 8):
-        row chunks online, the whole matrix with its transpose index set in
-        batch mode. The solver recipe is resolved once (``ops/recipe.py``)
-        and recorded in ``factorize_info`` and the provenance. A replicate
-        whose objective or spectra are not finite is reported and not
-        written.
+        """Run this worker's share of the replicate ledger.
+
+        Batched lane (default): the tasks are grouped per K and each group
+        runs as one batched replicate sweep (``parallel/replicates.py``) in
+        the parameters file's ``mode``. A sparse normalized matrix with a
+        KL or IS ledger and the random init takes the ELL lane under the
+        dispatch rule (density <= 0.10 and width <= genes / 8): row chunks
+        online, the whole matrix with its transpose index set in batch
+        mode. The solver recipe is resolved once (``ops/recipe.py``) and
+        recorded in ``factorize_info`` and the provenance. Sequential lane
+        (``batched=False``, CLI ``--sequential``): each task is one
+        ``run_nmf`` call under the recipe recorded once for the run.
+
+        Fault tolerance (``runtime/resilience.py``, as in the JAX
+        package): each replicate is graded by ``lane_health``; an
+        unhealthy one is retried at derived seeds (``seed XOR attempt``, up
+        to ``CNMF_TPU_MAX_RETRIES``) and quarantined in the per-worker
+        resilience ledger when the budget runs out; fewer than
+        ``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates in a K raise
+        ``UnhealthySweepError``. ``skip_completed_runs`` probes and
+        validates every artifact (a torn file reruns), carries unresolved
+        quarantines, and reruns the batched lane by whole K groups, so a
+        resumed run writes bit for bit the files of an uninterrupted one.
 
         ``packed`` (default None: the JAX planner's rule, a dense
         random-init ``mu`` ledger of >= 4 Ks with <= 32 replicates a K
@@ -291,31 +318,132 @@ class cNMF:
         X = norm.X
         n, g = X.shape
         chunk = int(min(kw.get("online_chunk_size", 5000), n))
-        # the JAX planner's lane rule (resolve_encoding): sparse input,
-        # beta in {1, 0}, random init and plain MU, then the dispatch rule
-        use_ell = run_nmf_use_ell(X, beta, init=init, algo=algo)
-        if use_ell and packed:
-            raise ValueError(
-                "packed K-sweeps run dense only; set CNMF_TPU_SPARSE_BETA=0 "
-                "to keep packed=True, or drop packed for the ELL path")
-        if packed and init != "random":
-            raise ValueError(
-                "packed K-sweeps require init='random' (the nndsvd family's "
-                "SVD base is K-truncated); rerun with packed=False / "
-                "--per-k-programs")
         ks = _ledger_ints(ledger, "n_components")
         iters = _ledger_ints(ledger, "iter")
         seeds = _ledger_ints(ledger, "nmf_seed")
+        ledger_fn = self.paths["resilience_ledger"]
+        my_tasks = list(worker_filter(range(len(ks)), worker_i,
+                                      total_workers))
+        quarantined_idx: dict[int, int | None] = {}
+        if not skip_completed_runs:
+            jobs = my_tasks
+            if int(worker_i) == 0:
+                # a fresh run voids every earlier quarantine record;
+                # ledgers of worker indices outside this fleet have no
+                # owner to rewrite them
+                resilience.sweep_stale_ledgers(ledger_fn,
+                                               max(int(total_workers), 1))
+        else:
+            # probe and validate this worker's own artifacts: a torn file
+            # counts as incomplete and its rerun overwrites it atomically
+            quarantined_prev = resilience.load_quarantine_records(ledger_fn)
+            jobs = []
+            for idx in my_tasks:
+                k_t, it_t = int(ks[idx]), int(iters[idx])
+                reason = resilience.probe_spectra_file(
+                    self.paths["iter_spectra"] % (k_t, it_t), k=k_t,
+                    n_genes=g)
+                if reason is None:
+                    continue
+                if (k_t, it_t) in quarantined_prev:
+                    attempts = quarantined_prev[(k_t, it_t)]
+                    if (attempts is not None
+                            and attempts < resilience.max_retries()):
+                        # a raised retry budget reruns the lane
+                        jobs.append(idx)
+                        continue
+                    # deliberately absent: rerunning it would burn the
+                    # retry ladder again on every resume
+                    quarantined_idx[idx] = attempts
+                    continue
+                if reason != "missing":
+                    warnings.warn(
+                        "resume: replicate artifact failed validation and "
+                        "will be rerun — %s" % reason, RuntimeWarning,
+                        stacklevel=2)
+                jobs.append(idx)
+        guard = resilience.ReplicateGuard(
+            ledger_path=ledger_fn % int(worker_i))
+        self._written: dict[int, int] = {}
+
+        def credit_completed(final_jobs):
+            # resume accounting: valid artifacts count as healthy toward
+            # the floor, unresolved quarantines toward the total only
+            if not skip_completed_runs:
+                return
+            per_k: dict[int, int] = {}
+            for i in set(my_tasks) - set(final_jobs):
+                kk = int(ks[i])
+                if i in quarantined_idx:
+                    guard.carry_quarantined(kk, int(iters[i]),
+                                            int(seeds[i]),
+                                            attempts=quarantined_idx[i])
+                else:
+                    per_k[kk] = per_k.get(kk, 0) + 1
+            for kk, cnt in per_k.items():
+                guard.credit_existing(kk, cnt)
+
+        if skip_completed_runs and not jobs:
+            # nothing to solve, but the floor accounting still runs: a
+            # resume after a below-floor run must fail as that run did
+            self.factorize_info = {"jobs": 0, "written": {}, "retries": [],
+                                   "quarantined": []}
+            credit_completed(jobs)
+            self._record_resilience(guard)
+            guard.finalize()
+            print("[Worker %d]. All assigned replicates already have valid "
+                  "artifacts%s; nothing to resume."
+                  % (worker_i, " or quarantine records"
+                     if quarantined_idx else ""))
+            return
+
+        if batched and skip_completed_runs:
+            # a K with any incomplete replicate reruns this worker's whole
+            # K group (quarantined lanes excepted): on the card a lane's
+            # last bits can depend on how many lanes share its batched
+            # reductions, so only the same groups give the uninterrupted
+            # run's files bit for bit
+            ks_incomplete = {int(ks[i]) for i in jobs}
+            expanded = [i for i in my_tasks if int(ks[i]) in ks_incomplete
+                        and i not in quarantined_idx]
+            if len(expanded) > len(jobs):
+                print("[Worker %d]. Resume reruns %d replicate(s) (whole-K "
+                      "groups for K=%s) so resumed sweeps are bit-identical "
+                      "to uninterrupted ones."
+                      % (worker_i, len(expanded),
+                         ",".join(str(k) for k in sorted(ks_incomplete))))
+            jobs = expanded
+        credit_completed(jobs)
+        # the lane, the recipe and the bf16 decision, resolved once for
+        # both lanes. The lane: the JAX planner's rule (resolve_encoding:
+        # sparse input, beta in {1, 0}, random init and plain MU, then the
+        # dispatch rule); the sequential lane's run_nmf also reads
+        # fp_precision
+        use_ell = run_nmf_use_ell(
+            X, beta, init=init, algo=algo,
+            fp_precision=("float" if batched
+                          else kw.get("fp_precision", "float")))
         by_k: dict[int, list] = {}
-        for idx in worker_filter(range(len(ks)), worker_i, total_workers):
-            by_k.setdefault(int(ks[idx]), []).append(
-                (int(iters[idx]), int(seeds[idx])))
-        if packed is None:
-            packed = _auto_packed(
-                use_ell, algo, init, len(by_k),
-                max((len(t) for t in by_k.values()), default=0),
-                total_workers)
-        packed = bool(packed)
+        if batched:
+            if use_ell and packed:
+                raise ValueError(
+                    "packed K-sweeps run dense only; set "
+                    "CNMF_TPU_SPARSE_BETA=0 to keep packed=True, or drop "
+                    "packed for the ELL path")
+            if packed and init != "random":
+                raise ValueError(
+                    "packed K-sweeps require init='random' (the nndsvd "
+                    "family's SVD base is K-truncated); rerun with "
+                    "packed=False / --per-k-programs")
+            for idx in jobs:
+                by_k.setdefault(int(ks[idx]), []).append(
+                    (int(iters[idx]), int(seeds[idx])))
+            if packed is None:
+                packed = _auto_packed(
+                    use_ell, algo, init, len(by_k),
+                    max((len(t) for t in by_k.values()), default=0),
+                    total_workers)
+        packed = bool(packed) and batched
         if use_ell:
             Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
                   else csr_to_ell(X))
@@ -324,29 +452,131 @@ class cNMF:
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."
                   % (beta, density, X.width, g))
-        recipe = resolve_recipe(
-            beta, mode, algo=algo, ell=use_ell, n=n, g=g,
-            k=int(ks.max()) if ks.size else None,
-            ell_width=X.width if use_ell else None)
-        bf16 = False if recipe.kl_newton else resolve_bf16_ratio(beta, mode)
-        h_tol, n_passes, h_tol_start = resolve_online_schedule(beta)
+        # the batched lane sizes the recipe to its sweeps; the sequential
+        # lane resolves it as a run_nmf call would (the JAX package's
+        # rule), and pins it on every call
+        sizes = (dict(n=n, g=g, k=int(ks.max()) if ks.size else None,
+                      ell_width=X.width if use_ell else None)
+                 if batched else {})
+        recipe = resolve_recipe(beta, mode, algo=algo, ell=use_ell, **sizes)
+        bf16 = (False if recipe.kl_newton or recipe.algo == "sketch"
+                else resolve_bf16_ratio(beta, mode))
         self.factorize_info = {
             "lane": "ell" if use_ell else "dense", "mode": mode,
             "packed": packed,
             "kernel": kernel_label(use_ell, self.device, bf16, beta),
             "solver_recipe": recipe.label,
             "inner_repeats": int(recipe.inner_repeats),
-            "kl_newton": bool(recipe.kl_newton),
-            "bf16_ratio": bf16, "online_h_tol": h_tol, "n_passes": n_passes,
-            "online_h_tol_start": h_tol_start, "trace": {}, "errs": {},
-            "dna_fallback": {}}
+            "kl_newton": bool(recipe.kl_newton), "bf16_ratio": bf16,
+            "trace": {}, "errs": {}, "dna_fallback": {}, "jobs": len(jobs)}
+        if not batched:
+            self._factorize_sequential(jobs, ks, iters, seeds, norm, kw,
+                                       recipe, X, guard, worker_i)
+            return
+        h_tol, n_passes, h_tol_start = resolve_online_schedule(beta)
+        self.factorize_info.update(online_h_tol=h_tol, n_passes=n_passes,
+                                   online_h_tol_start=h_tol_start)
+        self._save_factorize_provenance(
+            "batched-" + ("packed" if packed else
+                          "ell" if use_ell else "dense"), worker_i, kw)
+        sweep_kw = dict(
+            beta_loss=kw["beta_loss"], init=init, mode=mode,
+            tol=kw.get("tol", 1e-4), online_chunk_size=chunk,
+            online_chunk_max_iter=kw.get("online_chunk_max_iter", 1000),
+            alpha_W=kw.get("alpha_W", 0.0),
+            l1_ratio_W=kw.get("l1_ratio_W", 0.0),
+            alpha_H=kw.get("alpha_H", 0.0),
+            l1_ratio_H=kw.get("l1_ratio_H", 0.0),
+            replicates_per_batch=replicates_per_batch,
+            n_rows=n if use_ell else None, recipe=recipe,
+            device=self.device)
+        for k, tasks in sorted(by_k.items()):
+            its = [t[0] for t in tasks]
+            seeds_k = [t[1] for t in tasks]
+            print("[Worker %d]. Running %d replicates for k=%d as one "
+                  "batched solve." % (worker_i, len(tasks), k))
+            faults.maybe_straggle(context="factorize", worker=worker_i)
+            trace: list = []
+            spectra, _, errs = replicate_sweep(X, seeds_k, k, trace=trace,
+                                               **sweep_kw)
+            spectra, errs = faults.maybe_poison_lanes(k, its, spectra, errs,
+                                                      seeds=seeds_k)
+            self.factorize_info["trace"][k] = trace
+            self.factorize_info["errs"][k] = errs
+            if recipe.kl_newton and mode == "batch":
+                self.factorize_info["dna_fallback"][k] = np.concatenate(
+                    [t.dna_fallback for t in trace])
+            healthy = guard.observe(
+                k, its, seeds_k,
+                resilience.lane_health(errs, spectra=spectra))
+            for r, it in enumerate(its):
+                if healthy[r]:
+                    self._write_iter_spectra(k, it, spectra[r],
+                                             norm.var_names)
+            faults.maybe_kill("factorize", worker_i)
+
+        def rerun(k_r, seeds_r, iters=None, attempt=0):
+            # a fresh per-K sweep over the staged X at the derived seeds
+            spectra_r, _, errs_r = replicate_sweep(X, seeds_r, k_r,
+                                                   **sweep_kw)
+            return spectra_r, errs_r
+
+        self._finish_resilience(guard, rerun, norm.var_names, worker_i)
+
+    def _factorize_sequential(self, jobs, ks, iters, seeds, norm, kw,
+                              recipe, Xs, guard, worker_i):
+        """The sequential lane: one ``run_nmf`` call a task under
+        ``recipe``, the one ``factorize`` resolved and recorded, pinned on
+        every call so the provenance names the engaged math even if a knob
+        changes mid-run. On the ELL lane each call starts from the random
+        init's scale of the batched lane's staged encoding ``Xs``
+        (``sweep_x_mean``), so both lanes start a seed alike."""
+        self._save_factorize_provenance("sequential", worker_i, kw)
+        run_kw = {key: v for key, v in kw.items() if key != "n_jobs"}
+        x_mean = (sweep_x_mean(Xs, *norm.X.shape)
+                  if isinstance(Xs, EllMatrix) else None)
+
+        def solve(k_r, seed_r):
+            _usages, spectra, err = run_nmf(
+                norm.X, **dict(run_kw, n_components=int(k_r),
+                               random_state=int(seed_r)),
+                recipe=recipe, x_mean=x_mean, device=self.device)
+            return spectra, err
+
+        for idx in jobs:
+            k_t, it_t, seed_t = int(ks[idx]), int(iters[idx]), int(seeds[idx])
+            print("[Worker %d]. Starting task %d." % (worker_i, idx))
+            faults.maybe_straggle(context="factorize", worker=worker_i)
+            spectra, err = solve(k_t, seed_t)
+            sp3, errs = faults.maybe_poison_lanes(
+                k_t, [it_t], spectra[None], np.asarray([err]),
+                seeds=[seed_t])
+            self.factorize_info["errs"].setdefault(k_t, []).append(
+                float(errs[0]))
+            healthy = guard.observe(k_t, [it_t], [seed_t],
+                                    resilience.lane_health(errs, spectra=sp3))
+            if healthy[0]:
+                self._write_iter_spectra(k_t, it_t, sp3[0], norm.var_names)
+            faults.maybe_kill("factorize", worker_i)
+        self.factorize_info["errs"] = {
+            k: np.asarray(v) for k, v in self.factorize_info["errs"].items()}
+
+        def rerun(k_r, seeds_r, iters=None, attempt=0):
+            outs = [solve(k_r, s) for s in seeds_r]
+            return (np.stack([o[0] for o in outs]),
+                    np.asarray([o[1] for o in outs], np.float64))
+
+        self._finish_resilience(guard, rerun, norm.var_names, worker_i)
+
+    def _save_factorize_provenance(self, engaged_path: str, worker_i, kw):
+        """What factorize ran: the engaged path and the effective
+        parameters (the run-parameters file's, and what factorize_info
+        records of the lane, recipe and schedule)."""
         with atomic_artifact(self.paths["factorize_provenance"]
                              % int(worker_i)) as tmp:
             with open(tmp, "w") as f:
                 json.dump({"worker_index": int(worker_i),
-                           "engaged_path": "batched-" + (
-                               "packed" if packed else
-                               "ell" if use_ell else "dense"),
+                           "engaged_path": engaged_path,
                            "effective_params": dict(
                                {k: v for k, v in kw.items()
                                 if k != "n_jobs"},
@@ -354,38 +584,65 @@ class cNMF:
                                   if k not in ("trace", "errs",
                                                "dna_fallback")})},
                           f, indent=1, sort_keys=True)
-        for k, tasks in sorted(by_k.items()):
-            print("[Worker %d]. Running %d replicates for k=%d as one "
-                  "batched solve." % (worker_i, len(tasks), k))
-            trace: list = []
-            spectra, _, errs = replicate_sweep(
-                X, [t[1] for t in tasks], k, beta_loss=kw["beta_loss"],
-                init=init, mode=mode, tol=kw.get("tol", 1e-4),
-                online_chunk_size=chunk,
-                online_chunk_max_iter=kw.get("online_chunk_max_iter", 1000),
-                alpha_W=kw.get("alpha_W", 0.0),
-                l1_ratio_W=kw.get("l1_ratio_W", 0.0),
-                alpha_H=kw.get("alpha_H", 0.0),
-                l1_ratio_H=kw.get("l1_ratio_H", 0.0),
-                replicates_per_batch=replicates_per_batch,
-                n_rows=n if use_ell else None, trace=trace, recipe=recipe,
-                device=self.device)
-            self.factorize_info["trace"][k] = trace
-            self.factorize_info["errs"][k] = errs
-            if recipe.kl_newton and mode == "batch":
-                self.factorize_info["dna_fallback"][k] = np.concatenate(
-                    [t.dna_fallback for t in trace])
-            healthy = lane_health(errs, spectra=spectra)
-            for r, (it, seed) in enumerate(tasks):
-                if not healthy[r]:
-                    print("[Worker %d]. Replicate k=%d iter=%d (seed %d) "
-                          "diverged (objective %r); not written."
-                          % (worker_i, k, it, seed, float(errs[r])))
-                    continue
-                save_df_to_npz(Frame(spectra[r], np.arange(1, k + 1),
-                                     norm.var_names),
-                               self.paths["iter_spectra"] % (k, it),
-                               compress=False)
+
+    def _write_iter_spectra(self, k, it, spectrum, columns):
+        """One replicate's spectra artifact (atomic; stored, not
+        deflated)."""
+        save_df_to_npz(Frame(spectrum, np.arange(1, int(k) + 1), columns),
+                       self.paths["iter_spectra"] % (int(k), int(it)),
+                       compress=False)
+        self._written[int(k)] = self._written.get(int(k), 0) + 1
+
+    def _record_resilience(self, guard):
+        """The guard's records in ``factorize_info``: the replicates
+        written per K, every retry and every quarantine."""
+        self.factorize_info.update(written=dict(self._written),
+                                   retries=list(guard.retries),
+                                   quarantined=list(guard.quarantined))
+
+    def _finish_resilience(self, guard, rerun, columns, worker_i=0):
+        """The retry waves and the final accounting of one factorize call.
+
+        ``rerun(k, seeds, iters=, attempt=) -> (spectra (R, k, g), errs
+        (R,))`` re-solves replicates of one K (each lane its own solver
+        family). The seeds are derived per attempt
+        (``resilience.derive_retry_seed``), so a resumed run retries with
+        the uninterrupted run's seeds; the guard's ledger records every
+        (seed, attempt, derived seed, outcome) and the quarantines, then
+        the floor is enforced."""
+        attempt = 1
+        while attempt <= guard.max_retries:
+            wave = guard.take_pending()
+            if not wave:
+                break
+            by_k: dict[int, list] = {}
+            for t in wave:
+                by_k.setdefault(int(t["k"]), []).append(t)
+            for k, tasks in sorted(by_k.items()):
+                its = [t["iter"] for t in tasks]
+                orig_seeds = [t["seed"] for t in tasks]
+                derived = [resilience.derive_retry_seed(s, attempt)
+                           for s in orig_seeds]
+                print("[Worker %d]. Retrying %d unhealthy replicate(s) for "
+                      "k=%d with derived seeds (attempt %d/%d)."
+                      % (worker_i, len(tasks), k, attempt,
+                         guard.max_retries))
+                spectra, errs = rerun(k, derived, iters=its,
+                                      attempt=attempt)
+                spectra, errs = faults.maybe_poison_lanes(
+                    k, its, spectra, errs, attempt=attempt,
+                    seeds=orig_seeds)
+                healthy = guard.observe(
+                    k, its, orig_seeds,
+                    resilience.lane_health(errs, spectra=spectra),
+                    attempt=attempt, derived_seeds=derived)
+                for j, it in enumerate(its):
+                    if healthy[j]:
+                        self._write_iter_spectra(k, it, spectra[j][:k],
+                                                 columns)
+            attempt += 1
+        self._record_resilience(guard)
+        guard.finalize()
 
     # ------------------------------------------------------------------
     # combine
@@ -403,29 +660,52 @@ class cNMF:
 
     def combine_nmf(self, k, skip_missing_files=False):
         """Stack the per-iter spectra into the merged ``(n_iter * k,
-        genes)`` matrix with ``iter%d_topic%d`` row labels. A missing or
-        invalid file raises, or is skipped with ``skip_missing_files``."""
+        genes)`` matrix with ``iter%d_topic%d`` row labels. Every file is
+        validated (``resilience.load_spectra_checked``: a readable archive
+        of ``k x genes`` finite values). A missing file raises
+        ``FileNotFoundError`` and an invalid one ``TornArtifactError``, or
+        either is skipped with ``skip_missing_files``; a replicate that
+        factorize quarantined (the resilience ledgers) is skipped without
+        the flag, unless a valid artifact of it is on disk."""
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         print("Combining factorizations for k=%d." % k)
         ks = _ledger_ints(ledger, "n_components")
         iters = np.sort(_ledger_ints(ledger, "iter")[ks == k])
+        quarantined = resilience.load_quarantined_tasks(
+            self.paths["resilience_ledger"])
+        n_genes = None
+        if os.path.exists(self.paths["nmf_genes_list"]):
+            n_genes = len(self._hvgs())
         parts, labels, columns = [], [], None
         for it in iters:
             fn = self.paths["iter_spectra"] % (k, it)
-            problem = None
+            quarantined_here = (int(k), int(it)) in quarantined
             if not os.path.exists(fn):
-                problem = "missing"
-            else:
-                df = load_df_from_npz(fn)
-                if df.values.shape[0] != k or not np.isfinite(
-                        df.values).all():
-                    problem = f"invalid (shape {df.values.shape})"
-            if problem is not None:
+                if quarantined_here:
+                    print("Skipping quarantined replicate k=%d iter=%d "
+                          "(see the resilience ledger)." % (k, it))
+                    continue
                 if not skip_missing_files:
-                    raise FileNotFoundError(
-                        f"{fn} is {problem}; combine with "
-                        "skip_missing_files=True to drop it")
-                print("Skipping %s file: %s" % (problem, fn))
+                    print("Missing file: %s, run with skip_missing=True to "
+                          "override" % fn)
+                    raise FileNotFoundError(errno.ENOENT,
+                                            os.strerror(errno.ENOENT), fn)
+                print("Missing file: %s. Skipping." % fn)
+                continue
+            try:
+                df = resilience.load_spectra_checked(fn, k=int(k),
+                                                     n_genes=n_genes)
+            except resilience.TornArtifactError as exc:
+                if quarantined_here:
+                    print("Skipping quarantined replicate k=%d iter=%d "
+                          "(see the resilience ledger)." % (k, it))
+                    continue
+                if not skip_missing_files:
+                    raise resilience.TornArtifactError(
+                        "%s — rerun `factorize --skip-completed-runs` to "
+                        "regenerate it, or combine with "
+                        "skip_missing_files=True to drop it" % exc) from exc
+                print("Corrupt file: %s. Skipping. (%s)" % (fn, exc))
                 continue
             parts.append(df.values)
             columns = df.columns
@@ -468,14 +748,23 @@ class cNMF:
                   local_neighborhood_size=0.30, show_clustering=False,
                   build_ref=True, skip_density_and_return_after_stats=False,
                   refit_usage=True, normalize_tpm_spectra=False,
-                  norm_counts=None):
+                  norm_counts=None, _sketch=None):
         """Consensus spectra and usages from the merged replicate matrix:
         L2-normalize, filter outliers by KNN local density (cached), k-means
         (k, 10 inits, seed 1), cluster medians, usage refits, TPM- and
         z-score-unit spectra. With ``skip_density_and_return_after_stats``
         returns the K-selection statistics instead of writing artifacts.
         The clustergram figure is not ported (no matplotlib on the card's
-        machine)."""
+        machine).
+
+        Sketched consensus (``ops/sketch.py``, ``CNMF_TPU_SKETCH``): when
+        it engages, the density filter, k-means and the silhouette run on
+        a seeded Gaussian projection of the L2-normalized spectra (the
+        projected densities are neither read from nor written to the
+        cache), and the cluster medians still come from the full-width
+        spectra. The decision is recorded in ``consensus_info[k]``.
+        ``_sketch``: the sweep-level decision of
+        :meth:`k_selection_stats`, in place of a per-K one."""
         if show_clustering:
             raise NotImplementedError(
                 "the clustergram figure is not ported yet")
@@ -493,15 +782,30 @@ class cNMF:
         spectra = np.asarray(merged.values)
         l2 = spectra / np.sqrt((spectra ** 2).sum(axis=1))[:, None]
         index = np.asarray(merged.index)
+        sk = (_sketch if _sketch is not None
+              else resolve_consensus_sketch(int(l2.shape[0]),
+                                            int(l2.shape[1])))
+        feats = (project_rows(l2, sk.dim, device=dev) if sk.engaged
+                 else l2)
+        self.consensus_info[k] = dict(
+            sk.as_context(),
+            stage=("k_selection_stats" if skip_density_and_return_after_stats
+                   else "consensus"),
+            replicates=int(l2.shape[0]),
+            distance_width=int(feats.shape[1]))
         keep = np.ones(l2.shape[0], dtype=bool)
         if not skip_density_and_return_after_stats:
             cache = self.paths["local_density_cache"] % k
-            if os.path.isfile(cache):
+            if not sk.engaged and os.path.isfile(cache):
                 density = load_df_from_npz(cache).values[:, 0]
             else:
-                density, _ = knn_local_density(l2, n_neighbors, device=dev)
-                save_df_to_npz(Frame(density[:, None], index,
-                                     np.asarray(["local_density"])), cache)
+                density, _ = knn_local_density(feats, n_neighbors,
+                                               device=dev)
+                if not sk.engaged:
+                    # projected densities never enter the exact cache
+                    save_df_to_npz(Frame(density[:, None], index,
+                                         np.asarray(["local_density"])),
+                                   cache)
             keep = density < density_threshold
             if not keep.any():
                 raise RuntimeError(
@@ -514,10 +818,11 @@ class cNMF:
                     "only %d programs" % (density_threshold, keep.sum(),
                                           len(keep), k, keep.sum()),
                     UserWarning, stacklevel=2)
-        l2 = l2[keep]
-        labels, _centers, _inertia = kmeans(l2, k, n_init=10, seed=1,
+        l2, feats = l2[keep], feats[keep]
+        labels, _centers, _inertia = kmeans(feats, k, n_init=10, seed=1,
                                             device=dev)
-        # cluster medians (clusters in label order), rows renormalized
+        # cluster medians from the full-width spectra (clusters in label
+        # order), rows renormalized
         clusters = np.unique(labels)
         median = np.stack([np.median(l2[labels == c], axis=0)
                            for c in clusters])
@@ -525,7 +830,7 @@ class cNMF:
 
         if skip_density_and_return_after_stats:
             usages = self.refit_usage(norm_counts.X, median)
-            silhouette = silhouette_score(l2, labels, k, device=dev)
+            silhouette = silhouette_score(feats, labels, k, device=dev)
             error = _frobenius_prediction_error(norm_counts.X, usages,
                                                 median)
             return Frame(np.asarray([[k], [density_threshold], [silhouette],
@@ -621,8 +926,17 @@ class cNMF:
             raise ValueError("the replicate ledger lists no components; "
                              "run prepare() with a non-empty components list")
         norm_counts = load_matrix(self.paths["normalized_counts"])
+        # one sweep-level sketch decision, from the largest merged matrix:
+        # a per-K one could compare Ks in different feature spaces
+        ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        ledger_ks = _ledger_ints(ledger, "n_components")
+        r_max = max(int((ledger_ks == k).sum()) * int(k) for k in ks)
+        sk = resolve_consensus_sketch(r_max, int(norm_counts.X.shape[1]))
+        self.consensus_info["k_selection"] = dict(
+            sk.as_context(), ks=[int(k) for k in ks], R_max=r_max)
         rows = [self.consensus(k, skip_density_and_return_after_stats=True,
-                               norm_counts=norm_counts).values[:, 0]
+                               norm_counts=norm_counts,
+                               _sketch=sk).values[:, 0]
                 for k in ks]
         stats = Frame(np.stack(rows), np.arange(len(rows)),
                       np.asarray(["k", "local_density_threshold",

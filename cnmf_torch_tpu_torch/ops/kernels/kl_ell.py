@@ -117,7 +117,8 @@ __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
            "beta_err_launch", "h_newton_stats", "h_newton_stats_launch",
            "wh_at_nz", "wh_at_nz_launch", "kl_h_stats", "kl_w_numer",
-           "kl_w_stats", "kl_beta_err", "kl_h_newton_stats", "kl_wh_at_nz",
+           "kl_w_stats", "kl_w_stats_rows", "kl_beta_err",
+           "kl_h_newton_stats", "kl_wh_at_nz",
            "h_stats_plain", "w_numer_plain", "beta_err_plain",
            "h_newton_stats_plain", "wh_at_nz_plain"]
 
@@ -446,6 +447,17 @@ def kl_w_stats(x, H, W, bf16: bool = False):
     broadcast stays torch."""
     numer = kl_w_numer(x, H, W, bf16)
     return numer, H.sum(1)[:, :, None].expand(W.shape)
+
+
+def kl_w_stats_rows(x, H, W, idx):
+    """``(numer, denom)`` of the sketch recipe's KL W update from the row
+    subsample ``idx`` (``ops/sparse.py:ell_kl_w_stats_rows``): the sampled
+    rows become an encoding with its own transpose index set
+    (``sparse.ell_take_rows``, sorted, no atomics), whose numerator is the
+    ``w_numer`` kernel on the card."""
+    idx = torch.as_tensor(idx).to(device=H.device, dtype=torch.long)
+    return kl_w_stats(sparse.ell_take_rows(x, idx), H[:, idx].contiguous(),
+                      W)
 
 
 def kl_beta_err(x, H, W):

@@ -4,10 +4,12 @@ usage refit.
 
 Port of ``cnmf_torch_tpu/ops/nmf.py`` for every beta (Frobenius,
 Kullback-Leibler, Itakura-Saito, a generic beta on the dense lane; the
-ELL lane for beta in {1, 0}); the bf16 ratio chain and strict f32; the
-``mu``, ``amu``, ``dna`` and ``hals`` recipes of ``ops/recipe.py``; the
-bundle-packed beta=2 batch solver. Model convention as there: ``X (cells
-x genes) ~= H (cells x k) @ W (k x genes)``.
+ELL lane for beta in {1, 0}); the bf16 ratio chain, strict f32 and the
+f64 batch solve (``fp_precision="double"``); the ``mu``, ``amu``,
+``dna``, ``hals`` and ``sketch`` recipes of ``ops/recipe.py``; the
+bundle-packed beta=2 batch solver; the random and the nndsvd family of
+inits. Model convention as there: ``X (cells x genes) ~= H (cells x k) @
+W (k x genes)``.
 
 The replicate axis is explicit: ``H`` is ``(R, n, k)`` and ``W`` is
 ``(R, k, g)`` everywhere below (JAX ``vmap``-ed a solo solver instead).
@@ -41,8 +43,9 @@ __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "split_regularization", "mu_gamma", "nmf_fit_batch",
            "nmf_fit_batch_hals", "nmf_fit_batch_bundled", "bundle_width",
            "bundle_stacks", "unbundle_stacks", "bundled_beta2_update",
-           "nmf_fit_online", "random_init", "fit_h", "fit_h_default_init",
-           "lane_health", "run_nmf", "run_nmf_use_ell"]
+           "nmf_fit_online", "random_init", "nndsvd_base", "nndsvd_fill",
+           "nndsvd_init", "init_factors", "fit_h", "fit_h_default_init",
+           "lane_health", "run_nmf", "run_nmf_use_ell", "sweep_x_mean"]
 
 EPS = 1e-16
 EVAL_EVERY = 10
@@ -72,11 +75,16 @@ class SolverTelemetry(NamedTuple):
     dna_fallback: np.ndarray | None = None
 
 
-def lane_health(errs, spectra=None) -> np.ndarray:
-    """Per-lane health (True = finite final objective and, when given,
-    finite spectra) — computed on the host from the solver's outputs."""
+def lane_health(errs, nonfinite=None, spectra=None) -> np.ndarray:
+    """Per-lane health (True = finite final objective) — computed on the
+    host from the solver's outputs. ``nonfinite``: a
+    :class:`SolverTelemetry` latch array, folding in a lane whose objective
+    went nonfinite and recovered; ``spectra``: the stacked factors about
+    to be written, which must be finite too."""
     errs = np.asarray(errs, dtype=np.float64).reshape(-1)
     health = np.isfinite(errs)
+    if nonfinite is not None:
+        health = health & ~np.asarray(nonfinite).astype(bool).reshape(-1)
     if spectra is not None:
         S = np.asarray(spectra)
         health &= np.isfinite(S.reshape(S.shape[0], -1)).all(axis=1)
@@ -210,6 +218,45 @@ def _apply_rate(M, numer, denom, l1, l2, eps=EPS, gamma: float = 1.0):
     if gamma != 1.0:
         rate = rate ** gamma
     return M * rate
+
+
+def _apply_rate_sketched(W, numer, denom, l1, l2):
+    """MU rate from subsampled W statistics (the sketch recipe): an entry
+    whose sampled numerator is exactly 0 (no sampled nonzero in its
+    column) keeps its value instead of being multiplied by zero, since
+    exact zeros are absorbing under MU; a truly dead entry still decays
+    through the interleaved exact updates."""
+    return torch.where(numer > 0.0, _apply_rate(W, numer, denom, l1, l2), W)
+
+
+def _sketch_rows(step: int, m: int, n: int, stream: int, rows, device):
+    """The ``m`` row indices in ``[0, n)`` of sketched W update number
+    ``step``: ``rows[step]`` when the caller gave a table (the parity tests
+    feed the JAX package's draws), else a CPU ``torch.Generator`` seeded
+    from ``(stream, step)`` (stream 0 the batch solver's iterations, 1 the
+    online solver's ``pass * chunks + chunk``), so every run and device
+    draws the same rows."""
+    if rows is not None:
+        idx = torch.as_tensor(np.asarray(rows[step])).long()
+    else:
+        gen = torch.Generator().manual_seed((int(stream) << 32) + int(step))
+        idx = torch.randint(0, int(n), (int(m),), generator=gen)
+    return idx.to(device)
+
+
+def _sketched_w_update(X, H, W, idx, l1, l2, n_total):
+    """One sketched KL W update from the rows ``idx``: the ELL statistics
+    through ``kl_ell.kl_w_stats_rows`` (the ``w_numer`` kernel on the
+    card), the dense ones from the gathered rows; the penalties scale with
+    the sampled fraction, as the JAX package scales them."""
+    if isinstance(X, EllMatrix):
+        numer, denom = kl_ell.kl_w_stats_rows(X, H, W, idx)
+    else:
+        Hs = H[:, idx]
+        numer = Hs.mT @ (X[idx] / torch.clamp_min(Hs @ W, EPS))
+        denom = Hs.sum(1)[:, :, None].expand(W.shape)
+    sc = idx.numel() / n_total
+    return _apply_rate_sketched(W, numer, denom, l1 * sc, l2 * sc)
 
 
 def _bf16_eps(t):
@@ -587,7 +634,8 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
                   max_iter: int = 200, l1_H: float = 0.0, l2_H: float = 0.0,
                   l1_W: float = 0.0, l2_W: float = 0.0,
                   inner_repeats: int = 1, kl_newton: bool = False,
-                  trace: list | None = None):
+                  trace: list | None = None, sketch_dim: int = 0,
+                  sketch_exact_every: int = 1, sketch_rows=None):
     """Alternating MU updates of ``R`` replicates at once (:func:`_batch_loop`
     stops each lane as its solo JAX ``while_loop`` would).
 
@@ -601,8 +649,20 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
     below ``INNER_STAG_TOL``; ``kl_newton`` (dna, beta=1) runs
     :func:`_dna_h_step` and, on dense ``X``, :func:`_dna_w_step` (an ELL
     ``X`` keeps the exact MU W step). ELL statistics are strict f32.
+
+    The sketch recipe (``sketch_dim > 0``, beta=1): the H updates stay
+    exact, and each W update runs from a ``sketch_dim``-row subsample of
+    ``X`` (:func:`_sketch_rows`, shared by every lane; ``sketch_rows``, a
+    ``(iterations, m)`` table, replaces the draws), except at iteration 0,
+    every ``sketch_exact_every``-th iteration and every iteration that
+    feeds an objective evaluation, which run the exact update, so the
+    stopping rule compares exactly updated states.
+
+    The solve keeps the dtype of its operands: f64 ``X``, ``H0`` and
+    ``W0`` (dense) run the whole solve in f64.
     """
     inner_repeats = int(inner_repeats)
+    sketch_dim = int(sketch_dim)
     if kl_newton and beta != 1.0:
         raise ValueError(
             f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
@@ -610,6 +670,17 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
         raise ValueError("kl_newton and inner_repeats>1 are exclusive "
                          "recipes (dna vs amu)")
     ell = isinstance(X, EllMatrix)
+    n_total = int(X.vals.shape[0] if ell else X.shape[0])
+    if sketch_dim:
+        if beta != 1.0:
+            raise ValueError(
+                f"sketch_dim is the beta=1 (KL) sketch recipe's knob, "
+                f"got beta={beta}")
+        if kl_newton or inner_repeats != 1:
+            raise ValueError("the sketch recipe is exclusive with the "
+                             "dna/amu recipes")
+        sketch_dim = min(sketch_dim, n_total)
+    it_w = [0]      # the outer iteration of the coming W update
 
     def h_step(H, W, active):
         """``(H_new, inner updates (R,) | 1, fallback (R,) | None)``."""
@@ -632,9 +703,17 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
 
     def step(H, W, active):
         H_new, inner_n, fb = h_step(H, W, active)
+        it = it_w[0]
+        it_w[0] += 1
         if kl_newton and not ell:
             W_new, fb_w = _dna_w_step(X, H_new, W, l1_W, l2_W)
             fb = 0.5 * (fb + fb_w)
+        elif (sketch_dim and it % max(int(sketch_exact_every), 1) != 0
+              and (it + 1) % EVAL_EVERY != 0):
+            idx = _sketch_rows(it, sketch_dim, n_total, 0, sketch_rows,
+                               H.device)
+            W_new = _sketched_w_update(X, H_new, W, idx, l1_W, l2_W,
+                                       n_total)
         else:
             W_new = _update_W(X, H_new, W, beta, l1_W, l2_W)
         return H_new, W_new, inner_n, fb
@@ -771,7 +850,9 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                    l1_W: float = 0.0, l2_W: float = 0.0,
                    h_tol_start: float | None = None,
                    bf16_ratio: bool = False, trace: list | None = None,
-                   kl_newton: bool = False, algo: str = "mu"):
+                   kl_newton: bool = False, algo: str = "mu",
+                   sketch_dim: int = 0, sketch_exact_every: int = 1,
+                   sketch_rows=None):
     """Streamed MU over pre-chunked inputs for ``R`` replicates at once.
 
     ``Xc``: ``(C, chunk, genes)`` dense tensor or a pre-chunked
@@ -794,20 +875,39 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
     ``kl_newton`` (beta=1, the dna recipe): the chunk usage solves run
     Diagonalized-Newton steps with the per-row MU fallback; the chunk W
     steps stay MU, and the bf16 ratio chain is off (strict f32).
+
+    The sketch recipe (``sketch_dim > 0``, beta=1, strict f32): the chunk
+    usage solves and objectives stay exact, and each chunk's W step runs
+    from a ``sketch_dim``-row subsample of that chunk (step number ``pass
+    * chunks + chunk`` of :func:`_sketch_rows`; ``sketch_rows`` replaces
+    the draws), except on the first and every ``sketch_exact_every``-th
+    pass; only a pass of exact W steps may stop a lane.
     """
     if kl_newton and beta != 1.0:
         raise ValueError(
             f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
+    sketch_dim = int(sketch_dim)
+    E = max(int(sketch_exact_every), 1)
+    if sketch_dim:
+        if beta != 1.0:
+            raise ValueError(
+                f"sketch_dim is the beta=1 (KL) sketch recipe's knob, "
+                f"got beta={beta}")
+        if kl_newton:
+            raise ValueError("the sketch recipe is exclusive with dna")
     if algo not in ("mu", "halsvar"):
         raise ValueError(f"unknown online algo {algo!r}")
     if algo == "halsvar" and beta != 2.0:
         raise ValueError("algo='halsvar' optimizes the Frobenius objective")
-    bf16 = bool(bf16_ratio) and beta in (1.0, 0.0) and not kl_newton
+    bf16 = (bool(bf16_ratio) and beta in (1.0, 0.0) and not kl_newton
+            and not sketch_dim)
     ell = isinstance(Xc, EllMatrix)
     R, C = Hc0.shape[0], Hc0.shape[1]
     dev = W0.device
     chunks = [_chunk(Xc, c) for c in range(C)]
     casts = [_cast_x(x, bf16) for x in chunks]
+    chunk_rows = int(Hc0.shape[2])
+    m_c = min(sketch_dim, chunk_rows)
 
     def h_tol_for(p):
         if h_tol_start is None:
@@ -817,7 +917,7 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
             h_tol_start * torch.pow(0.5, p.to(torch.float32)),
             float(np.float32(h_tol)))
 
-    def one_pass(Hc, W, p, active):
+    def one_pass(Hc, W, p, active, pass_no):
         h_tol_p = h_tol_for(p)
         err = torch.zeros(R, dtype=torch.float32, device=dev)
         Hc = Hc.clone()
@@ -853,14 +953,21 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                 err_c = beta_divergence(x, h, W, beta=beta)
             else:
                 err_c = _beta_div_dense(x, torch.clamp_min(h @ W, EPS), beta)
-            W_new = _update_W(x, h, W, beta, l1_W, l2_W, bf16_ratio=bf16)
+            if sketch_dim and pass_no % E != 0:
+                idx = _sketch_rows(pass_no * C + c, m_c, chunk_rows, 1,
+                                   sketch_rows, dev)
+                W_new = _sketched_w_update(x, h, W, idx, l1_W, l2_W,
+                                           chunk_rows)
+            else:
+                W_new = _update_W(x, h, W, beta, l1_W, l2_W,
+                                  bf16_ratio=bf16)
             W = torch.where(active[:, None, None], W_new, W)
             Hc[:, c] = h
             err = err + err_c
         return Hc, W, err
 
     all_on = torch.ones(R, dtype=torch.bool, device=dev)
-    Hc, W, err0 = one_pass(Hc0, W0, torch.zeros(R, device=dev), all_on)
+    Hc, W, err0 = one_pass(Hc0, W0, torch.zeros(R, device=dev), all_on, 0)
     err_prev = err0 * (1.0 + 2.0 * tol) + 1.0
     err = err0
     it = torch.ones(R, dtype=torch.int32, device=dev)
@@ -871,13 +978,19 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
         if h_tol_start is not None:
             keep = keep | (h_tol_start * torch.pow(0.5, it.to(torch.float32))
                            > float(np.float32(h_tol)))
+        if sketch_dim:
+            # pass it-1 ran exact W steps iff (it-1) % E == 0: a sketched
+            # pass's state never stops a lane
+            keep = keep | ((it - 1) % E != 0)
         return (it < n_passes) & keep
 
     if trace is not None:
         trace.append(err0.cpu().numpy())
     act = active_of(err_prev, err, it)
+    pass_no = 1     # every active lane has run this many passes
     while bool(act.any()):
-        Hc, W, err_new = one_pass(Hc, W, it, act)
+        Hc, W, err_new = one_pass(Hc, W, it, act, pass_no)
+        pass_no += 1
         err_prev = torch.where(act, err, err_prev)
         err = torch.where(act, err_new, err)
         it = it + act.to(torch.int32)
@@ -896,6 +1009,14 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
 # initialization and the fixed-spectra usage refit
 # ---------------------------------------------------------------------------
 
+def sweep_x_mean(Xs, n: int, g: int) -> float:
+    """The random init's scale ``mean(X)`` as a replicate sweep takes it:
+    an f32 sum over the staged matrix on its device (dense, or an ELL
+    encoding's stored values; padded rows add nothing) over ``n * g``."""
+    return float((Xs.vals.sum() if isinstance(Xs, EllMatrix) else Xs.sum())
+                 / (n * g))
+
+
 def random_init(seed: int, n: int, g: int, k: int, x_mean: float,
                 device="cpu"):
     """Scaled random init ``avg * |N(0, 1)|`` with ``avg = sqrt(mean(X)/k)``,
@@ -906,6 +1027,100 @@ def random_init(seed: int, n: int, g: int, k: int, x_mean: float,
     H = avg * torch.randn((n, k), generator=gen, dtype=torch.float32).abs()
     W = avg * torch.randn((k, g), generator=gen, dtype=torch.float32).abs()
     return H.to(device), W.to(device)
+
+
+def nndsvd_base(X, k: int):
+    """The exact-zero nndsvd base (Boutsidis & Gallopoulos 2008) of a dense
+    ``X (n, g)`` tensor: ``(H (n, k), W (k, g))`` in ``X``'s dtype and on
+    its device, from ``torch.linalg.svd`` (the JAX package computes its
+    SVD outside any Pallas kernel too)."""
+    U, S, Vt = torch.linalg.svd(X, full_matrices=False)
+    return _nndsvd_from_svd(U[:, :k], S[:k], Vt[:k, :], int(k))
+
+
+def _nndsvd_from_svd(U, S, Vt, k: int):
+    """Each singular pair after the first split into its positive and
+    negative parts, the part with the larger norm product kept (a joint
+    sign flip of ``(u, v)`` swaps the parts and the choice, so the base
+    does not depend on the SVD's signs)."""
+    def split_pair(j):
+        u, v = U[:, j], Vt[j, :]
+        up, un = torch.clamp_min(u, 0.0), torch.clamp_min(-u, 0.0)
+        vp, vn = torch.clamp_min(v, 0.0), torch.clamp_min(-v, 0.0)
+        n_up, n_un = torch.linalg.vector_norm(up), torch.linalg.vector_norm(un)
+        n_vp, n_vn = torch.linalg.vector_norm(vp), torch.linalg.vector_norm(vn)
+        termp, termn = n_up * n_vp, n_un * n_vn
+        use_p = termp >= termn
+        sigma = torch.where(use_p, termp, termn)
+        hj = torch.where(use_p, up / torch.clamp_min(n_up, EPS),
+                         un / torch.clamp_min(n_un, EPS))
+        wj = torch.where(use_p, vp / torch.clamp_min(n_vp, EPS),
+                         vn / torch.clamp_min(n_vn, EPS))
+        scale = torch.sqrt(S[j] * sigma)
+        return scale * hj, scale * wj
+
+    cols = [torch.sqrt(S[0]) * U[:, 0].abs()]
+    rows = [torch.sqrt(S[0]) * Vt[0, :].abs()]
+    for j in range(1, k):
+        hj, wj = split_pair(j)
+        cols.append(hj)
+        rows.append(wj)
+    return torch.stack(cols, dim=1), torch.stack(rows, dim=0)
+
+
+def nndsvd_fill(H, W, x_mean: float, variant: str, seed: int = 0,
+                uniforms=None):
+    """Fill the base's exact zeros: ``nndsvd`` keeps them, ``nndsvda``
+    puts ``mean(X)/100`` there, ``nndsvdar`` ``mean(X)/100 * uniform(0,
+    1)`` with the uniforms drawn ``(n, k)`` then ``(k, g)`` from a CPU
+    ``torch.Generator`` seeded with ``seed`` (``uniforms``: a pair of
+    arrays of those shapes in their place; the parity tests feed the JAX
+    package's draws)."""
+    if variant == "nndsvd":
+        return H, W
+    fill = float(x_mean) / 100.0
+    if variant == "nndsvda":
+        return (torch.where(H == 0.0, fill, H),
+                torch.where(W == 0.0, fill, W))
+    if variant != "nndsvdar":
+        raise ValueError(f"unknown nndsvd variant {variant!r}")
+    if uniforms is None:
+        gen = torch.Generator().manual_seed(int(seed))
+        uH = torch.rand(tuple(H.shape), generator=gen, dtype=torch.float32)
+        uW = torch.rand(tuple(W.shape), generator=gen, dtype=torch.float32)
+    else:
+        uH, uW = (torch.as_tensor(np.array(u)) for u in uniforms)
+    uH = uH.to(device=H.device, dtype=H.dtype)
+    uW = uW.to(device=W.device, dtype=W.dtype)
+    return (torch.where(H == 0.0, fill * uH, H),
+            torch.where(W == 0.0, fill * uW, W))
+
+
+def nndsvd_init(X, k: int, variant: str = "nndsvd", seed: int = 0,
+                uniforms=None):
+    """Nonnegative double SVD init of a dense ``X`` tensor: the base of
+    :func:`nndsvd_base` filled per :func:`nndsvd_fill`."""
+    H, W = nndsvd_base(X, k)
+    return nndsvd_fill(H, W, float(X.mean()), variant, seed, uniforms)
+
+
+def init_factors(X, k: int, init: str, seed: int, x_mean=None,
+                 uniforms=None):
+    """``(H0, W0)`` for a dense ``X`` tensor under the reference's inits:
+    ``random`` (:func:`random_init`), or the nndsvd family, where
+    ``nndsvd`` maps to the seeded ``nndsvdar`` fill (exact zeros are
+    absorbing under MU, and a deterministic fill would make every
+    replicate of a sweep the same), which the batched sweep's inits give
+    for the same seed (``parallel/replicates.py:stacked_inits``)."""
+    n, g = X.shape
+    if init == "random":
+        if x_mean is None:
+            x_mean = float(X.mean())
+        return random_init(int(seed), n, g, k, x_mean, device=X.device)
+    if init in ("nndsvd", "nndsvda", "nndsvdar"):
+        variant = "nndsvdar" if init == "nndsvd" else init
+        return nndsvd_init(X, k, variant, seed, uniforms)
+    raise ValueError(f"unknown init {init!r}")
 
 
 def fit_h_default_init(n: int, k: int, seed: int = 0, device="cpu"):
@@ -1031,7 +1246,8 @@ def run_nmf(X, n_components: int, init: str = "random",
             l1_ratio_H: float = 0.0, random_state: int = 0,
             n_jobs: int = -1, use_gpu: bool = False,
             fp_precision: str = "float", online_h_tol: float | None = None,
-            recipe: SolverRecipe | None = None, device="cuda"):
+            recipe: SolverRecipe | None = None, x_mean: float | None = None,
+            device="cuda"):
     """One NMF solve with the nmf-torch ``run_nmf`` keyword contract.
 
     Returns ``(H usages (n, k), W spectra (k, g), err)`` as numpy and a
@@ -1044,18 +1260,24 @@ def run_nmf(X, n_components: int, init: str = "random",
     (``CNMF_TPU_ACCEL`` ``auto`` gives batch KL the dna recipe, batch IS
     amu); a caller-pinned ``hals`` recipe runs the ``halsvar`` lane.
 
-    Ported: ``init='random'``, ``fp_precision='float'``, every beta,
-    ``algo`` ``'mu'`` and ``'halsvar'`` (Frobenius), the mu, amu, dna and
-    hals recipes. ``init='nndsvd'``, ``fp_precision='double'`` and the
-    sketch recipe raise ``NotImplementedError`` naming themselves.
+    ``init``: ``random``, or the nndsvd family (:func:`init_factors`; the
+    SVD needs the dense matrix, so those inits run the dense lane).
+    ``fp_precision='double'`` runs the whole batch solve in f64 with plain
+    updates (``mode='online'`` raises, as in the JAX package). Every beta,
+    ``algo`` ``'mu'`` and ``'halsvar'`` (Frobenius), and the mu, amu, dna,
+    hals and sketch recipes. ``x_mean``: the random init's scale; by
+    default the host mean ``X.sum() / (n g)`` on the ELL lane and the
+    device mean on the dense lane, as in the JAX package (factorize's
+    sequential lane passes the batched lane's :func:`sweep_x_mean`).
     """
     dev = resolve_device(device)
     if fp_precision not in ("float", "double"):
         raise ValueError(
             f"fp_precision={fp_precision!r}: expected 'float' or 'double'")
-    if fp_precision == "double":
+    if fp_precision == "double" and mode != "batch":
         raise NotImplementedError(
-            "fp_precision='double' is not ported yet (the port runs f32)")
+            "fp_precision='double' is implemented for mode='batch'; the "
+            "online solver is fp32 by contract")
     if algo not in ("mu", "halsvar"):
         raise NotImplementedError(
             f"algo={algo!r}: 'mu' (all beta losses, batch+online) and "
@@ -1065,9 +1287,6 @@ def run_nmf(X, n_components: int, init: str = "random",
         raise ValueError(
             "algo='halsvar' optimizes the Frobenius objective; use "
             "algo='mu' for kullback-leibler / itakura-saito")
-    if init != "random":
-        raise NotImplementedError(
-            f"init={init!r} is not ported yet (the port runs 'random')")
     if mode not in ("batch", "online"):
         raise ValueError(f"unknown mode {mode!r}")
     online_h_tol, n_passes, h_tol_start = resolve_online_schedule(
@@ -1086,27 +1305,37 @@ def run_nmf(X, n_components: int, init: str = "random",
         raise ValueError(
             f"recipe {recipe.label!r} requires beta=1 (KL), got "
             f"beta_loss={beta_loss!r}")
-    if recipe.algo == "sketch":
-        raise NotImplementedError(
-            "the sketch recipe is not ported yet (the port runs mu, amu, "
-            "dna and hals)")
     k = int(n_components)
     l1_W, l2_W = split_regularization(alpha_W, l1_ratio_W)
     l1_H, l2_H = split_regularization(alpha_H, l1_ratio_H)
     n, g = X.shape
     chunk = int(min(online_chunk_size, n))
+    seed = int(random_state) & 0x7FFFFFFF
+    if fp_precision == "double":
+        Xd = dense_on_device(X, dev).double()
+        H0, W0 = init_factors(Xd, k, init, seed)
+        H0, W0 = H0.double()[None], W0.double()[None]
+        batch_kw = dict(tol=float(tol), max_iter=int(batch_max_iter),
+                        l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
+        if algo == "halsvar":
+            H, W, err = nmf_fit_batch_hals(Xd, H0, W0, **batch_kw)
+        else:
+            H, W, err = nmf_fit_batch(Xd, H0, W0, beta=beta, **batch_kw)
+        return H[0].cpu().numpy(), W[0].cpu().numpy(), float(err[0])
     if use_ell:
-        x_mean = float(X.sum()) / (n * g)
         if mode == "online":
             Xs, pad = ell_chunk_rows(X, chunk)
         else:
             Xs = csr_to_ell(X)
         Xs = Xs.to(dev)
+        if x_mean is None:
+            x_mean = float(X.sum()) / (n * g)
+        H0, W0 = random_init(seed, n, g, k, x_mean, device=dev)
     else:
         Xs = dense_on_device(X, dev)
-        x_mean = float(Xs.mean())
-    H0, W0 = random_init(int(random_state) & 0x7FFFFFFF, n, g, k, x_mean,
-                         device=dev)
+        H0, W0 = init_factors(Xs, k, init, seed, x_mean=x_mean)
+    sketch = dict(sketch_dim=int(recipe.sketch_dim),
+                  sketch_exact_every=int(recipe.sketch_exact_every))
     if mode == "batch" and algo == "halsvar":
         H, W, err = nmf_fit_batch_hals(
             Xs, H0[None], W0[None], tol=float(tol),
@@ -1118,7 +1347,7 @@ def run_nmf(X, n_components: int, init: str = "random",
             Xs, H0[None], W0[None], beta=beta, tol=float(tol),
             max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
             l2_W=l2_W, inner_repeats=int(recipe.inner_repeats),
-            kl_newton=bool(recipe.kl_newton))
+            kl_newton=bool(recipe.kl_newton), **sketch)
         H = H[0]
     else:
         if use_ell:
@@ -1134,6 +1363,6 @@ def run_nmf(X, n_components: int, init: str = "random",
             n_passes=int(n_passes), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
             l2_W=l2_W, h_tol_start=h_tol_start,
             bf16_ratio=resolve_bf16_ratio(beta, mode),
-            kl_newton=bool(recipe.kl_newton), algo=algo)
+            kl_newton=bool(recipe.kl_newton), algo=algo, **sketch)
         H = Hc.reshape(-1, k)[:n]
     return H.cpu().numpy(), W[0].cpu().numpy(), float(err[0])

@@ -12,8 +12,9 @@ and errors, so one environment resolves one recipe in both packages:
   chosen by comparing the two candidates' exact row objectives, so the
   composite is monotone like MU;
 * ``hals`` — hierarchical ALS for the Frobenius loss (``algo="halsvar"``);
-* ``sketch`` resolves here as it does in the JAX package; the port's
-  solvers do not run it yet and raise ``NotImplementedError``.
+* ``sketch`` — sketched KL W updates (arXiv:1604.04026): each W update
+  from a row subsample, with exact updates interleaved
+  (``ops/nmf.py``).
 
 Resolution order: explicit caller arguments > env knobs > the auto
 heuristic. Knobs (``utils/envknobs.py``): ``CNMF_TPU_ACCEL`` (``auto`` by

@@ -46,7 +46,7 @@ __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_beta_err_nz", "ell_beta_err_rows", "total_wh",
            "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
            "ell_kl_h_newton_stats", "is_per_elem", "ell_is_h_stats",
-           "ell_is_w_stats"]
+           "ell_is_w_stats", "ell_take_rows", "ell_kl_w_stats_rows"]
 
 EPS = 1e-16
 # auto-dispatch ceiling: <= 10% nonzeros and row width <= g/8
@@ -397,6 +397,49 @@ def ell_kl_w_numer(x: EllMatrix, H, W, bf16: bool = False):
 def ell_kl_w_stats(x: EllMatrix, H, W, bf16: bool = False):
     numer = ell_kl_w_numer(x, H, W, bf16)
     return numer, H.sum(1)[:, :, None].expand(W.shape)
+
+
+def ell_take_rows(x: EllMatrix, idx) -> EllMatrix:
+    """The rows ``idx`` of an unchunked encoding (repeats allowed; a
+    repeated row counts twice) as an encoding of its own, on ``x``'s
+    device, with a transpose index set built for it there: the stored
+    slots' flat positions in row-major order, stably sorted by column, so
+    each gene lists its slots in increasing position and every padded
+    slot points at the sentinel ``m * w``. Every step is deterministic
+    (no floating-point atomics), so the statistics of a sampled encoding
+    are bit-identical from run to run."""
+    idx = torch.as_tensor(idx).to(device=x.vals.device, dtype=torch.long)
+    vals = x.vals[idx].contiguous()
+    cols = x.cols[idx].contiguous()
+    m, w = vals.shape
+    g = int(x.g)
+    dev = vals.device
+    pos = torch.nonzero(vals.reshape(-1) != 0).reshape(-1)
+    genes = cols.reshape(-1)[pos].long()
+    genes, order = torch.sort(genes, stable=True)
+    pos = pos[order]
+    counts = torch.bincount(genes, minlength=g)
+    t_width = _pad_width(int(counts.max()) if pos.numel() else 0)
+    slot = (torch.arange(pos.numel(), device=dev)
+            - (torch.cumsum(counts, 0) - counts)[genes])
+    rows_t = torch.zeros((g, t_width), dtype=torch.int32, device=dev)
+    perm_t = torch.full((g, t_width), m * w, dtype=torch.int32, device=dev)
+    rows_t[genes, slot] = torch.div(pos, w, rounding_mode="floor").int()
+    perm_t[genes, slot] = pos.int()
+    return EllMatrix(vals, cols, g, rows_t, perm_t)
+
+
+def ell_kl_w_stats_rows(x: EllMatrix, H, W, idx):
+    """KL W-update statistics from the row subsample ``idx`` of the sketch
+    recipe: the numerator ``H[idx]^T (X[idx] / WH[idx])`` on the sampled
+    rows' stored slots and the sampled rows' column sums, both ``(R, k,
+    g)``. The JAX package scatter-adds the sampled slots' contributions
+    per column; here :func:`ell_take_rows` sorts them by column and each
+    gene sums its own list, which gives the same function without
+    floating-point atomics (the order of a scatter-add on a card changes
+    from run to run)."""
+    idx = torch.as_tensor(idx).to(device=H.device, dtype=torch.long)
+    return ell_kl_w_stats(ell_take_rows(x, idx), H[:, idx].contiguous(), W)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,15 @@ k <= 21 the bundle-packed solver). Replicates run in slices sized from
 the card's free memory (:func:`auto_replicates_per_batch`).
 :func:`replicate_sweep_packed` gives a multi-K sweep the JAX package's
 packed contract over the per-K sweeps.
+
+Inits: the seeded random init, or the nndsvd family, whose SVD base is
+computed once per sweep and whose exact zeros each replicate fills from
+its own seed (:func:`stacked_inits`).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -23,13 +29,17 @@ import torch
 from ..device import resolve_device
 from ..ops.nmf import (beta_loss_to_float, bundle_width, dense_on_device,
                        nmf_fit_batch, nmf_fit_batch_bundled,
-                       nmf_fit_batch_hals, nmf_fit_online, random_init,
-                       resolve_bf16_ratio, resolve_online_schedule,
-                       split_regularization)
+                       nmf_fit_batch_hals, nmf_fit_online, nndsvd_base,
+                       nndsvd_fill, random_init, resolve_bf16_ratio,
+                       resolve_online_schedule, split_regularization,
+                       sweep_x_mean)
 from ..ops.recipe import SolverRecipe, resolve_recipe
 from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width, resolve_sparse_beta)
+from ..runtime.faults import maybe_fail
 from ..utils.envknobs import env_int
+
+_INITS = ("random", "nndsvd", "nndsvda", "nndsvdar")
 
 __all__ = ["worker_filter", "auto_replicates_per_batch", "replicate_sweep",
            "replicate_sweep_packed", "stacked_inits"]
@@ -100,10 +110,21 @@ def auto_replicates_per_batch(n: int, g: int, k: int, beta: float = 2.0,
 
 
 def stacked_inits(x_mean: float, n: int, g: int, k: int, seeds,
-                  device="cpu"):
-    """Per-replicate ``(H0 (R, n, k), W0 (R, k, g))`` scaled random inits,
-    each drawn from a CPU generator seeded with the replicate's seed."""
-    pairs = [random_init(int(s), n, g, k, x_mean) for s in seeds]
+                  device="cpu", init: str = "random", base=None):
+    """Per-replicate ``(H0 (R, n, k), W0 (R, k, g))`` inits. ``random``:
+    scaled random inits, each drawn from a CPU generator seeded with the
+    replicate's seed. The nndsvd family takes ``base``, the sweep's
+    exact-zero nndsvd base ``(H (n, k), W (k, g))`` on ``device``:
+    ``nndsvd`` and ``nndsvdar`` fill its zeros with ``mean(X)/100 *
+    uniform`` drawn from each replicate's seed (distinct replicates),
+    ``nndsvda`` with ``mean(X)/100`` (every replicate the same)."""
+    if init == "random":
+        pairs = [random_init(int(s), n, g, k, x_mean) for s in seeds]
+    elif init == "nndsvda":
+        pairs = [nndsvd_fill(*base, x_mean, "nndsvda")] * len(list(seeds))
+    else:
+        pairs = [nndsvd_fill(*base, x_mean, "nndsvdar", int(s))
+                 for s in seeds]
     return (torch.stack([p[0] for p in pairs]).to(device),
             torch.stack([p[1] for p in pairs]).to(device))
 
@@ -114,8 +135,15 @@ def _stage(X, beta: float, init: str, mode: str, chunk: int, dev):
     chunk, g)``. Batch: the unchunked ELL encoding with its transpose
     index set, else the dense ``(n, g)`` matrix. A caller-staged
     :class:`EllMatrix` must be chunked for online and unchunked for batch
-    (``n`` is then None: pass the true cell count as ``n_rows``)."""
+    (``n`` is then None: pass the true cell count as ``n_rows``). The
+    fault harness's ``upload`` clause raises here (context
+    ``replicate_sweep._stage``)."""
+    maybe_fail("upload", context="replicate_sweep._stage")
     if isinstance(X, EllMatrix):
+        if init != "random":
+            # the nndsvd family's SVD base needs the dense matrix
+            raise ValueError(
+                f"ELL-encoded sweeps require init='random', got {init!r}")
         want_chunked = mode == "online"
         if want_chunked != (X.vals.ndim == 3):
             raise ValueError(
@@ -175,11 +203,14 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     dispatch rule engages for beta in {1, 0}: row-chunked online, whole
     with its transpose index set in batch mode), a dense tensor, or a
     caller-staged :class:`EllMatrix` (pre-chunked online, unchunked batch;
-    pass the true cell count as ``n_rows``). ``inits``: optional explicit
-    ``(H0 (R, n, k), W0 (R, k, g))`` in place of the seeded random draws.
+    pass the true cell count as ``n_rows``). ``init``: ``random`` or the
+    nndsvd family (:func:`stacked_inits`; dense lane only). ``inits``:
+    optional explicit ``(H0 (R, n, k), W0 (R, k, g))`` in place of the
+    seeded draws.
     ``recipe``: the resolved :class:`SolverRecipe`, else resolved from the
     env knobs (batch KL: ``dna`` by default, batch IS ``amu``); ``hals``
-    runs the HALS solvers (beta=2). A beta=2 batch sweep under plain MU
+    runs the HALS solvers (beta=2), ``sketch`` the sketched W updates
+    (beta=1). A beta=2 batch sweep under plain MU
     runs :func:`~..ops.nmf.nmf_fit_batch_bundled` when at least
     ``BUNDLE_MIN_WIDTH`` replicates fit a bundle, else the per-replicate
     :func:`~..ops.nmf.nmf_fit_batch`. ``trace``: a list
@@ -190,9 +221,8 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     dev = resolve_device(device)
     if mode not in ("online", "batch"):
         raise ValueError(f"unknown mode {mode!r}")
-    if init != "random":
-        raise NotImplementedError(
-            f"init={init!r} is not ported yet (the port runs 'random')")
+    if init not in _INITS:
+        raise ValueError(f"unknown init {init!r}")
     beta = beta_loss_to_float(beta_loss)
     chunk = int(min(online_chunk_size, X.shape[0]))
     Xs, n_staged = _stage(X, beta, init, mode, chunk, dev)
@@ -212,10 +242,9 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     if recipe.algo == "hals" and beta != 2.0:
         raise ValueError("the hals recipe optimizes the Frobenius "
                          "objective; this sweep has beta=%g" % beta)
-    if recipe.algo == "sketch":
-        raise NotImplementedError(
-            "the sketch recipe is not ported yet (the port runs mu, amu, "
-            "dna and hals)")
+    if recipe.algo == "sketch" and beta != 1.0:
+        raise ValueError("the sketch recipe requires beta=1 (KL); this "
+                         "sweep has beta=%g" % beta)
     if recipe.kl_newton and beta != 1.0:
         raise ValueError(f"the dna recipe requires beta=1 (KL); this sweep "
                          f"has beta={beta}")
@@ -235,18 +264,28 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
         return (np.zeros((0, k, g), np.float32),
                 np.zeros((0, n, k), np.float32) if return_usages else None,
                 np.zeros((0,), np.float32))
-    # mean over all n*g entries: padded rows are all-zero and add nothing
-    x_mean = float((Xs.vals.sum() if ell else Xs.sum()) / (n * g))
+    if init == "nndsvda" and R > 1:
+        warnings.warn(
+            "init='nndsvda' is deterministic given X: all %d replicates of "
+            "this sweep will be identical and consensus over them is "
+            "vacuous. Use init='nndsvd' (seeded nndsvdar fill) or 'random' "
+            "for replicate sweeps." % R, UserWarning, stacklevel=2)
+    x_mean = sweep_x_mean(Xs, n, g)
+    # the nndsvd family's SVD base: once per sweep, on the unpadded rows
+    base = (None if init == "random" or inits is not None
+            else nndsvd_base(Xs.reshape(-1, g)[:n], k))
     rpb = replicates_per_batch or auto_replicates_per_batch(
         n, g, k, beta=beta, chunk=chunk if mode == "online" else n,
         ell_width=Xs.width if ell else None, kl_newton=recipe.kl_newton,
         device=dev)
     reg = dict(l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
+    sketch = dict(sketch_dim=int(recipe.sketch_dim),
+                  sketch_exact_every=int(recipe.sketch_exact_every))
     spectra, usages, errs = [], [], []
     for start in range(0, R, rpb):
         sl = seeds[start:start + rpb]
         if inits is None:
-            H0, W0 = stacked_inits(x_mean, n, g, k, sl, dev)
+            H0, W0 = stacked_inits(x_mean, n, g, k, sl, dev, init, base)
         else:
             H0 = torch.tensor(np.ascontiguousarray(
                 inits[0][start:start + rpb], np.float32)).to(dev)
@@ -264,7 +303,7 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                 H, W, err = nmf_fit_batch(
                     Xs, H0, W0, beta=beta,
                     inner_repeats=int(recipe.inner_repeats),
-                    kl_newton=bool(recipe.kl_newton), **batch_kw)
+                    kl_newton=bool(recipe.kl_newton), **sketch, **batch_kw)
         else:
             passes = [] if trace is not None else None
             Hc, W, err = nmf_fit_online(
@@ -273,7 +312,7 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                 chunk_max_iter=int(online_chunk_max_iter),
                 n_passes=n_passes, h_tol_start=h_tol_start, bf16_ratio=bf16,
                 trace=passes, kl_newton=bool(recipe.kl_newton),
-                algo="halsvar" if hals else "mu", **reg)
+                algo="halsvar" if hals else "mu", **sketch, **reg)
             if trace is not None:
                 trace.append(np.stack(passes))
             H = Hc.reshape(len(sl), n_padded, k)

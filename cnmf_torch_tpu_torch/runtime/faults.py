@@ -1,0 +1,341 @@
+"""Deterministic fault injection behind ``CNMF_TPU_FAULT_SPEC``.
+
+Own copy of ``cnmf_torch_tpu/runtime/faults.py``: the same spec grammar,
+the same 14 fault kinds, selector and control keys and the same errors, so
+one ``CNMF_TPU_FAULT_SPEC`` means one thing to both packages. The port
+calls the hooks of the layers it has:
+
+* ``nonfinite`` -- :func:`maybe_poison_lanes` sets replicate lanes to NaN
+  after a sweep returns (the quarantine and derived-seed retry path);
+* ``kill`` -- :func:`maybe_kill` SIGKILLs this process at a stage hook
+  (the resume path);
+* ``torn`` -- :func:`maybe_tear` truncates an artifact after its atomic
+  write lands (reader-side validation in resume and combine);
+* ``upload`` -- :func:`maybe_fail` raises at the host-to-device staging of
+  a replicate sweep;
+* ``straggler`` -- :func:`maybe_straggle` sleeps at a per-task hook.
+
+The other kinds (``stall``, ``hostloss``, ``shard_read``, ``netflake``,
+``netslow``, ``netdown``, ``nettorn``, ``replicadeath``, ``replicawedge``)
+parse here, and their hooks wait for the layers that call them (the
+streaming, row-shard, store and serving layers, not ported yet).
+
+Spec grammar (semicolon-separated clauses)::
+
+    CNMF_TPU_FAULT_SPEC="nonfinite:k=5,iter=2;kill:stage=factorize,worker=1;torn:artifact=iter_"
+
+Each clause is ``kind`` or ``kind:key=val[,key=val...]``. Selector keys
+(``k``, ``iter``, ``attempt``, ``seed``, ``stage``, ``worker``,
+``artifact``, ``context``) narrow where the fault fires; control keys
+modulate it: ``after=N`` skips the first N matching hook hits,
+``limit=N`` caps injections per process, and ``once=PATH`` claims a
+filesystem sentinel with ``O_CREAT|O_EXCL`` so exactly one process ever
+injects the clause (a respawned worker must not kill itself again).
+
+With the spec unset or empty every hook returns after one cached lookup.
+The module imports only the standard library at import time.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+
+__all__ = ["FAULT_SPEC_ENV", "FaultClause", "parse_fault_spec",
+           "active_spec", "maybe_poison_lanes", "maybe_kill", "maybe_tear",
+           "maybe_fail", "maybe_straggle"]
+
+FAULT_SPEC_ENV = "CNMF_TPU_FAULT_SPEC"
+
+_KINDS = ("nonfinite", "kill", "torn", "upload", "stall", "hostloss",
+          "straggler", "shard_read", "netflake", "netslow", "netdown",
+          "nettorn", "replicadeath", "replicawedge")
+_CONTROL_KEYS = ("after", "limit", "once")
+
+
+class FaultClause:
+    """One parsed clause: ``kind``, its params and per-process hit
+    counters. Parsed specs are cached per raw string, so the ``after`` and
+    ``limit`` counters survive repeated hook calls."""
+
+    __slots__ = ("kind", "params", "hits", "injected")
+
+    def __init__(self, kind: str, params: dict):
+        self.kind = kind
+        self.params = params
+        self.hits = 0
+        self.injected = 0
+
+    def __repr__(self):
+        return f"FaultClause({self.kind!r}, {self.params!r})"
+
+
+def parse_fault_spec(raw: str) -> list[FaultClause]:
+    """Parse a spec string; raises ``ValueError`` on malformed input, so a
+    mistyped spec fails loudly instead of injecting nothing."""
+    clauses = []
+    for part in raw.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        kind, _, rest = part.partition(":")
+        kind = kind.strip()
+        if kind not in _KINDS:
+            raise ValueError(
+                f"{FAULT_SPEC_ENV}: unknown fault kind {kind!r} in "
+                f"{part!r} (known: {', '.join(_KINDS)})")
+        params: dict = {}
+        for kv in rest.split(","):
+            kv = kv.strip()
+            if not kv:
+                continue
+            key, sep, val = kv.partition("=")
+            if not sep or not key:
+                raise ValueError(
+                    f"{FAULT_SPEC_ENV}: expected key=value, got {kv!r} "
+                    f"in clause {part!r}")
+            val = val.strip()
+            params[key.strip()] = int(val) if val.lstrip("-").isdigit() \
+                else val
+        clauses.append(FaultClause(kind, params))
+    return clauses
+
+
+# parsed-spec cache keyed on the raw env value: a hook costs one getenv
+# and one string compare while the spec stays the same
+_cache: tuple[str, list[FaultClause]] | None = None
+_cache_lock = threading.Lock()
+
+
+def active_spec() -> list[FaultClause] | None:
+    """The parsed clauses of ``CNMF_TPU_FAULT_SPEC``, or None when unset."""
+    global _cache
+    from ..utils.envknobs import env_str
+
+    raw = env_str(FAULT_SPEC_ENV, "")
+    if not raw.strip():
+        return None
+    cache = _cache
+    if cache is None or cache[0] != raw:
+        with _cache_lock:
+            cache = _cache
+            if cache is None or cache[0] != raw:
+                cache = (raw, parse_fault_spec(raw))
+                _cache = cache
+    return cache[1]
+
+
+def _take_once(params: dict) -> bool:
+    """Claim the clause's ``once`` sentinel; True when this process may
+    inject (one ``O_CREAT|O_EXCL`` open is the cross-process claim)."""
+    path = params.get("once")
+    if path is None:
+        return True
+    try:
+        os.close(os.open(str(path), os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        return True
+    except OSError:
+        return False
+
+
+def _selector_match(params: dict, ctx: dict) -> bool:
+    for key, want in params.items():
+        if key in _CONTROL_KEYS:
+            continue
+        if key not in ctx:
+            return False
+        have = ctx[key]
+        if isinstance(want, int):
+            try:
+                if int(have) != want:
+                    return False
+            except (TypeError, ValueError):
+                return False
+        elif str(want) != str(have):
+            return False
+    return True
+
+
+def _clause_fires(clause: FaultClause, context, worker,
+                  default_limit: int | None) -> bool:
+    """``context`` substring and ``worker`` selectors, then the ``after``,
+    ``limit`` and ``once`` controls (``default_limit=None``: unbounded
+    unless the clause caps it). True means inject now."""
+    params = clause.params
+    sub = params.get("context")
+    if sub is not None and str(sub) not in str(context or ""):
+        return False
+    if "worker" in params:
+        try:
+            if worker is None or int(worker) != int(params["worker"]):
+                return False
+        except (TypeError, ValueError):
+            return False
+    clause.hits += 1
+    if clause.hits <= int(params.get("after", 0)):
+        return False
+    limit = params.get("limit", default_limit)
+    if limit is not None and clause.injected >= int(limit):
+        return False
+    if not _take_once(params):
+        return False
+    clause.injected += 1
+    return True
+
+
+def maybe_poison_lanes(k, iters, spectra, errs, attempt: int = 0,
+                       seeds=None):
+    """Set the replicate lanes that match a ``nonfinite`` clause to NaN.
+
+    ``spectra``/``errs`` are one sweep's numpy results, lane axis first.
+    Selectors: ``k``, ``iter`` (one ledger iter; omitted: every lane),
+    ``seed`` (no match where the hook has no seeds), ``attempt`` (default
+    0, so retries run clean). Returns ``(spectra, errs)``, copied when a
+    lane was poisoned; the unset spec returns the inputs untouched."""
+    spec = active_spec()
+    if spec is None:
+        return spectra, errs
+    import numpy as np
+
+    lanes = []
+    for clause in spec:
+        if clause.kind != "nonfinite":
+            continue
+        params = clause.params
+        if int(params.get("attempt", 0)) != int(attempt):
+            continue
+        if "k" in params and int(params["k"]) != int(k):
+            continue
+        if "iter" in params:
+            clause_lanes = [j for j, it in enumerate(iters)
+                            if int(it) == int(params["iter"])]
+        elif "seed" in params:
+            clause_lanes = ([] if seeds is None else
+                            [j for j, s in enumerate(seeds)
+                             if int(s) == int(params["seed"])])
+        else:
+            clause_lanes = list(range(len(iters)))
+        if not clause_lanes:
+            continue
+        # one matching sweep observation is one hit; `limit` caps
+        # injections per process (default unbounded)
+        clause.hits += 1
+        if clause.hits <= int(params.get("after", 0)):
+            continue
+        if "limit" in params and clause.injected >= int(params["limit"]):
+            continue
+        if not _take_once(params):
+            continue
+        clause.injected += 1
+        lanes.extend(clause_lanes)
+    if not lanes:
+        return spectra, errs
+    spectra = np.array(spectra, dtype=np.float32, copy=True)
+    errs = np.array(errs, dtype=np.float64, copy=True)
+    for j in set(lanes):
+        spectra[j] = np.nan
+        errs[j] = np.nan
+    return spectra, errs
+
+
+def maybe_kill(stage: str, worker=None) -> None:
+    """SIGKILL this process when a ``kill`` clause matches the hook (the
+    real preemption signal: nothing can catch it). The hooks sit after
+    artifact writes, so a kill leaves what a real preemption leaves."""
+    spec = active_spec()
+    if spec is None:
+        return
+    for clause in spec:
+        if clause.kind != "kill":
+            continue
+        if not _selector_match(clause.params,
+                               {"stage": stage, "worker": worker}):
+            continue
+        clause.hits += 1
+        if clause.hits <= int(clause.params.get("after", 0)):
+            continue
+        if not _take_once(clause.params):
+            continue
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_tear(path) -> bool:
+    """Truncate ``path`` to a third of its bytes when a ``torn`` clause's
+    ``artifact`` substring matches its basename (a simulated torn write,
+    for the reader-side validation of resume and combine). ``limit``
+    defaults to 1 per clause. Returns True when the file was torn."""
+    spec = active_spec()
+    if spec is None:
+        return False
+    name = os.path.basename(os.fspath(path))
+    for clause in spec:
+        if clause.kind != "torn":
+            continue
+        sub = str(clause.params.get("artifact", ""))
+        if sub and sub not in name:
+            continue
+        clause.hits += 1
+        if clause.hits <= int(clause.params.get("after", 0)):
+            continue
+        if clause.injected >= int(clause.params.get("limit", 1)):
+            continue
+        if not _take_once(clause.params):
+            continue
+        try:
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(max(1, size // 3))
+            clause.injected += 1
+            return True
+        except OSError:
+            return False
+    return False
+
+
+def maybe_straggle(context=None, worker=None) -> float:
+    """Sleep ``seconds`` (default 1) when a ``straggler`` clause matches
+    (``context`` substring, ``worker``); unbounded unless ``limit`` is
+    given. Returns the seconds slept."""
+    spec = active_spec()
+    if spec is None:
+        return 0.0
+    import time
+
+    for clause in spec:
+        if clause.kind != "straggler":
+            continue
+        if not _clause_fires(clause, context, worker, default_limit=None):
+            continue
+        secs = float(clause.params.get("seconds", 1.0))
+        time.sleep(secs)
+        return secs
+    return 0.0
+
+
+def maybe_fail(kind: str, **ctx) -> None:
+    """Raise ``RuntimeError`` when a clause of ``kind`` matches ``ctx``
+    (the ``upload`` class at the staging entry points; ``context`` selects
+    by substring)."""
+    spec = active_spec()
+    if spec is None:
+        return
+    for clause in spec:
+        if clause.kind != kind:
+            continue
+        params = clause.params
+        sub = params.get("context")
+        if sub is not None and str(sub) not in str(ctx.get("context", "")):
+            continue
+        rest = {key: val for key, val in params.items()
+                if key not in _CONTROL_KEYS and key != "context"}
+        if not _selector_match(rest, ctx):
+            continue
+        clause.hits += 1
+        if clause.hits <= int(params.get("after", 0)):
+            continue
+        if not _take_once(params):
+            continue
+        raise RuntimeError(
+            f"cnmf-tpu injected fault: {kind} "
+            f"({', '.join(f'{key}={val}' for key, val in sorted(ctx.items()))})")

@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["KNOBS", "env_int", "env_str", "env_flag"]
+__all__ = ["KNOBS", "env_int", "env_float", "env_str", "env_flag"]
 
 _FALSE_WORDS = ("0", "false", "off", "no")
 
 # name -> what it does (the solver recipe knobs of ops/recipe.py, the
 # lane and precision knobs of ops/sparse.py and ops/nmf.py, the sweep's
-# memory budget of parallel/replicates.py)
+# memory budget of parallel/replicates.py, the fault harness of
+# runtime/faults.py and the retry policy of runtime/resilience.py)
 KNOBS = {
     "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
     "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
@@ -31,6 +32,12 @@ KNOBS = {
                            "default) or strict f32 (0)",
     "CNMF_TPU_BUDGET_ELEMS": "f32 element budget of a replicate slice "
                              "(default: from the card's free memory)",
+    "CNMF_TPU_FAULT_SPEC": "deterministic fault injection clauses "
+                           "(unset: every hook is a no-op)",
+    "CNMF_TPU_MAX_RETRIES": "derived-seed retries of an unhealthy "
+                            "replicate (default 2)",
+    "CNMF_TPU_MIN_HEALTHY_FRAC": "per-K floor of healthy replicates after "
+                                 "retries (default 0.8)",
 }
 
 
@@ -53,6 +60,24 @@ def env_int(name: str, default: int | None,
         val = int(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r}: expected an integer")
+    if lo is not None and val < lo:
+        raise ValueError(f"{name}={raw!r}: must be >= {lo}")
+    if hi is not None and val > hi:
+        raise ValueError(f"{name}={raw!r}: must be <= {hi}")
+    return val
+
+
+def env_float(name: str, default: float | None,
+              lo: float | None = None,
+              hi: float | None = None) -> float | None:
+    """Parse a float knob with the same strictness as :func:`env_int`."""
+    raw = (_raw(name) or "").strip()
+    if not raw:
+        return default
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected a number")
     if lo is not None and val < lo:
         raise ValueError(f"{name}={raw!r}: must be >= {lo}")
     if hi is not None and val > hi:

@@ -9,6 +9,11 @@ scipy-style sparse (or dense) ``.npz`` with the row and column names beside
 it (:func:`save_matrix` / :func:`load_matrix`).
 
 Counts input in this slice: ``.df.npz`` DataFrames and tab-delimited text.
+
+Each labelled-matrix writer (:func:`save_df_to_npz`, :func:`save_df_to_text`,
+:func:`save_matrix`) calls the fault harness's torn-file hook after its
+atomic write lands, as the JAX package's writers do; it is a no-op unless
+``CNMF_TPU_FAULT_SPEC`` holds a ``torn`` clause.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
+
+from ..runtime.faults import maybe_tear
 
 __all__ = ["Frame", "Counts", "atomic_artifact", "check_dir_exists",
            "save_df_to_npz", "save_df_to_text", "load_df_from_npz",
@@ -110,6 +117,7 @@ def save_df_to_npz(obj: Frame, filename: str, compress: bool | None = None):
         with open(tmp, "wb") as fh:
             writer(fh, data=obj.values, index=_label_array(obj.index),
                    columns=_label_array(obj.columns))
+    maybe_tear(filename)
 
 
 def load_df_from_npz(filename: str) -> Frame:
@@ -135,6 +143,7 @@ def save_df_to_text(obj: Frame, filename: str):
             for name, row in zip(obj.index, obj.values):
                 f.write("\t".join([_fmt(name)] + [_fmt(v) for v in row])
                         + "\n")
+    maybe_tear(filename)
 
 
 def load_df_from_text(filename: str) -> Frame:
@@ -160,6 +169,7 @@ def save_matrix(filename: str, X, obs_names, var_names):
                          **names)
             else:
                 np.savez(fh, format="dense", dense=np.asarray(X), **names)
+    maybe_tear(filename)
 
 
 def load_matrix(filename: str) -> Counts:

@@ -50,4 +50,7 @@ def build_paths(output_dir: str, name: str, create: bool = True) -> dict:
         "k_selection_plot": o(".k_selection.png"),
         "k_selection_stats": o(".k_selection_stats.df.npz"),
         "factorize_provenance": t(".factorize_provenance.w%d.yaml"),
+        # per-worker resilience ledger: derived-seed retries and the
+        # quarantined (k, iter) pairs that combine skips
+        "resilience_ledger": t(".resilience.w%d.json"),
     }

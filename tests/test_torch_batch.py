@@ -409,6 +409,39 @@ def test_run_nmf_batch_matches_jax(accel_env, beta_loss, recipe):
     assert err_t == pytest.approx(err_j, rel=1e-4)
 
 
+def test_run_nmf_ell_init_scale_is_the_host_mean_as_in_jax(accel_env):
+    """On the ELL lane both packages scale ``run_nmf``'s random init by
+    the host mean ``X.sum() / (n g)``. ``x_mean`` (factorize's sequential
+    lane passes the batched sweep's f32 device sum, ``sweep_x_mean``)
+    replaces it, and departs from it by the rounding of one f32 sum."""
+    X, _, _ = _counts(n=160, g=320, R=1, seed=8)
+    n, g = X.shape
+    seen = {}
+
+    def spy(mod, key):
+        real = mod.random_init
+
+        def draw(seed, n_, g_, k_, x_mean, *a, **kw):
+            seen.setdefault(key, []).append(float(x_mean))
+            return real(seed, n_, g_, k_, x_mean, *a, **kw)
+        return draw
+
+    accel_env.setattr(jnmf, "random_init", spy(jnmf, "jax"))
+    accel_env.setattr(tnmf, "random_init", spy(tnmf, "torch"))
+    kw = dict(n_components=4, beta_loss="kullback-leibler", mode="batch",
+              batch_max_iter=5, random_state=3)
+    assert tnmf.run_nmf_use_ell(X, 1.0)
+    tnmf.run_nmf(X, device="cpu", **kw)
+    jnmf.run_nmf(X, **kw)
+    host = float(X.sum()) / (n * g)
+    assert seen["torch"] == [host]
+    assert np.float32(seen["jax"][0]) == np.float32(host)
+    sweep = tnmf.sweep_x_mean(tsp.csr_to_ell(X).to("cpu"), n, g)
+    assert abs(sweep - host) <= 1e-6 * host
+    tnmf.run_nmf(X, device="cpu", x_mean=sweep, **kw)
+    assert seen["torch"][1] == sweep
+
+
 def test_run_nmf_online_with_forced_dna_matches_jax(accel_env):
     X, H, W = _counts(n=160, g=320, R=1, seed=9)
     accel_env.setenv("CNMF_TPU_ACCEL", "1")
@@ -424,29 +457,43 @@ def test_run_nmf_online_with_forced_dna_matches_jax(accel_env):
 
 
 def test_run_nmf_refuses_what_is_not_ported():
+    """What neither package implements: an f64 online solve (JAX's
+    message), an unknown init, precision or mode."""
     X = np.ones((6, 5), np.float32)
-    for kw, what in [(dict(init="nndsvd"), "nndsvd"),
-                     (dict(fp_precision="double"), "double")]:
-        with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="double"):
+        tnmf.run_nmf(X, 2, fp_precision="double", mode="online",
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="double"):
+        jnmf.run_nmf(X, 2, fp_precision="double", mode="online")
+    for kw in (dict(init="svd"), dict(fp_precision="half"),
+               dict(mode="sideways")):
+        with pytest.raises(ValueError):
             tnmf.run_nmf(X, 2, device="cpu", **kw)
-    with pytest.raises(ValueError):
-        tnmf.run_nmf(X, 2, mode="sideways", device="cpu")
 
 
 def test_the_sketch_recipe_still_raises(accel_env):
     """``CNMF_TPU_SKETCH=1`` resolves the sketch recipe for KL in both
-    packages; the port's solvers name it and refuse it."""
-    from cnmf_torch_tpu_torch.ops.recipe import resolve_recipe
+    packages; the port's solvers run it for KL and still raise where the
+    JAX package does: another loss, or mixed with the dna/amu recipes."""
+    from cnmf_torch_tpu_torch.ops.recipe import SolverRecipe, resolve_recipe
 
     accel_env.setenv("CNMF_TPU_SKETCH", "1")
     assert resolve_recipe(1.0, "batch", n=160).algo == "sketch"
-    X, _, _ = _counts(n=160, g=320, R=1, seed=9)
-    with pytest.raises(NotImplementedError, match="sketch"):
-        tnmf.run_nmf(X, 3, beta_loss="kullback-leibler", mode="batch",
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="sketch"):
-        trep.replicate_sweep(X, [1], 3, beta_loss="kullback-leibler",
-                             mode="batch", device="cpu")
+    X, H, W = _counts(n=160, g=320, R=1, seed=9)
+    _, _, err = tnmf.run_nmf(X, 3, beta_loss="kullback-leibler",
+                             mode="batch", device="cpu", batch_max_iter=20)
+    assert np.isfinite(err)
+    sk = SolverRecipe("sketch", 1, False, "caller", sketch_dim=32,
+                      sketch_exact_every=4)
+    with pytest.raises(ValueError, match="beta=1"):
+        trep.replicate_sweep(X, [1], 3, beta_loss="frobenius",
+                             mode="batch", recipe=sk, device="cpu")
+    with pytest.raises(ValueError, match="exclusive"):
+        tnmf.nmf_fit_batch(_t(X.toarray()), _t(H), _t(W), beta=1.0,
+                           kl_newton=True, sketch_dim=32)
+    with pytest.raises(ValueError, match="beta=1"):
+        tnmf.nmf_fit_online(_t(X.toarray()[None]), _t(H[:, None]), _t(W),
+                            beta=2.0, sketch_dim=32)
 
 
 def _jax_sweep_inits(X, k, seeds):

@@ -385,3 +385,80 @@ def test_is_solve_on_the_card_matches_the_cpu(cuda_device, ell, mode):
     assert np.isfinite(card).all()
     np.testing.assert_allclose(card, cpu, rtol=1e-4 if mode == "batch"
                                else 5e-2)
+
+
+@pytest.mark.parametrize("n,g,k,R", EDGE_SHAPES)
+def test_sketched_w_stats_match_the_cpu(cuda_device, n, g, k, R):
+    """The sketch recipe's sampled-row W statistics: the rows' own
+    transpose index set built on the card (a stable sort, no atomics) and
+    the ``w_numer`` kernel, against the plain version on the CPU, with
+    repeated rows; two launches bit-identical."""
+    x, H, W = edge_inputs(n, g, k, R, 0.06, 9, cuda_device, zero_rows=3)
+    gen = torch.Generator().manual_seed(n)
+    idx = torch.randint(0, n, (max(8, n // 4),), generator=gen)
+    idx[:3] = idx[3]
+    kl_ell.reset_launches()
+    got = kl_ell.kl_w_stats_rows(x, H, W, idx)
+    again = kl_ell.kl_w_stats_rows(x, H, W, idx)
+    torch.cuda.synchronize()
+    assert kl_ell.launches["w_numer"] == 2
+    xc = x.to("cpu")
+    want = sparse.ell_kl_w_stats_rows(xc, H.cpu(), W.cpu(), idx)
+    _close(got[0], want[0], 2e-5)
+    _close(got[1], want[1], 2e-5)
+    assert torch.equal(got[0], again[0])
+    sub = sparse.ell_take_rows(x, idx)
+    sub_cpu = sparse.ell_take_rows(xc, idx)
+    assert torch.equal(sub.perm_t.cpu(), sub_cpu.perm_t)
+    assert torch.equal(sub.rows_t.cpu(), sub_cpu.rows_t)
+
+
+def test_sketched_solves_on_the_card_are_bit_identical(cuda_device):
+    """Two sketched batch solves and two sketched online solves on the card
+    from the same draws end bit for bit alike; the batch objective is
+    within ``rtol 1e-4`` of the same solve on the CPU, the online one
+    within ``rtol 1e-3`` (its usage solves stop on a relative-change
+    tolerance, so a last-bit difference can move a stop)."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    x, H, W = edge_inputs(600, 300, 6, 3, 0.06, 10, cuda_device)
+    X, Ho, Wo = _lowrank(240, 400, k=4, R=3, density=0.06)
+    xo, _ = sparse.ell_chunk_rows(X, 120)
+    h_tol, _, h0 = nmf.resolve_online_schedule(1.0)
+    out = {}
+    for dev in (cuda_device, cuda_device, torch.device("cpu")):
+        _, W_o, err = nmf.nmf_fit_batch(
+            x.to(dev), H.to(dev), W.to(dev), beta=1.0, tol=0.0, max_iter=40,
+            sketch_dim=128, sketch_exact_every=4)
+        _, Wo_o, err_o = nmf.nmf_fit_online(
+            xo.to(dev), Ho.reshape(3, 2, 120, 4).to(dev), Wo.to(dev),
+            beta=1.0, tol=-1.0, h_tol=h_tol, chunk_max_iter=50, n_passes=7,
+            h_tol_start=h0, sketch_dim=40, sketch_exact_every=3)
+        out.setdefault(dev.type, []).append(
+            (W_o.cpu(), err.cpu(), Wo_o.cpu(), err_o.cpu()))
+    (b_w, b_err, o_w, o_err), again, cpu = (*out["cuda"], out["cpu"][0])
+    assert torch.equal(b_w, again[0]) and torch.equal(o_w, again[2])
+    assert torch.equal(o_err, again[3])
+    np.testing.assert_allclose(b_err.numpy(), cpu[1].numpy(), rtol=1e-4)
+    np.testing.assert_allclose(o_err.numpy(), cpu[3].numpy(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("beta", [2.0, 1.0])
+def test_double_solve_on_the_card_matches_the_cpu(cuda_device, beta):
+    """``fp_precision="double"``'s solver on the card: f64 throughout, the
+    same solve as on the CPU at ``rtol 1e-9`` (no CUDA kernel of ours: the
+    f64 solve is dense)."""
+    from cnmf_torch_tpu_torch.ops import nmf
+
+    X, H, W = _lowrank(300, 200, k=5, R=1, density=0.3)
+
+    def solve(dev):
+        _, W_o, err = nmf.nmf_fit_batch(
+            torch.as_tensor(X).double().to(dev), H.double().to(dev),
+            W.double().to(dev), beta=beta, tol=0.0, max_iter=50)
+        assert W_o.dtype == torch.float64
+        return err.cpu().numpy(), W_o.cpu().numpy()
+
+    card, cpu = _solve_both(cuda_device, solve)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-9)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-7, atol=1e-12)

@@ -42,6 +42,12 @@ obj = cNMF(d, "tiny", device="cpu")
 obj.prepare(fn, components=[3], n_iter=4, seed=1, num_highvar_genes=40,
             beta_loss="kullback-leibler", batch_size=32, max_NMF_iter=50)
 obj.factorize()
+obj.factorize(skip_completed_runs=True)
+obj.factorize(batched=False)
+from cnmf_torch_tpu_torch.runtime import faults, resilience
+from cnmf_torch_tpu_torch.ops import sketch
+assert resilience.derive_retry_seed(5, 1) == 4
+assert faults.parse_fault_spec("nonfinite:k=3")[0].params == {{"k": 3}}
 obj.combine()
 obj.consensus(3, density_threshold=2.0)
 stats = obj.k_selection_stats()
@@ -93,6 +99,18 @@ def _sources():
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
+
+
+# the modules each slice added, which the walk above must reach
+SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
+                 "runtime/resilience.py", "ops/sketch.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_the_slice_modules_are_checked(rel):
+    path = os.path.join(PORT, rel)
+    assert path in _sources()
+    assert not _imported_roots(path) & set(BLOCKED), _imported_roots(path)
 
 
 @pytest.mark.parametrize("path", _sources(),
