@@ -123,6 +123,28 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    from the same inits; then consensus at k=9 and the K-selection
    statistics with the sketch engaged (dim 256), the decisions read from
    ``consensus_info``. Phase 7 prints its stage walls and peaks.
+8. The telemetry base: phase 3's main path again in a run of its own
+   (``build/chip_smoke/telemetry``) with ``CNMF_TPU_TELEMETRY``,
+   ``CNMF_TPU_METRICS`` and ``CNMF_TPU_TRACE_SAMPLE`` on, K-selection
+   through ``k_selection_plot``, the launch counts set to 0 just before.
+   It checks that the events file passes ``validate_events_file`` with
+   the manifest first (backend ``cuda``, the card's name); one
+   ``replicates`` event a K with 20 records of finite traces, one value a
+   pass, and the ``ell-cuda`` kernel label; ``memory`` events after the
+   five stages with a peak above 0; the worker span and a metrics
+   snapshot; that ``report`` and ``trace`` render the run; that every
+   kernel launched as often as in phase 3; that every iter spectra file,
+   consensus artifact, the K-selection statistics and prepare's f64 TPM
+   moments hold phase 3's stored arrays byte for byte (and the text
+   files phase 3's bytes); and
+   that each stage event's wall is within 10% + 50 ms of this script's
+   synchronized wall of the same call. Then the same factorize with the
+   knobs off and on in turns (off, on, on, off, three times; logged, no
+   gate), and
+   one factorize at K=9 under
+   ``CNMF_TPU_PROFILE_DIR``, whose Chrome trace must name
+   ``h_stats_kernel``. It logs the telemetry-on factorize wall against
+   phase 3's, the events file's bytes and the stage walls.
 
 The last three lines of standard output are the kernels' JSON record
 (launches of both pipelines), the ``nvidia-smi`` name and power-limit
@@ -1801,6 +1823,195 @@ def phase7_launches(p7) -> dict:
             for name in parts[0]}
 
 
+# -- phase 8: the telemetry base on the main path ---------------------------
+
+TELEMETRY_KNOBS = {"CNMF_TPU_TELEMETRY": "1", "CNMF_TPU_METRICS": "1",
+                   "CNMF_TPU_TRACE_SAMPLE": "1"}
+# a stage event's host wall against this script's synchronized wall of the
+# same call: within WALL_RTOL of it plus WALL_ATOL seconds
+WALL_RTOL, WALL_ATOL = 0.10, 0.050
+# phase 3's stage names -> the pipeline's stage events
+PIPELINE_STAGES = {"prepare": "prepare", "factorize": "factorize",
+                   "combine": "combine", "consensus": "consensus",
+                   "k_selection": "k_selection_plot"}
+
+
+def artifact_arrays(obj, ks=KS, n_iter=REPLICATES, dt="0_5") -> dict:
+    """The stored arrays of every iter spectra file and consensus artifact
+    of a run, its K-selection statistics and prepare's f64 TPM moments
+    (and the consensus text files' bytes), by artifact name; the
+    ``.npz`` zip container also holds its write time, so the arrays are
+    what two runs can share byte for byte."""
+    out = {}
+
+    def arrays(path):
+        with np.load(path, allow_pickle=True) as f:
+            return tuple(np.asarray(f[key]).tobytes() for key in f.files)
+
+    for k in ks:
+        for it in range(n_iter):
+            out[f"iter_spectra k={k} iter={it}"] = arrays(
+                obj.paths["iter_spectra"] % (k, it))
+    for key in ("consensus_spectra", "consensus_usages", "gene_spectra_tpm",
+                "gene_spectra_score", "starcat_spectra"):
+        out[key] = arrays(obj.paths[key] % (CONSENSUS_K, dt))
+        with open(obj.paths[key + "__txt"] % (CONSENSUS_K, dt), "rb") as f:
+            out[key + "__txt"] = f.read()
+    out["k_selection_stats"] = arrays(obj.paths["k_selection_stats"])
+    out["tpm_stats"] = arrays(obj.paths["tpm_stats"])
+    return out
+
+
+def cli_text(argv) -> str:
+    """What the port's CLI prints for ``argv``."""
+    import io
+
+    from cnmf_torch_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return buf.getvalue()
+
+
+def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
+    """Phase 8: phase 3's main path again in a run of its own, with
+    ``CNMF_TPU_TELEMETRY``, ``CNMF_TPU_METRICS`` and
+    ``CNMF_TPU_TRACE_SAMPLE`` on and the launch counts set to 0 just
+    before; ``ref`` is phase 3's run and ``ref_launches`` its launches.
+    Then one factorize at K=9 under ``CNMF_TPU_PROFILE_DIR``."""
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    name = "telemetry"
+    run_dir = os.path.join(OUT, name)
+    obj = cNMF(OUT, name, device=CARD)
+    first = len(stages.rows)
+    with knobs(**TELEMETRY_KNOBS):
+        kl_ell.reset_launches()
+        stages.run(f"{name} prepare", lambda: obj.prepare(
+            counts_fn, components=KS, n_iter=REPLICATES, seed=SEED,
+            beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+            batch_size=CHUNK))
+        stages.run(f"{name} factorize", obj.factorize)
+        stages.run(f"{name} combine", obj.combine)
+        stages.run(f"{name} consensus", lambda: obj.consensus(
+            CONSENSUS_K, density_threshold=0.5))
+        stats = stages.run(f"{name} k_selection", obj.k_selection_plot)
+        launches = dict(kl_ell.launches)
+    log(f"phase 8 kernel launches {launches}; phase 3's {ref_launches}")
+    check(launches == ref_launches,
+          f"telemetry changed the launches: {launches} != {ref_launches}")
+    check_artifacts(obj, stats)
+
+    events_fn = os.path.join(run_dir, "cnmf_tmp", name + ".events.jsonl")
+    n_events = telemetry.validate_events_file(events_fn)
+    size = os.path.getsize(events_fn)
+    events = telemetry.read_events(events_fn)
+    check(events[0]["t"] == "manifest", "the manifest is not first")
+    man = events[0]
+    check(man["backend"] == "cuda"
+          and man["devices"][0]["kind"] == torch.cuda.get_device_name(0),
+          f"manifest backend/devices {man['backend']} {man['devices']}")
+    reps = [e for e in events if e["t"] == "replicates"]
+    check(sorted(int(e["k"]) for e in reps) == KS,
+          f"replicates events for K {[e['k'] for e in reps]}")
+    for e in reps:
+        recs = e["records"]
+        check(len(recs) == REPLICATES, f"k={e['k']}: {len(recs)} records")
+        check(e["kernel"] == "ell-cuda", f"k={e['k']} kernel {e['kernel']}")
+        check(all(r["trace"] and np.isfinite(r["trace"]).all()
+                  and len(r["trace"]) == r["iters"] for r in recs),
+              f"k={e['k']}: a trace is empty, nonfinite or not one a pass")
+    mem = [e for e in events if e["t"] == "memory"]
+    check([e["stage"] for e in mem] == list(PIPELINE_STAGES.values()),
+          f"memory events at {[e['stage'] for e in mem]}")
+    peaks = {e["stage"]: max(d.get("peak_bytes_in_use", 0)
+                             for d in e["devices"]) for e in mem}
+    check(all(v > 0 for v in peaks.values()), f"memory peaks {peaks}")
+    check(any(e["t"] == "span" and e["name"] == "factorize.worker"
+              for e in events), "no factorize.worker span")
+    check(any(e["t"] == "metrics_snapshot" for e in events),
+          "no metrics snapshot")
+
+    # each stage event's wall against this script's synchronized wall
+    ev_walls = {e["stage"]: float(e["wall_s"]) for e in events
+                if e["t"] == "stage" and e["stage"] in peaks}
+    smoke_walls = {row[0].split(" ", 1)[1]: row[1]
+                   for row in stages.rows[first:]}
+    walls = {}
+    for smoke_name, stage in PIPELINE_STAGES.items():
+        ev, sm = ev_walls[stage], smoke_walls[smoke_name]
+        walls[stage] = {"event_s": ev, "synchronized_s": sm,
+                        "peak_bytes": peaks[stage]}
+        log(f"stage {stage}: event wall {ev:.4f} s, synchronized wall "
+            f"{sm:.4f} s, peak {peaks[stage] / 2 ** 30:.3f} GiB")
+        check(abs(ev - sm) <= WALL_RTOL * sm + WALL_ATOL,
+              f"stage {stage}: event wall {ev:.4f} s vs synchronized "
+              f"{sm:.4f} s")
+
+    report = cli_text(["report", run_dir])
+    for needle in ("Manifest", "Dispatch decisions", "Stage waterfall",
+                   "Replicate convergence", "Trace spans", "Device memory",
+                   "consensus.kmeans"):
+        check(needle in report, f"report lacks {needle!r}")
+    traces = cli_text(["trace", run_dir])
+    check("factorize.worker" in traces, "trace renders no factorize span")
+    with open(os.path.join(OUT, "phase8_report.txt"), "w") as f:
+        f.write(report + "\n" + traces)
+
+    mine, theirs = artifact_arrays(obj), artifact_arrays(ref)
+    differ = sorted(key for key in theirs if mine.get(key) != theirs[key])
+    check(not differ, f"artifacts differ from phase 3's: {differ[:6]}")
+    log(f"phase 8: {len(theirs)} artifacts byte-identical to phase 3's")
+
+    # the same factorize with the telemetry knobs off and on, in turns:
+    # six pairs, each side first in three
+    turns = {"off": [], "on": []}
+    for state in ("off", "on", "on", "off") * 3:
+        env = {key: ("1" if state == "on" else "0")
+               for key in TELEMETRY_KNOBS}
+        with knobs(**env):
+            stages.run(f"factorize telemetry {state}", obj.factorize)
+        turns[state].append(stages.rows[-1][1])
+    log(f"phase 8: factorize with the telemetry knobs off {turns['off']} "
+        f"s, on {turns['on']} s (turns off, on, on, off, three times); "
+        f"medians off {statistics.median(turns['off']):.4f} s, on "
+        f"{statistics.median(turns['on']):.4f} s")
+
+    # one factorize at K=9 under CNMF_TPU_PROFILE_DIR
+    prof_dir = os.path.join(OUT, "profile_dir")
+    pobj = prepared_run("telemetry_profiled", counts_fn, [CONSENSUS_K],
+                        "kullback-leibler")
+    kl_ell.reset_launches()
+    with knobs(CNMF_TPU_PROFILE_DIR=prof_dir):
+        stages.run("profiled factorize k=9", pobj.factorize)
+    prof_launches = dict(kl_ell.launches)
+    (trace_name,) = os.listdir(os.path.join(prof_dir, "factorize"))
+    trace_fn = os.path.join(prof_dir, "factorize", trace_name)
+    with open(trace_fn) as f:
+        names = set(re.findall(r'"name": "([^"]*_kernel[^"]*)"', f.read()))
+    named = sorted(n for n in names
+                   if "h_stats" in n or "w_numer" in n or "beta_err" in n)
+    check(any("h_stats_kernel" in n for n in named),
+          f"the profile dir's trace names no h_stats_kernel: {named[:4]}")
+    log(f"profile dir trace {os.path.getsize(trace_fn)} bytes names "
+        f"{len(named)} of our kernel instances")
+
+    ref_fact = next(w for s, w, _ in stages.rows if s == "factorize")
+    on_fact = walls["factorize"]["synchronized_s"]
+    log(f"phase 8: telemetry-on factorize {on_fact:.3f} s against phase "
+        f"3's {ref_fact:.3f} s; events file {size} bytes, {n_events} "
+        "events")
+    return {"launches": launches, "profiled_launches": prof_launches,
+            "walls": walls, "factorize_on_s": on_fact,
+            "factorize_off_s": ref_fact, "factorize_turns_s": turns,
+            "events_bytes": size,
+            "events": n_events, "trace_bytes": os.path.getsize(trace_fn),
+            "kernel_names": named}
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -1999,18 +2210,29 @@ def main() -> int:
         log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
     log(f"phase 7 kernel launches: {p7_launches}")
 
+    # -- phase 8: the telemetry base on the main path ----------------------
+    n_stages = len(stages.rows)
+    p8 = telemetry_phase(counts_fn, stages, obj, launches)
+    log(f"phase 8 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
         rec["launches"] = (int(launches[name]) + int(b_launches[name])
-                           + int(p7_launches[name]))
+                           + int(p7_launches[name])
+                           + int(p8["launches"][name])
+                           + int(p8["profiled_launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
                            "batch_factorize": b_factorize,
                            "frobenius": frob["launches"],
-                           "other_solvers": other, "phase7": p7_launches},
-              "phase6_retries": other_retries, "phase7": p7,
+                           "other_solvers": other, "phase7": p7_launches,
+                           "phase8": p8["launches"],
+                           "phase8_profiled": p8["profiled_launches"]},
+              "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

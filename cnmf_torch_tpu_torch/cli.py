@@ -1,19 +1,26 @@
 """Command-line interface of the port: ``prepare | factorize | combine |
-consensus | k_selection`` with the JAX package's flags for those stages,
-plus ``--device`` (default ``cuda``; there is no CPU fallback, pass
-``--device cpu`` to run on the CPU).
+consensus | k_selection_plot`` with the JAX package's flags for those
+stages, plus ``--device`` (default ``cuda``; there is no CPU fallback,
+pass ``--device cpu`` to run on the CPU), and the telemetry renderers
+``report [run_dir] [--json]`` and ``trace [run_dir]``.
 
-Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection`` writes the
-K-selection statistics (``<name>.k_selection_stats.df.npz``); the figure is
-not ported. ``factorize`` exits with ``UNHEALTHY_EXIT_CODE`` (3) when a K
-ends below ``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates after its
-retries, as the JAX package's CLI does: a rerun would draw the same
-derived seeds, so a launcher must not respawn on it.
+Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
+the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
+figure is not written yet (the plots are not ported). ``report`` renders a
+run's telemetry (the events file of a ``CNMF_TPU_TELEMETRY=1`` run, else
+the timings TSV) and ``trace`` its sampled span waterfalls; both read
+files only and never touch a device. ``factorize`` exits with
+``UNHEALTHY_EXIT_CODE`` (3) when a K ends below
+``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates after its retries, as
+the JAX package's CLI does: a rerun would draw the same derived seeds,
+so a launcher must not respawn on it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 __all__ = ["main", "build_parser"]
@@ -26,7 +33,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "command", type=str,
         choices=["prepare", "factorize", "combine", "consensus",
-                 "k_selection"])
+                 "k_selection_plot", "report", "trace"])
+    parser.add_argument(
+        "run_dir", type=str, nargs="?", default=None,
+        help="[report|trace] Run directory ([output-dir]/[name]) whose "
+             "telemetry to render; defaults to --output-dir/--name")
     parser.add_argument("--name", type=str, nargs="?", default="cNMF",
                         help="[all] Name for analysis. All output will be "
                              "placed in [output-dir]/[name]/...")
@@ -115,12 +126,30 @@ def build_parser() -> argparse.ArgumentParser:
                         action=argparse.BooleanOptionalAction, default=True,
                         help="[consensus] Generate reference spectra for "
                              "use in starCAT")
+    parser.add_argument("--json", action="store_true", default=False,
+                        help="[report] Print the summary of the run's "
+                             "events as JSON instead of the rendered "
+                             "report")
     return parser
 
 
 def main(argv=None):
     parser = build_parser()
-    args = parser.parse_args(argv)
+    # intermixed, so flags may precede or follow the optional run_dir
+    args = parser.parse_intermixed_args(argv)
+    if args.command not in ("report", "trace") and args.run_dir is not None:
+        # a stray positional (e.g. `consensus 9` meaning `-k 9`) fails
+        # fast instead of being swallowed
+        parser.error(f"unrecognized argument: {args.run_dir!r} (a "
+                     "positional run directory applies to 'report' and "
+                     "'trace' only)")
+    if args.command in ("report", "trace"):
+        run_dir = args.run_dir or os.path.join(args.output_dir, args.name)
+        if not os.path.isdir(run_dir):
+            parser.error(f"{args.command}: run directory not found: "
+                         f"{run_dir}")
+        print(_render(args.command, run_dir, args.json))
+        return
     if args.command == "prepare":
         missing = [flag for flag, val in
                    (("--counts/-c", args.counts),
@@ -161,9 +190,30 @@ def main(argv=None):
             obj.consensus(int(k), args.local_density_threshold,
                           args.local_neighborhood_size,
                           build_ref=args.build_reference)
-    elif args.command == "k_selection":
-        stats = obj.k_selection_stats()
-        print(stats.values)
+    elif args.command == "k_selection_plot":
+        obj.k_selection_plot(close_fig=True)
+
+
+def _render(command: str, run_dir: str, as_json: bool) -> str:
+    """The ``report`` or ``trace`` text of a run directory (host files
+    only)."""
+    if command == "trace":
+        from .obs.tracing import render_run_traces
+
+        return render_run_traces(run_dir)
+    from .utils.telemetry import (_find_event_files, read_events,
+                                  render_report, summarize_events)
+
+    if not as_json:
+        return render_report(run_dir)
+    events: list[dict] = []
+    files = _find_event_files(run_dir)
+    for path in files:
+        events.extend(read_events(path))
+    doc = summarize_events(events)
+    doc["run_dir"] = run_dir
+    doc["event_files"] = len(files)
+    return json.dumps(doc, indent=1, sort_keys=True, default=str)
 
 
 if __name__ == "__main__":

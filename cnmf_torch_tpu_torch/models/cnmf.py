@@ -28,15 +28,28 @@ derived seeds and quarantined when its retries fail, and
 ``skip_completed_runs`` resumes a run from its validated artifacts.
 With ``CNMF_TPU_SKETCH`` engaged, consensus clusters a seeded
 projection of the spectra (``ops/sketch.py``).
+
+Telemetry, as in the JAX package: every stage (``prepare``,
+``factorize``, ``combine``, ``consensus``, ``k_selection_plot``) and the
+consensus sub-stages land in ``cnmf_tmp/<name>.timings.tsv`` and, under
+``CNMF_TPU_TELEMETRY=1``, in the event stream
+``cnmf_tmp/<name>.events.jsonl`` (``utils/telemetry.py``) beside the
+dispatch decisions, one ``replicates`` record list per K, the guard's
+faults and a device-memory watermark after each stage;
+``CNMF_TPU_PROFILE_DIR`` traces each stage with ``torch.profiler``. One
+departure: the JAX package's ``consensus`` stage times a file probe, and
+here it times the ``consensus`` call itself.
 """
 
 from __future__ import annotations
 
 import datetime
 import errno
+import functools
 import itertools
 import json
 import os
+import time
 import uuid
 import warnings
 
@@ -44,6 +57,8 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..device import resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs import tracing as obs_tracing
 from ..ops.hvg import highvar_genes
 from ..ops.kernels import kernel_label
 from ..ops.kmeans import kmeans
@@ -55,7 +70,8 @@ from ..ops.nmf import (beta_loss_to_float, fit_h, resolve_bf16_ratio,
 from ..ops.ols import ols_all_cols
 from ..ops.recipe import resolve_recipe
 from ..ops.sketch import project_rows, resolve_consensus_sketch
-from ..ops.sparse import EllMatrix, csr_to_ell, ell_chunk_rows
+from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
+                          ell_row_width)
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
 from ..parallel.replicates import (_auto_packed, replicate_sweep,
@@ -65,6 +81,8 @@ from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
                         load_df_from_npz, load_df_from_text, load_matrix,
                         save_df_to_npz, save_df_to_text, save_matrix)
 from ..utils.paths import build_paths
+from ..utils.profiling import StageTimer, trace
+from ..utils.telemetry import EventLog, replicate_records
 
 __all__ = ["cNMF"]
 
@@ -86,6 +104,24 @@ def _ledger_ints(ledger: Frame, column: str) -> np.ndarray:
     return np.asarray(ledger.column(column), dtype=np.int64)
 
 
+def _timed(stage_name: str):
+    """Record a pipeline stage in the run's timing ledger (a ``stage``
+    event under telemetry), trace it with ``torch.profiler`` when
+    ``CNMF_TPU_PROFILE_DIR`` is set, and emit a device-memory watermark at
+    its boundary."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            try:
+                with self._timer.stage(stage_name), trace(stage_name):
+                    return fn(self, *args, **kwargs)
+            finally:
+                self._events.emit_memory(stage_name)
+        return wrapper
+    return deco
+
+
 class cNMF:
     """Consensus NMF over an output-directory artifact store: every
     artifact lives under ``output_dir/name/`` with intermediates in
@@ -100,6 +136,15 @@ class cNMF:
             name = "%s_%s" % (now.strftime("%Y_%m_%d"), uuid.uuid4().hex[:6])
         self.name = name
         self.paths = build_paths(output_dir, name)
+        # the run's event stream (inert unless CNMF_TPU_TELEMETRY is set,
+        # checked per emit) and the per-stage wall-clock ledger, whose rows
+        # mirror into the stream as `stage` events
+        tmp = os.path.join(output_dir, name, "cnmf_tmp")
+        self._events = EventLog(os.path.join(tmp, name + ".events.jsonl"),
+                                manifest_extra={"run_name": name},
+                                device=self.device)
+        self._timer = StageTimer(os.path.join(tmp, name + ".timings.tsv"),
+                                 events=self._events)
         # what the last factorize ran: lane, kernel label, solver recipe
         # and, per K, the solver trace of every slice of replicates
         # (online: ``(passes, R)`` per-pass objectives; batch: a
@@ -114,6 +159,7 @@ class cNMF:
     # prepare
     # ------------------------------------------------------------------
 
+    @_timed("prepare")
     def prepare(self, counts_fn, components, n_iter=100, densify=False,
                 tpm_fn=None, seed=None, beta_loss="frobenius",
                 num_highvar_genes=2000, genes_file=None, alpha_usage=0.0,
@@ -252,12 +298,54 @@ class cNMF:
             use_gpu=use_gpu)
         return replicate_params, nmf_kwargs
 
+    def update_nmf_iter_params(self):
+        """Re-probe the ``iter_spectra`` files and rewrite the ledger's
+        ``completed`` column (the JAX package's method). Must not run while
+        factorize workers are active."""
+        run_params = self._solver_params()
+        ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        ks = _ledger_ints(ledger, "n_components")
+        iters = _ledger_ints(ledger, "iter")
+        values = np.asarray(ledger.values, dtype=object).copy()
+        col = list(np.asarray(ledger.columns)).index("completed")
+        for i in range(len(ks)):
+            values[i, col] = os.path.exists(
+                self.paths["iter_spectra"] % (ks[i], iters[i]))
+        remaining = int(sum(not v for v in values[:, col]))
+        print("{n} NMF runs are currently incomplete".format(n=remaining))
+        self.save_nmf_iter_params(Frame(values, ledger.index, ledger.columns),
+                                  run_params)
+
     def save_nmf_iter_params(self, replicate_params: Frame, run_params):
+        # the ledger summary must ride the manifest, which flushes with the
+        # FIRST event (prepare's own stage event beats factorize to it)
+        self._set_ledger_manifest(replicate_params, run_params)
         save_df_to_npz(replicate_params,
                        self.paths["nmf_replicate_parameters"])
         with atomic_artifact(self.paths["nmf_run_parameters"]) as tmp:
             with open(tmp, "w") as f:
                 json.dump(run_params, f, indent=1, sort_keys=True)
+
+    def _set_ledger_manifest(self, replicate_params: Frame, run_params,
+                             n_worker_tasks=None):
+        """Seed/K summary for the telemetry manifest: set from prepare
+        (the ledger's creation) and from factorize (a factorize-only
+        worker never saw prepare), before the first emit."""
+        if not self._events.enabled or not len(replicate_params.index):
+            return
+        seeds = _ledger_ints(replicate_params, "nmf_seed")
+        ledger = {
+            "ks": sorted(set(_ledger_ints(replicate_params,
+                                          "n_components").tolist())),
+            "n_tasks": int(len(seeds)),
+            "seed_min": int(seeds.min()),
+            "seed_max": int(seeds.max()),
+            "beta_loss": str(run_params.get("beta_loss")),
+            "init": str(run_params.get("init", "random")),
+            "mode": str(run_params.get("mode", "online"))}
+        if n_worker_tasks is not None:
+            ledger["n_worker_tasks"] = int(n_worker_tasks)
+        self._events.set_manifest_extra(ledger=ledger)
 
     def _solver_params(self) -> dict:
         with open(self.paths["nmf_run_parameters"]) as f:
@@ -272,6 +360,7 @@ class cNMF:
     # factorize
     # ------------------------------------------------------------------
 
+    @_timed("factorize")
     def factorize(self, worker_i=0, total_workers=1,
                   skip_completed_runs=False, batched=True,
                   replicates_per_batch=None, packed=None):
@@ -307,7 +396,34 @@ class cNMF:
         and the provenance (``batched-packed``). It selects no other work:
         the JAX package packs the Ks into one program so that XLA compiles
         once, and eager PyTorch compiles nothing per K, so a packed run is
-        the per-K sweeps and writes their iter spectra."""
+        the per-K sweeps and writes their iter spectra.
+
+        Observability (``obs/``): the worker's ``factorize.worker`` span
+        (under ``CNMF_TPU_TRACE_SAMPLE``), the
+        ``cnmf_factorize_workers_total`` counter and a closing
+        ``metrics_snapshot`` (under ``CNMF_TPU_METRICS``), all no-ops with
+        the knobs unset."""
+        obs_metrics.counter_inc("cnmf_factorize_workers_total")
+        # a parent-planted ambient context when present; a direct run
+        # mints its own root, so a sampled run always traces
+        ctx = obs_tracing.child(obs_tracing.process_context())
+        if ctx is None:
+            ctx = obs_tracing.new_trace()
+        t0 = time.perf_counter()
+        try:
+            return self._factorize_impl(
+                worker_i=worker_i, total_workers=total_workers,
+                skip_completed_runs=skip_completed_runs, batched=batched,
+                replicates_per_batch=replicates_per_batch, packed=packed)
+        finally:
+            obs_tracing.emit_span(
+                self._events, ctx, "factorize.worker",
+                obs_tracing.perf_to_wall(t0),
+                (time.perf_counter() - t0) * 1e3, worker=int(worker_i))
+            obs_metrics.emit_snapshot(self._events)
+
+    def _factorize_impl(self, worker_i, total_workers, skip_completed_runs,
+                        batched, replicates_per_batch, packed):
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         norm = load_matrix(self.paths["normalized_counts"])
         kw = self._solver_params()
@@ -338,6 +454,9 @@ class cNMF:
             # counts as incomplete and its rerun overwrites it atomically
             quarantined_prev = resilience.load_quarantine_records(ledger_fn)
             jobs = []
+            # torn-artifact events wait for the ledger manifest below: the
+            # first emit flushes the manifest
+            deferred_torn: list[dict] = []
             for idx in my_tasks:
                 k_t, it_t = int(ks[idx]), int(iters[idx])
                 reason = resilience.probe_spectra_file(
@@ -361,9 +480,19 @@ class cNMF:
                         "resume: replicate artifact failed validation and "
                         "will be rerun — %s" % reason, RuntimeWarning,
                         stacklevel=2)
+                    deferred_torn.append({
+                        "path": self.paths["iter_spectra"] % (k_t, it_t),
+                        "reason": reason})
                 jobs.append(idx)
+        # n_worker_tasks counts the tasks needing work (before a resume's
+        # whole-K expansion)
+        self._set_ledger_manifest(ledger, kw, n_worker_tasks=len(jobs))
+        if skip_completed_runs:
+            for torn in deferred_torn:
+                self._events.emit("fault", kind="torn_artifact",
+                                  context=torn)
         guard = resilience.ReplicateGuard(
-            ledger_path=ledger_fn % int(worker_i))
+            events=self._events, ledger_path=ledger_fn % int(worker_i))
         self._written: dict[int, int] = {}
 
         def credit_completed(final_jobs):
@@ -444,10 +573,11 @@ class cNMF:
                     max((len(t) for t in by_k.values()), default=0),
                     total_workers)
         packed = bool(packed) and batched
+        X_host = X
+        density = X.nnz / max(n * g, 1) if sp.issparse(X) else 1.0
         if use_ell:
             Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
                   else csr_to_ell(X))
-            density = X.nnz / max(n * g, 1)
             X = Xe.to(self.device)
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."
@@ -461,10 +591,20 @@ class cNMF:
         recipe = resolve_recipe(beta, mode, algo=algo, ell=use_ell, **sizes)
         bf16 = (False if recipe.kl_newton or recipe.algo == "sketch"
                 else resolve_bf16_ratio(beta, mode))
+        kernel = kernel_label(use_ell, self.device, bf16, beta)
+        if batched and sp.issparse(X_host) and beta in (1.0, 0.0):
+            self._events.emit(
+                "dispatch", decision="ell_vs_dense",
+                context={"use_ell": bool(use_ell), "beta": float(beta),
+                         "density": round(float(density), 4),
+                         "ell_width": int(ell_row_width(X_host)),
+                         "genes": int(g), "kernel": kernel})
+        self._events.emit("dispatch", decision="solver_recipe",
+                          context=recipe.as_context())
         self.factorize_info = {
             "lane": "ell" if use_ell else "dense", "mode": mode,
             "packed": packed,
-            "kernel": kernel_label(use_ell, self.device, bf16, beta),
+            "kernel": kernel,
             "solver_recipe": recipe.label,
             "inner_repeats": int(recipe.inner_repeats),
             "kl_newton": bool(recipe.kl_newton), "bf16_ratio": bf16,
@@ -497,8 +637,10 @@ class cNMF:
                   "batched solve." % (worker_i, len(tasks), k))
             faults.maybe_straggle(context="factorize", worker=worker_i)
             trace: list = []
-            spectra, _, errs = replicate_sweep(X, seeds_k, k, trace=trace,
-                                               **sweep_kw)
+            payloads: list = []
+            spectra, _, errs = replicate_sweep(
+                X, seeds_k, k, trace=trace, telemetry_sink=payloads.append,
+                **sweep_kw)
             spectra, errs = faults.maybe_poison_lanes(k, its, spectra, errs,
                                                       seeds=seeds_k)
             self.factorize_info["trace"][k] = trace
@@ -513,6 +655,8 @@ class cNMF:
                 if healthy[r]:
                     self._write_iter_spectra(k, it, spectra[r],
                                              norm.var_names)
+            for payload in payloads:
+                self._emit_replicates_event(payload)
             faults.maybe_kill("factorize", worker_i)
 
         def rerun(k_r, seeds_r, iters=None, attempt=0):
@@ -572,18 +716,33 @@ class cNMF:
         """What factorize ran: the engaged path and the effective
         parameters (the run-parameters file's, and what factorize_info
         records of the lane, recipe and schedule)."""
+        effective = dict(
+            {k: v for k, v in kw.items() if k != "n_jobs"},
+            **{k: v for k, v in self.factorize_info.items()
+               if k not in ("trace", "errs", "dna_fallback")})
         with atomic_artifact(self.paths["factorize_provenance"]
                              % int(worker_i)) as tmp:
             with open(tmp, "w") as f:
                 json.dump({"worker_index": int(worker_i),
                            "engaged_path": engaged_path,
-                           "effective_params": dict(
-                               {k: v for k, v in kw.items()
-                                if k != "n_jobs"},
-                               **{k: v for k, v in self.factorize_info.items()
-                                  if k not in ("trace", "errs",
-                                               "dna_fallback")})},
+                           "effective_params": effective},
                           f, indent=1, sort_keys=True)
+        # the engaged solver family and its parameters are the dispatch
+        # decision: every factorize lane records it here
+        self._events.emit("dispatch", decision="solver_path",
+                          context=dict({"engaged_path": engaged_path},
+                                       **effective))
+
+    def _emit_replicates_event(self, payload):
+        """One sweep's convergence records
+        (``parallel.replicates._sweep_telemetry_payload``) as a
+        ``replicates`` event."""
+        self._events.emit("replicates", k=payload["k"], beta=payload["beta"],
+                          mode=payload["mode"], cap=int(payload["cap"]),
+                          cadence=payload["cadence"],
+                          recipe=payload.get("recipe"),
+                          kernel=payload.get("kernel"),
+                          records=replicate_records(payload))
 
     def _write_iter_spectra(self, k, it, spectrum, columns):
         """One replicate's spectra artifact (atomic; stored, not
@@ -648,6 +807,7 @@ class cNMF:
     # combine
     # ------------------------------------------------------------------
 
+    @_timed("combine")
     def combine(self, components=None, skip_missing_files=False):
         if isinstance(components, int):
             ks = [components]
@@ -700,6 +860,8 @@ class cNMF:
                     print("Skipping quarantined replicate k=%d iter=%d "
                           "(see the resilience ledger)." % (k, it))
                     continue
+                self._events.emit("fault", kind="torn_artifact",
+                                  context={"path": fn, "reason": str(exc)})
                 if not skip_missing_files:
                     raise resilience.TornArtifactError(
                         "%s — rerun `factorize --skip-completed-runs` to "
@@ -744,11 +906,11 @@ class cNMF:
     # consensus
     # ------------------------------------------------------------------
 
-    def consensus(self, k, density_threshold=0.5,
-                  local_neighborhood_size=0.30, show_clustering=False,
-                  build_ref=True, skip_density_and_return_after_stats=False,
-                  refit_usage=True, normalize_tpm_spectra=False,
-                  norm_counts=None, _sketch=None):
+    def _consensus(self, k, density_threshold=0.5,
+                   local_neighborhood_size=0.30, show_clustering=False,
+                   build_ref=True, skip_density_and_return_after_stats=False,
+                   refit_usage=True, normalize_tpm_spectra=False,
+                   norm_counts=None, _sketch=None):
         """Consensus spectra and usages from the merged replicate matrix:
         L2-normalize, filter outliers by KNN local density (cached), k-means
         (k, 10 inits, seed 1), cluster medians, usage refits, TPM- and
@@ -762,8 +924,15 @@ class cNMF:
         a seeded Gaussian projection of the L2-normalized spectra (the
         projected densities are neither read from nor written to the
         cache), and the cluster medians still come from the full-width
-        spectra. The decision is recorded in ``consensus_info[k]``.
-        ``_sketch``: the sweep-level decision of
+        spectra. The decision is recorded in ``consensus_info[k]``
+        and the ``consensus_path`` dispatch event.
+
+        Timed as the ``consensus`` stage, with the sub-stages
+        ``consensus.sketch``, ``.density``, ``.kmeans``, ``.refit_usage``,
+        ``.refit_spectra``, ``.ols``, ``.final_refit``, ``.writes`` and
+        ``.build_ref`` (those the call runs); the K-selection sweep's
+        stats passes call it as ``_consensus``, with no ``consensus``
+        stage of their own. ``_sketch``: the sweep-level decision of
         :meth:`k_selection_stats`, in place of a per-K one."""
         if show_clustering:
             raise NotImplementedError(
@@ -785,22 +954,29 @@ class cNMF:
         sk = (_sketch if _sketch is not None
               else resolve_consensus_sketch(int(l2.shape[0]),
                                             int(l2.shape[1])))
-        feats = (project_rows(l2, sk.dim, device=dev) if sk.engaged
-                 else l2)
+        feats = l2
+        if sk.engaged:
+            with self._timer.stage("consensus.sketch"):
+                feats = project_rows(l2, sk.dim, device=dev)
         self.consensus_info[k] = dict(
             sk.as_context(),
             stage=("k_selection_stats" if skip_density_and_return_after_stats
                    else "consensus"),
             replicates=int(l2.shape[0]),
             distance_width=int(feats.shape[1]))
+        self._events.emit(
+            "dispatch", decision="consensus_path",
+            context=dict(self.consensus_info[k], k=k, packed=False,
+                         distance_shape=[int(l2.shape[0])] * 2))
         keep = np.ones(l2.shape[0], dtype=bool)
         if not skip_density_and_return_after_stats:
             cache = self.paths["local_density_cache"] % k
             if not sk.engaged and os.path.isfile(cache):
                 density = load_df_from_npz(cache).values[:, 0]
             else:
-                density, _ = knn_local_density(feats, n_neighbors,
-                                               device=dev)
+                with self._timer.stage("consensus.density"):
+                    density, _ = knn_local_density(feats, n_neighbors,
+                                                   device=dev)
                 if not sk.engaged:
                     # projected densities never enter the exact cache
                     save_df_to_npz(Frame(density[:, None], index,
@@ -819,8 +995,9 @@ class cNMF:
                                           len(keep), k, keep.sum()),
                     UserWarning, stacklevel=2)
         l2, feats = l2[keep], feats[keep]
-        labels, _centers, _inertia = kmeans(feats, k, n_init=10, seed=1,
-                                            device=dev)
+        with self._timer.stage("consensus.kmeans"):
+            labels, _centers, _inertia = kmeans(feats, k, n_init=10, seed=1,
+                                                device=dev)
         # cluster medians from the full-width spectra (clusters in label
         # order), rows renormalized
         clusters = np.unique(labels)
@@ -828,8 +1005,9 @@ class cNMF:
                            for c in clusters])
         median = median / median.sum(axis=1, keepdims=True)
 
-        if skip_density_and_return_after_stats:
+        with self._timer.stage("consensus.refit_usage"):
             usages = self.refit_usage(norm_counts.X, median)
+        if skip_density_and_return_after_stats:
             silhouette = silhouette_score(feats, labels, k, device=dev)
             error = _frobenius_prediction_error(norm_counts.X, usages,
                                                 median)
@@ -839,7 +1017,6 @@ class cNMF:
                                      "silhouette", "prediction_error"]),
                          np.asarray(["stats"]))
 
-        usages = self.refit_usage(norm_counts.X, median)
         # order the programs by their total share of usage
         norm_usages = usages / usages.sum(axis=1, keepdims=True)
         order = np.argsort(-norm_usages.sum(axis=0), kind="stable")
@@ -847,49 +1024,59 @@ class cNMF:
                                        norm_usages[:, order], median[order])
         programs = np.arange(1, len(order) + 1)
 
-        tpm = load_matrix(self.paths["tpm"])
-        tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
-        spectra_tpm = self.refit_spectra(tpm.X,
-                                         norm_usages.astype(np.float32))
+        with self._timer.stage("consensus.refit_spectra"):
+            tpm = load_matrix(self.paths["tpm"])
+            tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
+            spectra_tpm = self.refit_spectra(tpm.X,
+                                             norm_usages.astype(np.float32))
         if normalize_tpm_spectra:
             spectra_tpm = (spectra_tpm / spectra_tpm.sum(axis=1,
                                                          keepdims=True)
                            * 1e6)
-        usage_coef = ols_all_cols(usages, tpm.X, normalize_y=True,
-                                  device=dev)
+        with self._timer.stage("consensus.ols"):
+            usage_coef = ols_all_cols(usages, tpm.X, normalize_y=True,
+                                      device=dev)
 
-        hvgs = self._hvgs()
         if refit_usage:
-            # final usage refit on the HVG TPM scaled to unit (ddof=1)
-            # variance, with the spectra in the same units
-            hv = _positions(tpm.var_names, hvgs)
-            std = np.asarray(tpm_stats.column("__std"), np.float64)[hv]
-            spectra_rf = spectra_tpm[:, hv] / std[None, :]
-            n_rows = tpm.X.shape[0]
-            bessel = n_rows / (n_rows - 1.0) if n_rows > 1 else 1.0
-            div = np.sqrt(std ** 2 * bessel).astype(np.float32)
-            if sp.issparse(tpm.X):
-                div[div == 0] = 1.0
-                X_rf = tpm.X[:, hv].tocsr().astype(np.float32)
-                X_rf.data = X_rf.data / div[X_rf.indices]
-            else:
-                X_rf = np.asarray(tpm.X, np.float32)[:, hv] / div[None, :]
-            usages = self.refit_usage(X_rf, spectra_rf.astype(np.float32))
+            with self._timer.stage("consensus.final_refit"):
+                usages = self._final_refit(tpm, tpm_stats, spectra_tpm)
 
         median_f = Frame(median.astype(np.float32), programs,
                          np.asarray(norm_counts.var_names))
         usages_f = Frame(usages, np.asarray(norm_counts.obs_names), programs)
         tpm_f = Frame(spectra_tpm, programs, np.asarray(tpm.var_names))
         score_f = Frame(usage_coef, programs, np.asarray(tpm.var_names))
-        for key, frame in (("consensus_spectra", median_f),
-                           ("consensus_usages", usages_f),
-                           ("gene_spectra_tpm", tpm_f),
-                           ("gene_spectra_score", score_f)):
-            save_df_to_npz(frame, self.paths[key] % (k, dt_repl))
-            save_df_to_text(frame, self.paths[key + "__txt"] % (k, dt_repl))
+        with self._timer.stage("consensus.writes"):
+            for key, frame in (("consensus_spectra", median_f),
+                               ("consensus_usages", usages_f),
+                               ("gene_spectra_tpm", tpm_f),
+                               ("gene_spectra_score", score_f)):
+                save_df_to_npz(frame, self.paths[key] % (k, dt_repl))
+                save_df_to_text(frame,
+                                self.paths[key + "__txt"] % (k, dt_repl))
         if build_ref:
-            self.build_reference(k, density_threshold, spectra_tpm=tpm_f)
+            with self._timer.stage("consensus.build_ref"):
+                self.build_reference(k, density_threshold, spectra_tpm=tpm_f)
         return None
+
+    consensus = _timed("consensus")(_consensus)
+
+    def _final_refit(self, tpm: Counts, tpm_stats: Frame, spectra_tpm):
+        """The final usage refit on the HVG TPM scaled to unit (ddof=1)
+        variance, with the spectra in the same units."""
+        hv = _positions(tpm.var_names, self._hvgs())
+        std = np.asarray(tpm_stats.column("__std"), np.float64)[hv]
+        spectra_rf = spectra_tpm[:, hv] / std[None, :]
+        n_rows = tpm.X.shape[0]
+        bessel = n_rows / (n_rows - 1.0) if n_rows > 1 else 1.0
+        div = np.sqrt(std ** 2 * bessel).astype(np.float32)
+        if sp.issparse(tpm.X):
+            div[div == 0] = 1.0
+            X_rf = tpm.X[:, hv].tocsr().astype(np.float32)
+            X_rf.data = X_rf.data / div[X_rf.indices]
+        else:
+            X_rf = np.asarray(tpm.X, np.float32)[:, hv] / div[None, :]
+        return self.refit_usage(X_rf, spectra_rf.astype(np.float32))
 
     def _hvgs(self) -> list[str]:
         with open(self.paths["nmf_genes_list"]) as f:
@@ -919,8 +1106,8 @@ class cNMF:
 
     def k_selection_stats(self) -> Frame:
         """Stability (silhouette) and prediction error for every K of the
-        ledger, written as ``k_selection_stats`` (the figure is not ported:
-        no matplotlib on the card's machine)."""
+        ledger, written as ``k_selection_stats``; the figure is
+        :meth:`k_selection_plot`'s."""
         ks = self.ledger_components()
         if not ks:
             raise ValueError("the replicate ledger lists no components; "
@@ -934,14 +1121,32 @@ class cNMF:
         sk = resolve_consensus_sketch(r_max, int(norm_counts.X.shape[1]))
         self.consensus_info["k_selection"] = dict(
             sk.as_context(), ks=[int(k) for k in ks], R_max=r_max)
-        rows = [self.consensus(k, skip_density_and_return_after_stats=True,
-                               norm_counts=norm_counts,
-                               _sketch=sk).values[:, 0]
+        # one stats pass a K, each its own program set: nothing is packed
+        self._events.emit(
+            "dispatch", decision="k_selection",
+            context=dict(self.consensus_info["k_selection"],
+                         K_max=int(max(ks)), packed=False))
+        rows = [self._consensus(k, skip_density_and_return_after_stats=True,
+                                norm_counts=norm_counts,
+                                _sketch=sk).values[:, 0]
                 for k in ks]
         stats = Frame(np.stack(rows), np.arange(len(rows)),
                       np.asarray(["k", "local_density_threshold",
                                   "silhouette", "prediction_error"]))
         save_df_to_npz(stats, self.paths["k_selection_stats"])
+        return stats
+
+    @_timed("k_selection_plot")
+    def k_selection_plot(self, close_fig=False):
+        """The JAX package's K-selection step: writes the statistics of
+        :meth:`k_selection_stats` (``<name>.k_selection_stats.df.npz``)
+        and returns them. The stability/error figure is not written yet:
+        the plots (matplotlib) come to the port later. ``close_fig`` is
+        accepted for the JAX package's signature."""
+        stats = self.k_selection_stats()
+        print("k_selection_plot: wrote %s; the K-selection figure is not "
+              "written yet (plots are not ported)."
+              % self.paths["k_selection_stats"])
         return stats
 
     def load_results(self, K, density_threshold, n_top_genes=100,

@@ -852,7 +852,7 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
                    bf16_ratio: bool = False, trace: list | None = None,
                    kl_newton: bool = False, algo: str = "mu",
                    sketch_dim: int = 0, sketch_exact_every: int = 1,
-                   sketch_rows=None):
+                   sketch_rows=None, lane_passes: list | None = None):
     """Streamed MU over pre-chunked inputs for ``R`` replicates at once.
 
     ``Xc``: ``(C, chunk, genes)`` dense tensor or a pre-chunked
@@ -882,6 +882,10 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
     * chunks + chunk`` of :func:`_sketch_rows`; ``sketch_rows`` replaces
     the draws), except on the first and every ``sketch_exact_every``-th
     pass; only a pass of exact W steps may stop a lane.
+
+    ``trace`` receives the ``(R,)`` objectives after every pass (a
+    stopped lane repeats its last one); ``lane_passes`` receives, once,
+    the ``(R,)`` passes each lane ran.
     """
     if kl_newton and beta != 1.0:
         raise ValueError(
@@ -997,6 +1001,8 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
         act = act & active_of(err_prev, err, it)
         if trace is not None:
             trace.append(err.cpu().numpy())
+    if lane_passes is not None:
+        lane_passes.append(it.cpu().numpy())
 
     err = torch.zeros(R, dtype=torch.float32, device=dev)
     for c, x in enumerate(chunks):

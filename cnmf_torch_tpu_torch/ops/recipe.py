@@ -98,6 +98,14 @@ class SolverRecipe:
                     f"E={self.sketch_exact_every})")
         return self.algo
 
+    def as_context(self) -> dict:
+        """The telemetry ``solver_recipe`` dispatch event's context."""
+        return {"recipe": self.label, "algo": self.algo,
+                "inner_repeats": int(self.inner_repeats),
+                "kl_newton": bool(self.kl_newton), "source": self.source,
+                "sketch_dim": int(self.sketch_dim),
+                "sketch_exact_every": int(self.sketch_exact_every)}
+
 
 def auto_sketch_rows(n: int | None) -> int:
     """Default sampled-row count of the sketched W update: n/8 clamped to

@@ -4,8 +4,11 @@ Port of ``cnmf_torch_tpu/ops/stats.py`` as torch on the device. The
 moments are accumulated in float64 (the JAX package keeps them in host
 float64 for the same reason: the tpm_stats artifact and the Fano HVG
 ranking must match the reference's f64 numerics). A CSR matrix never
-densifies: its ``data``/``indices`` go to the device and per-column sums
-are ``index_add_`` scatters; dense matrices reduce in row blocks.
+densifies: its ``data``/``indices`` go to the device, and its row and
+column sums are ordered segment sums (the values sorted by column for
+the column sums), never atomic scatters, so a rerun on the card gives
+the same bits and the CPU the bits of a sequential sum; dense matrices
+reduce in row blocks.
 """
 
 from __future__ import annotations
@@ -28,16 +31,17 @@ def _csr_parts(X, device):
     return Xc, data, idx, row_nnz
 
 
+def _segment_sums(values, lengths):
+    """Sums of consecutive runs of ``values`` (``lengths`` each, 0 for an
+    empty run), each run summed in order with no atomics."""
+    return torch.segment_reduce(values, "sum", lengths=lengths, unsafe=True)
+
+
 def row_sums(X, device="cuda") -> np.ndarray:
     """Per-row totals (counts per cell), float64."""
-    n = X.shape[0]
     if sp.issparse(X):
         _, data, _, row_nnz = _csr_parts(X, device)
-        rows = torch.repeat_interleave(
-            torch.arange(n, device=device), row_nnz)
-        out = torch.zeros(n, dtype=torch.float64, device=device)
-        out.index_add_(0, rows, data)
-        return out.cpu().numpy()
+        return _segment_sums(data, row_nnz).cpu().numpy()
     Xt = torch.as_tensor(np.asarray(X)).to(device=device, dtype=torch.float64)
     return Xt.sum(1).cpu().numpy()
 
@@ -80,19 +84,24 @@ def column_moments_staged(X, row_scale=None, device="cuda"):
     scale = (None if row_scale is None else torch.as_tensor(
         np.asarray(row_scale, dtype=np.float64)).to(device))
     if sp.issparse(X):
-        _, data, idx, row_nnz = _csr_parts(X, device)
-        views = [data]
+        Xc, data, idx, row_nnz = _csr_parts(X, device)
+        # the stored values in column order (rows ascending within a
+        # column): each column's sums are one segment
+        order = torch.as_tensor(np.argsort(Xc.indices, kind="stable")).to(
+            device)
+        col_nnz = np.bincount(Xc.indices, minlength=g)
+        col_len = torch.as_tensor(col_nnz.astype(np.int64)).to(device)
+        nnz_col = torch.as_tensor(col_nnz.astype(np.float64)).to(device)
+        idx = idx[order]
+        views = [data[order]]
         if scale is not None:
-            views.append(data * torch.repeat_interleave(scale, row_nnz))
-        nnz_col = torch.zeros(g, dtype=f64, device=device)
-        nnz_col.index_add_(0, idx, torch.ones_like(data))
+            views.append((data * torch.repeat_interleave(scale, row_nnz))[
+                order])
         out = []
         for d in views:
-            s1 = torch.zeros(g, dtype=f64, device=device).index_add_(0, idx, d)
-            mean = s1 / n
+            mean = _segment_sums(d, col_len) / n
             dev_ = d - mean[idx]
-            ssq = torch.zeros(g, dtype=f64, device=device).index_add_(
-                0, idx, dev_ * dev_)
+            ssq = _segment_sums(dev_ * dev_, col_len)
             # implicit zeros each contribute mean^2 to the centered sums
             ssq = ssq + (n - nnz_col) * mean * mean
             out.append((mean.cpu().numpy(),

@@ -16,6 +16,11 @@ packed contract over the per-K sweeps.
 Inits: the seeded random init, or the nndsvd family, whose SVD base is
 computed once per sweep and whose exact zeros each replicate fills from
 its own seed (:func:`stacked_inits`).
+
+Telemetry: a sweep given a ``telemetry_sink`` hands it one
+:func:`_sweep_telemetry_payload` per K under ``CNMF_TPU_TELEMETRY``, built
+from the objective traces the solvers already bring to the host, laid
+out as the JAX solvers' fixed ``(R, TRACE_LEN)`` slot arrays.
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
-from ..ops.nmf import (beta_loss_to_float, bundle_width, dense_on_device,
-                       nmf_fit_batch, nmf_fit_batch_bundled,
-                       nmf_fit_batch_hals, nmf_fit_online, nndsvd_base,
-                       nndsvd_fill, random_init, resolve_bf16_ratio,
+from ..ops.kernels import kernel_label
+from ..ops.nmf import (EVAL_EVERY, SolverTelemetry, beta_loss_to_float,
+                       bundle_width, dense_on_device, nmf_fit_batch,
+                       nmf_fit_batch_bundled, nmf_fit_batch_hals,
+                       nmf_fit_online, nndsvd_base, nndsvd_fill,
+                       random_init, resolve_bf16_ratio,
                        resolve_online_schedule, split_regularization,
                        sweep_x_mean)
 from ..ops.recipe import SolverRecipe, resolve_recipe
@@ -38,6 +45,7 @@ from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width, resolve_sparse_beta)
 from ..runtime.faults import maybe_fail
 from ..utils.envknobs import env_int
+from ..utils.telemetry import telemetry_enabled
 
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar")
 
@@ -53,6 +61,92 @@ _FALLBACK_BUDGET_ELEMS = 1 << 28
 # 2% at 4 and 2 a bundle (k=32, 64): chip_smoke.py's phase 5 prints these
 # times.
 BUNDLE_MIN_WIDTH = 6
+# a replicate record's objective trace length, the JAX solvers'
+# ``TRACE_LEN``: one slot per objective evaluation (each pass online,
+# every EVAL_EVERY iterations in batch); evaluations after the 63rd
+# overwrite the last slot
+TRACE_LEN = 64
+
+
+def _trace_slots(values) -> np.ndarray:
+    """One lane's objectives, in evaluation order, as the JAX solvers'
+    ``(TRACE_LEN,)`` slot array: NaN past the last evaluation, and the
+    last slot holding the last evaluation once there are more than
+    ``TRACE_LEN - 1``."""
+    v = np.asarray(values, np.float32)
+    out = np.full(TRACE_LEN, np.nan, np.float32)
+    head = v[:TRACE_LEN - 1]
+    out[:len(head)] = head
+    if len(v) >= TRACE_LEN:
+        out[-1] = v[-1]
+    return out
+
+
+def _sweep_telemetry(mode: str, traces: list, lane_passes, errs):
+    """A sweep's :class:`SolverTelemetry` in the JAX layout, from its
+    slices' trace entries. Online: each slice's ``(passes, r)`` per-pass
+    objectives and ``(r,)`` pass counts give a lane its first ``passes``
+    objectives (a stopped lane's repeats are not evaluations);
+    ``nonfinite`` latches any nonfinite pass objective or final ``errs``.
+    Batch: each slice's ``SolverTelemetry`` (``(r, evaluations)``, NaN
+    once a lane stopped), of which a lane of ``iters`` iterations
+    evaluated the first ``iters // EVAL_EVERY``."""
+    if mode == "online":
+        rows, iters, nonfin = [], [], []
+        for tr, passes in zip(traces, lane_passes):
+            for r in range(tr.shape[1]):
+                p = int(passes[r])
+                rows.append(_trace_slots(tr[:p, r]))
+                iters.append(p)
+                nonfin.append(not np.isfinite(tr[:p, r]).all())
+        return SolverTelemetry(
+            trace=np.stack(rows), iters=np.asarray(iters, np.int32),
+            nonfinite=(np.asarray(nonfin, bool)
+                       | ~np.isfinite(np.asarray(errs))))
+
+    def cat(field):
+        parts = [getattr(t, field) for t in traces]
+        return None if any(v is None for v in parts) else np.concatenate(
+            parts)
+
+    rows = [_trace_slots(t.trace[r, :int(t.iters[r]) // EVAL_EVERY])
+            for t in traces for r in range(len(t.iters))]
+    return SolverTelemetry(
+        trace=np.stack(rows), iters=cat("iters"),
+        nonfinite=cat("nonfinite"), inner_iters=cat("inner_iters"),
+        dna_fallback=cat("dna_fallback"))
+
+
+def _sweep_telemetry_payload(k, beta, mode, seeds, cap, tm, errs,
+                             recipe: SolverRecipe | None = None,
+                             kernel: str | None = None):
+    """The dict a sweep's ``telemetry_sink`` receives (the JAX package's
+    keys): ``cadence`` is ``pass`` online and ``iter/<EVAL_EVERY>`` in
+    batch, ``recipe`` the engaged solver recipe's label, ``kernel`` the
+    engaged lane's :func:`~..ops.kernels.kernel_label`; the batch solvers'
+    inner-update counts and dna fallback fractions ride along where they
+    are tracked."""
+    out = {
+        "k": int(k), "beta": float(beta), "mode": mode,
+        "seeds": [int(s) for s in seeds],
+        "cap": int(cap),
+        "cadence": "pass" if mode == "online" else f"iter/{EVAL_EVERY}",
+        "trace": tm.trace, "iters": tm.iters, "nonfinite": tm.nonfinite,
+        "errs": errs,
+    }
+    if recipe is not None:
+        out["recipe"] = recipe.label
+    if kernel is not None:
+        out["kernel"] = kernel
+    if tm.inner_iters is not None:
+        out["inner_iters"] = tm.inner_iters
+    if tm.dna_fallback is not None:
+        out["dna_fallback"] = tm.dna_fallback
+    return out
+
+
+def _telemetry_requested(telemetry_sink) -> bool:
+    return telemetry_sink is not None and telemetry_enabled()
 
 
 def worker_filter(iterable, worker_index: int, total_workers: int):
@@ -196,7 +290,8 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                     online_h_tol: float | None = None,
                     n_rows: int | None = None, inits=None,
                     return_usages: bool = False, trace: list | None = None,
-                    recipe: SolverRecipe | None = None, device="cuda"):
+                    recipe: SolverRecipe | None = None,
+                    telemetry_sink=None, device="cuda"):
     """Run ``len(seeds)`` NMF replicates at one K.
 
     ``X``: a host matrix (dense, or scipy-sparse — ELL-encoded when the
@@ -216,8 +311,11 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     :func:`~..ops.nmf.nmf_fit_batch`. ``trace``: a list
     that receives, per slice of ``r`` replicates, one ``(passes, r)`` array
     of per-pass objectives (online) or one
-    :class:`~..ops.nmf.SolverTelemetry` (batch). Returns ``(spectra (R, k,
-    g), usages (R, n, k) | None, errs (R,))`` as numpy in seed order."""
+    :class:`~..ops.nmf.SolverTelemetry` (batch). ``telemetry_sink``: a
+    callable receiving, under ``CNMF_TPU_TELEMETRY``, one
+    :func:`_sweep_telemetry_payload` for the whole sweep. Returns
+    ``(spectra (R, k, g), usages (R, n, k) | None, errs (R,))`` as numpy
+    in seed order."""
     dev = resolve_device(device)
     if mode not in ("online", "batch"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -281,6 +379,12 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     reg = dict(l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
     sketch = dict(sketch_dim=int(recipe.sketch_dim),
                   sketch_exact_every=int(recipe.sketch_exact_every))
+    want_telem = _telemetry_requested(telemetry_sink)
+    # the slices' trace entries: the caller's list, or one of the sweep's
+    # own when only the telemetry asks for them
+    traces = trace if trace is not None else ([] if want_telem else None)
+    first_entry = len(traces) if traces is not None else 0
+    lane_passes = [] if want_telem and mode == "online" else None
     spectra, usages, errs = [], [], []
     for start in range(0, R, rpb):
         sl = seeds[start:start + rpb]
@@ -294,7 +398,7 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
         H0 = torch.nn.functional.pad(H0, (0, 0, 0, n_padded - n))
         if mode == "batch":
             batch_kw = dict(tol=tol, max_iter=int(batch_max_iter),
-                            trace=trace, **reg)
+                            trace=traces, **reg)
             if hals:
                 H, W, err = nmf_fit_batch_hals(Xs, H0, W0, **batch_kw)
             elif bundled:
@@ -305,24 +409,34 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                     inner_repeats=int(recipe.inner_repeats),
                     kl_newton=bool(recipe.kl_newton), **sketch, **batch_kw)
         else:
-            passes = [] if trace is not None else None
+            passes = [] if traces is not None else None
             Hc, W, err = nmf_fit_online(
                 Xs, H0.reshape(len(sl), C, chunk, k), W0, beta=beta,
                 tol=tol, h_tol=h_tol,
                 chunk_max_iter=int(online_chunk_max_iter),
                 n_passes=n_passes, h_tol_start=h_tol_start, bf16_ratio=bf16,
                 trace=passes, kl_newton=bool(recipe.kl_newton),
-                algo="halsvar" if hals else "mu", **sketch, **reg)
-            if trace is not None:
-                trace.append(np.stack(passes))
+                algo="halsvar" if hals else "mu", lane_passes=lane_passes,
+                **sketch, **reg)
+            if traces is not None:
+                traces.append(np.stack(passes))
             H = Hc.reshape(len(sl), n_padded, k)
         spectra.append(W.cpu().numpy())
         errs.append(err.cpu().numpy())
         if return_usages:
             usages.append(H[:, :n].cpu().numpy())
+    errs = np.concatenate(errs)
+    if want_telem:
+        telemetry_sink(_sweep_telemetry_payload(
+            k, beta, mode, seeds,
+            n_passes if mode == "online" else batch_max_iter,
+            _sweep_telemetry(mode, traces[first_entry:], lane_passes, errs),
+            errs, recipe=recipe,
+            kernel=kernel_label(ell, dev, bf16 and recipe.algo != "sketch",
+                                beta)))
     return (np.concatenate(spectra),
             np.concatenate(usages) if return_usages else None,
-            np.concatenate(errs))
+            errs)
 
 
 def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",

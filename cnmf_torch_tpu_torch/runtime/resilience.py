@@ -14,8 +14,10 @@ Own copy of ``cnmf_torch_tpu/runtime/resilience.py``:
   ``--skip-completed-runs`` resume and ``combine_nmf``.
 
 The ledger's JSON has the JAX package's keys, so either package's combine
-reads a ledger the other wrote. The port has no telemetry layer yet, so
-the guard emits no fault events (the JAX guard's ``events``).
+reads a ledger the other wrote. Given the run's event log, the guard
+emits the JAX guard's ``fault`` events: ``nonfinite_replicate``,
+``retry`` and ``quarantine``, with ``(k, iter, seed, attempt)`` (and a
+retry's ``healthy``) in the context.
 """
 
 from __future__ import annotations
@@ -149,9 +151,10 @@ class ReplicateGuard:
     and sequential) report through :meth:`observe`, and the retry waves
     re-solve through the caller's ``rerun``."""
 
-    def __init__(self, ledger_path: str | None = None,
+    def __init__(self, events=None, ledger_path: str | None = None,
                  max_retries_: int | None = None,
                  min_healthy_frac_: float | None = None):
+        self.events = events
         self.ledger_path = ledger_path
         self.max_retries = (max_retries() if max_retries_ is None
                             else int(max_retries_))
@@ -163,6 +166,10 @@ class ReplicateGuard:
         self._pending: list[dict] = []
         self.retries: list[dict] = []
         self.quarantined: list[dict] = []
+
+    def _emit(self, kind: str, context: dict):
+        if self.events is not None:
+            self.events.emit("fault", kind=kind, context=context)
 
     def observe(self, k: int, iters, seeds, health, attempt: int = 0,
                 derived_seeds=None) -> np.ndarray:
@@ -186,16 +193,19 @@ class ReplicateGuard:
                        "derived_seed": int(derived_seeds[j]),
                        "healthy": bool(ok)}
                 self.retries.append(rec)
+                self._emit("retry", rec)
             if ok:
                 self._healthy[k] = self._healthy.get(k, 0) + 1
                 continue
             ctx = {"k": k, "iter": it, "seed": seed, "attempt": int(attempt)}
+            self._emit("nonfinite_replicate", ctx)
             if attempt < self.max_retries:
                 self._pending.append({"k": k, "iter": it, "seed": seed,
                                       "attempt": int(attempt) + 1})
             else:
                 rec = dict(ctx, attempts=int(attempt))
                 self.quarantined.append(rec)
+                self._emit("quarantine", rec)
                 warnings.warn(
                     "replicate k=%d iter=%d (seed %d) quarantined after "
                     "%d attempt(s): solver output nonfinite. It is excluded "

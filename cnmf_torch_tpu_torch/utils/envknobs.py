@@ -18,7 +18,8 @@ _FALSE_WORDS = ("0", "false", "off", "no")
 # name -> what it does (the solver recipe knobs of ops/recipe.py, the
 # lane and precision knobs of ops/sparse.py and ops/nmf.py, the sweep's
 # memory budget of parallel/replicates.py, the fault harness of
-# runtime/faults.py and the retry policy of runtime/resilience.py)
+# runtime/faults.py, the retry policy of runtime/resilience.py and the
+# telemetry base's knobs, with the JAX package's types and defaults)
 KNOBS = {
     "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
     "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
@@ -38,6 +39,21 @@ KNOBS = {
                             "replicate (default 2)",
     "CNMF_TPU_MIN_HEALTHY_FRAC": "per-K floor of healthy replicates after "
                                  "retries (default 0.8)",
+    # the telemetry base (utils/telemetry.py, utils/profiling.py, obs/)
+    "CNMF_TPU_TELEMETRY": "flag: the run's event log "
+                          "(<run>/cnmf_tmp/<name>.events.jsonl; default 0)",
+    "CNMF_TPU_PROFILE_DIR": "per-stage torch.profiler Chrome traces into "
+                            "this directory (unset: none)",
+    "CNMF_TPU_METRICS": "flag: the metrics registry records and "
+                        "metrics_snapshot events land (default 0)",
+    "CNMF_TPU_TRACE_SAMPLE": "trace sampling probability in [0, 1] "
+                             "(default 0: no spans)",
+    "CNMF_TPU_TRACE_CTX": "trace_id:span_id context a parent process "
+                          "hands its workers (unset: none)",
+    "CNMF_TPU_SLO_P99_MS": "target p99 latency of the SLO tracker in ms "
+                           "(default 0: off)",
+    "CNMF_TPU_SLO_WINDOW_S": "SLO evaluation window in seconds "
+                             "(default 300)",
 }
 
 

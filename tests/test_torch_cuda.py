@@ -462,3 +462,71 @@ def test_double_solve_on_the_card_matches_the_cpu(cuda_device, beta):
     card, cpu = _solve_both(cuda_device, solve)
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-9)
     np.testing.assert_allclose(card[1], cpu[1], rtol=1e-7, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the telemetry base on the card
+# ---------------------------------------------------------------------------
+
+def test_memory_events_read_the_card(cuda_device, tmp_path, monkeypatch):
+    """``memory`` events and the manifest describe the card: the caching
+    allocator's current and peak bytes, the card's total memory and its
+    name."""
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    monkeypatch.setenv("CNMF_TPU_TELEMETRY", "1")
+    torch.cuda.reset_peak_memory_stats()
+    buf = torch.ones(1 << 20, device=cuda_device)
+    log = telemetry.EventLog(str(tmp_path / "e.jsonl"), device=cuda_device)
+    log.emit_memory("x")
+    man, mem = telemetry.read_events(str(tmp_path / "e.jsonl"))
+    assert man["backend"] == "cuda"
+    assert man["devices"][0]["kind"] == torch.cuda.get_device_name(0)
+    (ent,) = [d for d in mem["devices"] if d["id"] == 0]
+    assert ent["peak_bytes_in_use"] >= buf.numel() * 4
+    assert ent["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    assert telemetry.device_memory_peak_bytes(cuda_device) >= (
+        buf.numel() * 4)
+
+
+def test_stage_trace_names_the_kernel(cuda_device, tmp_path, monkeypatch):
+    """A stage traced under ``CNMF_TPU_PROFILE_DIR`` writes a Chrome trace
+    in which the kernel it launched appears by name."""
+    import json
+    import os
+
+    from cnmf_torch_tpu_torch.utils.profiling import trace
+
+    x, H, W = edge_inputs(400, 300, 9, 4, 0.06, 3, cuda_device)
+    kl_ell.h_stats(x.vals, x.cols, H, W, False)
+    torch.cuda.synchronize()
+    monkeypatch.setenv("CNMF_TPU_PROFILE_DIR", str(tmp_path))
+    with trace("stage"):
+        kl_ell.h_stats(x.vals, x.cols, H, W, False)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path / "stage")
+    with open(tmp_path / "stage" / name) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    assert any("h_stats_kernel" in n for n in names)
+
+
+def test_prepare_sums_are_the_same_on_every_run(cuda_device):
+    """prepare's sparse row totals and column moments (ordered segment
+    sums, no atomics) give the same bits on every run on the card, within
+    1e-13 of the CPU's."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch.ops import stats
+
+    rng = np.random.default_rng(12)
+    X = sp.random(20_000, 2_000, density=0.06, format="csr",
+                  random_state=int(rng.integers(1 << 31)),
+                  data_rvs=lambda s: rng.gamma(1.0, 3.0, s))
+    runs = []
+    for device in (cuda_device, cuda_device, "cpu"):
+        totals = stats.row_sums(X, device=device)
+        (m, v), (sm, sv) = stats.column_moments_staged(
+            X, row_scale=1e6 / totals, device=device)
+        runs.append(np.concatenate([totals, m, v, sm, sv]))
+    assert np.array_equal(runs[0], runs[1])
+    np.testing.assert_allclose(runs[0], runs[2], rtol=1e-13, atol=0)

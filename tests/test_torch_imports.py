@@ -26,6 +26,10 @@ import sys
 for name in {blocked!r}:
     sys.modules[name] = None
 import os, tempfile
+# the telemetry base runs too: events, metrics, spans
+for knob in ("CNMF_TPU_TELEMETRY", "CNMF_TPU_METRICS",
+             "CNMF_TPU_TRACE_SAMPLE"):
+    os.environ[knob] = "1"
 import numpy as np
 from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
 
@@ -52,6 +56,13 @@ obj.combine()
 obj.consensus(3, density_threshold=2.0)
 stats = obj.k_selection_stats()
 assert np.isfinite(stats.values).all()
+obj.k_selection_plot()
+from cnmf_torch_tpu_torch.cli import main
+from cnmf_torch_tpu_torch.utils.telemetry import validate_events_file
+assert validate_events_file(os.path.join(d, "tiny", "cnmf_tmp",
+                                         "tiny.events.jsonl")) > 10
+main(["report", os.path.join(d, "tiny")])
+main(["trace", os.path.join(d, "tiny")])
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -103,7 +114,10 @@ def _sources():
 
 # the modules each slice added, which the walk above must reach
 SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
-                 "runtime/resilience.py", "ops/sketch.py"]
+                 "runtime/resilience.py", "ops/sketch.py",
+                 "utils/telemetry.py", "utils/profiling.py",
+                 "obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
+                 "obs/slo.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -299,3 +299,98 @@ def test_replicate_sweep_matches_jax_sweep(monkeypatch):
         return_usages=True, device="cpu")
     assert spectra.shape == (3, k, 80) and usages.shape == (3, n, k)
     np.testing.assert_allclose(got, want, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# (d) F4: cNMF.update_nmf_iter_params, in a two-worker resume
+# ---------------------------------------------------------------------------
+
+def _structured_counts(n=60, g=90, k_true=4, seed=0):
+    rng = np.random.default_rng(seed)
+    usage = rng.dirichlet(np.ones(k_true) * 0.3, size=n)
+    spectra = rng.gamma(0.3, 1.0, size=(k_true, g)) * 50.0 / g
+    counts = rng.poisson(usage @ spectra * 200.0).astype(np.float64)
+    counts[counts.sum(axis=1) == 0, 0] = 1.0
+    return (counts, np.asarray([f"c{i}" for i in range(n)]),
+            np.asarray([f"g{j}" for j in range(g)]))
+
+
+def _two_worker_resume(obj, counts_fn):
+    """The JAX package's elastic-completion flow
+    (``tests/test_pipeline.py::test_worker_sharding_and_skip_missing``):
+    worker 0 of 2 runs, the ledger is re-probed, a one-worker resume
+    completes the run. Returns the ``completed`` column after the re-probe
+    and after the resume, and the merged spectra's shape."""
+    obj.prepare(counts_fn, components=[3], n_iter=4, seed=1,
+                num_highvar_genes=60, batch_size=64, max_NMF_iter=100)
+    obj.factorize(worker_i=0, total_workers=2)
+    obj.update_nmf_iter_params()
+    done = list(_completed(obj))
+    obj.factorize(worker_i=0, total_workers=1, skip_completed_runs=True)
+    obj.update_nmf_iter_params()
+    merged = obj.combine_nmf(3)
+    return done, list(_completed(obj)), tuple(merged.shape)
+
+
+def _completed(obj):
+    ledger = port_load_df(obj.paths["nmf_replicate_parameters"])
+    return [bool(v) for v in ledger.column("completed")]
+
+
+def test_f4_update_nmf_iter_params_matches_jax(tmp_path):
+    """Fault F4: the port had no ``update_nmf_iter_params``, so the JAX
+    package's resume flow raised AttributeError."""
+    import pandas as pd
+    from cnmf_torch_tpu import save_df_to_npz as jax_save_df
+
+    counts, rows, cols = _structured_counts()
+    jfn, tfn = str(tmp_path / "j.df.npz"), str(tmp_path / "t.df.npz")
+    jax_save_df(pd.DataFrame(counts, index=rows, columns=cols), jfn)
+    save_df_to_npz(Frame(counts, rows, cols), tfn)
+    got = _two_worker_resume(cNMF(str(tmp_path), "port", device="cpu"), tfn)
+    want = _two_worker_resume(JaxCNMF(output_dir=str(tmp_path), name="jax"),
+                              jfn)
+    assert got == want
+    assert got == ([True, False, True, False], [True] * 4, (12, 60))
+
+
+# ---------------------------------------------------------------------------
+# (e) prepare's sparse sums: ordered segment sums, no atomics
+# ---------------------------------------------------------------------------
+
+def test_prepare_sums_are_ordered_segment_sums():
+    """The sparse row totals and column moments of prepare are ordered
+    segment sums: on the CPU bit for bit the sequential ``index_add_``
+    scatter they replaced (whose CUDA form adds atomically, so the f64
+    tpm_stats artifact changed in its last bits from run to run), and
+    within 1e-12 of the JAX package's host moments."""
+    from cnmf_torch_tpu.ops import stats as jstats
+    from cnmf_torch_tpu_torch.ops import stats as tstats
+
+    rng = np.random.default_rng(11)
+    X = sp.random(400, 150, density=0.07, format="csr",
+                  random_state=int(rng.integers(1 << 31)),
+                  data_rvs=lambda s: rng.gamma(1.0, 3.0, s))
+    X = sp.csr_matrix(X.toarray() * (np.arange(150) != 7))  # empty column
+    totals = tstats.row_sums(X, device="cpu")
+    (mean, var), (smean, svar) = tstats.column_moments_staged(
+        X, row_scale=1e6 / totals, device="cpu")
+
+    data = torch.as_tensor(X.data, dtype=torch.float64)
+    rows = torch.repeat_interleave(torch.arange(400),
+                                   torch.as_tensor(np.diff(X.indptr)))
+    idx = torch.as_tensor(X.indices.astype(np.int64))
+    want_totals = torch.zeros(400, dtype=torch.float64).index_add_(
+        0, rows, data)
+    want_s1 = torch.zeros(150, dtype=torch.float64).index_add_(0, idx, data)
+    assert np.array_equal(totals, want_totals.numpy())
+    assert np.array_equal(mean, (want_s1 / 400).numpy())
+    assert mean[7] == 0.0 and var[7] == 0.0
+
+    jmean, jvar = jstats.column_mean_var(X)
+    np.testing.assert_allclose(mean, np.asarray(jmean), rtol=1e-12)
+    np.testing.assert_allclose(var, np.asarray(jvar), rtol=1e-12)
+    Xs = sp.diags(1e6 / totals) @ X
+    jsmean, jsvar = jstats.column_mean_var(Xs)
+    np.testing.assert_allclose(smean, np.asarray(jsmean), rtol=1e-12)
+    np.testing.assert_allclose(svar, np.asarray(jsvar), rtol=1e-12)

@@ -132,9 +132,14 @@ def test_the_port_reads_no_unregistered_knob():
     with pytest.raises(ValueError, match="not one the port reads"):
         envknobs.env_str("CNMF_TPU_SOMETHING_ELSE")
     # the recipe knobs, the lane, precision and budget knobs that
-    # tests/test_torch_knobs.py holds against the JAX package, and the
-    # fault and retry knobs of tests/test_torch_resilience.py
+    # tests/test_torch_knobs.py holds against the JAX package, the
+    # fault and retry knobs of tests/test_torch_resilience.py, and the
+    # telemetry base's knobs of tests/test_torch_telemetry.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
-                         "CNMF_TPU_MIN_HEALTHY_FRAC"} == set(envknobs.KNOBS)
+                         "CNMF_TPU_MIN_HEALTHY_FRAC",
+                         "CNMF_TPU_TELEMETRY", "CNMF_TPU_PROFILE_DIR",
+                         "CNMF_TPU_METRICS", "CNMF_TPU_TRACE_SAMPLE",
+                         "CNMF_TPU_TRACE_CTX", "CNMF_TPU_SLO_P99_MS",
+                         "CNMF_TPU_SLO_WINDOW_S"} == set(envknobs.KNOBS)
