@@ -146,9 +146,43 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    ``h_stats_kernel``. It logs the telemetry-on factorize wall against
    phase 3's, the events file's bytes and the stage walls.
 
+9. The atlas path (``parallel/rowshard.py``, the shard store, the
+   staging stream, pass checkpoints). (a) 250,000 cells x 3,000 genes of
+   the same low-rank Poisson model at ~300 UMI a cell (Poisson draws on
+   the card in row blocks, written as the dense ``.df.npz``), prepare
+   (KL, 2,000 HVGs: 6.7% nonzeros, the ELL lane), factorize with no
+   row-shard argument (the 200,000-cell threshold engages the row-sharded
+   solver: dense KL staged once, no kernel), K in {9, 13} x 4 replicates,
+   combine, consensus (k=9, threshold 2.0) and ``k_selection_plot``
+   under ``CNMF_TPU_TELEMETRY``. It checks the ``solver_recipe`` event's
+   mode ``rowshard``, that factorize launched no kernel and the consensus
+   refit ``h_stats``, and that no objective rose past 1e-6 from pass to
+   pass. Then the same run with ``CNMF_TPU_OOC=1`` (the store written, the
+   matrix file skipped) and ``CNMF_TPU_CKPT_EVERY_PASSES=1``: every iter
+   spectra file byte for byte the first run's, and the streamed consensus
+   and K-selection errors within 5e-2 of the resident ones, the streamed
+   host residency under the budget. (b) ``nmf_fit_rowsharded`` on
+   1,000,000 x 2,000 CSR (built on the card in blocks of 50,000 rows,
+   6.9% nonzeros) on the ELL lane: ``h_stats``, ``w_numer`` and
+   ``beta_err_partials`` launch (counts printed), the encoding's host
+   time and bytes; the three kernels at R=1 on the first 250,000 rows
+   against their plain versions (``rtol 2e-5``, two launches
+   bit-identical) and timed beside their bounds at 250,000 and 1,000,000
+   rows (``t_w`` and the encoding's bytes printed); a 250,000-row solve
+   under a pinned ``dna`` recipe launches ``h_newton_stats`` and
+   ``wh_at_nz``. (c) On (a)'s store: the slab-looped tier
+   (``CNMF_TPU_OOC_SHARD_BYTES`` 256 MiB) within 10% of the resident
+   solve's objective from the same init, its host residency under the
+   budget; a CLI factorize SIGKILLed after its fourth pass checkpoint
+   (``kill:stage=pass``), resumed with ``--skip-completed-runs`` from
+   pass 4 to the uninterrupted bytes; a torn checkpoint
+   (``torn:artifact=ckpt``) discarded and its replicate restarted to the
+   same bytes; a torn slab read (``shard_read``) detected, re-read and
+   staged bit for bit.
+
 The last three lines of standard output are the kernels' JSON record
-(launches of both pipelines), the ``nvidia-smi`` name and power-limit
-line, and the run's JSON verdict. Everything the run writes goes under
+(launches of every path), the ``nvidia-smi`` name and power-limit line,
+and the run's JSON verdict. Everything the run writes goes under
 ``build/chip_smoke/`` beside this script. There is no CPU mode: without a
 card the script exits 2.
 """
@@ -794,7 +828,7 @@ def batch_kernel_phase(x, nnz: int, log_rows: list):
     return records, extra
 
 
-def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz):
+def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz, with_plain=True):
     R, n, k = H.shape
     g = W.shape[-1]
     vb = vals.element_size()
@@ -859,8 +893,9 @@ def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz):
     t_ops = (ops / PEAK_F32 + ops_bf16 / PEAK_BF16) * 1e3
     rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES[name], "launches": 0,
-           "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, iters=10,
-                                                  warmup=2),
+           "ms": cuda_ms(fn),
+           "plain_ms": (cuda_ms(plain, iters=10, warmup=2) if with_plain
+                        else None),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library_ms}
@@ -2012,6 +2047,579 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
             "kernel_names": named}
 
 
+# -- phase 9: the atlas path -------------------------------------------------
+
+# 9a: the pipeline at atlas size (the JAX package's row-shard threshold is
+# 200,000 cells; BASELINE.md names the "1M-cell atlas" use case). 30
+# counts per unit of usage give ~300 UMI a cell over 3,000 genes: 6.7%
+# nonzeros over the 2,000 HVGs, the ELL lane of the consensus refits
+ATLAS_CELLS, ATLAS_GENES, ATLAS_SCALE = 250_000, 3_000, 30.0
+ATLAS_KS = [9, 13]
+ATLAS_REPLICATES = 4
+ATLAS_BLOCK = 25_000
+# 9b: the solver API at BASELINE.md config 5's scale (1M cells, 2,000
+# genes), built as CSR in blocks of 50,000 rows; 15 counts per unit of
+# usage give 6.9% nonzeros, the ELL lane
+SOLVER_CELLS, SOLVER_GENES, SOLVER_SCALE = 1_000_000, 2_000, 15.0
+SOLVER_BLOCK = 50_000
+SOLVER_CHECK_ROWS = 250_000
+DNA_PASSES = 10
+# 9b: passes of the dense row-sharded solve of the 1M matrix staged dense,
+# whose device peak is held to the resident budget's model
+DENSE_PASSES = 3
+# device bytes a dense row-sharded stage may hold beyond the model of
+# parallel/rowshard.py:dense_pass_bytes (the factors and their updates)
+DENSE_SLACK_BYTES = 256 << 20
+# streamed against resident consensus: max |a - b| / max |a| of each
+# artifact and of the prediction errors, about 20 times the readings on
+# an H100 (at most 4.3e-7 and 4.3e-10: on this data the two refits stop
+# at the same iterations, unlike on the CPU tests' fixture)
+STREAM_RTOL = 1e-5
+STREAM_ERR_RTOL = 1e-8
+# 9c: the slab-looped tier's resident budget (33,554 rows a group at
+# 2,000 genes). It and the resident solve run to convergence (the online
+# schedule). Its spectra are held to a plain group loop over row slices
+# of the staged matrix (the same partition, usage solves and W steps, as
+# many passes), and to the resident solve by one objective (each
+# spectra's usages refit on the staged matrix), by max |a - b| / max |a|
+# and by the cosine of matched spectra. Limits from the readings on an
+# H100 (16 and 57 passes): 1.1e-6 against the plain loop, objectives
+# 1.1e-3 apart, spectra 0.148 apart with matched cosines of 0.9927 and
+# above (the two solvers take different steps to nearby factors)
+OOC_SHARD_BYTES = 256 << 20
+OOC_REF_RTOL = 2e-5
+OOC_OBJ_RTOL = 5e-3
+OOC_W_RTOL = 0.3
+OOC_COS_MIN = 0.98
+KILL_SPEC = "kill:stage=pass,after=3"
+TORN_SPEC = "torn:artifact=ckpt,after=2;kill:stage=pass,after=2"
+
+
+def card_counts(n, g, scale, seed, block):
+    """The low-rank Poisson model of :func:`synthetic_counts` at ``n``
+    cells, in row blocks: usages and spectra from numpy at ``seed``, the
+    Poisson draws on the card from a CUDA generator at ``seed``, so the
+    host never holds the dense mean. Yields ``(lo, hi, f32 block on the
+    card)``; a row without counts gets one in gene 0."""
+    rng = np.random.default_rng(seed)
+    usage = rng.dirichlet(np.ones(14) * 0.2, size=n).astype(np.float32)
+    spectra = rng.gamma(0.25, 1.0, size=(14, g)) * 40.0 / g
+    S = torch.as_tensor((spectra * scale).astype(np.float32), device=CARD)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        blk = torch.poisson(torch.as_tensor(usage[lo:hi], device=CARD) @ S,
+                            generator=gen)
+        blk[blk.sum(1) == 0, 0] = 1.0
+        yield lo, hi, blk
+
+
+def atlas_counts(out: str) -> str:
+    """9a's counts, written as the dense ``.df.npz`` the port reads."""
+    from cnmf_torch_tpu_torch import Frame, save_df_to_npz
+
+    counts = np.empty((ATLAS_CELLS, ATLAS_GENES), np.float32)
+    for lo, hi, blk in card_counts(ATLAS_CELLS, ATLAS_GENES, ATLAS_SCALE,
+                                   SEED, ATLAS_BLOCK):
+        counts[lo:hi] = blk.cpu().numpy()
+    fn = os.path.join(out, "atlas_counts.df.npz")
+    save_df_to_npz(Frame(counts,
+                         np.asarray([f"c{i}" for i in range(ATLAS_CELLS)]),
+                         np.asarray([f"g{j}" for j in range(ATLAS_GENES)])),
+                   fn, compress=False)
+    log(f"9a counts {counts.shape}: {counts.sum() / ATLAS_CELLS:.1f} UMI a "
+        f"cell, {np.count_nonzero(counts) / counts.size:.4f} nonzeros, "
+        f"file {os.path.getsize(fn) / 2 ** 30:.2f} GiB")
+    return fn
+
+
+def solver_csr():
+    """9b's matrix: 1,000,000 x 2,000 CSR, built in blocks of 50,000 rows
+    on the card."""
+    import scipy.sparse as sp
+
+    parts = []
+    for lo, hi, blk in card_counts(SOLVER_CELLS, SOLVER_GENES, SOLVER_SCALE,
+                                   SEED + 1, SOLVER_BLOCK):
+        c = blk.to_sparse_csr()
+        parts.append(sp.csr_matrix(
+            (c.values().cpu().numpy(),
+             c.col_indices().cpu().numpy().astype(np.int32),
+             c.crow_indices().cpu().numpy()), shape=tuple(blk.shape)))
+    return sp.vstack(parts).tocsr()
+
+
+class EventRecorder:
+    """An event sink for direct solver calls: every event and the last
+    ``StreamStats`` of each stream context."""
+
+    enabled = True
+
+    def __init__(self):
+        self.events, self.streams = [], {}
+
+    def emit(self, event_type, **fields):
+        self.events.append(dict(fields, t=event_type))
+
+    def emit_stream(self, context, stats):
+        self.streams[context] = stats
+
+
+def pass_rises(traces, label) -> int:
+    """Every replicate's per-pass objectives finite and none above the
+    previous pass's by more than ``MONOTONE_RTOL``; returns the count of
+    (tolerated) rises."""
+    rises = 0
+    for tr in traces:
+        tr = np.asarray(tr, np.float64)
+        tr = tr[~np.isnan(tr)]
+        check(tr.size >= 2 and np.isfinite(tr).all(),
+              f"{label}: objectives {tr.tolist()}")
+        rise = np.diff(tr) - MONOTONE_RTOL * np.abs(tr[:-1])
+        check((rise <= 0).all(), f"{label}: an objective rose by "
+              f"{float(np.diff(tr).max())} (trace {tr.tolist()})")
+        rises += int((np.diff(tr) > 0).sum())
+    return rises
+
+
+def dense_peak_gate(stages, name, n, g):
+    """The device peak of stage ``name`` within the dense pass's working
+    set as ``store_dispatch`` budgets it (``dense_pass_bytes``)."""
+    from cnmf_torch_tpu_torch.parallel.rowshard import dense_pass_bytes
+
+    peak = [p for stage, _, p in stages.rows if stage == name][-1] * 2 ** 30
+    model = dense_pass_bytes(n, g) + DENSE_SLACK_BYTES
+    check(peak <= model, f"{name}: device peak {peak:.0f} bytes above the "
+          f"dense pass model {model} ({n} x {g})")
+    log(f"{name}: device peak {peak / 2 ** 30:.3f} GiB, the dense pass "
+        f"model {model / 2 ** 30:.3f} GiB ({n} x {g})")
+    return peak
+
+
+def atlas_artifact_gap(a_obj, b_obj, dt="2_0") -> dict:
+    """max |a - b| / max |a| of the consensus artifacts of two runs."""
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz
+
+    out = {}
+    for key in ("consensus_spectra", "consensus_usages", "gene_spectra_tpm",
+                "gene_spectra_score", "starcat_spectra"):
+        a = np.asarray(load_df_from_npz(a_obj.paths[key]
+                                        % (CONSENSUS_K, dt)).values,
+                       np.float64)
+        b = np.asarray(load_df_from_npz(b_obj.paths[key]
+                                        % (CONSENSUS_K, dt)).values,
+                       np.float64)
+        check(a.shape == b.shape and np.isfinite(b).all(),
+              f"9a {key}: {a.shape} against {b.shape}")
+        out[key] = float(np.abs(a - b).max() / np.abs(a).max())
+    return out
+
+
+def atlas_pipeline(stages) -> dict:
+    """9a: prepare -> factorize (the row-sharded solver, engaged by the
+    cell count) -> combine -> consensus -> k_selection_plot at 250,000
+    cells, then the same with the shard store as the only copy and pass
+    checkpoints every pass."""
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils import shardstore, telemetry
+
+    out = {}
+    counts_fn = stages.run("9a counts", lambda: atlas_counts(OUT))
+    obj = cNMF(OUT, "atlas", device=CARD)
+    with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_OOC="0"):
+        stages.run("9a prepare", lambda: obj.prepare(
+            counts_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
+            seed=SEED, beta_loss="kullback-leibler",
+            num_highvar_genes=N_HVG, batch_size=CHUNK))
+        kl_ell.reset_launches()
+        stages.run("9a factorize", obj.factorize)
+        after_f = dict(kl_ell.launches)
+        stages.run("9a combine", obj.combine)
+        stages.run("9a consensus", lambda: obj.consensus(
+            CONSENSUS_K, density_threshold=2.0))
+        after_c = dict(kl_ell.launches)
+        stats = stages.run("9a k_selection_plot", obj.k_selection_plot)
+        launches = dict(kl_ell.launches)
+    info = obj.factorize_info
+    events = telemetry.read_events(os.path.join(
+        OUT, "atlas", "cnmf_tmp", "atlas.events.jsonl"))
+    recipe_ev = [e for e in events if e["t"] == "dispatch"
+                 and e.get("decision") == "solver_recipe"]
+    check(info["mode"] == "rowshard" and recipe_ev
+          and recipe_ev[-1]["context"].get("mode") == "rowshard",
+          f"9a: factorize ran {info['mode']}, solver_recipe events "
+          f"{[e['context'] for e in recipe_ev]}")
+    check(sum(after_f.values()) == 0,
+          f"9a: the dense row-sharded factorize launched {after_f}")
+    dense_peak_gate(stages, "9a factorize", ATLAS_CELLS, N_HVG)
+    check(after_c["h_stats"] > 0,
+          f"9a: the consensus refit launched no h_stats ({after_c})")
+    rises = sum(pass_rises(info["trace"][k], f"9a k={k}")
+                for k in ATLAS_KS)
+    for k in ATLAS_KS:
+        log(f"9a k={k}: passes {[int(np.isfinite(t).sum()) for t in info['trace'][k]]}"
+            f", final objective {np.round(info['errs'][k], 1).tolist()}")
+    check(stats.shape == (len(ATLAS_KS), 4)
+          and np.isfinite(stats.values).all(), "9a k-selection statistics")
+    out.update(launches=launches, factorize_launches=after_f,
+               consensus_launches=after_c, rises=rises,
+               k_selection=stats.values.tolist())
+    ref = iter_bytes(obj, ATLAS_KS, ATLAS_REPLICATES)
+
+    obj2 = cNMF(OUT, "atlas_ooc", device=CARD)
+    with knobs(CNMF_TPU_OOC="1", CNMF_TPU_CKPT_EVERY_PASSES="1"):
+        stages.run("9a ooc prepare", lambda: obj2.prepare(
+            counts_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
+            seed=SEED, beta_loss="kullback-leibler",
+            num_highvar_genes=N_HVG, batch_size=CHUNK))
+        store = obj2._probe_store()
+        check(store is not None
+              and not os.path.exists(obj2.paths["normalized_counts"]),
+              "9a: CNMF_TPU_OOC=1 must write the store and skip the "
+              "matrix file")
+        out["store"] = {"slabs": len(store.slabs),
+                        "store_bytes": store.store_bytes,
+                        "slab_rows": store.manifest["slab_rows"]}
+        stages.run("9a ooc factorize (checkpoint every pass)",
+                   obj2.factorize)
+        check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
+              "9a: the store-backed iter spectra differ from the in-memory "
+              "run's")
+        stages.run("9a ooc combine", obj2.combine)
+        stages.run("9a ooc consensus (streamed)", lambda: obj2.consensus(
+            CONSENSUS_K, density_threshold=2.0))
+        stats2 = stages.run("9a ooc k_selection_plot (streamed)",
+                            obj2.k_selection_plot)
+    gap = atlas_artifact_gap(obj, obj2)
+    err_gap = float(np.abs(stats2.values[:, 3] - stats.values[:, 3]).max()
+                    / np.abs(stats.values[:, 3]).max())
+    peaks = {c: int(st.host_peak_bytes) for c, st in obj2.stream_stats.items()}
+    check(all(v <= STREAM_RTOL for v in gap.values())
+          and err_gap <= STREAM_ERR_RTOL,
+          f"9a: streamed consensus against resident {gap} (band "
+          f"{STREAM_RTOL}), prediction errors {err_gap} (band "
+          f"{STREAM_ERR_RTOL})")
+    check(max(peaks.values()) <= shardstore.ooc_budget_bytes(),
+          f"9a: streamed host residency {peaks} above the budget")
+    log(f"9a: {len(ref)} iter spectra files bit for bit the in-memory "
+        f"run's with the store as the only copy; streamed consensus "
+        f"against resident (max |a-b| / max |a|) {gap}, prediction errors "
+        f"{err_gap:.3g}; streamed host peaks {peaks} bytes; store "
+        f"{out['store']}")
+    out.update(stream_gap=gap, error_gap=err_gap, stream_peaks=peaks)
+    return out, obj2, ref
+
+
+def solver_api(stages, rows) -> dict:
+    """9b: ``nmf_fit_rowsharded`` on 1,000,000 x 2,000 CSR (the ELL lane),
+    the three kernels held against their plain versions at R=1 on the
+    first 250,000 rows and timed at both sizes, and a 250,000-row solve
+    under a pinned dna recipe."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.recipe import SolverRecipe
+    from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
+                                                        stream_ell_to_mesh,
+                                                        stream_rows_to_mesh)
+
+    out = {}
+    X = stages.run("9b CSR 1M x 2,000", solver_csr)
+    out["density"] = X.nnz / (X.shape[0] * X.shape[1])
+    kl_ell.reset_launches()
+    rec = EventRecorder()
+    payloads = []
+    _H, W, err = stages.run("9b nmf_fit_rowsharded 1M (ELL)",
+                            lambda: nmf_fit_rowsharded(
+                                X, CONSENSUS_K, beta_loss="kullback-leibler",
+                                seed=SEED, telemetry_sink=payloads.append,
+                                events=rec, device=CARD))
+    st = rec.streams["rowshard_staging"]
+    out["launches"] = dict(kl_ell.launches)
+    for name in ONLINE_KERNELS:
+        check(out["launches"][name] > 0, f"9b: {name} never launched")
+    check(np.isfinite(W).all() and np.isfinite(err), "9b: nonfinite solve")
+    out["passes"] = int(payloads[0]["iters"][0])
+    out["rises"] = pass_rises([payloads[0]["trace"][0]], "9b 1M")
+    out["encode"] = {"host_s": st.host_prep_s, "h2d_s": st.h2d_s,
+                     "bytes": st.nbytes}
+    log(f"9b: 1M solve, {out['passes']} passes, objective {err:.6g}, "
+        f"launches {out['launches']}; encoding {st.host_prep_s:.2f} s on the "
+        f"host, {st.nbytes / 2 ** 30:.2f} GiB copied in {st.h2d_s:.2f} s")
+    records = {}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for n_rows in (SOLVER_CHECK_ROWS, SOLVER_CELLS):
+        t0 = time.perf_counter()
+        x, _ = stream_ell_to_mesh(X[:n_rows], CARD)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        nnz = int((x.vals > 0).sum())
+        g = X.shape[1]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (x.vals, x.cols, x.rows_t, x.perm_t))
+        H = (torch.rand((1, n_rows, CONSENSUS_K), generator=gen)
+             + 0.1).to(CARD)
+        W0 = (torch.rand((1, CONSENSUS_K, g), generator=gen) + 0.1).to(CARD)
+        tag = f"R=1 rows={n_rows} k={CONSENSUS_K}"
+        check_it = n_rows == SOLVER_CHECK_ROWS
+        errs = {}
+        if check_it:
+            got = kl_ell.h_stats(x.vals, x.cols, H, W0)
+            again = kl_ell.h_stats(x.vals, x.cols, H, W0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"h_stats {tag} not repeatable")
+            errs["h_stats"] = max_abs_err(
+                got, kl_ell.h_stats_plain(x.vals, x.cols, H, W0), 2e-5)
+            del got, again
+            errs["w_numer"] = w_numer_check(kl_ell, x, H, W0, False, tag)
+            errs["beta_err_partials"], _ = beta_err_check(kl_ell, x, H, W0,
+                                                          tag)
+        shape = {"rows": n_rows, "w": x.width, "t_w": x.t_width, "nnz": nnz,
+                 "encoding_bytes": nbytes, "encode_s": enc_s}
+        for name in ONLINE_KERNELS:
+            rec = _time_kernel(kl_ell, name, x, x.vals, H, W0, False, nnz,
+                               with_plain=check_it)
+            rec["max_abs_err"] = errs.get(name)
+            rec["variant"] = (f"{tag}, genes={g}, w={x.width}, "
+                              f"wt={x.t_width}, nnz={nnz}")
+            records.setdefault(name, {})[n_rows] = rec
+            rows.append(
+                f"  {name:18s} {tag:26s} kernel {rec['ms']:.4f} ms  plain "
+                f"{rec['plain_ms']} ms  bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})  max_abs_err {rec['max_abs_err']}")
+        out.setdefault("shapes", []).append(shape)
+        log(f"9b encoding of {n_rows} rows: w {x.width}, t_w {x.t_width}, "
+            f"{nnz} nonzeros, {nbytes / 2 ** 30:.3f} GiB on the card, "
+            f"{enc_s:.2f} s (host encode and copy)")
+        del x, H, W0
+        torch.cuda.empty_cache()
+    # the same matrix staged dense: the pass's row blocks keep the device
+    # peak to X and a fixed scratch
+    Xd = stages.run("9b stage 1M dense", lambda: stream_rows_to_mesh(
+        X, CARD)[0])
+    dense_payloads = []
+    stages.run(f"9b dense row-sharded solve 1M ({DENSE_PASSES} passes)",
+               lambda: nmf_fit_rowsharded(
+                   Xd, CONSENSUS_K, beta_loss="kullback-leibler", seed=SEED,
+                   n_passes=DENSE_PASSES,
+                   telemetry_sink=dense_payloads.append, device=CARD))
+    out["dense_peak_bytes"] = dense_peak_gate(
+        stages, f"9b dense row-sharded solve 1M ({DENSE_PASSES} passes)",
+        SOLVER_CELLS, SOLVER_GENES)
+    out["dense_rises"] = pass_rises([dense_payloads[0]["trace"][0]],
+                                    "9b dense 1M")
+    del Xd
+    torch.cuda.empty_cache()
+    kl_ell.reset_launches()
+    stages.run("9b dna solve 250k", lambda: nmf_fit_rowsharded(
+        X[:SOLVER_CHECK_ROWS], CONSENSUS_K, beta_loss="kullback-leibler",
+        seed=SEED, n_passes=DNA_PASSES,
+        recipe=SolverRecipe("dna", 1, True, "caller"), device=CARD))
+    out["dna_launches"] = dict(kl_ell.launches)
+    # the Newton usage steps replace h_stats; the W step and the objective
+    # stay on w_numer and beta_err_partials
+    for name in BATCH_KERNELS + ("w_numer", "beta_err_partials"):
+        check(out["dna_launches"][name] > 0,
+              f"9b dna: {name} never launched")
+    log(f"9b dna solve launches {out['dna_launches']}")
+    return out, records
+
+
+def matched_cosines(A, B):
+    """The cosines of the spectra of ``A`` and ``B`` (k x g) paired one to
+    one for the largest total cosine."""
+    from scipy.optimize import linear_sum_assignment
+
+    a = A / np.linalg.norm(A, axis=1, keepdims=True)
+    b = B / np.linalg.norm(B, axis=1, keepdims=True)
+    sim = a @ b.T
+    rows, cols = linear_sum_assignment(-sim)
+    return sim[rows, cols]
+
+
+def plain_slab_loop(Xd, init, passes):
+    """The slab-looped tier's KL passes done plainly on row slices of the
+    staged matrix: groups of ``OOC_SHARD_BYTES`` of rows in order, each
+    group's usages solved with W fixed (warm from its last pass), then one
+    MU step of W from that group's statistics. Returns W (k, g)."""
+    from cnmf_torch_tpu_torch.parallel.rowshard import fit_h_rowsharded
+
+    n, g = Xd.shape
+    rows = min(max(8, OOC_SHARD_BYTES // (g * 4)), n)
+    H = np.array(init[0], np.float32)
+    W = torch.as_tensor(np.array(init[1], np.float32), device=CARD)
+    for _ in range(passes):
+        for lo in range(0, n, rows):
+            x = Xd[lo:lo + rows]
+            H[lo:lo + rows] = fit_h_rowsharded(
+                x, W.cpu().numpy(), beta=1.0, chunk_max_iter=1000,
+                H0=H[lo:lo + rows], device=CARD)
+            h = torch.as_tensor(H[lo:lo + rows], device=CARD)
+            numer = h.T @ (x / torch.clamp_min(h @ W, 1e-16))
+            W = W * numer / torch.clamp_min(h.sum(0)[:, None], 1e-16)
+    return W.cpu().numpy()
+
+
+def ooc_faults(stages, obj2, ref) -> dict:
+    """9c on 9a's store-backed run: the slab-looped tier against the
+    resident solve, a factorize killed at a pass boundary and resumed, a
+    torn checkpoint, and a torn slab read."""
+    import warnings
+
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.ops.nmf import beta_divergence, random_init
+    from cnmf_torch_tpu_torch.parallel.rowshard import (fit_h_rowsharded,
+                                                        nmf_fit_rowsharded,
+                                                        stream_rows_to_mesh)
+    from cnmf_torch_tpu_torch.utils import shardstore, telemetry
+
+    out = {}
+    store = shardstore.open_shard_store(obj2.paths["shard_store"])
+    n, g = store.shape
+    init = tuple(t.numpy() for t in random_init(
+        SEED, n, g, CONSENSUS_K, store.value_sum / (n * g)))
+    kw = dict(beta_loss="kullback-leibler", seed=SEED, init_factors=init,
+              device=CARD)
+    Xd = stages.run("9c stage store resident",
+                    lambda: stream_rows_to_mesh(store, CARD)[0])
+    res_pay, ooc_pay = [], []
+    _, W_res, _ = stages.run("9c resident solve", lambda: nmf_fit_rowsharded(
+        Xd, CONSENSUS_K, telemetry_sink=res_pay.append, **kw))
+    rec = EventRecorder()
+    with knobs(CNMF_TPU_OOC_SHARD_BYTES=str(OOC_SHARD_BYTES)):
+        _, W_ooc, _ = stages.run(
+            "9c slab-looped solve", lambda: nmf_fit_rowsharded(
+                store, CONSENSUS_K, store_slab_loop=True, events=rec,
+                telemetry_sink=ooc_pay.append, **kw))
+    st = rec.streams["rowshard_ooc_passes"]
+    passes = (int(res_pay[0]["iters"][0]), int(ooc_pay[0]["iters"][0]))
+    W_ref = stages.run("9c plain group loop", lambda: plain_slab_loop(
+        Xd, init, passes[1]))
+
+    def objective(W):
+        # W's usages refit on the staged matrix, then one KL objective,
+        # summed in f64 over blocks of ATLAS_BLOCK rows
+        H = torch.as_tensor(fit_h_rowsharded(Xd, W, beta=1.0, device=CARD),
+                            device=CARD)[None]
+        Wt = torch.as_tensor(W, device=CARD)[None]
+        return sum(float(beta_divergence(Xd[lo:lo + ATLAS_BLOCK],
+                                         H[:, lo:lo + ATLAS_BLOCK], Wt,
+                                         1.0)[0])
+                   for lo in range(0, n, ATLAS_BLOCK))
+
+    o_res, o_ooc = objective(W_res), objective(W_ooc)
+    del Xd
+    torch.cuda.empty_cache()
+
+    ref_gap = float(np.abs(W_ref - W_ooc).max() / np.abs(W_ref).max())
+    w_gap = float(np.abs(W_res - W_ooc).max() / np.abs(W_res).max())
+    cos = matched_cosines(W_res, W_ooc)
+    obj_gap = abs(o_ooc - o_res) / abs(o_res)
+    log(f"9c slab loop: {passes[1]} passes ({passes[0]} resident); spectra "
+        f"against the plain group loop {ref_gap:.4g}; against the resident "
+        f"solve max |a-b| / max |a| {w_gap:.4g}, matched cosines "
+        f"{np.round(cos, 5).tolist()}; refit objective {o_ooc:.9g} against "
+        f"the resident {o_res:.9g} (gap {obj_gap:.4g}); host peak "
+        f"{st.host_peak_bytes} bytes of {shardstore.ooc_budget_bytes()}; "
+        f"{st.slabs} slabs read")
+    check(ref_gap <= OOC_REF_RTOL and obj_gap <= OOC_OBJ_RTOL
+          and w_gap <= OOC_W_RTOL and cos.min() >= OOC_COS_MIN,
+          f"9c: slab-looped spectra against the plain group loop {ref_gap} "
+          f"(band {OOC_REF_RTOL}); against the resident solve: objective "
+          f"gap {obj_gap} (band {OOC_OBJ_RTOL}), spectra {w_gap} (band "
+          f"{OOC_W_RTOL}), least matched cosine {cos.min()} (limit "
+          f"{OOC_COS_MIN})")
+    check(st.host_peak_bytes <= shardstore.ooc_budget_bytes(),
+          f"9c: host residency peak {st.host_peak_bytes} above the budget")
+    out["slab_loop"] = {"objective": o_ooc, "resident": o_res,
+                        "objective_gap": obj_gap, "spectra_gap": w_gap,
+                        "matched_cosines": cos.tolist(),
+                        "plain_loop_gap": ref_gap, "passes": passes,
+                        "host_peak_bytes": int(st.host_peak_bytes),
+                        "disk_gb_per_s": st.read_gb_per_s(),
+                        "slabs_read": int(st.slabs)}
+
+    # a factorize killed at a pass boundary, then --skip-completed-runs
+    env = dict(os.environ, PYTHONPATH=HERE, CNMF_TPU_TELEMETRY="1")
+    cmd = [sys.executable, "-m", "cnmf_torch_tpu_torch", "factorize",
+           "--output-dir", OUT, "--name", "atlas_ooc", "--device", CARD,
+           "--rowshard", "--skip-completed-runs"]
+    for it in (0, 1):
+        os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, it))
+    killed = stages.run("9c factorize killed at pass 4", lambda: subprocess.run(
+        cmd, env=dict(env, CNMF_TPU_FAULT_SPEC=KILL_SPEC), cwd=HERE,
+        capture_output=True, text=True, timeout=900))
+    ckpt = obj2.paths["pass_checkpoint"] % (CONSENSUS_K, 0)
+    check(killed.returncode == -9 and os.path.exists(ckpt),
+          f"9c: the killed factorize exited {killed.returncode}, "
+          f"checkpoint {os.path.exists(ckpt)}: {killed.stderr[-2000:]}")
+    resumed = stages.run("9c resume (CLI --skip-completed-runs)",
+                         lambda: subprocess.run(
+                             cmd, env=env, cwd=HERE, capture_output=True,
+                             text=True, timeout=900))
+    check(resumed.returncode == 0, f"9c resume: {resumed.stderr[-2000:]}")
+    events = telemetry.read_events(os.path.join(
+        OUT, "atlas_ooc", "cnmf_tmp", "atlas_ooc.events.jsonl"))
+    resumes = [e["context"] for e in events if e["t"] == "checkpoint"
+               and e.get("action") == "resume"]
+    check(resumes and resumes[-1]["pass_idx"] == 4 and resumes[-1]["with_h"],
+          f"9c: checkpoint resume events {resumes}")
+    check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
+          "9c: the resumed iter spectra differ from the uninterrupted run's")
+    out["kill_resume"] = {"killed_rc": killed.returncode,
+                          "resumed_from_pass": resumes[-1]["pass_idx"]}
+    log(f"9c kill at a pass boundary: resumed from pass "
+        f"{resumes[-1]['pass_idx']} with H; every iter file bit for bit")
+
+    # a torn checkpoint: discarded, its replicate restarts from scratch
+    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
+    torn = stages.run("9c factorize torn and killed", lambda: subprocess.run(
+        cmd, env=dict(env, CNMF_TPU_FAULT_SPEC=TORN_SPEC), cwd=HERE,
+        capture_output=True, text=True, timeout=900))
+    check(torn.returncode == -9, f"9c torn: exited {torn.returncode}")
+    again = cNMF(OUT, "atlas_ooc", device=CARD)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stages.run("9c resume after a torn checkpoint",
+                   lambda: again.factorize(skip_completed_runs=True))
+    discarded = [str(w.message) for w in caught
+                 if "pass checkpoint failed validation" in str(w.message)]
+    check(discarded, "9c: the torn checkpoint was not discarded")
+    check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
+          "9c: the restarted replicate differs from the uninterrupted run")
+    out["torn_checkpoint"] = discarded[0][:200]
+    log("9c torn checkpoint: discarded, the replicate restarted from "
+        "scratch and wrote the uninterrupted run's bytes")
+
+    # a torn slab read heals by re-reading
+    clean = stream_rows_to_mesh(store, CARD)[0]
+    rec = EventRecorder()
+    with knobs(CNMF_TPU_FAULT_SPEC="shard_read:limit=1"), \
+            warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        healed = stream_rows_to_mesh(store, CARD, events=rec)[0]
+    faults_seen = [e for e in rec.events if e["t"] == "fault"
+                   and e.get("kind") == "shard_read_torn"]
+    check(len(faults_seen) == 1 and torch.equal(clean, healed),
+          f"9c shard_read: faults {faults_seen}, staged equal "
+          f"{bool(torch.equal(clean, healed))}")
+    out["shard_read"] = faults_seen[0]["context"]
+    log(f"9c torn slab read: detected ({faults_seen[0]['context']['path']}),"
+        " re-read, staged matrix bit for bit the clean one")
+    return out
+
+
+def phase9(stages, rows) -> dict:
+    """Phase 9, the atlas path: 9a, 9b and 9c."""
+    p9, obj2, ref = atlas_pipeline(stages)
+    p9["solver"], records = solver_api(stages, rows)
+    p9["faults"] = ooc_faults(stages, obj2, ref)
+    p9["kernel_launches"] = {
+        name: int(p9["launches"][name]) + int(p9["solver"]["launches"][name])
+        + int(p9["solver"]["dna_launches"][name])
+        for name in ONLINE_KERNELS + BATCH_KERNELS}
+    return p9, records
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -2217,13 +2825,26 @@ def main() -> int:
     for name, wall, peak in stages.rows[n_stages:]:
         log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
 
+    # -- phase 9: the atlas path ---------------------------------------------
+    n_stages = len(stages.rows)
+    atlas_rows = []
+    p9, atlas_records = phase9(stages, atlas_rows)
+    log(f"phase 9 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log("phase 9 kernels at R=1 (median of CUDA-event timed launches):")
+    for line in atlas_rows:
+        log(line)
+    log(f"phase 9 kernel launches: {p9['kernel_launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
         rec["launches"] = (int(launches[name]) + int(b_launches[name])
                            + int(p7_launches[name])
                            + int(p8["launches"][name])
-                           + int(p8["profiled_launches"][name]))
+                           + int(p8["profiled_launches"][name])
+                           + int(p9["kernel_launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -2233,6 +2854,7 @@ def main() -> int:
                            "phase8": p8["launches"],
                            "phase8_profiled": p8["profiled_launches"]},
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
+              "phase9": p9, "phase9_kernels": atlas_records,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
@@ -2242,7 +2864,7 @@ def main() -> int:
               "profile": profile, "card": smi, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:
-        json.dump(report, f, indent=1)
+        json.dump(report, f, indent=1, default=str)
     log(f"total {report['seconds']:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

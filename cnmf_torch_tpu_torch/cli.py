@@ -9,7 +9,12 @@ the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
 figure is not written yet (the plots are not ported). ``report`` renders a
 run's telemetry (the events file of a ``CNMF_TPU_TELEMETRY=1`` run, else
 the timings TSV) and ``trace`` its sampled span waterfalls; both read
-files only and never touch a device. ``factorize`` exits with
+files only and never touch a device. ``factorize --rowshard`` /
+``--no-rowshard`` / ``--rowshard-threshold`` choose the row-sharded
+solver as the JAX CLI does (auto at 200,000 cells; the consensus refits
+keep the constructor's threshold), and ``--store-uri`` sets
+``CNMF_TPU_STORE_URI`` (``file:///base``; ``http(s)://`` is not ported
+yet and fails before any work). ``factorize`` exits with
 ``UNHEALTHY_EXIT_CODE`` (3) when a K ends below
 ``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates after its retries, as
 the JAX package's CLI does: a rerun would draw the same derived seeds,
@@ -108,6 +113,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sequential", action="store_true", default=False,
                         help="[factorize] Run replicates one at a time "
                              "instead of as one batched solve per K")
+    parser.add_argument("--rowshard", dest="rowshard",
+                        action=argparse.BooleanOptionalAction, default=None,
+                        help="[factorize] Shard the cells axis across the "
+                             "device mesh (atlas-scale inputs), streaming "
+                             "sparse row blocks host-to-HBM instead of "
+                             "densifying. Default: auto above "
+                             "--rowshard-threshold cells")
+    parser.add_argument("--rowshard-threshold", type=int, default=200_000,
+                        help="[factorize] Cell count at which factorize "
+                             "auto-switches to the row-sharded path")
+    parser.add_argument("--store-uri", type=str, default=None,
+                        help="[all] Shard-store transport URI (exports "
+                             "CNMF_TPU_STORE_URI for this run): unset = "
+                             "local paths, file:///base relocates the "
+                             "store; http(s):// (the remote object store) "
+                             "is not ported yet")
     parser.add_argument("--per-k-programs", action="store_true",
                         default=False,
                         help="[factorize] Pin the per-K sweeps (the JAX "
@@ -157,6 +178,14 @@ def main(argv=None):
         if missing:
             parser.error(f"prepare requires {' and '.join(missing)}")
 
+    if args.store_uri:
+        # the flag is the knob: exported so every reader resolves the
+        # same backend; an unsupported scheme fails here, before any work
+        from .utils.storebackend import STORE_URI_ENV, resolve_backend
+
+        os.environ[STORE_URI_ENV] = args.store_uri
+        resolve_backend(os.path.join(args.output_dir, args.name))
+
     from .models.cnmf import cNMF
 
     obj = cNMF(output_dir=args.output_dir, name=args.name,
@@ -178,6 +207,8 @@ def main(argv=None):
                           total_workers=max(args.total_workers, 1),
                           skip_completed_runs=args.skip_completed_runs,
                           batched=not args.sequential,
+                          rowshard=args.rowshard,
+                          rowshard_threshold=args.rowshard_threshold,
                           packed=False if args.per_k_programs else None)
         except UnhealthySweepError as exc:
             print(f"factorize: {exc}", file=sys.stderr)

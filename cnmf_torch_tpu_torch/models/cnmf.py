@@ -39,6 +39,19 @@ faults and a device-memory watermark after each stage;
 ``CNMF_TPU_PROFILE_DIR`` traces each stage with ``torch.profiler``. One
 departure: the JAX package's ``consensus`` stage times a file probe, and
 here it times the ``consensus`` call itself.
+
+The atlas path, as in the JAX package: at or above ``rowshard_threshold``
+cells (default 200,000) ``factorize`` runs the row-sharded solver
+(``parallel/rowshard.py``) one replicate at a time on the staged matrix,
+with pass checkpoints (``runtime/checkpoint.py``) and resume, and the
+consensus refits run row-sharded too (``fit_h_rowsharded`` on the ELL
+encoding of a sparse matrix, whose KL statistics are the ``h_stats``
+kernel on the card; ``refit_w_rowsharded``). ``prepare`` writes the
+row-slab shard store of the normalized counts (``utils/shardstore.py``)
+when ``CNMF_TPU_OOC`` asks for it (``auto``: above the host budget;
+``1``: always, and the store is then the only copy); factorize streams it
+from disk, and consensus and the K-selection statistics stream it slab
+by slab when it is the only copy.
 """
 
 from __future__ import annotations
@@ -79,7 +92,8 @@ from ..parallel.replicates import (_auto_packed, replicate_sweep,
 from ..runtime import faults, resilience
 from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
                         load_df_from_npz, load_df_from_text, load_matrix,
-                        save_df_to_npz, save_df_to_text, save_matrix)
+                        peek_matrix, save_df_to_npz, save_df_to_text,
+                        save_matrix)
 from ..utils.paths import build_paths
 from ..utils.profiling import StageTimer, trace
 from ..utils.telemetry import EventLog, replicate_records
@@ -128,8 +142,11 @@ class cNMF:
     ``cnmf_tmp/``; unnamed runs get ``YYYY_MM_DD_<6-hex>`` names."""
 
     def __init__(self, output_dir: str = ".", name: str | None = None,
-                 device="cuda"):
+                 device="cuda", rowshard_threshold: int = 200_000):
         self.device = resolve_device(device)
+        # cell count at which factorize and the consensus refits switch to
+        # the row-sharded solvers
+        self.rowshard_threshold = int(rowshard_threshold)
         self.output_dir = output_dir
         if name is None:
             now = datetime.datetime.now()
@@ -154,6 +171,9 @@ class cNMF:
         # per K, the consensus stage's sketch decision (and, under
         # "k_selection", the sweep-level one of k_selection_stats)
         self.consensus_info: dict = {}
+        # the streamed consensus passes' StreamStats (walls, bytes, host
+        # residency peak) by context
+        self.stream_stats: dict = {}
 
     # ------------------------------------------------------------------
     # prepare
@@ -249,8 +269,123 @@ class cNMF:
         return Counts(X, counts.obs_names, np.asarray(hvgs))
 
     def save_norm_counts(self, norm_counts: Counts):
-        save_matrix(self.paths["normalized_counts"], norm_counts.X,
-                    norm_counts.obs_names, norm_counts.var_names)
+        """Write the normalized matrix: the matrix file and/or the
+        row-slab shard store (``utils/shardstore.py``).
+
+        ``CNMF_TPU_OOC=auto`` (default) writes the store too when the
+        matrix's host bytes exceed the slab budget; ``=1`` writes the
+        store and makes it the only copy (the matrix file is skipped);
+        ``=0`` writes the matrix file only. Order: remove the old store,
+        write (or remove) the matrix file, write the store — each write is
+        atomic, so a crash leaves a consistent pair."""
+        from ..utils import shardstore
+
+        mode = shardstore.ooc_mode()
+        write_store = mode == "1" or (
+            mode == "auto"
+            and shardstore.host_matrix_bytes(norm_counts.X)
+            > shardstore.ooc_budget_bytes())
+        shardstore.remove_store(self.paths["shard_store"])
+        if mode == "1" and write_store:
+            print("prepare: CNMF_TPU_OOC=1 — normalized counts live in "
+                  "the shard store only (matrix file skipped); consensus "
+                  "and k-selection stream it slab-wise, resident readers "
+                  "assemble it loudly.")
+            try:
+                os.unlink(self.paths["normalized_counts"])
+            except OSError:
+                pass
+        else:
+            save_matrix(self.paths["normalized_counts"], norm_counts.X,
+                        norm_counts.obs_names, norm_counts.var_names)
+        if write_store:
+            with self._timer.stage("prepare.shard_store"):
+                shardstore.write_shard_store(
+                    self.paths["shard_store"], norm_counts.X,
+                    obs_names=norm_counts.obs_names,
+                    var_names=norm_counts.var_names, events=self._events)
+
+    def _probe_store(self):
+        """This run's shard store, or ``None`` (absent, invalid, or
+        ``CNMF_TPU_OOC=0``)."""
+        from ..utils import shardstore
+
+        if shardstore.ooc_mode() == "0":
+            return None
+        store, _reason = shardstore.probe_shard_store(
+            self.paths["shard_store"], events=self._events)
+        return store
+
+    def _read_norm_counts(self, store=None) -> Counts:
+        """The normalized counts: the matrix file when it exists, else
+        assembled from the shard store (the only copy under
+        ``CNMF_TPU_OOC=1``), loudly, since that holds the whole matrix on
+        the host."""
+        from ..utils import shardstore
+
+        if os.path.exists(self.paths["normalized_counts"]):
+            return load_matrix(self.paths["normalized_counts"])
+        if store is None:
+            store = self._probe_store()
+        if store is None:
+            _, reason = shardstore.probe_shard_store(
+                self.paths["shard_store"])
+            if reason is not None and reason != "missing":
+                raise shardstore.TornShardError(
+                    "normalized counts are unreadable: the matrix file is "
+                    "absent (store-authoritative prepare) and the shard "
+                    "store failed validation — re-run prepare. (%s)"
+                    % reason)
+            return load_matrix(self.paths["normalized_counts"])
+        warnings.warn(
+            "the normalized-counts matrix file is absent (CNMF_TPU_OOC=1 "
+            "store-authoritative prepare); assembling the full matrix from "
+            "the shard store on the host", RuntimeWarning, stacklevel=2)
+        return self._store_counts(store, with_matrix=True)
+
+    @staticmethod
+    def _store_counts(store, with_matrix=False) -> Counts:
+        """A shard store as :class:`Counts`: the names always, the matrix
+        only ``with_matrix`` (else an all-zero CSR of the right shape that
+        no solver reads)."""
+        X = (store.to_matrix() if with_matrix
+             else sp.csr_matrix(store.shape, dtype=np.float32))
+        obs = store.obs_names() or [str(i) for i in range(store.shape[0])]
+        var = store.var_names() or [str(j) for j in range(store.shape[1])]
+        return Counts(X, np.asarray(obs), np.asarray(var))
+
+    def _store_stale(self, store) -> bool:
+        """True when the store disagrees with the matrix file on shape or
+        genes (metadata reads only); with no matrix file the store is the
+        only copy and never stale by this test."""
+        path = self.paths["normalized_counts"]
+        if not os.path.exists(path):
+            return False
+        try:
+            shape, var = peek_matrix(path)
+            return (shape != tuple(store.shape)
+                    or [str(v) for v in var] != list(store.var_names()))
+        except Exception as exc:
+            warnings.warn(
+                "shard store staleness probe failed (%s); treating the "
+                "store as stale" % (exc,), RuntimeWarning, stacklevel=2)
+            return True
+
+    def _sweep_stale_store(self, store) -> bool:
+        """Worker 0's fresh-run sweep: remove the store's orphaned write
+        temps, and delete a store that disagrees with the current
+        prepare. True when the store was removed."""
+        from ..utils import shardstore
+
+        shardstore.sweep_store_temps(self.paths["shard_store"])
+        if store is not None and self._store_stale(store):
+            warnings.warn(
+                "shard store at %s does not match the current prepare's "
+                "normalized counts — removing the stale store"
+                % self.paths["shard_store"], RuntimeWarning, stacklevel=2)
+            shardstore.remove_store(self.paths["shard_store"])
+            return True
+        return False
 
     # ------------------------------------------------------------------
     # replicate ledger + solver parameters
@@ -363,7 +498,8 @@ class cNMF:
     @_timed("factorize")
     def factorize(self, worker_i=0, total_workers=1,
                   skip_completed_runs=False, batched=True,
-                  replicates_per_batch=None, packed=None):
+                  replicates_per_batch=None, packed=None, rowshard=None,
+                  rowshard_threshold: int | None = None, mesh_shape=None):
         """Run this worker's share of the replicate ledger.
 
         Batched lane (default): the tasks are grouped per K and each group
@@ -398,6 +534,20 @@ class cNMF:
         once, and eager PyTorch compiles nothing per K, so a packed run is
         the per-K sweeps and writes their iter spectra.
 
+        The atlas path (``rowshard=True``, or by default when the matrix
+        has at least ``rowshard_threshold`` cells — the constructor's
+        unless given — and the lane is batched; CLI ``--rowshard``,
+        ``--no-rowshard``, ``--rowshard-threshold``): the row-sharded
+        solver (``parallel/rowshard.py``) solves one replicate at a time on
+        the matrix staged once (dense, as the JAX package stages it, so a
+        store-backed run is bit for bit the in-memory one), with pass
+        checkpoints every ``CNMF_TPU_CKPT_EVERY_PASSES`` passes and resume
+        from them. ``mesh_shape`` ``'1d'``/``'rowshard'`` forces it;
+        ``'2d'``/``'grid2d'`` raise ``NotImplementedError`` (the
+        multi-device layouts are a later slice). A shard store written by
+        ``prepare`` is read from disk: the row-sharded path streams it,
+        the others assemble it.
+
         Observability (``obs/``): the worker's ``factorize.worker`` span
         (under ``CNMF_TPU_TRACE_SAMPLE``), the
         ``cnmf_factorize_workers_total`` counter and a closing
@@ -414,7 +564,9 @@ class cNMF:
             return self._factorize_impl(
                 worker_i=worker_i, total_workers=total_workers,
                 skip_completed_runs=skip_completed_runs, batched=batched,
-                replicates_per_batch=replicates_per_batch, packed=packed)
+                replicates_per_batch=replicates_per_batch, packed=packed,
+                rowshard=rowshard, rowshard_threshold=rowshard_threshold,
+                mesh_shape=mesh_shape)
         finally:
             obs_tracing.emit_span(
                 self._events, ctx, "factorize.worker",
@@ -423,9 +575,34 @@ class cNMF:
             obs_metrics.emit_snapshot(self._events)
 
     def _factorize_impl(self, worker_i, total_workers, skip_completed_runs,
-                        batched, replicates_per_batch, packed):
+                        batched, replicates_per_batch, packed, rowshard=None,
+                        rowshard_threshold=None, mesh_shape=None):
+        # a layout request is checked before any file is read
+        if mesh_shape is not None:
+            if mesh_shape in ("2d", "grid2d", "grid"):
+                raise NotImplementedError(
+                    f"mesh_shape={mesh_shape!r}: the (replicates x cells) "
+                    "mesh and the (cells x genes) grid come with the "
+                    "multi-device slice (ROADMAP item 4); this build runs "
+                    "the 1-D row-sharded solver on one card "
+                    "(mesh_shape='1d')")
+            if mesh_shape not in ("1d", "rowshard"):
+                raise ValueError(
+                    f"mesh_shape={mesh_shape!r}: expected '1d'/'rowshard', "
+                    "'2d' (replicates x cells), or 'grid2d' (cells x "
+                    "genes)")
+            rowshard = True
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
-        norm = load_matrix(self.paths["normalized_counts"])
+        # a shard store defers reading the matrix: the row-sharded path
+        # streams it from disk, the resident lanes assemble it below
+        store = self._probe_store()
+        # worker 0's fresh run sweeps the store's write debris, and a
+        # store that disagrees with the current prepare is never read
+        if (not skip_completed_runs and int(worker_i) == 0
+                and self._sweep_stale_store(store)):
+            store = None
+        norm = (self._store_counts(store) if store is not None
+                else self._read_norm_counts())
         kw = self._solver_params()
         beta = beta_loss_to_float(kw["beta_loss"])
         mode = kw.get("mode", "online")
@@ -491,6 +668,15 @@ class cNMF:
             for torn in deferred_torn:
                 self._events.emit("fault", kind="torn_artifact",
                                   context=torn)
+        if store is not None:
+            self._events.emit(
+                "dispatch", decision="ooc_ingest",
+                context={"slabs": len(store.slabs),
+                         "store_bytes": int(store.store_bytes),
+                         "format": store.format, "rows": int(store.n_rows),
+                         "backend": store.backend.kind,
+                         "h5ad_present": os.path.exists(
+                             self.paths["normalized_counts"])})
         guard = resilience.ReplicateGuard(
             events=self._events, ledger_path=ledger_fn % int(worker_i))
         self._written: dict[int, int] = {}
@@ -526,6 +712,28 @@ class cNMF:
                      if quarantined_idx else ""))
             return
 
+        if rowshard_threshold is None:
+            rowshard_threshold = self.rowshard_threshold
+        if rowshard is None:
+            # auto only for the batched lane: --sequential keeps its solver
+            rowshard = batched and n >= int(rowshard_threshold)
+            if rowshard:
+                print("factorize: %d cells >= rowshard threshold %d — "
+                      "auto-engaging the row-sharded solver (pass "
+                      "rowshard=False / --no-rowshard to keep the batched "
+                      "replicate sweep)." % (n, int(rowshard_threshold)))
+        if rowshard:
+            # replicates solve one at a time, so a resume reruns only the
+            # incomplete ones
+            credit_completed(jobs)
+            self._factorize_rowsharded(jobs, ks, iters, seeds, norm, kw,
+                                       guard, worker_i,
+                                       resume=skip_completed_runs,
+                                       store=store)
+            return
+        if store is not None:
+            norm = self._read_norm_counts(store)
+            X = norm.X
         if batched and skip_completed_runs:
             # a K with any incomplete replicate reruns this worker's whole
             # K group (quarantined lanes excepted): on the card a lane's
@@ -664,6 +872,181 @@ class cNMF:
             spectra_r, _, errs_r = replicate_sweep(X, seeds_r, k_r,
                                                    **sweep_kw)
             return spectra_r, errs_r
+
+        self._finish_resilience(guard, rerun, norm.var_names, worker_i)
+
+    def _factorize_rowsharded(self, jobs, ks, iters, seeds, norm, kw, guard,
+                              worker_i, resume=False, store=None):
+        """The atlas path: the matrix staged once on the card, dense (as the
+        JAX package stages it, so a store-backed run is bit for bit the
+        in-memory one), then one row-sharded solve a replicate
+        (``parallel/rowshard.py:nmf_fit_rowsharded``). A store whose dense
+        shard exceeds the resident budget is not staged: each solve runs
+        the slab-looped tier on it.
+
+        Pass checkpoints (``runtime/checkpoint.py``): every
+        ``CNMF_TPU_CKPT_EVERY_PASSES`` passes (default 1; 0 off) a
+        replicate's pass state lands in ``pass_checkpoint``, pinned to the
+        matrix (its digest, or the store's), the solver parameters, the
+        recipe and the ingest tier; a resume (``skip_completed_runs``)
+        continues an interrupted replicate from it, bit for bit while H
+        fits the checkpoint's byte budget. A staging fault (an exhausted
+        upload retry, a stall, a slab torn past its re-reads) lands in the
+        resilience ledger before the run aborts."""
+        import glob
+
+        from ..parallel.rowshard import (nmf_fit_rowsharded,
+                                         prepare_rowsharded, store_dispatch)
+        from ..parallel.streaming import (ShardStallError, ShardUploadError,
+                                          StreamStats)
+        from ..runtime import checkpoint as ckpt_mod
+        from ..utils.shardstore import TornShardError
+
+        beta = beta_loss_to_float(kw["beta_loss"])
+        init = kw.get("init", "random")
+        n, g = norm.X.shape
+        slab_loop = False
+        stage_stats = StreamStats() if self._events.enabled else None
+        try:
+            if store is not None:
+                _, slab_loop = store_dispatch(store, beta, init=init,
+                                              force_dense=True,
+                                              device=self.device)
+            if slab_loop:
+                print("[Worker %d]. Store-backed shard exceeds the resident "
+                      "budget — running slab-looped out-of-core passes "
+                      "(CNMF_TPU_OOC_SHARD_BYTES)." % worker_i)
+                Xd, n_orig = store, store.n_rows
+            else:
+                Xd, n_orig = prepare_rowsharded(
+                    store if store is not None else norm.X, self.device,
+                    stats=stage_stats, events=self._events)
+        except (ShardUploadError, ShardStallError, TornShardError) as exc:
+            kind = ("shard_stall" if isinstance(exc, ShardStallError)
+                    else "shard_read_torn" if isinstance(exc, TornShardError)
+                    else "shard_upload_failed")
+            guard.record_shard_fault(kind, {"stage": "rowshard_stage_x",
+                                            "error": str(exc)})
+            guard.finalize()
+            raise
+        self._events.emit_stream("rowshard_stage_x", stage_stats)
+        _, n_passes, _ = resolve_online_schedule(beta, 0.05,
+                                                 kw.get("n_passes"))
+        chunk_max_iter = int(kw.get("online_chunk_max_iter", 1000))
+        print("[Worker %d]. Row-sharded factorize: %d cells on one device, "
+              "%d tasks." % (worker_i, n_orig, len(jobs)))
+        recipe = resolve_recipe(
+            beta, "rowshard", algo="mu", n=int(n), g=int(g),
+            k=max((int(ks[i]) for i in jobs), default=None))
+        self._events.emit("dispatch", decision="solver_recipe",
+                          context=dict(recipe.as_context(), mode="rowshard"))
+        tier = "slab_loop" if slab_loop else "resident"
+        self.factorize_info = {
+            "lane": "dense", "mode": "rowshard", "packed": False,
+            "kernel": kernel_label(False, self.device, False, beta),
+            "solver_recipe": recipe.label,
+            "kl_newton": bool(recipe.kl_newton), "bf16_ratio": False,
+            "n_passes": n_passes, "online_h_tol": 0.05,
+            "ooc_ingest": None if store is None else
+            ("slab_loop" if slab_loop else "store_resident"),
+            "ledger_keys_ignored": ["mode", "online_chunk_size"],
+            "trace": {}, "errs": {}, "jobs": len(jobs)}
+        self._save_factorize_provenance("rowshard", worker_i, kw)
+
+        ckpt_every = ckpt_mod.ckpt_every_passes()
+        if ckpt_every <= 0:
+            digest = None
+        elif store is not None:
+            digest = "store:" + store.store_digest
+        else:
+            digest = ckpt_mod.input_digest(norm.X)
+        # the identity pins a checkpoint to the settings it ran under: a
+        # changed cap, penalty, recipe or ingest tier restarts the
+        # replicate instead of splicing two trajectories
+        params_sig = repr(sorted({
+            "init": str(init), "tol": float(kw.get("tol", 1e-4)),
+            "n_passes": int(n_passes), "chunk_max_iter": chunk_max_iter,
+            "alpha_W": float(kw.get("alpha_W", 0.0)),
+            "l1_ratio_W": float(kw.get("l1_ratio_W", 0.0)),
+            "alpha_H": float(kw.get("alpha_H", 0.0)),
+            "l1_ratio_H": float(kw.get("l1_ratio_H", 0.0)),
+            "recipe": recipe.signature(), "ingest_tier": tier,
+            "layout": "rowshard", "encoding": "dense"}.items()))
+
+        def make_ckpt(k_c, it_c, seed_c, attempt=0):
+            """A replicate's checkpoint policy; a retry checkpoints under
+            an attempt-suffixed path with its derived seed, and always
+            resumes (the retry ladder's seeds are deterministic)."""
+            if ckpt_every <= 0:
+                return None
+            path = self.paths["pass_checkpoint"] % (int(k_c), int(it_c))
+            if int(attempt) > 0:
+                path = path[:-4] + ".a%d.npz" % int(attempt)
+            elif not resume:
+                # a fresh run voids the retry cursors with the base one
+                for stale in glob.glob(path[:-4] + ".a*.npz"):
+                    try:
+                        os.unlink(stale)
+                    except OSError:
+                        pass
+            return ckpt_mod.PassCheckpointer(
+                path, ckpt_every,
+                meta={"k": int(k_c), "iter": int(it_c), "seed": int(seed_c),
+                      "attempt": int(attempt), "digest": digest,
+                      "beta": float(beta), "params": params_sig},
+                events=self._events, worker=worker_i,
+                resume=bool(resume) if int(attempt) == 0 else True)
+
+        def sink(payload):
+            self.factorize_info["trace"].setdefault(
+                int(payload["k"]), []).append(payload["trace"][0])
+            self._emit_replicates_event(payload)
+
+        def solve(k_r, seed_r, ckpt):
+            _H, spectra, err = nmf_fit_rowsharded(
+                Xd, int(k_r), beta_loss=kw["beta_loss"], init=init,
+                seed=int(seed_r), tol=float(kw.get("tol", 1e-4)),
+                n_passes=n_passes, chunk_max_iter=chunk_max_iter,
+                alpha_W=kw.get("alpha_W", 0.0),
+                l1_ratio_W=kw.get("l1_ratio_W", 0.0),
+                alpha_H=kw.get("alpha_H", 0.0),
+                l1_ratio_H=kw.get("l1_ratio_H", 0.0), n_orig=n_orig,
+                telemetry_sink=sink, checkpoint=ckpt, recipe=recipe,
+                events=self._events, store_slab_loop=slab_loop,
+                device=self.device)
+            return np.asarray(spectra), float(err)
+
+        for idx in jobs:
+            k, it, seed = int(ks[idx]), int(iters[idx]), int(seeds[idx])
+            faults.maybe_straggle(context="factorize", worker=worker_i)
+            ckpt = make_ckpt(k, it, seed)
+            spectra, err = solve(k, seed, ckpt)
+            sp3, errs = faults.maybe_poison_lanes(
+                k, [it], spectra[None], np.asarray([err]), seeds=[seed])
+            self.factorize_info["errs"].setdefault(k, []).append(
+                float(errs[0]))
+            healthy = guard.observe(k, [it], [seed],
+                                    resilience.lane_health(errs, spectra=sp3))
+            if healthy[0]:
+                self._write_iter_spectra(k, it, sp3[0], norm.var_names)
+            if ckpt is not None:
+                # the artifact (or the quarantine record) supersedes the
+                # cursor; discarded after the write, so a kill in between
+                # resumes from the final checkpoint
+                ckpt.discard()
+            faults.maybe_kill("factorize", worker_i)
+        self.factorize_info["errs"] = {
+            k: np.asarray(v) for k, v in self.factorize_info["errs"].items()}
+
+        def rerun(k_r, seeds_r, iters=None, attempt=0):
+            outs = []
+            for j, s in enumerate(seeds_r):
+                ckpt = make_ckpt(k_r, iters[j], s, attempt=attempt)
+                outs.append(solve(k_r, s, ckpt))
+                if ckpt is not None:
+                    ckpt.discard()
+            return (np.stack([o[0] for o in outs]),
+                    np.asarray([o[1] for o in outs], np.float64))
 
         self._finish_resilience(guard, rerun, norm.var_names, worker_i)
 
@@ -886,8 +1269,21 @@ class cNMF:
     def refit_usage(self, X, spectra, usage=None) -> np.ndarray:
         """Fixed-spectra usage refit (``ops/nmf.py:fit_h``) of the run's
         own beta subproblem; a sparse ``X`` with KL takes the ELL lane under
-        the dispatch rule. ``usage`` warm-starts the solve."""
+        the dispatch rule. ``usage`` warm-starts the solve. At or above
+        ``rowshard_threshold`` rows (without ``usage``) the refit runs
+        row-sharded (``parallel/rowshard.py:fit_h_rowsharded``: the staged
+        shard solved as one block; the ELL encoding of a sparse KL matrix
+        runs the ``h_stats`` kernel on the card)."""
         kw = self._solver_params()
+        if X.shape[0] >= self.rowshard_threshold and usage is None:
+            from ..parallel.rowshard import fit_h_rowsharded
+
+            return fit_h_rowsharded(
+                X, np.asarray(spectra, dtype=np.float32), h_tol=0.05,
+                chunk_max_iter=int(kw["online_chunk_max_iter"]),
+                l1_reg_H=float(kw["l1_ratio_H"]), l2_reg_H=0.0,
+                beta=beta_loss_to_float(kw["beta_loss"]),
+                device=self.device, events=self._events)
         return fit_h(
             X, np.asarray(spectra, dtype=np.float32),
             H_init=None if usage is None else np.asarray(usage),
@@ -898,7 +1294,19 @@ class cNMF:
 
     def refit_spectra(self, X, usage) -> np.ndarray:
         """Spectra for fixed usages by the transpose trick: the usage refit
-        of ``X.T`` against ``usage.T``."""
+        of ``X.T`` against ``usage.T``. At or above ``rowshard_threshold``
+        rows the W subproblem is solved directly
+        (``parallel/rowshard.py:refit_w_rowsharded``), whose row blocks
+        never become ``chunk x cells`` dense buffers."""
+        if X.shape[0] >= self.rowshard_threshold:
+            from ..parallel.rowshard import refit_w_rowsharded
+
+            kw = self._solver_params()
+            return refit_w_rowsharded(
+                X, np.asarray(usage),
+                beta=beta_loss_to_float(kw["beta_loss"]), h_tol=0.05,
+                max_iter=int(kw["online_chunk_max_iter"]),
+                l1_reg_W=float(kw["l1_ratio_W"]), device=self.device)
         Xt = X.T.tocsr() if sp.issparse(X) else np.asarray(X).T
         return self.refit_usage(Xt, np.asarray(usage).T).T
 
@@ -910,7 +1318,8 @@ class cNMF:
                    local_neighborhood_size=0.30, show_clustering=False,
                    build_ref=True, skip_density_and_return_after_stats=False,
                    refit_usage=True, normalize_tpm_spectra=False,
-                   norm_counts=None, _sketch=None):
+                   norm_counts=None, _sketch=None, _stream_store=None,
+                   _stream_error_collector=None):
         """Consensus spectra and usages from the merged replicate matrix:
         L2-normalize, filter outliers by KNN local density (cached), k-means
         (k, 10 inits, seed 1), cluster medians, usage refits, TPM- and
@@ -933,15 +1342,28 @@ class cNMF:
         ``.build_ref`` (those the call runs); the K-selection sweep's
         stats passes call it as ``_consensus``, with no ``consensus``
         stage of their own. ``_sketch``: the sweep-level decision of
-        :meth:`k_selection_stats`, in place of a per-K one."""
+        :meth:`k_selection_stats`, in place of a per-K one.
+
+        Streaming consensus: when the shard store is the only copy of the
+        normalized counts (a ``CNMF_TPU_OOC=1`` prepare), the usage refit
+        and the prediction error loop over the store's row blocks under
+        the host slab budget (:meth:`_refit_usage_streamed`,
+        :meth:`_streamed_prediction_errors`); no stage assembles the cells
+        x genes matrix. ``_stream_store`` / ``_stream_error_collector``:
+        :meth:`k_selection_stats` hands its store over and collects each
+        K's spectra for its one shared error pass."""
         if show_clustering:
             raise NotImplementedError(
                 "the clustergram figure is not ported yet")
         dev = self.device
         k = int(k)
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
+        store = _stream_store
         if norm_counts is None:
-            norm_counts = load_matrix(self.paths["normalized_counts"])
+            if store is None:
+                store = self._consensus_stream_store()
+            norm_counts = (self._store_counts(store) if store is not None
+                           else self._read_norm_counts())
         dt_str = str(density_threshold)
         if skip_density_and_return_after_stats:
             dt_str = "2"
@@ -1006,11 +1428,26 @@ class cNMF:
         median = median / median.sum(axis=1, keepdims=True)
 
         with self._timer.stage("consensus.refit_usage"):
-            usages = self.refit_usage(norm_counts.X, median)
+            if store is None:
+                usages = self.refit_usage(norm_counts.X, median)
+            elif skip_density_and_return_after_stats:
+                # the usages feed only the prediction error, whose slab
+                # pass solves them itself
+                usages = None
+            else:
+                usages = self._refit_usage_streamed(store, median)
         if skip_density_and_return_after_stats:
             silhouette = silhouette_score(feats, labels, k, device=dev)
-            error = _frobenius_prediction_error(norm_counts.X, usages,
-                                                median)
+            if store is None:
+                error = _frobenius_prediction_error(norm_counts.X, usages,
+                                                    median)
+            elif _stream_error_collector is not None:
+                # filled by the caller's one shared slab pass
+                _stream_error_collector[k] = median
+                error = float("nan")
+            else:
+                error = self._streamed_prediction_errors(
+                    store, {k: median})[k]
             return Frame(np.asarray([[k], [density_threshold], [silhouette],
                                      [error]], dtype=np.float64),
                          np.asarray(["k", "local_density_threshold",
@@ -1060,6 +1497,126 @@ class cNMF:
         return None
 
     consensus = _timed("consensus")(_consensus)
+
+    def _consensus_stream_store(self):
+        """The shard store consensus and the K-selection statistics stream
+        from, or ``None``: only when the store is the only copy (the matrix
+        file is absent after a ``CNMF_TPU_OOC=1`` prepare)."""
+        if os.path.exists(self.paths["normalized_counts"]):
+            return None
+        return self._probe_store()
+
+    def _stream_blocks(self, store, chunk_size, stats=None,
+                       f64_extra=False, peak_base=0):
+        """``(lo, hi, dense f32 block)`` row blocks of the store, their
+        boundaries multiples of ``chunk_size`` (the bit-identity contract
+        of ``ops/nmf.py:fit_h_slabbed``) and their size such that the live
+        set — the raw slab read (CSR runs about twice the dense bytes at
+        single-cell density), the f32 block and, with ``f64_extra``, the
+        consumer's f64 copy — stays under ``CNMF_TPU_OOC_BUDGET_BYTES`` (at
+        least one chunk a block). ``stats`` collects the block walls and
+        bytes and the residency peak, ``peak_base`` the caller's own
+        pass-long buffers."""
+        from ..utils.shardstore import host_matrix_bytes, ooc_budget_bytes
+
+        n, g = store.shape
+        chunk_size = int(min(int(chunk_size), max(n, 1)))
+        chunk_bytes = max(chunk_size * g * 4, 1)
+        divisor = 6 if f64_extra else 3
+        rows_per = max(1, (ooc_budget_bytes() // divisor) // chunk_bytes) \
+            * chunk_size
+        if stats is not None and peak_base > stats.host_peak_bytes:
+            stats.host_peak_bytes = int(peak_base)
+        t_start = time.perf_counter()
+        for lo in range(0, n, rows_per):
+            hi = min(lo + rows_per, n)
+            t0 = time.perf_counter()
+            blk = store.row_block(lo, hi, events=self._events)
+            raw = host_matrix_bytes(blk)
+            dense = (blk.toarray() if sp.issparse(blk)
+                     else np.asarray(blk)).astype(np.float32, copy=False)
+            if stats is not None:
+                stats.add(disk_s=time.perf_counter() - t0, disk_nbytes=raw,
+                          slabs=1, nbytes=dense.nbytes)
+                peak = (int(peak_base) + raw
+                        + dense.nbytes * (3 if f64_extra else 1))
+                stats.host_peak_bytes = max(stats.host_peak_bytes, peak)
+            del blk
+            yield lo, hi, dense
+        if stats is not None:
+            stats.wall_s += time.perf_counter() - t_start
+
+    def _refit_usage_streamed(self, store, spectra, collect=None,
+                              context="consensus_stream"):
+        """:meth:`refit_usage` streamed from the shard store: the same
+        solver parameters, chunk partition and default init, so bit for
+        bit ``fit_h`` on the assembled dense matrix, with one block on the
+        host at a time."""
+        from ..ops.nmf import fit_h_slabbed
+        from ..parallel.streaming import StreamStats
+
+        kw = self._solver_params()
+        stats = StreamStats()
+        chunk = int(kw["online_chunk_size"])
+        usage_bytes = 2 * store.n_rows * int(np.asarray(spectra).shape[0]) * 4
+        H = fit_h_slabbed(
+            self._stream_blocks(store, chunk, stats=stats,
+                                peak_base=usage_bytes),
+            store.n_rows, np.asarray(spectra), chunk_size=chunk,
+            chunk_max_iter=int(kw["online_chunk_max_iter"]), h_tol=0.05,
+            l1_reg_H=float(kw["l1_ratio_H"]), l2_reg_H=0.0,
+            beta=beta_loss_to_float(kw["beta_loss"]), collect=collect,
+            device=self.device)
+        self._events.emit_stream(context, stats)
+        self.stream_stats[context] = stats
+        return H
+
+    def _streamed_prediction_errors(self, store, spectra_by_k):
+        """Every K's prediction error from ONE slab pass over the store:
+        ``||X - HW||^2`` needs only ``H^T X``, ``H^T H`` and ``||X||^2``,
+        so each block is read once and serves every K (its usages solved
+        block-wise, as the resident refit solves them, then folded into
+        f64 statistics). Returns ``{k: prediction_error}``."""
+        from ..ops.nmf import _fit_h_block, fit_h_default_init
+        from ..parallel.streaming import StreamStats
+
+        kw = self._solver_params()
+        beta = beta_loss_to_float(kw["beta_loss"])
+        n, g = store.shape
+        chunk = int(min(int(kw["online_chunk_size"]), max(n, 1)))
+        cmi = int(kw["online_chunk_max_iter"])
+        l1 = float(kw["l1_ratio_H"])
+        W32 = {kk: np.asarray(W, np.float32)
+               for kk, W in spectra_by_k.items()}
+        H0 = {kk: fit_h_default_init(n, W.shape[0]).numpy()
+              for kk, W in W32.items()}
+        HtX = {kk: np.zeros((W.shape[0], g)) for kk, W in W32.items()}
+        HtH = {kk: np.zeros((W.shape[0], W.shape[0]))
+               for kk, W in W32.items()}
+        x_sq = 0.0
+        stats = StreamStats()
+        usage_bytes = sum(H0[kk].nbytes + HtX[kk].nbytes + HtH[kk].nbytes
+                          for kk in H0)
+        for lo, hi, Xb in self._stream_blocks(store, chunk, stats=stats,
+                                              f64_extra=True,
+                                              peak_base=usage_bytes):
+            Xb64 = Xb.astype(np.float64)
+            x_sq += float(np.vdot(Xb64, Xb64))
+            for kk, W in W32.items():
+                Hb = _fit_h_block(Xb, H0[kk][lo:hi], W, beta, chunk, cmi,
+                                  0.05, l1, 0.0, self.device
+                                  ).astype(np.float64)
+                HtX[kk] += Hb.T @ Xb64
+                HtH[kk] += Hb.T @ Hb
+        self._events.emit_stream("kselection_stream", stats)
+        self.stream_stats["kselection_stream"] = stats
+        out = {}
+        for kk, W in spectra_by_k.items():
+            W64 = np.asarray(W, np.float64)
+            cross = float(np.sum(HtX[kk] * W64))
+            hw_sq = float(np.sum((HtH[kk] @ W64) * W64))
+            out[kk] = max(x_sq - 2.0 * cross + hw_sq, 0.0)
+        return out
 
     def _final_refit(self, tpm: Counts, tpm_stats: Frame, spectra_tpm):
         """The final usage refit on the HVG TPM scaled to unit (ddof=1)
@@ -1112,7 +1669,12 @@ class cNMF:
         if not ks:
             raise ValueError("the replicate ledger lists no components; "
                              "run prepare() with a non-empty components list")
-        norm_counts = load_matrix(self.paths["normalized_counts"])
+        # a store that is the only copy streams: one shared slab pass
+        # gives every K's prediction error
+        store = self._consensus_stream_store()
+        norm_counts = (self._store_counts(store) if store is not None
+                       else self._read_norm_counts())
+        collector = {} if store is not None else None
         # one sweep-level sketch decision, from the largest merged matrix:
         # a per-K one could compare Ks in different feature spaces
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
@@ -1127,9 +1689,16 @@ class cNMF:
             context=dict(self.consensus_info["k_selection"],
                          K_max=int(max(ks)), packed=False))
         rows = [self._consensus(k, skip_density_and_return_after_stats=True,
-                                norm_counts=norm_counts,
-                                _sketch=sk).values[:, 0]
+                                norm_counts=norm_counts, _sketch=sk,
+                                _stream_store=store,
+                                _stream_error_collector=collector
+                                ).values[:, 0]
                 for k in ks]
+        if collector:
+            with self._timer.stage("k_selection.stream_errors"):
+                errs = self._streamed_prediction_errors(store, collector)
+            for row in rows:
+                row[3] = errs[int(row[0])]
         stats = Frame(np.stack(rows), np.arange(len(rows)),
                       np.asarray(["k", "local_density_threshold",
                                   "silhouette", "prediction_error"]))

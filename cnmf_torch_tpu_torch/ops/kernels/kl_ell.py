@@ -338,6 +338,9 @@ def w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
     if k > MAX_K:
         raise ValueError(f"the CUDA ELL kernels take k <= {MAX_K}, got "
                          f"k={k}")
+    if n * w >= 2 ** 31:
+        raise ValueError(f"{n} rows x width {w}: perm_t's int32 slot "
+                         "positions address at most 2**31 - 1 slots")
     if not H.is_cuda:
         return w_numer_plain(vals, cols, rows_t, perm_t, H, W, bf16)
     lib = build()

@@ -45,6 +45,7 @@ __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "bundle_stacks", "unbundle_stacks", "bundled_beta2_update",
            "nmf_fit_online", "random_init", "nndsvd_base", "nndsvd_fill",
            "nndsvd_init", "init_factors", "fit_h", "fit_h_default_init",
+           "fit_h_slabbed", "gram_svd_base", "nndsvd_init_gram",
            "lane_health", "run_nmf", "run_nmf_use_ell", "sweep_x_mean"]
 
 EPS = 1e-16
@@ -476,14 +477,21 @@ def _masked_loop(M, step, max_iter: int, tol, active,
 
 def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
                    bf16_ratio: bool = False, active=None, x_cast=None,
-                   kl_newton: bool = False):
+                   kl_newton: bool = False, row_block: int = 0):
     """Inner MU loop on one chunk's usage block with W fixed; for beta=2
     the numerator ``x @ W.T`` is precomputed once. ``kl_newton`` (beta=1,
     the dna recipe): each inner step is a Diagonalized-Newton H step with
-    the per-row MU fallback (:func:`_dna_h_step`), strict f32."""
+    the per-row MU fallback (:func:`_dna_h_step`), strict f32.
+
+    ``row_block`` (a dense ``x`` with beta != 2): each step runs over row
+    blocks of at most this many rows, so its ``(rows, genes)`` temporaries
+    (WH, the ratio) stay block-sized; the rows are independent and the
+    stopping rule still reads the whole block."""
     if kl_newton and beta == 1.0:
-        def step(hh):
-            return _dna_h_step(x, hh, W, l1, l2)[0]
+        xs = x
+
+        def step_on(xb, hh):
+            return _dna_h_step(xb, hh, W, l1, l2)[0]
     elif beta == 2.0:
         numer0 = x @ W.mT
         numer0 = torch.clamp_min(numer0 - l1, 0.0) if l1 else numer0
@@ -494,14 +502,29 @@ def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
             rate = torch.where(denom < EPS, torch.zeros_like(denom),
                                numer0 / torch.clamp_min(denom, EPS))
             return hh * rate
+        return _masked_loop(h, step, max_iter, h_tol, active)
     else:
         bf16 = bool(bf16_ratio) and beta in (1.0, 0.0)
-        if x_cast is None:
-            x_cast = _cast_x(x, bf16)
+        xs = _cast_x(x, bf16) if x_cast is None else x_cast
+
+        def step_on(xb, hh):
+            return _update_H(xb, hh, W, beta, l1, l2, bf16_ratio=bf16)
+    n = int(xs.shape[-2]) if not isinstance(xs, EllMatrix) else 0
+    if row_block and n > row_block:
+        spans = _row_spans(n, row_block)
 
         def step(hh):
-            return _update_H(x_cast, hh, W, beta, l1, l2, bf16_ratio=bf16)
+            return torch.cat([step_on(xs[..., a:b, :], hh[:, a:b])
+                              for a, b in spans], dim=1)
+    else:
+        def step(hh):
+            return step_on(xs, hh)
     return _masked_loop(h, step, max_iter, h_tol, active)
+
+
+def _row_spans(n: int, rows: int):
+    """``[lo, hi)`` bounds of consecutive blocks of ``rows`` rows."""
+    return [(a, min(a + rows, n)) for a in range(0, n, rows)]
 
 
 def _cast_x(x, bf16: bool):
@@ -1074,6 +1097,33 @@ def _nndsvd_from_svd(U, S, Vt, k: int):
     return torch.stack(cols, dim=1), torch.stack(rows, dim=0)
 
 
+def gram_svd_base(X, k: int):
+    """The truncated-SVD base of the gram-form nndsvd init, ``(U (n, k),
+    S (k,), Vt (k, g))``, from the ``g x g`` gram ``X^T X`` and its
+    eigendecomposition: the form that needs only the gram across row
+    shards. Components past the numerical rank (``S <= 1e-6 S[0]``) get
+    ``S = 0`` and a zero ``U`` column, so the fill takes over there."""
+    G = X.mT @ X
+    evals, evecs = torch.linalg.eigh(G)           # ascending
+    S = torch.sqrt(torch.clamp_min(evals.flip(0)[:k], 0.0))
+    V = evecs.flip(1)[:, :k]                      # (g, k)
+    rank_ok = S > 1e-6 * torch.clamp_min(S[0], EPS)
+    S = torch.where(rank_ok, S, torch.zeros_like(S))
+    U = torch.where(rank_ok[None, :], (X @ V) / torch.clamp_min(S, EPS),
+                    torch.zeros((), dtype=X.dtype, device=X.device))
+    return U, S, V.mT
+
+
+def nndsvd_init_gram(X, k: int, variant: str = "nndsvdar", seed: int = 0,
+                     uniforms=None):
+    """nndsvd init of a dense ``X`` tensor from its gram
+    (:func:`gram_svd_base`), filled per :func:`nndsvd_fill` — the
+    row-sharded solver's nndsvd."""
+    U, S, Vt = gram_svd_base(X, int(k))
+    H, W = _nndsvd_from_svd(U, S, Vt, int(k))
+    return nndsvd_fill(H, W, float(X.mean()), variant, seed, uniforms)
+
+
 def nndsvd_fill(H, W, x_mean: float, variant: str, seed: int = 0,
                 uniforms=None):
     """Fill the base's exact zeros: ``nndsvd`` keeps them, ``nndsvda``
@@ -1223,6 +1273,64 @@ def fit_h(X, W, H_init=None, chunk_size: int = 5000,
                                   int(chunk_max_iter), float(h_tol)))
     H = torch.cat(out, dim=1)[0, :n]
     return H.cpu().numpy()
+
+
+def _fit_h_block(Xb, Hb0, W, beta, chunk_size, chunk_max_iter, h_tol,
+                 l1_H, l2_H, device) -> np.ndarray:
+    """One block of rows through :func:`fit_h`'s chunked fixed-W solve —
+    the same zero-padding to a chunk multiple and the same per-chunk
+    solve, so a slab-looped caller reproduces the resident refit chunk
+    for chunk. ``Xb``: a dense host ``(rows, genes)`` block. Returns the
+    block's usage rows as numpy ``(rows, k)``."""
+    dev = resolve_device(device)
+    rows = int(Xb.shape[0])
+    X = torch.as_tensor(np.ascontiguousarray(Xb, dtype=np.float32)).to(dev)
+    H = torch.as_tensor(np.ascontiguousarray(Hb0, dtype=np.float32)).to(dev)
+    Wt = torch.as_tensor(np.ascontiguousarray(W, dtype=np.float32)).to(dev)
+    Xc, Hc, _ = _chunk_rows(X, H, int(chunk_size))
+    W1 = Wt[None]
+    WWT = W1 @ W1.mT if float(beta) == 2.0 else None
+    out = [_chunk_h_solve(Xc[c], Hc[:, c], W1, WWT, float(beta), float(l1_H),
+                          float(l2_H), int(chunk_max_iter), float(h_tol))
+           for c in range(Hc.shape[1])]
+    return torch.cat(out, dim=1)[0, :rows].cpu().numpy()
+
+
+def fit_h_slabbed(blocks, n: int, W, *, chunk_size: int = 5000,
+                  chunk_max_iter: int = 200, h_tol: float = 0.05,
+                  l1_reg_H: float = 0.0, l2_reg_H: float = 0.0,
+                  beta: float = 2.0, collect=None,
+                  device="cuda") -> np.ndarray:
+    """:func:`fit_h` as a loop over row blocks: the host holds one block,
+    never the cells x genes matrix (the streamed consensus refit).
+
+    Bit for bit :func:`fit_h` on the assembled dense matrix when every
+    block boundary is a multiple of the (clamped) chunk size: the default
+    init is the same ``(n, k)`` draw (rows ``lo:hi`` of it are the
+    block's), and chunks solve independently, so only the chunk partition,
+    which this loop keeps, decides the result. A misaligned boundary
+    raises. ``blocks``: an iterable of ``(lo, hi, X_block)`` with a dense
+    ``(hi - lo, genes)`` block. ``collect(lo, hi, X_block, H_block)`` runs
+    for each block before its buffers drop."""
+    W = np.asarray(W, dtype=np.float32)
+    k = int(W.shape[0])
+    chunk_size = int(min(int(chunk_size), max(int(n), 1)))
+    H0 = fit_h_default_init(int(n), k).numpy()
+    out = np.zeros((int(n), k), np.float32)
+    for lo, hi, Xb in blocks:
+        lo, hi = int(lo), int(hi)
+        if lo % chunk_size and lo < n:
+            raise ValueError(
+                f"block boundary {lo} is not a multiple of the chunk "
+                f"size {chunk_size} — slab-looped fit_h is only "
+                "bit-identical to the resident refit when the chunk "
+                "partition is preserved")
+        Hb = _fit_h_block(Xb, H0[lo:hi], W, beta, chunk_size,
+                          chunk_max_iter, h_tol, l1_reg_H, l2_reg_H, device)
+        out[lo:hi] = Hb
+        if collect is not None:
+            collect(lo, hi, Xb, Hb)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -98,6 +98,17 @@ class SolverRecipe:
                     f"E={self.sketch_exact_every})")
         return self.algo
 
+    def signature(self) -> str:
+        """The JAX package's stable string for a pass checkpoint's
+        identity: two runs whose signatures differ must not splice their
+        trajectories."""
+        sig = (f"algo={self.algo},rho={int(self.inner_repeats)},"
+               f"newton={int(self.kl_newton)}")
+        if self.algo == "sketch":
+            sig += (f",skdim={int(self.sketch_dim)},"
+                    f"skE={int(self.sketch_exact_every)}")
+        return sig
+
     def as_context(self) -> dict:
         """The telemetry ``solver_recipe`` dispatch event's context."""
         return {"recipe": self.label, "algo": self.algo,

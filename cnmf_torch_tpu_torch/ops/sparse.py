@@ -174,10 +174,17 @@ def csr_to_ell(X, width: int | None = None, t_width: int | None = None,
     elif width < max_row:
         raise ValueError(
             f"width={width} < max row nnz {max_row}: rows would truncate")
+    if transpose and n * int(width) >= 2 ** 31:
+        # perm_t holds flat row-side slot positions (and the sentinel
+        # n * w) as int32
+        raise ValueError(
+            f"{n} rows x width {width} = {n * int(width)} row-side slots: "
+            "the transpose index set addresses at most 2**31 - 1")
     vals, cols = _row_ell_buffers(Xc, width, dtype)
     rows_t = perm_t = None
     if transpose:
-        max_col = int(np.diff(Xc.tocsc().indptr).max()) if g else 0
+        max_col = (int(np.bincount(Xc.indices, minlength=g).max())
+                   if g and Xc.nnz else 0)
         if t_width is None:
             t_width = _pad_width(max_col)
         elif t_width < max_col:

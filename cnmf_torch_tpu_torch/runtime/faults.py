@@ -13,12 +13,18 @@ calls the hooks of the layers it has:
   write lands (reader-side validation in resume and combine);
 * ``upload`` -- :func:`maybe_fail` raises at the host-to-device staging of
   a replicate sweep;
-* ``straggler`` -- :func:`maybe_straggle` sleeps at a per-task hook.
+* ``straggler`` -- :func:`maybe_straggle` sleeps at a per-task hook;
+* ``stall`` -- :func:`maybe_stall` sleeps where a slab upload of the
+  staging pipeline would hang (``parallel/streaming.py``), for its stall
+  watchdog;
+* ``shard_read`` -- :func:`maybe_shard_read` makes the shard store
+  corrupt the slab it just read (``utils/shardstore.py``), for its
+  digest check and re-read.
 
-The other kinds (``stall``, ``hostloss``, ``shard_read``, ``netflake``,
-``netslow``, ``netdown``, ``nettorn``, ``replicadeath``, ``replicawedge``)
-parse here, and their hooks wait for the layers that call them (the
-streaming, row-shard, store and serving layers, not ported yet).
+The other kinds (``hostloss``, ``netflake``, ``netslow``, ``netdown``,
+``nettorn``, ``replicadeath``, ``replicawedge``) parse here, and their
+hooks wait for the layers that call them (the multi-device, remote-store
+and serving layers, not ported yet).
 
 Spec grammar (semicolon-separated clauses)::
 
@@ -44,7 +50,8 @@ import threading
 
 __all__ = ["FAULT_SPEC_ENV", "FaultClause", "parse_fault_spec",
            "active_spec", "maybe_poison_lanes", "maybe_kill", "maybe_tear",
-           "maybe_fail", "maybe_straggle"]
+           "maybe_fail", "maybe_straggle", "maybe_stall",
+           "maybe_shard_read"]
 
 FAULT_SPEC_ENV = "CNMF_TPU_FAULT_SPEC"
 
@@ -339,3 +346,38 @@ def maybe_fail(kind: str, **ctx) -> None:
         raise RuntimeError(
             f"cnmf-tpu injected fault: {kind} "
             f"({', '.join(f'{key}={val}' for key, val in sorted(ctx.items()))})")
+
+
+def maybe_stall(context=None) -> float:
+    """Sleep ``seconds`` (default 30) when a ``stall`` clause matches
+    ``context`` (substring) — a hung slab transfer; ``limit`` defaults to
+    1. Returns the seconds slept."""
+    spec = active_spec()
+    if spec is None:
+        return 0.0
+    import time
+
+    for clause in spec:
+        if clause.kind != "stall":
+            continue
+        if not _clause_fires(clause, context, None, default_limit=1):
+            continue
+        secs = float(clause.params.get("seconds", 30.0))
+        time.sleep(secs)
+        return secs
+    return 0.0
+
+
+def maybe_shard_read(context=None, worker=None) -> bool:
+    """True when a ``shard_read`` clause matches — a torn slab read: the
+    shard store then corrupts the slab it just loaded, so its digest
+    check must catch it and re-read. ``limit`` defaults to 1."""
+    spec = active_spec()
+    if spec is None:
+        return False
+    for clause in spec:
+        if clause.kind != "shard_read":
+            continue
+        if _clause_fires(clause, context, worker, default_limit=1):
+            return True
+    return False

@@ -166,6 +166,7 @@ class ReplicateGuard:
         self._pending: list[dict] = []
         self.retries: list[dict] = []
         self.quarantined: list[dict] = []
+        self.shard_faults: list[dict] = []
 
     def _emit(self, kind: str, context: dict):
         if self.events is not None:
@@ -239,6 +240,13 @@ class ReplicateGuard:
             rec["attempts"] = int(attempts)
         self.quarantined.append(rec)
 
+    def record_shard_fault(self, kind: str, context: dict):
+        """Book a staging fault of the row-sharded path (``kind``:
+        ``shard_upload_failed``, ``shard_stall`` or ``shard_read_torn``)
+        into the same ledger as the quarantines, before the run aborts."""
+        self.shard_faults.append(dict(context, kind=str(kind)))
+        self._emit(str(kind), dict(context))
+
     def finalize(self):
         """Write the resilience ledger when anything happened (a clean
         pass removes this worker's old ledger) and enforce the per-K
@@ -251,12 +259,14 @@ class ReplicateGuard:
                        "attempts": t["attempt"] - 1}
                 self.quarantined.append(rec)
         if self.ledger_path:
-            if self.retries or self.quarantined:
+            if self.retries or self.quarantined or self.shard_faults:
                 payload = {"schema": 1,
                            "max_retries": self.max_retries,
                            "min_healthy_frac": self.min_healthy_frac,
                            "retries": self.retries,
                            "quarantined": self.quarantined}
+                if self.shard_faults:
+                    payload["shard_faults"] = self.shard_faults
                 with atomic_artifact(self.ledger_path) as tmp:
                     with open(tmp, "w") as f:
                         json.dump(payload, f, indent=1)

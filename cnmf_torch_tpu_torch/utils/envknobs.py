@@ -54,6 +54,38 @@ KNOBS = {
                            "(default 0: off)",
     "CNMF_TPU_SLO_WINDOW_S": "SLO evaluation window in seconds "
                              "(default 300)",
+    # the out-of-core layer (utils/shardstore.py, utils/storebackend.py,
+    # runtime/checkpoint.py, parallel/streaming.py, parallel/rowshard.py)
+    "CNMF_TPU_OOC": "row-slab shard store of the normalized counts: auto "
+                    "(default: written above the host budget), 1 (forced "
+                    "and authoritative) or 0 (off)",
+    "CNMF_TPU_OOC_BUDGET_BYTES": "host slab-residency budget in bytes "
+                                 "(default 1 GiB)",
+    "CNMF_TPU_OOC_SLAB_ROWS": "rows a store slab (default 0: from the "
+                              "budget)",
+    "CNMF_TPU_OOC_SHARD_BYTES": "resident-shard budget in bytes above which "
+                                "a store-backed solve loops over slab groups "
+                                "(default 0: from the card's free memory)",
+    "CNMF_TPU_SHARD_RETRIES": "re-reads of a torn slab and retries of a "
+                              "failed slab upload (default 2)",
+    "CNMF_TPU_SHARD_BACKOFF_S": "slab upload retry backoff base in seconds "
+                                "(default 0.1)",
+    "CNMF_TPU_CKPT_EVERY_PASSES": "pass checkpoint cadence of the row-"
+                                  "sharded solver (default 1; 0 off)",
+    "CNMF_TPU_CKPT_H_BYTES": "largest usage matrix a pass checkpoint holds "
+                             "(default 256 MiB)",
+    "CNMF_TPU_CKPT_MIN_INTERVAL_S": "least seconds between two checkpoint "
+                                    "writes (default 0)",
+    "CNMF_TPU_STREAM_DEPTH": "slabs in flight in the staging pipeline "
+                             "(default 2 x threads + 1; 1 serial)",
+    "CNMF_TPU_STREAM_THREADS": "host-prep threads of the staging pipeline "
+                               "(default min(4, cores - 1); 0 serial)",
+    "CNMF_TPU_STREAM_BYTES": "host bytes budget of in-flight slabs "
+                             "(default 4 GiB)",
+    "CNMF_TPU_STREAM_STALL_S": "seconds without progress after which a "
+                               "slab upload is a stall (default 0: off)",
+    "CNMF_TPU_STORE_URI": "where the shard store lives: unset (local "
+                          "paths) or file:///base",
 }
 
 

@@ -23,6 +23,7 @@ import csv
 import errno
 import os
 import tempfile
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +33,8 @@ from ..runtime.faults import maybe_tear
 
 __all__ = ["Frame", "Counts", "atomic_artifact", "check_dir_exists",
            "save_df_to_npz", "save_df_to_text", "load_df_from_npz",
-           "load_df_from_text", "save_matrix", "load_matrix", "load_counts"]
+           "load_df_from_text", "save_matrix", "load_matrix", "peek_matrix",
+           "load_counts"]
 
 
 @dataclass
@@ -180,6 +182,22 @@ def load_matrix(filename: str) -> Counts:
         else:
             X = f["dense"]
         return Counts(X, f["obs_names"], f["var_names"])
+
+
+def peek_matrix(filename: str):
+    """``(shape, var_names)`` of a :func:`save_matrix` file without
+    reading its values (a dense matrix's shape from its ``.npy`` header)."""
+    with np.load(filename, allow_pickle=False) as f:
+        var = f["var_names"]
+        if str(f["format"]) == "csr":
+            return tuple(int(v) for v in f["shape"]), var
+    with zipfile.ZipFile(filename) as z, z.open("dense.npy") as fh:
+        fmt = np.lib.format
+        read = (fmt.read_array_header_1_0
+                if fmt.read_magic(fh) == (1, 0)
+                else fmt.read_array_header_2_0)
+        shape, _, _ = read(fh)
+    return tuple(int(v) for v in shape), var
 
 
 def load_counts(counts_fn: str, densify: bool = False) -> Counts:

@@ -53,4 +53,9 @@ def build_paths(output_dir: str, name: str, create: bool = True) -> dict:
         # per-worker resilience ledger: derived-seed retries and the
         # quarantined (k, iter) pairs that combine skips
         "resilience_ledger": t(".resilience.w%d.json"),
+        # the out-of-core row-slab store of the normalized counts, and
+        # the row-sharded solver's pass checkpoints (the JAX package's
+        # names)
+        "shard_store": t(".norm_counts.store"),
+        "pass_checkpoint": t(".ckpt.k_%d.iter_%d.npz"),
     }

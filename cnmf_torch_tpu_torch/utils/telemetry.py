@@ -11,9 +11,11 @@ other:
     env knobs, seed summary) is emitted once, automatically, before the
     first event. Emission is a no-op unless ``CNMF_TPU_TELEMETRY=1``.
   * :data:`EVENT_TYPES` — every event type of the JAX package, those whose
-    producers the port has not reached yet (``stream``, ``checkpoint``,
-    the serving and fleet events, ``collective``, ``plan``,
-    ``perf_model``) included, so the report reads any run's stream.
+    producers the port has not reached yet (the serving and fleet
+    events, ``collective``, ``plan``, ``perf_model``) included, so the
+    report reads any run's stream. The atlas path emits ``stream``
+    (:meth:`EventLog.emit_stream`), ``checkpoint`` and the
+    ``shard_store_write`` / ``ooc_ingest`` dispatch events.
   * :func:`validate_event` / :func:`validate_events_file` — the ONE
     schema definition.
   * :func:`render_report` — the ``report <run_dir>`` renderer: stage
@@ -62,9 +64,9 @@ SCHEMA_VERSION = 1
 # required fields per event type, beyond the common {"v", "t", "ts"}.
 # This dict IS the schema (the JAX package's, unchanged): the tests
 # validate every emitted line against it. The port produces manifest,
-# dispatch, stage, replicates, memory, fault, span and metrics_snapshot;
-# the other types' producers come with the layers still to port, and the
-# report reads them already.
+# dispatch, stage, replicates, stream, memory, fault, checkpoint, span and
+# metrics_snapshot; the other types' producers come with the layers still
+# to port, and the report reads them already.
 EVENT_TYPES = {
     "manifest": {"package_version", "jax_version", "backend", "devices",
                  "env"},
@@ -220,6 +222,27 @@ class EventLog:
             return
         self.emit("memory", stage=stage,
                   devices=device_memory_snapshot(self.device))
+
+    def emit_stream(self, context: str, stats):
+        """One ``StreamStats`` (``parallel/streaming.py``) as a ``stream``
+        event: the phase walls and bytes, and for a shard-store staging the
+        disk wall, bytes, read rate and the host slab-residency peak."""
+        if not self.enabled or stats is None:
+            return
+        disk_s = float(stats.disk_s)
+        self.emit(
+            "stream", context=context, wall_s=round(stats.wall_s, 4),
+            host_prep_s=round(stats.host_prep_s, 4),
+            h2d_s=round(stats.h2d_s, 4), device_s=round(stats.device_s, 4),
+            nbytes=int(stats.nbytes), slabs=int(stats.slabs),
+            gb_per_s=round(stats.gb_per_s(), 3),
+            overlap_fraction=round(stats.overlap_fraction, 3),
+            disk_s=round(disk_s, 4) if disk_s > 0 else None,
+            disk_nbytes=int(stats.disk_nbytes) if disk_s > 0 else None,
+            disk_gb_per_s=(round(stats.read_gb_per_s(), 3)
+                           if disk_s > 0 else None),
+            host_peak_bytes=(int(stats.host_peak_bytes)
+                             if stats.host_peak_bytes > 0 else None))
 
     # -- internals -----------------------------------------------------
 

@@ -530,3 +530,100 @@ def test_prepare_sums_are_the_same_on_every_run(cuda_device):
         runs.append(np.concatenate([totals, m, v, sm, sv]))
     assert np.array_equal(runs[0], runs[1])
     np.testing.assert_allclose(runs[0], runs[2], rtol=1e-13, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the atlas path: the row kernels at R=1 and the row-sharded solver
+# ---------------------------------------------------------------------------
+
+def _atlas_ell(n, g, density, seed, device):
+    """An ELL encoding of ``n`` rows with the transpose index set, at the
+    row-sharded solver's shapes (R=1, one encoding for the whole matrix)."""
+    import scipy.sparse as sp
+
+    X = sp.random(n, g, density=density, format="csr", random_state=seed,
+                  dtype=np.float32)
+    X.data = np.random.default_rng(seed).gamma(1.0, 1.0, X.nnz).astype(
+        np.float32) + 0.1
+    return X, sparse.csr_to_ell(X).to(device)
+
+
+@pytest.mark.parametrize("n,k", [(100_000, 9), (120_000, 13)])
+def test_the_three_path_kernels_at_r1_match_plain(cuda_device, n, k):
+    """``h_stats``, ``w_numer`` and ``beta_err_partials`` at R=1 on
+    100,000+ rows (the row-sharded solver launches them on the whole
+    shard): ``rtol 2e-5``, two launches bit-identical."""
+    _, x = _atlas_ell(n, 2000, 0.06, 21, cuda_device)
+    gen = torch.Generator().manual_seed(5)
+    H = (torch.rand((1, n, k), generator=gen) + 0.1).to(cuda_device)
+    W = (torch.rand((1, k, 2000), generator=gen) + 0.1).to(cuda_device)
+    got = kl_ell.h_stats(x.vals, x.cols, H, W)
+    assert torch.equal(got, kl_ell.h_stats(x.vals, x.cols, H, W))
+    _close(got, kl_ell.h_stats_plain(x.vals, x.cols, H, W), 2e-5)
+    got = kl_ell.w_numer(x.vals, x.cols, x.rows_t, x.perm_t, H, W)
+    assert torch.equal(got, kl_ell.w_numer(x.vals, x.cols, x.rows_t,
+                                           x.perm_t, H, W))
+    _close(got, kl_ell.w_numer_plain(x.vals, x.cols, x.rows_t, x.perm_t, H,
+                                     W), 2e-5)
+    got = kl_ell.beta_err_partials(x.vals, x.cols, H, W)
+    assert torch.equal(got, kl_ell.beta_err_partials(x.vals, x.cols, H, W))
+    _close(got, kl_ell.beta_err_plain(x.vals, x.cols, H, W), 2e-5)
+
+
+def test_a_row_sharded_ell_solve_on_the_card_matches_the_cpu(cuda_device):
+    """One replicate of ``nmf_fit_rowsharded`` on the ELL lane, from the
+    same init on the card (the kernels) and on the CPU (the plain
+    versions): objective and W within ``rtol 1e-4`` after 8 passes."""
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel.rowshard import nmf_fit_rowsharded
+
+    X, _ = _atlas_ell(20_000, 400, 0.05, 22, "cpu")
+    init = tuple(t.numpy() for t in random_init(
+        3, 20_000, 400, 6, float(X.sum()) / (20_000 * 400)))
+    kl_ell.reset_launches()
+    out = [nmf_fit_rowsharded(X, 6, beta_loss="kullback-leibler",
+                              n_passes=8, init_factors=init, device=dev)
+           for dev in (cuda_device, "cpu")]
+    assert all(kl_ell.launches[name] > 0 for name in
+               ("h_stats", "w_numer", "beta_err_partials"))
+    (_, W_card, e_card), (_, W_cpu, e_cpu) = out
+    assert abs(e_card - e_cpu) / e_cpu < 1e-4
+    assert (np.abs(W_card - W_cpu).max() / np.abs(W_cpu).max()) < 1e-4
+
+
+def test_the_dense_pass_in_row_blocks_on_the_card_matches_the_cpu(
+        cuda_device, monkeypatch):
+    """The dense row-sharded KL pass in row blocks (2,000 rows a block,
+    10 blocks) on the card against the same solve on the CPU in one block:
+    objective and W within ``rtol 1e-4`` after 6 passes."""
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel import rowshard
+
+    X, _ = _atlas_ell(20_000, 400, 0.05, 24, "cpu")
+    X = X.toarray()
+    init = tuple(t.numpy() for t in random_init(
+        4, 20_000, 400, 6, float(X.sum()) / (20_000 * 400)))
+    kw = dict(beta_loss="kullback-leibler", n_passes=6, init_factors=init)
+    _, W_cpu, e_cpu = rowshard.nmf_fit_rowsharded(X, 6, device="cpu", **kw)
+    monkeypatch.setattr(rowshard, "DENSE_BLOCK_ELEMS", 2_000 * 400)
+    _, W_card, e_card = rowshard.nmf_fit_rowsharded(X, 6, device=cuda_device,
+                                                    **kw)
+    assert abs(e_card - e_cpu) / e_cpu < 1e-4
+    assert (np.abs(W_card - W_cpu).max() / np.abs(W_cpu).max()) < 1e-4
+
+
+def test_a_store_staged_on_the_card_is_the_matrix(cuda_device, tmp_path):
+    """Store slabs cross through pinned buffers on a side stream and
+    densify with ``index_put_``: the staged tensor is the matrix, bit for
+    bit, on every run."""
+    from cnmf_torch_tpu_torch.parallel.rowshard import stream_rows_to_mesh
+    from cnmf_torch_tpu_torch.utils import shardstore
+
+    X, _ = _atlas_ell(30_000, 500, 0.05, 23, "cpu")
+    shardstore.write_shard_store(tmp_path / "st", X, slab_rows=7_000)
+    store = shardstore.open_shard_store(tmp_path / "st")
+    a, _ = stream_rows_to_mesh(store, cuda_device)
+    b, _ = stream_rows_to_mesh(X, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert np.array_equal(a.cpu().numpy(), X.toarray())

@@ -57,6 +57,17 @@ obj.consensus(3, density_threshold=2.0)
 stats = obj.k_selection_stats()
 assert np.isfinite(stats.values).all()
 obj.k_selection_plot()
+# the atlas path: the row-sharded solver and the shard store
+os.environ["CNMF_TPU_OOC"] = "1"
+atlas = cNMF(d, "atlas", device="cpu", rowshard_threshold=50)
+atlas.prepare(fn, components=[3], n_iter=4, seed=1, num_highvar_genes=40,
+              beta_loss="kullback-leibler", batch_size=32, max_NMF_iter=50)
+atlas.factorize()
+assert atlas.factorize_info["mode"] == "rowshard"
+atlas.combine()
+atlas.consensus(3, density_threshold=2.0)
+atlas.k_selection_plot()
+del os.environ["CNMF_TPU_OOC"]
 from cnmf_torch_tpu_torch.cli import main
 from cnmf_torch_tpu_torch.utils.telemetry import validate_events_file
 assert validate_events_file(os.path.join(d, "tiny", "cnmf_tmp",
@@ -117,7 +128,9 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "runtime/resilience.py", "ops/sketch.py",
                  "utils/telemetry.py", "utils/profiling.py",
                  "obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
-                 "obs/slo.py"]
+                 "obs/slo.py", "utils/storebackend.py",
+                 "utils/shardstore.py", "runtime/checkpoint.py",
+                 "parallel/streaming.py", "parallel/rowshard.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

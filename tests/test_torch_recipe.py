@@ -134,7 +134,9 @@ def test_the_port_reads_no_unregistered_knob():
     # the recipe knobs, the lane, precision and budget knobs that
     # tests/test_torch_knobs.py holds against the JAX package, the
     # fault and retry knobs of tests/test_torch_resilience.py, and the
-    # telemetry base's knobs of tests/test_torch_telemetry.py
+    # telemetry base's knobs of tests/test_torch_telemetry.py, and the
+    # out-of-core layer's of tests/test_torch_shardstore.py,
+    # test_torch_streaming.py and test_torch_checkpoint.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -142,4 +144,12 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_TELEMETRY", "CNMF_TPU_PROFILE_DIR",
                          "CNMF_TPU_METRICS", "CNMF_TPU_TRACE_SAMPLE",
                          "CNMF_TPU_TRACE_CTX", "CNMF_TPU_SLO_P99_MS",
-                         "CNMF_TPU_SLO_WINDOW_S"} == set(envknobs.KNOBS)
+                         "CNMF_TPU_SLO_WINDOW_S", "CNMF_TPU_OOC",
+                         "CNMF_TPU_OOC_BUDGET_BYTES", "CNMF_TPU_OOC_SLAB_ROWS",
+                         "CNMF_TPU_OOC_SHARD_BYTES", "CNMF_TPU_SHARD_RETRIES",
+                         "CNMF_TPU_SHARD_BACKOFF_S",
+                         "CNMF_TPU_CKPT_EVERY_PASSES", "CNMF_TPU_CKPT_H_BYTES",
+                         "CNMF_TPU_CKPT_MIN_INTERVAL_S",
+                         "CNMF_TPU_STREAM_DEPTH", "CNMF_TPU_STREAM_THREADS",
+                         "CNMF_TPU_STREAM_BYTES", "CNMF_TPU_STREAM_STALL_S",
+                         "CNMF_TPU_STORE_URI"} == set(envknobs.KNOBS)
