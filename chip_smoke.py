@@ -111,8 +111,7 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    under the default bf16 ratio chain: the kernels launch, the provenance
    reads ``sequential``, and under strict f32 each objective is within
    ``rtol 1e-4`` of the batched lane's at the same seed (same init); the
-   gaps under the bf16 chain, and to the batched lane at one replicate a
-   batch, are logged; (e) a dense Frobenius batch factorize
+   gaps under the bf16 chain are logged; (e) a dense Frobenius batch factorize
    from ``init="nndsvd"`` at K in {5, 9, 13} (distinct, finite
    replicates) beside the random init's, and the SVD's wall; (f)
    ``run_nmf(fp_precision="double")`` at k=9 for beta 2 and 1 (f64
@@ -125,14 +124,18 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    ``consensus_info``. Phase 7 prints its stage walls and peaks.
 8. The telemetry base: phase 3's main path again in a run of its own
    (``build/chip_smoke/telemetry``) with ``CNMF_TPU_TELEMETRY``,
-   ``CNMF_TPU_METRICS`` and ``CNMF_TPU_TRACE_SAMPLE`` on, K-selection
-   through ``k_selection_plot``, the launch counts set to 0 just before.
+   ``CNMF_TPU_METRICS``, ``CNMF_TPU_TRACE_SAMPLE`` and
+   ``CNMF_TPU_PERF_MODEL`` on, K-selection through ``k_selection_plot``,
+   the launch counts set to 0 just before.
    It checks that the events file passes ``validate_events_file`` with
    the manifest first (backend ``cuda``, the card's name); one
    ``replicates`` event a K with 20 records of finite traces, one value a
-   pass, and the ``ell-cuda`` kernel label; ``memory`` events after the
-   five stages with a peak above 0; the worker span and a metrics
-   snapshot; that ``report`` and ``trace`` render the run; that every
+   pass, and the ``ell-cuda`` kernel label; one ``factorize``
+   ``perf_model`` event on ``ell-cuda`` priced against the card's
+   data-sheet peaks, its ``mfu`` and ``bw_frac`` in (0, 1.05]; ``memory``
+   events after the five stages with a peak above 0; the worker span and
+   a metrics snapshot; that ``report`` (with its Roofline section) and
+   ``trace`` render the run; that every
    kernel launched as often as in phase 3; that every iter spectra file,
    consensus artifact, the K-selection statistics and prepare's f64 TPM
    moments hold phase 3's stored arrays byte for byte (and the text
@@ -154,31 +157,66 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    row-shard argument (the 200,000-cell threshold engages the row-sharded
    solver: dense KL staged once, no kernel), K in {9, 13} x 4 replicates,
    combine, consensus (k=9, threshold 2.0) and ``k_selection_plot``
-   under ``CNMF_TPU_TELEMETRY``. It checks the ``solver_recipe`` event's
-   mode ``rowshard``, that factorize launched no kernel and the consensus
+   under ``CNMF_TPU_TELEMETRY`` and ``CNMF_TPU_PERF_MODEL``. It checks
+   the ``solver_recipe`` event's mode ``rowshard``, one
+   ``factorize_rowshard`` ``perf_model`` event on the dense lane under the
+   phase-8 bounds, that factorize launched no kernel and the consensus
    refit ``h_stats``, and that no objective rose past 1e-6 from pass to
    pass. Then the same run with ``CNMF_TPU_OOC=1`` (the store written, the
    matrix file skipped) and ``CNMF_TPU_CKPT_EVERY_PASSES=1``: every iter
-   spectra file byte for byte the first run's, and the streamed consensus
-   and K-selection errors within 5e-2 of the resident ones, the streamed
-   host residency under the budget. (b) ``nmf_fit_rowsharded`` on
-   1,000,000 x 2,000 CSR (built on the card in blocks of 50,000 rows,
-   6.9% nonzeros) on the ELL lane: ``h_stats``, ``w_numer`` and
-   ``beta_err_partials`` launch (counts printed), the encoding's host
-   time and bytes; the three kernels at R=1 on the first 250,000 rows
+   spectra file byte for byte the first run's, the streamed consensus
+   within ``1e-5`` and K-selection errors within ``1e-8`` of the resident
+   ones, the streamed host residency under the budget. (b)
+   ``nmf_fit_rowsharded`` on 1,000,000 x 2,000 CSR (built on the card in
+   blocks of 50,000 rows, 6.9% nonzeros): the entry's CSR dispatch stages
+   it as ELL (its ``rowshard_staging`` stream's host time and bytes
+   printed, and the staged encoding kept for the kernel timings below),
+   and ``h_stats``, ``w_numer`` and
+   ``beta_err_partials`` launch (counts printed); the three kernels at
+   R=1 on the first 250,000 rows
    against their plain versions (``rtol 2e-5``, two launches
    bit-identical) and timed beside their bounds at 250,000 and 1,000,000
    rows (``t_w`` and the encoding's bytes printed); a 250,000-row solve
    under a pinned ``dna`` recipe launches ``h_newton_stats`` and
    ``wh_at_nz``. (c) On (a)'s store: the slab-looped tier
-   (``CNMF_TPU_OOC_SHARD_BYTES`` 256 MiB) within 10% of the resident
-   solve's objective from the same init, its host residency under the
-   budget; a CLI factorize SIGKILLed after its fourth pass checkpoint
+   (``CNMF_TPU_OOC_SHARD_BYTES`` 256 MiB) and the resident solve from the
+   same init to convergence, the slab loop within ``2e-5`` of a plain
+   group loop and within ``5e-3`` of the resident solve's refit objective,
+   its host residency under the budget; a CLI factorize SIGKILLed after its fourth pass checkpoint
    (``kill:stage=pass``), resumed with ``--skip-completed-runs`` from
    pass 4 to the uninterrupted bytes; a torn checkpoint
    (``torn:artifact=ckpt``) discarded and its replicate restarted to the
    same bytes; a torn slab read (``shard_read``) detected, re-read and
    staged bit for bit.
+10. The remote object store: ``utils/netstore.py``'s server in this
+    process on ``127.0.0.1`` (a loopback that cannot bind fails the
+    phase). (a) 9a's counts prepared with ``CNMF_TPU_OOC=1`` into
+    ``http://127.0.0.1:<port>/atlas`` at K=9 with 9a's four replicates,
+    factorized through it (the row-sharded solver, staged over HTTP
+    through the read-through cache), combined, and brought to consensus
+    (k=9, threshold 2.0) twice: on the matrix read back through the store
+    (the resident refit, which launches ``h_stats``; the launch counts set
+    to 0 before factorize and read after this consensus), then as a store-only run
+    takes it, streamed through the store (dense, no kernel). It checks that
+    the store lives only at the endpoint, every iter spectra file byte for
+    byte 9a's store-backed run's, the resident consensus artifacts within
+    ``1e-5`` of 9a's in-memory run's and the streamed ones within ``1e-5``
+    of 9a's streamed run's, the staging ``stream`` event's remote counters
+    and bytes, the ``consensus_stream`` event's (every slab read a cache
+    hit), and the cache's entries and bytes. (b) On a store of phase
+    3's normalized counts in 2,000-row slabs: ``netflake``, ``netslow``
+    with the hedge at 0.1 s, ``nettorn``, and ``netdown`` against a warm
+    cache each stage bit for bit the clean matrix, with their ``store_net``
+    (or torn-read) events and counters, and ``report`` prints the
+    ``store_net`` recovered and degraded counts. (c) With 10a's cache
+    removed and slab reads down, factorize ends with ``RemoteStoreError``
+    and the resilience ledger records ``remote_store``. It prints the
+    phase's walls beside the card's name and power limit.
+
+Every bound in the kernel records is the larger of the bytes over the
+card's memory rate and the operations over its operation rate, both from
+``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
+finds (a card with no entry fails the run).
 
 The last three lines of standard output are the kernels' JSON record
 (launches of every path), the ``nvidia-smi`` name and power-limit line,
@@ -213,14 +251,6 @@ CONSENSUS_K = 9
 SEED = 14
 CARD = "cuda"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and f32
-# operations/s outside the tensor cores (the ELL kernels use no tensor core)
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# bf16 operations/s outside the tensor cores: bf16x2 instructions, twice
-# the f32 rate (NVIDIA H100 architecture white paper, non-tensor BF16)
-PEAK_BF16 = 2 * PEAK_F32
-
 # the TPU kernels the CUDA kernels replace (kernel bodies)
 REPLACES = {
     "h_stats": "cnmf_torch_tpu/ops/pallas_kl.py:123",
@@ -240,6 +270,21 @@ BUNDLE_KS = [5, 9, 13, 21, 32, 64]
 ONLINE_KERNELS = ("h_stats", "w_numer", "beta_err_partials")
 BATCH_KERNELS = ("h_newton_stats", "wh_at_nz")
 SOURCE = "cnmf_torch_tpu_torch/csrc/kl_ell.cu"
+
+
+def card_peaks():
+    """The card's peaks from the cost model's table
+    (``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS``, the data sheet):
+    HBM bytes/s, f32 operations/s outside the tensor cores (the ELL kernels
+    use no tensor core) and bf16 operations/s at twice the f32 rate
+    (bf16x2 instructions, NVIDIA H100 architecture white paper). A card
+    with no entry fails the run: its bounds would be a guess."""
+    from cnmf_torch_tpu_torch.obs.costmodel import device_peaks
+
+    peaks = device_peaks(CARD)
+    check(peaks["source"] == "datasheet",
+          f"no data-sheet peaks for {torch.cuda.get_device_name(0)}")
+    return peaks["bw"], peaks["flops"], 2 * peaks["flops"]
 
 
 def check(cond, what: str):
@@ -889,8 +934,9 @@ def _time_kernel(kl_ell, name, x, vals, H, W, bf16, nnz, with_plain=True):
         # terms written once; a log1p counted as one operation
         nbytes = nnz * 8 + hw_bytes + R * n * 4
         ops = R * nnz * (2 * k + 8)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (ops / PEAK_F32 + ops_bf16 / PEAK_BF16) * 1e3
+    peak_bytes, peak_f32, peak_bf16 = card_peaks()
+    t_bytes = nbytes / peak_bytes * 1e3
+    t_ops = (ops / peak_f32 + ops_bf16 / peak_bf16) * 1e3
     rec = {"name": name, "route": "cuda", "source": SOURCE,
            "replaces": REPLACES[name], "launches": 0,
            "ms": cuda_ms(fn),
@@ -1596,9 +1642,8 @@ def resume_phase(counts_fn, stages) -> dict:
 def sequential_phase(counts_fn, Xn, stages) -> dict:
     """7d: the sequential lane against the batched lane at the same seeds
     (the same init), under strict f32 (gated at ``rtol 1e-4``) and under
-    the default bf16 ratio chain (logged), and against the batched lane at
-    one replicate a batch (logged): a lane's reductions batched over 5
-    replicates round otherwise than over 1, and a bf16 rounding can turn
+    the default bf16 ratio chain (logged): a lane's reductions batched over
+    5 replicates round otherwise than over 1, and a bf16 rounding can turn
     that last-bit difference into a relative 2**-8 in one ratio. Also
     logs how far the init scale that both lanes take (the f32 sum of the
     staged encoding on the card) lies from the host mean that the JAX
@@ -1642,21 +1687,16 @@ def sequential_phase(counts_fn, Xn, stages) -> dict:
             stages.run(f"7d batched factorize, {chain} (2 Ks x 5)",
                        obj.factorize)
             errs[chain, "batched"] = obj.factorize_info["errs"]
-            stages.run(f"7d batched factorize, {chain}, 1 replicate a "
-                       "batch", lambda: obj.factorize(replicates_per_batch=1))
-            errs[chain, "batched_r1"] = obj.factorize_info["errs"]
     gaps, equal = {}, {}
     for chain in ("f32", "bf16"):
-        seq = errs[chain, "sequential"]
-        for lane in ("batched", "batched_r1"):
-            other = errs[chain, lane]
-            gaps[f"{chain} vs {lane}"] = {k: float(np.max(
-                np.abs(np.asarray(seq[k], np.float64) - other[k])
-                / np.abs(np.asarray(other[k], np.float64))))
-                for k in SEQ_KS}
-            equal[f"{chain} vs {lane}"] = all(np.array_equal(
-                np.asarray(seq[k], np.float32),
-                np.asarray(other[k], np.float32)) for k in SEQ_KS)
+        seq, other = errs[chain, "sequential"], errs[chain, "batched"]
+        gaps[f"{chain} vs batched"] = {k: float(np.max(
+            np.abs(np.asarray(seq[k], np.float64) - other[k])
+            / np.abs(np.asarray(other[k], np.float64))))
+            for k in SEQ_KS}
+        equal[f"{chain} vs batched"] = all(np.array_equal(
+            np.asarray(seq[k], np.float32),
+            np.asarray(other[k], np.float32)) for k in SEQ_KS)
     check(max(gaps["f32 vs batched"].values()) <= 1e-4,
           f"7d: under strict f32 the sequential and batched objectives "
           f"differ by {gaps['f32 vs batched']}")
@@ -1861,7 +1901,10 @@ def phase7_launches(p7) -> dict:
 # -- phase 8: the telemetry base on the main path ---------------------------
 
 TELEMETRY_KNOBS = {"CNMF_TPU_TELEMETRY": "1", "CNMF_TPU_METRICS": "1",
-                   "CNMF_TPU_TRACE_SAMPLE": "1"}
+                   "CNMF_TPU_TRACE_SAMPLE": "1", "CNMF_TPU_PERF_MODEL": "1"}
+# a perf_model reading above this fraction of a peak means the cost
+# formula counts work the program does not do: a fault, not a clip
+ROOFLINE_MAX = 1.05
 # a stage event's host wall against this script's synchronized wall of the
 # same call: within WALL_RTOL of it plus WALL_ATOL seconds
 WALL_RTOL, WALL_ATOL = 0.10, 0.050
@@ -1969,6 +2012,7 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
               for e in events), "no factorize.worker span")
     check(any(e["t"] == "metrics_snapshot" for e in events),
           "no metrics snapshot")
+    roofline = perf_model_gate(events, "factorize", "ell-cuda", "phase 8")
 
     # each stage event's wall against this script's synchronized wall
     ev_walls = {e["stage"]: float(e["wall_s"]) for e in events
@@ -1989,7 +2033,7 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
     report = cli_text(["report", run_dir])
     for needle in ("Manifest", "Dispatch decisions", "Stage waterfall",
                    "Replicate convergence", "Trace spans", "Device memory",
-                   "consensus.kmeans"):
+                   "consensus.kmeans", "Roofline"):
         check(needle in report, f"report lacks {needle!r}")
     traces = cli_text(["trace", run_dir])
     check("factorize.worker" in traces, "trace renders no factorize span")
@@ -2042,9 +2086,37 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
     return {"launches": launches, "profiled_launches": prof_launches,
             "walls": walls, "factorize_on_s": on_fact,
             "factorize_off_s": ref_fact, "factorize_turns_s": turns,
-            "events_bytes": size,
+            "events_bytes": size, "perf_model": roofline,
             "events": n_events, "trace_bytes": os.path.getsize(trace_fn),
             "kernel_names": named}
+
+
+def perf_model_gate(events, stage, lane, label) -> dict:
+    """The one ``perf_model`` event of ``stage`` on ``lane``, priced
+    against the card's data-sheet peaks, not exempt, and its achieved
+    fractions of the peaks in (0, ``ROOFLINE_MAX``]; returns its
+    reading."""
+    pms = [e for e in events if e["t"] == "perf_model"
+           and e["stage"] == stage]
+    check(len(pms) == 1 and pms[0]["lane"] == lane,
+          f"{label}: perf_model events {pms}")
+    pm = pms[0]
+    roof = pm["roofline"]
+    check(roof["peak_source"] == "datasheet" and not roof["perf_exempt"],
+          f"{label}: perf_model peaks {roof}")
+    check(0 < roof["mfu"] <= ROOFLINE_MAX
+          and 0 < roof["bw_frac"] <= ROOFLINE_MAX,
+          f"{label}: perf_model fractions out of (0, {ROOFLINE_MAX}]: "
+          f"{pm}")
+    reading = {"stage": stage, "lane": lane,
+               "wall_s": pm["measured"]["wall_s"],
+               "passes": pm["measured"]["passes"],
+               "flops": pm["predicted"]["flops"],
+               "bytes": pm["predicted"]["bytes"],
+               "mfu": roof["mfu"], "bw_frac": roof["bw_frac"],
+               "intensity": roof["intensity"], "bound": roof["bound"]}
+    log(f"{label}: perf_model {reading}")
+    return reading
 
 
 # -- phase 9: the atlas path -------------------------------------------------
@@ -2227,7 +2299,8 @@ def atlas_pipeline(stages) -> dict:
     out = {}
     counts_fn = stages.run("9a counts", lambda: atlas_counts(OUT))
     obj = cNMF(OUT, "atlas", device=CARD)
-    with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_OOC="0"):
+    with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_OOC="0",
+               CNMF_TPU_PERF_MODEL="1"):
         stages.run("9a prepare", lambda: obj.prepare(
             counts_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
             seed=SEED, beta_loss="kullback-leibler",
@@ -2250,6 +2323,8 @@ def atlas_pipeline(stages) -> dict:
           and recipe_ev[-1]["context"].get("mode") == "rowshard",
           f"9a: factorize ran {info['mode']}, solver_recipe events "
           f"{[e['context'] for e in recipe_ev]}")
+    out["perf_model"] = perf_model_gate(events, "factorize_rowshard",
+                                        "dense", "9a")
     check(sum(after_f.values()) == 0,
           f"9a: the dense row-sharded factorize launched {after_f}")
     dense_peak_gate(stages, "9a factorize", ATLAS_CELLS, N_HVG)
@@ -2308,7 +2383,7 @@ def atlas_pipeline(stages) -> dict:
         f"{err_gap:.3g}; streamed host peaks {peaks} bytes; store "
         f"{out['store']}")
     out.update(stream_gap=gap, error_gap=err_gap, stream_peaks=peaks)
-    return out, obj2, ref
+    return out, obj, obj2, ref, counts_fn
 
 
 def solver_api(stages, rows) -> dict:
@@ -2318,6 +2393,8 @@ def solver_api(stages, rows) -> dict:
     under a pinned dna recipe."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
     from cnmf_torch_tpu_torch.ops.recipe import SolverRecipe
+    from cnmf_torch_tpu_torch.ops.sparse import EllMatrix
+    from cnmf_torch_tpu_torch.parallel import rowshard
     from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
                                                         stream_ell_to_mesh,
                                                         stream_rows_to_mesh)
@@ -2325,15 +2402,35 @@ def solver_api(stages, rows) -> dict:
     out = {}
     X = stages.run("9b CSR 1M x 2,000", solver_csr)
     out["density"] = X.nnz / (X.shape[0] * X.shape[1])
+    # the solve takes the CSR matrix, so the entry's own dispatch stages it
+    # (ELL under the rule); the staged encoding is kept from the staging
+    # call for the 10^6-row kernel timings, so it is encoded once
+    staged = []
+
+    def keep_staged(*args, **kwargs):
+        got = stream_ell_to_mesh(*args, **kwargs)
+        staged.append(got[0])
+        return got
+
     kl_ell.reset_launches()
     rec = EventRecorder()
     payloads = []
-    _H, W, err = stages.run("9b nmf_fit_rowsharded 1M (ELL)",
-                            lambda: nmf_fit_rowsharded(
-                                X, CONSENSUS_K, beta_loss="kullback-leibler",
-                                seed=SEED, telemetry_sink=payloads.append,
-                                events=rec, device=CARD))
+    rowshard.stream_ell_to_mesh = keep_staged
+    try:
+        _H, W, err = stages.run("9b nmf_fit_rowsharded 1M (ELL)",
+                                lambda: nmf_fit_rowsharded(
+                                    X, CONSENSUS_K,
+                                    beta_loss="kullback-leibler", seed=SEED,
+                                    telemetry_sink=payloads.append,
+                                    events=rec, device=CARD))
+    finally:
+        rowshard.stream_ell_to_mesh = stream_ell_to_mesh
+    check(len(staged) == 1 and isinstance(staged[0], EllMatrix),
+          f"9b: the CSR entry staged {[type(x).__name__ for x in staged]}, "
+          "not one ELL encoding")
+    x_full = staged.pop()
     st = rec.streams["rowshard_staging"]
+    enc_full_s = st.wall_s
     out["launches"] = dict(kl_ell.launches)
     for name in ONLINE_KERNELS:
         check(out["launches"][name] > 0, f"9b: {name} never launched")
@@ -2348,10 +2445,13 @@ def solver_api(stages, rows) -> dict:
     records = {}
     gen = torch.Generator().manual_seed(SEED + 3)
     for n_rows in (SOLVER_CHECK_ROWS, SOLVER_CELLS):
-        t0 = time.perf_counter()
-        x, _ = stream_ell_to_mesh(X[:n_rows], CARD)
-        torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
+        if n_rows == SOLVER_CELLS:
+            x, x_full, enc_s = x_full, None, enc_full_s
+        else:
+            t0 = time.perf_counter()
+            x, _ = stream_ell_to_mesh(X[:n_rows], CARD)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
         nnz = int((x.vals > 0).sum())
         g = X.shape[1]
         nbytes = sum(t.numel() * t.element_size()
@@ -2543,8 +2643,7 @@ def ooc_faults(stages, obj2, ref) -> dict:
     cmd = [sys.executable, "-m", "cnmf_torch_tpu_torch", "factorize",
            "--output-dir", OUT, "--name", "atlas_ooc", "--device", CARD,
            "--rowshard", "--skip-completed-runs"]
-    for it in (0, 1):
-        os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, it))
+    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
     killed = stages.run("9c factorize killed at pass 4", lambda: subprocess.run(
         cmd, env=dict(env, CNMF_TPU_FAULT_SPEC=KILL_SPEC), cwd=HERE,
         capture_output=True, text=True, timeout=900))
@@ -2608,16 +2707,290 @@ def ooc_faults(stages, obj2, ref) -> dict:
     return out
 
 
-def phase9(stages, rows) -> dict:
-    """Phase 9, the atlas path: 9a, 9b and 9c."""
-    p9, obj2, ref = atlas_pipeline(stages)
+def phase9(stages, rows):
+    """Phase 9, the atlas path: 9a, 9b and 9c. Returns its report, the
+    R=1 kernel records and what phase 10 compares with: 9a's counts file,
+    its in-memory and store-backed runs and its iter spectra bytes."""
+    p9, obj, obj2, ref, counts_fn = atlas_pipeline(stages)
     p9["solver"], records = solver_api(stages, rows)
     p9["faults"] = ooc_faults(stages, obj2, ref)
     p9["kernel_launches"] = {
         name: int(p9["launches"][name]) + int(p9["solver"]["launches"][name])
         + int(p9["solver"]["dna_launches"][name])
         for name in ONLINE_KERNELS + BATCH_KERNELS}
-    return p9, records
+    return p9, records, (counts_fn, obj, obj2, ref)
+
+
+# -- phase 10: the remote object store ----------------------------------------
+
+# 10b: the small store (phase 3's normalized counts) in slabs of this many
+# rows, the slow request's seconds and the hedge's trigger
+NET_SLAB_ROWS = 2_000
+NET_SLOW_S = 1.0
+NET_HEDGE_S = 0.1
+
+
+def remote_pipeline(stages, srv, counts_fn, atlas_obj, ooc_obj, ref) -> dict:
+    """10a: 9a's counts prepared store-only into the object store at K=9
+    with 9a's replicates, factorized and brought to consensus through it,
+    resident (``atlas_obj``, 9a's in-memory run, is its reference) and
+    streamed (``ooc_obj``, 9a's store-backed run); the iter spectra must be
+    9a's bytes."""
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils import storebackend, telemetry
+
+    out = {}
+    name = "atlas_remote"
+    obj = cNMF(OUT, name, device=CARD)
+    uri = srv.url + "/atlas"
+    with knobs(CNMF_TPU_OOC="1", CNMF_TPU_STORE_URI=uri,
+               CNMF_TPU_TELEMETRY="1"):
+        stages.run("10a prepare, store only, remote", lambda: obj.prepare(
+            counts_fn, components=[CONSENSUS_K], n_iter=ATLAS_REPLICATES,
+            seed=SEED, beta_loss="kullback-leibler",
+            num_highvar_genes=N_HVG, batch_size=CHUNK))
+        store = obj._probe_store()
+        leaf = os.path.basename(obj.paths["shard_store"])
+        with srv.lock:
+            remote = {k: len(v) for k, v in srv.objects.items()
+                      if k.startswith(f"atlas/{leaf}/")}
+        check(store is not None and store.backend.kind == "remote"
+              and not os.path.exists(obj.paths["shard_store"])
+              and not os.path.exists(obj.paths["normalized_counts"])
+              and len(remote) == len(store.slabs) + 2,
+              f"10a: the store is not the remote one only: "
+              f"{len(remote)} objects for {len(store.slabs)} slabs")
+        out["store"] = {"objects": len(remote),
+                        "object_bytes": int(sum(remote.values())),
+                        "slabs": len(store.slabs),
+                        "store_bytes": int(store.store_bytes)}
+        kl_ell.reset_launches()
+        stages.run("10a factorize through the remote store", obj.factorize)
+        after_f = dict(kl_ell.launches)
+        mine = iter_bytes(obj, [CONSENSUS_K], ATLAS_REPLICATES)
+        want = {key: v for key, v in ref.items() if key[0] == CONSENSUS_K}
+        check(mine == want, "10a: the iter spectra differ from 9a's "
+              "local store-backed run's")
+        stages.run("10a combine", obj.combine)
+        # the resident refit on the matrix read back through the store:
+        # the streamed refit of a store-only run is dense and launches no
+        # kernel (as in the JAX package)
+        counts = stages.run("10a matrix read back through the store",
+                            lambda: obj._store_counts(store,
+                                                      with_matrix=True))
+        stages.run("10a consensus (resident refit)", lambda: obj.consensus(
+            CONSENSUS_K, density_threshold=2.0, norm_counts=counts))
+        launches = dict(kl_ell.launches)
+        del counts
+        # read before the streamed consensus writes the same artifacts
+        gap = atlas_artifact_gap(atlas_obj, obj)
+        # the consensus a store-only run takes: streamed from the store
+        # through the remote backend and its read-through cache
+        stages.run("10a consensus (streamed through the store)",
+                   lambda: obj.consensus(CONSENSUS_K, density_threshold=2.0))
+    check(sum(after_f.values()) == 0,
+          f"10a: the dense row-sharded factorize launched {after_f}")
+    check(launches["h_stats"] > 0,
+          f"10a: the consensus refit launched no h_stats ({launches})")
+    check(all(v <= STREAM_RTOL for v in gap.values()),
+          f"10a: consensus against 9a's in-memory run {gap} (band "
+          f"{STREAM_RTOL})")
+    stream_gap = atlas_artifact_gap(ooc_obj, obj)
+    check(all(v <= STREAM_RTOL for v in stream_gap.values()),
+          f"10a: streamed consensus against 9a's streamed run {stream_gap} "
+          f"(band {STREAM_RTOL})")
+    events = telemetry.read_events(os.path.join(
+        OUT, name, "cnmf_tmp", name + ".events.jsonl"))
+    cons_ev = [e for e in events if e["t"] == "stream"
+               and e["context"] == "consensus_stream"]
+    check(len(cons_ev) == 1 and cons_ev[0].get("store_remote") is True
+          and cons_ev[0]["store_cache_hits"] >= len(store.slabs)
+          and cons_ev[0]["store_cache_misses"] == 0
+          and cons_ev[0]["store_retries"] == 0,
+          f"10a: the streamed consensus's stream events {cons_ev} "
+          f"({len(store.slabs)} slabs, the cache warm)")
+    (stage_ev,) = [e for e in events if e["t"] == "stream"
+                   and e["context"] == "rowshard_stage_x"]
+    slab_bytes = int(sum(int(sl["raw_bytes"]) for sl in store.slabs))
+    check(stage_ev.get("store_remote") is True
+          and stage_ev["disk_nbytes"] == slab_bytes
+          and stage_ev["store_cache_misses"] == len(store.slabs)
+          and stage_ev["nbytes"] > 0,
+          f"10a: the staging's stream event {stage_ev} (slab bytes "
+          f"{slab_bytes}, {len(store.slabs)} slabs)")
+    cache_dir = storebackend.store_cache_dir(obj.paths["shard_store"])
+    entries = {fn: os.path.getsize(os.path.join(cache_dir, fn))
+               for fn in os.listdir(cache_dir) if not fn.endswith(".sha1")}
+    cache_bytes = sum(entries.values())
+    check(len(entries) == len(remote)
+          and cache_bytes == sum(remote.values())
+          and cache_bytes <= storebackend.store_cache_bytes(),
+          f"10a: the read-through cache holds {len(entries)} entries, "
+          f"{cache_bytes} bytes, for {len(remote)} objects of "
+          f"{sum(remote.values())} bytes (budget "
+          f"{storebackend.store_cache_bytes()})")
+    log(f"10a: {len(mine)} iter spectra files bit for bit 9a's through "
+        f"{uri}; store {out['store']}; staging stream {stage_ev['nbytes']} "
+        f"bytes to the card, {stage_ev['disk_nbytes']} read at "
+        f"{stage_ev.get('disk_gb_per_s')} GB/s, cache misses "
+        f"{stage_ev['store_cache_misses']}; cache {len(entries)} entries, "
+        f"{cache_bytes} bytes; consensus against 9a's {gap}; streamed "
+        f"consensus against 9a's streamed {stream_gap}, its stream "
+        f"{cons_ev[0]['disk_nbytes']} bytes read, cache hits "
+        f"{cons_ev[0]['store_cache_hits']}; launches {launches}")
+    out.update(launches=launches, factorize_launches=after_f,
+               consensus_gap=gap, stream_consensus_gap=stream_gap,
+               consensus_stream={k: cons_ev[0].get(k) for k in (
+                   "wall_s", "disk_nbytes", "disk_gb_per_s",
+                   "store_cache_hits", "store_cache_misses")},
+               cache_bytes=cache_bytes,
+               stream={k: stage_ev.get(k) for k in (
+                   "wall_s", "nbytes", "disk_nbytes", "disk_gb_per_s",
+                   "store_cache_misses", "store_cache_hits",
+                   "store_retries")})
+    return out, obj
+
+
+def net_faults(stages, srv, Xn) -> dict:
+    """10b: each network fault on a small store heals to the clean staging
+    bytes, with its evidence in the events file and the report."""
+    import warnings
+
+    from cnmf_torch_tpu_torch.parallel.rowshard import stream_rows_to_mesh
+    from cnmf_torch_tpu_torch.parallel.streaming import StreamStats
+    from cnmf_torch_tpu_torch.utils import shardstore, storebackend, telemetry
+
+    name = "netfaults"
+    run_dir = os.path.join(OUT, name)
+    store_dir = os.path.join(run_dir, "small.store")
+    out = {}
+    with knobs(CNMF_TPU_STORE_URI=srv.url + "/small",
+               CNMF_TPU_TELEMETRY="1", CNMF_TPU_STORE_BACKOFF_S="0.01",
+               CNMF_TPU_STORE_TIMEOUT_S="10"):
+        log_ = telemetry.EventLog(os.path.join(run_dir, "cnmf_tmp",
+                                               name + ".events.jsonl"),
+                                  device=CARD)
+        shardstore.write_shard_store(store_dir, Xn,
+                                     slab_rows=NET_SLAB_ROWS, events=log_)
+        clean = stream_rows_to_mesh(
+            shardstore.open_shard_store(store_dir), CARD)[0]
+        cases = [
+            ("netflake", "netflake:context=get:slab",
+             {"CNMF_TPU_STORE_CACHE_BYTES": "0"}),
+            ("netslow", f"netslow:context=get:slab,seconds={NET_SLOW_S}",
+             {"CNMF_TPU_STORE_CACHE_BYTES": "0",
+              "CNMF_TPU_STORE_HEDGE_S": str(NET_HEDGE_S)}),
+            ("nettorn", "nettorn:context=get:slab",
+             {"CNMF_TPU_STORE_CACHE_BYTES": "0"}),
+            ("netdown", "netdown:context=get:",
+             {"CNMF_TPU_STORE_RETRIES": "1"}),
+        ]
+        storebackend._reset_degraded_warnings()
+        for kind, spec, env in cases:
+            if kind == "netdown":
+                # warm the read-through cache first
+                warm = shardstore.open_shard_store(store_dir)
+                stream_rows_to_mesh(warm, CARD)
+                warm.obs_names()
+            n_before = len(telemetry.read_events(log_.path))
+            stats = StreamStats()
+            with knobs(CNMF_TPU_FAULT_SPEC=spec, **env), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+
+                def stage():
+                    st = shardstore.open_shard_store(store_dir, events=log_)
+                    return st, stream_rows_to_mesh(st, CARD, stats=stats,
+                                                   events=log_)[0]
+
+                store, got = stages.run(f"10b staging under {kind}", stage)
+            log_.emit_stream(f"net_{kind}", stats)
+            check(torch.equal(got, clean),
+                  f"10b {kind}: the staged matrix differs from the clean one")
+            snap = storebackend.backend_counter_snapshot(store)
+            new = telemetry.read_events(log_.path)[n_before:]
+            net = [e["context"] for e in new if e["t"] == "fault"
+                   and e["kind"] == "store_net"]
+            torn = [e["context"] for e in new if e["t"] == "fault"
+                    and e["kind"] == "shard_read_torn"]
+            loud = [str(w.message) for w in caught
+                    if "DEGRADED" in str(w.message)]
+            if kind == "netflake":
+                ok = (snap["retries"] >= 1 and snap["healed"] >= 1
+                      and any(c.get("healed") for c in net))
+            elif kind == "netslow":
+                ok = snap["hedges"] >= 1 and snap["hedges_won"] >= 1
+            elif kind == "nettorn":
+                ok = len(torn) == 1
+            else:
+                ok = (snap["degraded_reads"] >= 1 and len(loud) == 1
+                      and any(c.get("degraded") for c in net))
+            check(ok, f"10b {kind}: counters {snap}, store_net events "
+                  f"{net[:4]}, torn reads {torn}, warnings {loud}")
+            out[kind] = {"counters": snap, "store_net_events": len(net),
+                         "torn_reads": len(torn),
+                         "wall_s": stages.rows[-1][1]}
+            log(f"10b {kind}: staged bit for bit the clean matrix; "
+                f"counters {snap}; store_net events {len(net)}, torn "
+                f"reads {len(torn)}, degraded warnings {len(loud)}")
+    summary = telemetry.summarize_events(telemetry.read_events(log_.path))
+    report = cli_text(["report", run_dir])
+    with open(os.path.join(OUT, "phase10_report.txt"), "w") as f:
+        f.write(report)
+    recovered = summary["faults"].get("store_net_recovered", 0)
+    degraded = summary["faults"].get("store_net_degraded", 0)
+    check(recovered >= 1 and degraded >= 1
+          and "store_net: recovered %d, degraded reads %d"
+          % (recovered, degraded) in report,
+          f"10b: the report's store_net line (recovered {recovered}, "
+          f"degraded {degraded})")
+    out["report"] = {"recovered": recovered, "degraded": degraded}
+    return out
+
+
+def cold_netdown(stages, obj, uri) -> dict:
+    """10c: with 10a's cache gone and slab reads down, factorize ends with
+    ``RemoteStoreError`` and a ``remote_store`` ledger record."""
+    from cnmf_torch_tpu_torch.utils import storebackend
+    from cnmf_torch_tpu_torch.utils.shardstore import RemoteStoreError
+
+    shutil.rmtree(storebackend.store_cache_dir(obj.paths["shard_store"]))
+    raised = None
+    with knobs(CNMF_TPU_OOC="1", CNMF_TPU_STORE_URI=uri,
+               CNMF_TPU_FAULT_SPEC="netdown:context=get:slab_",
+               CNMF_TPU_STORE_RETRIES="1", CNMF_TPU_STORE_BACKOFF_S="0.01"):
+        def run():
+            nonlocal raised
+            try:
+                obj.factorize()
+            except RemoteStoreError as exc:
+                raised = exc
+
+        stages.run("10c factorize, slab reads down, cold cache", run)
+    ledger = read_ledger(obj)
+    kinds = [r["kind"] for r in ledger.get("shard_faults", [])]
+    check(raised is not None and kinds == ["remote_store"],
+          f"10c: factorize raised {raised!r}; ledger shard faults {kinds}")
+    log(f"10c: factorize ended with RemoteStoreError ({str(raised)[:160]}); "
+        f"the ledger records {kinds}")
+    return {"error": str(raised)[:300], "ledger": kinds}
+
+
+def phase10(stages, Xn, atlas) -> dict:
+    """Phase 10, the remote object store: the fixture server in this
+    process on the loopback interface (a server that cannot bind fails the
+    phase), then 10a, 10b and 10c."""
+    from cnmf_torch_tpu_torch.utils.netstore import ObjectStoreServer
+
+    counts_fn, atlas_obj, ooc_obj, ref = atlas
+    with ObjectStoreServer("127.0.0.1", 0) as srv:
+        log(f"phase 10: object store fixture at {srv.url}")
+        p10, obj = remote_pipeline(stages, srv, counts_fn, atlas_obj,
+                                   ooc_obj, ref)
+        p10["faults"] = net_faults(stages, srv, Xn)
+        p10["cold_netdown"] = cold_netdown(stages, obj, srv.url + "/atlas")
+    return p10
 
 
 class Stages:
@@ -2828,7 +3201,7 @@ def main() -> int:
     # -- phase 9: the atlas path ---------------------------------------------
     n_stages = len(stages.rows)
     atlas_rows = []
-    p9, atlas_records = phase9(stages, atlas_rows)
+    p9, atlas_records, atlas = phase9(stages, atlas_rows)
     log(f"phase 9 stages on {smi}:")
     for name, wall, peak in stages.rows[n_stages:]:
         log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
@@ -2837,6 +3210,14 @@ def main() -> int:
         log(line)
     log(f"phase 9 kernel launches: {p9['kernel_launches']}")
 
+    # -- phase 10: the remote object store -----------------------------------
+    n_stages = len(stages.rows)
+    p10 = phase10(stages, Xn, atlas)
+    log(f"phase 10 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:44s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 10 kernel launches: {p10['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -2844,7 +3225,8 @@ def main() -> int:
                            + int(p7_launches[name])
                            + int(p8["launches"][name])
                            + int(p8["profiled_launches"][name])
-                           + int(p9["kernel_launches"][name]))
+                           + int(p9["kernel_launches"][name])
+                           + int(p10["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -2855,6 +3237,7 @@ def main() -> int:
                            "phase8_profiled": p8["profiled_launches"]},
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
+              "phase10": p10,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

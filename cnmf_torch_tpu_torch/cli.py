@@ -1,8 +1,10 @@
 """Command-line interface of the port: ``prepare | factorize | combine |
 consensus | k_selection_plot`` with the JAX package's flags for those
 stages, plus ``--device`` (default ``cuda``; there is no CPU fallback,
-pass ``--device cpu`` to run on the CPU), and the telemetry renderers
-``report [run_dir] [--json]`` and ``trace [run_dir]``.
+pass ``--device cpu`` to run on the CPU), the telemetry renderers
+``report [run_dir] [--json]`` and ``trace [run_dir]``, and
+``benchdiff BASE NEW [--band F] [--json]``, the noise-aware comparison of
+two bench snapshots (``obs/regress.py``; exit 1 on a regression).
 
 Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
 the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
@@ -13,8 +15,9 @@ files only and never touch a device. ``factorize --rowshard`` /
 ``--no-rowshard`` / ``--rowshard-threshold`` choose the row-sharded
 solver as the JAX CLI does (auto at 200,000 cells; the consensus refits
 keep the constructor's threshold), and ``--store-uri`` sets
-``CNMF_TPU_STORE_URI`` (``file:///base``; ``http(s)://`` is not ported
-yet and fails before any work). ``factorize`` exits with
+``CNMF_TPU_STORE_URI`` (``file:///base`` or
+``http(s)://host:port/prefix``, an object store; another scheme fails
+before any work). ``factorize`` exits with
 ``UNHEALTHY_EXIT_CODE`` (3) when a K ends below
 ``CNMF_TPU_MIN_HEALTHY_FRAC`` healthy replicates after its retries, as
 the JAX package's CLI does: a rerun would draw the same derived seeds,
@@ -127,8 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="[all] Shard-store transport URI (exports "
                              "CNMF_TPU_STORE_URI for this run): unset = "
                              "local paths, file:///base relocates the "
-                             "store; http(s):// (the remote object store) "
-                             "is not ported yet")
+                             "store, http(s)://host:port/prefix puts it in "
+                             "an object store")
     parser.add_argument("--per-k-programs", action="store_true",
                         default=False,
                         help="[factorize] Pin the per-K sweeps (the JAX "
@@ -155,6 +158,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "benchdiff":
+        # two positionals do not fit the stage parser's optional run_dir,
+        # so the command owns its arguments and dispatches first
+        raise SystemExit(_benchdiff(argv[1:]))
     parser = build_parser()
     # intermixed, so flags may precede or follow the optional run_dir
     args = parser.parse_intermixed_args(argv)
@@ -223,6 +231,36 @@ def main(argv=None):
                           build_ref=args.build_reference)
     elif args.command == "k_selection_plot":
         obj.k_selection_plot(close_fig=True)
+
+
+def _benchdiff(argv) -> int:
+    """``benchdiff BASE NEW [--band F] [--json]``: the diff of two bench
+    snapshots, rendered or as JSON; 0 when nothing regressed, else 1."""
+    from .obs.regress import diff_snapshots, load_snapshot, render_diff
+
+    bp = argparse.ArgumentParser(
+        prog="python -m cnmf_torch_tpu_torch benchdiff",
+        description="Compare two bench snapshots (the obs.regress schema) "
+                    "with noise-aware relative bands; exit 1 when any "
+                    "lane regresses past the band.")
+    bp.add_argument("base", help="baseline snapshot JSON")
+    bp.add_argument("new", help="candidate snapshot JSON")
+    bp.add_argument("--band", type=float, default=None,
+                    help="relative regression band (fraction; default "
+                         "CNMF_TPU_PERF_GATE_BAND or 0.6)")
+    bp.add_argument("--json", action="store_true", default=False,
+                    help="emit the diff as machine-readable JSON")
+    args = bp.parse_args(argv)
+    try:
+        diff = diff_snapshots(load_snapshot(args.base),
+                              load_snapshot(args.new), band=args.band)
+    except (OSError, ValueError) as exc:
+        bp.error(str(exc))
+    if args.json:
+        print(json.dumps(diff, indent=1, sort_keys=True))
+    else:
+        print(render_diff(diff))
+    return 0 if diff["ok"] else 1
 
 
 def _render(command: str, run_dir: str, as_json: bool) -> str:

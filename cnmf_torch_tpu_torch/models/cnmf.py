@@ -171,6 +171,10 @@ class cNMF:
         # per K, the consensus stage's sketch decision (and, under
         # "k_selection", the sweep-level one of k_selection_stats)
         self.consensus_info: dict = {}
+        # while a factorize path runs under CNMF_TPU_TELEMETRY: per K, the
+        # solver iterations its `replicates` events record (the pass
+        # multiplicity of its `perf_model` event), else None
+        self._perf_iters: dict | None = None
         # the streamed consensus passes' StreamStats (walls, bytes, host
         # residency peak) by context
         self.stream_stats: dict = {}
@@ -838,6 +842,8 @@ class cNMF:
             replicates_per_batch=replicates_per_batch,
             n_rows=n if use_ell else None, recipe=recipe,
             device=self.device)
+        self._perf_iters = {}
+        perf_t0 = time.perf_counter()
         for k, tasks in sorted(by_k.items()):
             its = [t[0] for t in tasks]
             seeds_k = [t[1] for t in tasks]
@@ -874,6 +880,12 @@ class cNMF:
             return spectra_r, errs_r
 
         self._finish_resilience(guard, rerun, norm.var_names, worker_i)
+        perf_iters, self._perf_iters = self._perf_iters, None
+        self._emit_perf_model(
+            "factorize", kernel, n, g, perf_iters,
+            time.perf_counter() - perf_t0, beta=beta,
+            ell_width=int(ell_row_width(X_host)) if use_ell else None,
+            bf16_ratio=bf16)
 
     def _factorize_rowsharded(self, jobs, ks, iters, seeds, norm, kw, guard,
                               worker_i, resume=False, store=None):
@@ -891,7 +903,8 @@ class cNMF:
         recipe and the ingest tier; a resume (``skip_completed_runs``)
         continues an interrupted replicate from it, bit for bit while H
         fits the checkpoint's byte budget. A staging fault (an exhausted
-        upload retry, a stall, a slab torn past its re-reads) lands in the
+        upload retry, a stall, a slab torn past its re-reads, a remote
+        store down past its retries with no cached copy) lands in the
         resilience ledger before the run aborts."""
         import glob
 
@@ -900,7 +913,7 @@ class cNMF:
         from ..parallel.streaming import (ShardStallError, ShardUploadError,
                                           StreamStats)
         from ..runtime import checkpoint as ckpt_mod
-        from ..utils.shardstore import TornShardError
+        from ..utils.shardstore import RemoteStoreError, TornShardError
 
         beta = beta_loss_to_float(kw["beta_loss"])
         init = kw.get("init", "random")
@@ -921,9 +934,12 @@ class cNMF:
                 Xd, n_orig = prepare_rowsharded(
                     store if store is not None else norm.X, self.device,
                     stats=stage_stats, events=self._events)
-        except (ShardUploadError, ShardStallError, TornShardError) as exc:
+        except (ShardUploadError, ShardStallError, TornShardError,
+                RemoteStoreError) as exc:
             kind = ("shard_stall" if isinstance(exc, ShardStallError)
                     else "shard_read_torn" if isinstance(exc, TornShardError)
+                    else "remote_store"
+                    if isinstance(exc, RemoteStoreError)
                     else "shard_upload_failed")
             guard.record_shard_fault(kind, {"stage": "rowshard_stage_x",
                                             "error": str(exc)})
@@ -1016,8 +1032,13 @@ class cNMF:
                 device=self.device)
             return np.asarray(spectra), float(err)
 
+        perf_t0 = time.perf_counter()
+        perf_passes: dict[int, int] = {}
         for idx in jobs:
             k, it, seed = int(ks[idx]), int(iters[idx]), int(seeds[idx])
+            # the cost unit is one pass, counted as the pass cap of each
+            # job, as the JAX package counts it
+            perf_passes[k] = perf_passes.get(k, 0) + int(n_passes)
             faults.maybe_straggle(context="factorize", worker=worker_i)
             ckpt = make_ckpt(k, it, seed)
             spectra, err = solve(k, seed, ckpt)
@@ -1049,6 +1070,9 @@ class cNMF:
                     np.asarray([o[1] for o in outs], np.float64))
 
         self._finish_resilience(guard, rerun, norm.var_names, worker_i)
+        self._emit_perf_model(
+            "factorize_rowshard", self.factorize_info["kernel"], int(n),
+            int(g), perf_passes, time.perf_counter() - perf_t0, beta=beta)
 
     def _factorize_sequential(self, jobs, ks, iters, seeds, norm, kw,
                               recipe, Xs, guard, worker_i):
@@ -1120,12 +1144,62 @@ class cNMF:
         """One sweep's convergence records
         (``parallel.replicates._sweep_telemetry_payload``) as a
         ``replicates`` event."""
+        records = replicate_records(payload)
         self._events.emit("replicates", k=payload["k"], beta=payload["beta"],
                           mode=payload["mode"], cap=int(payload["cap"]),
                           cadence=payload["cadence"],
                           recipe=payload.get("recipe"),
                           kernel=payload.get("kernel"),
-                          records=replicate_records(payload))
+                          records=records)
+        # while a factorize path runs, total the solver iterations a K:
+        # the multiplicity its perf_model event scales one iteration's
+        # analytic cost by
+        if self._perf_iters is not None:
+            k = int(payload["k"])
+            self._perf_iters[k] = self._perf_iters.get(k, 0) + sum(
+                int(r.get("iters", 0)) for r in records)
+
+    def _emit_perf_model(self, stage, lane, n, g, iters_by_k, wall_s, *,
+                         beta, ell_width=None, bf16_ratio=False):
+        """One ``perf_model`` event: the lane's analytic cost
+        (``obs/costmodel.py``) times the iterations a K, joined with the
+        measured wall into the roofline verdict against the peaks of this
+        run's device. Only when the telemetry and ``CNMF_TPU_PERF_MODEL``
+        are both on; a failure here warns and never takes factorize
+        down."""
+        from ..obs.costmodel import (device_peaks, lane_cost,
+                                     perf_model_enabled, roofline)
+
+        if not (self._events.enabled and perf_model_enabled()):
+            return
+        if not iters_by_k or wall_s is None:
+            return
+        try:
+            peaks = device_peaks(self.device)
+            exempt = self.device.type != "cuda"
+            tot_f = tot_b = 0.0
+            passes = 0
+            for k, n_iters in sorted(iters_by_k.items()):
+                c = lane_cost(lane, n, g, int(k), beta=beta,
+                              ell_width=ell_width, bf16_ratio=bf16_ratio,
+                              device=self.device)
+                exempt = exempt or bool(c.get("perf_exempt"))
+                tot_f += c["flops"] * int(n_iters)
+                tot_b += c["bytes"] * int(n_iters)
+                passes += int(n_iters)
+            roof = roofline(tot_f, tot_b, wall_s, peaks, perf_exempt=exempt)
+        except Exception as exc:
+            warnings.warn("perf_model event of %s skipped: %s: %s"
+                          % (stage, type(exc).__name__, exc),
+                          RuntimeWarning, stacklevel=2)
+            return
+        self._events.emit(
+            "perf_model", stage=stage, lane=lane,
+            predicted={"flops": tot_f, "bytes": tot_b,
+                       "by_k": {str(k): int(v)
+                                for k, v in sorted(iters_by_k.items())}},
+            measured={"wall_s": round(float(wall_s), 4), "passes": passes},
+            roofline=roof)
 
     def _write_iter_spectra(self, k, it, spectrum, columns):
         """One replicate's spectra artifact (atomic; stored, not
@@ -1518,7 +1592,9 @@ class cNMF:
         bytes and the residency peak, ``peak_base`` the caller's own
         pass-long buffers."""
         from ..utils.shardstore import host_matrix_bytes, ooc_budget_bytes
+        from ..utils.storebackend import backend_counter_snapshot
 
+        bk_before = backend_counter_snapshot(store)
         n, g = store.shape
         chunk_size = int(min(int(chunk_size), max(n, 1)))
         chunk_bytes = max(chunk_size * g * 4, 1)
@@ -1545,6 +1621,9 @@ class cNMF:
             yield lo, hi, dense
         if stats is not None:
             stats.wall_s += time.perf_counter() - t_start
+            # a remote store's transport counters of this pass's reads
+            stats.fold_store_counters(bk_before,
+                                      backend_counter_snapshot(store))
 
     def _refit_usage_streamed(self, store, spectra, collect=None,
                               context="consensus_stream"):

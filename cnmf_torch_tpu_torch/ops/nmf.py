@@ -46,7 +46,8 @@ __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "nmf_fit_online", "random_init", "nndsvd_base", "nndsvd_fill",
            "nndsvd_init", "init_factors", "fit_h", "fit_h_default_init",
            "fit_h_slabbed", "gram_svd_base", "nndsvd_init_gram",
-           "lane_health", "run_nmf", "run_nmf_use_ell", "sweep_x_mean"]
+           "lane_health", "run_nmf", "run_nmf_use_ell", "sweep_x_mean",
+           "dense_update_cost"]
 
 EPS = 1e-16
 EVAL_EVERY = 10
@@ -1480,3 +1481,67 @@ def run_nmf(X, n_components: int, init: str = "random",
             kl_newton=bool(recipe.kl_newton), algo=algo, **sketch)
         H = Hc.reshape(-1, k)[:n]
     return H.cpu().numpy(), W[0].cpu().numpy(), float(err[0])
+
+
+# ---------------------------------------------------------------------------
+# the dense lanes' analytic cost (obs/costmodel.py)
+# ---------------------------------------------------------------------------
+
+def dense_update_cost(n: int, g: int, k: int, beta: float = 2.0,
+                      *, bf16_ratio: bool = False,
+                      bundled: bool = False) -> dict:
+    """Flops and bytes of ONE dense MU iteration (the H update and the W
+    update) of the chains above, the JAX package's formula
+    (``cnmf_torch_tpu/ops/nmf.py:dense_update_cost``) term for term: 2mnk
+    flops a matmul and one flop an output element of an elementwise op;
+    bytes are each unfused matmul's operands and output plus each fused
+    elementwise chain's. ``bundled`` counts the useful per-replicate work
+    only (the bundled solver's masked-Gram padding is overhead);
+    ``bf16_ratio`` halves the X/WH/ratio traffic of the beta != 2 chains,
+    flops unchanged. Host arithmetic only."""
+    n, g, k = int(n), int(g), int(k)
+    f = 4.0                      # f32 operand bytes
+    fx = 2.0 if (bf16_ratio and beta != 2.0) else 4.0
+    if beta == 2.0:
+        # H: X@W.T + W@W.T + H@WWT + the rate chain; W: H.T@X + H.T@H +
+        # HtH@W + the rate chain
+        flops = (4 * n * g * k + 4 * n * k * k + 4 * g * k * k
+                 + 3 * n * k + 3 * g * k)
+        bytes_ = (
+            (n * g + k * g + n * k) * f        # X @ W.T
+            + (2 * k * g + k * k) * f          # W @ W.T
+            + (n * k + k * k + n * k) * f      # H @ WWT
+            + 4 * n * k * f                    # numer, denom, H -> H'
+            + (n * g + n * k + k * g) * f      # H.T @ X
+            + (2 * n * k + k * k) * f          # H.T @ H
+            + (k * g + k * k + k * g) * f      # HtH @ W
+            + 4 * k * g * f)
+    elif beta == 1.0:
+        # H: WH + ratio + R@W.T + the colsum denominator + rate; W mirrored
+        flops = (8 * n * g * k + 4 * n * g + k * (g - 1) + (n - 1) * k
+                 + 3 * n * k + 3 * k * g)
+        bytes_ = (
+            2 * ((n * k + k * g) * f + n * g * fx)   # H@W, both updates
+            + 2 * 3 * n * g * fx                     # X/max(WH, eps)
+            + (n * g * fx + k * g * f + n * k * f)   # R @ W.T
+            + (n * g * fx + n * k * f + k * g * f)   # H.T @ R
+            + (k * g * f + k * f)                    # W colsum
+            + (n * k * f + k * f)                    # H rowsum
+            + 4 * n * k * f + 4 * k * g * f)         # rate chains
+    elif beta == 0.0:
+        # IS: WH, two ratio chains, two statistics matmuls a side and the
+        # gamma=0.5 rate chain (approximate elementwise accounting)
+        flops = (12 * n * g * k + 10 * n * g + 7 * n * k + 7 * k * g)
+        bytes_ = (
+            2 * ((n * k + k * g) * f + n * g * fx)
+            + 2 * 5 * n * g * fx
+            + 2 * (n * g * fx + k * g * f + n * k * f)
+            + 2 * (n * g * fx + n * k * f + k * g * f)
+            + 6 * n * k * f + 6 * k * g * f)
+    else:
+        raise ValueError(f"dense_update_cost implements beta in "
+                         f"{{2, 1, 0}}, got {beta}")
+    return {"flops": float(flops), "bytes": float(bytes_),
+            "lane": ("bundled" if bundled else
+                     ("dense-bf16" if (bf16_ratio and beta != 2.0)
+                      else "dense"))}

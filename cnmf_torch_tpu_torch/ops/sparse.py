@@ -46,7 +46,8 @@ __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_beta_err_nz", "ell_beta_err_rows", "total_wh",
            "ell_wh_slots", "ell_wh_at_nz", "ell_h_newton",
            "ell_kl_h_newton_stats", "is_per_elem", "ell_is_h_stats",
-           "ell_is_w_stats", "ell_take_rows", "ell_kl_w_stats_rows"]
+           "ell_is_w_stats", "ell_take_rows", "ell_kl_w_stats_rows",
+           "ell_transpose_width", "ell_stats_cost"]
 
 EPS = 1e-16
 # auto-dispatch ceiling: <= 10% nonzeros and row width <= g/8
@@ -564,3 +565,59 @@ def ell_beta_err(x: EllMatrix, H, W, beta: float = 1.0):
         vals > 0, is_per_elem(torch.clamp_min(vals, EPS), wh_nz)
         - is_per_elem(eps, wh_nz), torch.zeros((), device=WH.device))
     return base + corr.sum(dim=(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the ELL lanes' analytic cost (obs/costmodel.py)
+# ---------------------------------------------------------------------------
+
+def ell_transpose_width(n: int, g: int, width: int,
+                        t_width: int | None = None) -> int:
+    """The gene-side width the cost model prices: ``t_width`` when known,
+    else the balanced estimate ``ceil(width * n / g)`` padded to a
+    multiple of 8 (at least 8), as the JAX package estimates it."""
+    if t_width is not None:
+        return int(t_width)
+    return _pad_width(-(-(int(width) * int(n)) // max(int(g), 1)))
+
+
+def ell_stats_cost(n: int, g: int, k: int, width: int,
+                   t_width: int | None = None, beta: float = 1.0) -> dict:
+    """Flops and bytes of ONE ELL KL MU iteration (the H and the W
+    statistics) on the plain lane, the JAX package's formula
+    (``cnmf_torch_tpu/ops/sparse.py:ell_stats_cost``, which it calibrated
+    against XLA's ``cost_analysis`` of its jnp lane) term for term.
+    ``width`` is the row-side ELL width, ``t_width`` the gene-side one
+    (:func:`ell_transpose_width`). The IS lane (beta=0) has no model of
+    its own: the KL figure is its floor. Host arithmetic only."""
+    n, g, k, w = int(n), int(g), int(k), int(width)
+    wt = ell_transpose_width(n, g, w, t_width)
+    f = 4.0
+    nw = n * w
+    gwt = g * wt
+    # h side: wh_at_nz (a 2k-1 FMA chain a slot), the ratio (max and
+    # divide), the numerator a component (nw products, n(w-1) adds) and
+    # the W row-sum denominator
+    h_flops = (nw * (2 * k - 1) + 2 * nw
+               + k * (nw + n * (w - 1)) + k * (g - 1))
+    # w side mirrors it on the transpose set; the H column-sum denominator
+    w_flops = (nw * (2 * k - 1) + 2 * nw
+               + k * (gwt + g * (wt - 1)) + (n - 1) * k)
+    # h side bytes: each of the 2k slab gathers costs a slice copy and a
+    # gather output, then the ratio chain and the numerator output
+    h_bytes = (2 * k * (3 * g * f + 2 * nw * f)
+               + 3 * nw * f                          # vals, wh -> ratio
+               + k * n * f)                          # numerator output
+    # w side bytes: the fused transpose-gather program's operands and
+    # outputs
+    w_bytes = (2 * nw * 4                            # vals + cols
+               + k * g * f + n * k * f               # W, H operands
+               + nw * f                              # the ratio spill
+               + 3 * gwt * 4                         # perm_t, r_t, rows_t
+               + k * g * f                           # numerator output
+               + n * k * f + k * g * f)              # denominator in + out
+    return {"flops": float(h_flops + w_flops),
+            "bytes": float(h_bytes + w_bytes),
+            "h_flops": float(h_flops), "w_flops": float(w_flops),
+            "h_bytes": float(h_bytes), "w_bytes": float(w_bytes),
+            "lane": "ell-torch"}

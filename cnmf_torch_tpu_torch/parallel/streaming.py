@@ -130,7 +130,8 @@ class StreamStats:
     threads (their sum can exceed ``wall_s``: that is the overlap);
     ``device_s`` is the commits plus the closing synchronize; ``wall_s``
     is end to end; ``host_peak_bytes`` the host slab-residency high-water
-    mark."""
+    mark; the ``store_*`` fields a remote store backend's counters over
+    the run (:meth:`fold_store_counters`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -143,6 +144,13 @@ class StreamStats:
         self.disk_s = 0.0
         self.disk_nbytes = 0
         self.host_peak_bytes = 0
+        self.store_remote = False
+        self.store_retries = 0
+        self.store_hedges = 0
+        self.store_hedges_won = 0
+        self.store_cache_hits = 0
+        self.store_cache_misses = 0
+        self.store_degraded = 0
 
     def add(self, host_prep_s=0.0, h2d_s=0.0, device_s=0.0, nbytes=0,
             slabs=0, disk_s=0.0, disk_nbytes=0):
@@ -158,6 +166,24 @@ class StreamStats:
             obs_metrics.counter_inc("cnmf_stream_slabs_total", slabs)
         if nbytes:
             obs_metrics.counter_inc("cnmf_stream_bytes_total", nbytes)
+
+    def fold_store_counters(self, before, after):
+        """Fold a remote backend's counter delta (snapshots of
+        ``storebackend.backend_counter_snapshot`` before and after the
+        run) into this ledger; a no-op when either is None (a local
+        backend)."""
+        if before is None or after is None:
+            return
+        with self._lock:
+            self.store_remote = True
+            for field, key in (("store_retries", "retries"),
+                               ("store_hedges", "hedges"),
+                               ("store_hedges_won", "hedges_won"),
+                               ("store_cache_hits", "cache_hits"),
+                               ("store_cache_misses", "cache_misses"),
+                               ("store_degraded", "degraded_reads")):
+                delta = int(after.get(key, 0)) - int(before.get(key, 0))
+                setattr(self, field, getattr(self, field) + max(delta, 0))
 
     @property
     def overlap_fraction(self) -> float:
@@ -287,9 +313,13 @@ def _retrying(prep, context: str | None, events, heartbeat: dict | None = None,
                     SystemExit):
                 raise
             except Exception as exc:
-                from ..utils.shardstore import TornShardError
+                # a torn slab already spent read_slab's own re-reads, and a
+                # RemoteStoreError the transport's retries: running either
+                # again here would square the retries and misreport the
+                # fault as shard_upload_failed
+                from ..utils.shardstore import RemoteStoreError, TornShardError
 
-                if isinstance(exc, TornShardError):
+                if isinstance(exc, (TornShardError, RemoteStoreError)):
                     raise
                 attempt += 1
                 ctx = {"context": str(context), "task": str(task),
@@ -620,8 +650,10 @@ def stream_store(cursor, device, dtype=torch.float32, *,
     staging. ``cursor``: a :class:`~..utils.shardstore.SlabCursor`;
     ``pad_rows`` zero rows are appended (no disk read)."""
     from ..utils.shardstore import ooc_budget_bytes
+    from ..utils.storebackend import backend_counter_snapshot
 
     store = cursor.store
+    bk_before = backend_counter_snapshot(store)
     base = cursor.rows[0]
     g = store.n_genes
     n_out = cursor.n_rows + int(pad_rows)
@@ -663,4 +695,5 @@ def stream_store(cursor, device, dtype=torch.float32, *,
                  depth_cap=ooc_budget_bytes() // (task_bytes * 3))
     if stats is not None:
         stats.host_peak_bytes = max(stats.host_peak_bytes, residency.peak)
+        stats.fold_store_counters(bk_before, backend_counter_snapshot(store))
     return out

@@ -19,12 +19,14 @@ calls the hooks of the layers it has:
   watchdog;
 * ``shard_read`` -- :func:`maybe_shard_read` makes the shard store
   corrupt the slab it just read (``utils/shardstore.py``), for its
-  digest check and re-read.
+  digest check and re-read;
+* ``netflake``, ``netslow``, ``netdown``, ``nettorn`` --
+  :func:`maybe_netfault` fails, delays or tears a request of the remote
+  object store (``utils/storebackend.py``) before its socket opens.
 
-The other kinds (``hostloss``, ``netflake``, ``netslow``, ``netdown``,
-``nettorn``, ``replicadeath``, ``replicawedge``) parse here, and their
-hooks wait for the layers that call them (the multi-device, remote-store
-and serving layers, not ported yet).
+The other kinds (``hostloss``, ``replicadeath``, ``replicawedge``) parse
+here, and their hooks wait for the layers that call them (the
+multi-device and serving layers, not ported yet).
 
 Spec grammar (semicolon-separated clauses)::
 
@@ -51,7 +53,7 @@ import threading
 __all__ = ["FAULT_SPEC_ENV", "FaultClause", "parse_fault_spec",
            "active_spec", "maybe_poison_lanes", "maybe_kill", "maybe_tear",
            "maybe_fail", "maybe_straggle", "maybe_stall",
-           "maybe_shard_read"]
+           "maybe_shard_read", "maybe_netfault"]
 
 FAULT_SPEC_ENV = "CNMF_TPU_FAULT_SPEC"
 
@@ -381,3 +383,47 @@ def maybe_shard_read(context=None, worker=None) -> bool:
         if _clause_fires(clause, context, worker, default_limit=1):
             return True
     return False
+
+
+def maybe_netfault(op=None, context=None) -> str | None:
+    """The network-fault hook of the remote store backend, called once a
+    request before its socket opens, with ``op`` the lowercased method
+    (``get``/``put``/``head``/``delete``) and ``context`` the object
+    name. A clause's ``context`` selector is a substring of
+    ``op:object``, so ``netdown:context=get:slab`` downs slab GETs while
+    the manifest, HEAD probes and listings stay up.
+
+    * ``netflake`` raises ``ConnectionError`` (the retry ladder heals
+      it); ``limit`` defaults to 1.
+    * ``netslow`` sleeps ``seconds`` (default 2), then proceeds: the
+      slow request a hedged read must beat; ``limit`` defaults to 1.
+    * ``netdown`` raises ``ConnectionError`` on every matching request
+      (unbounded): an outage that ends in degraded service from the
+      cache or a named ``RemoteStoreError``.
+    * ``nettorn`` returns ``"tear"``: the backend flips a byte of the
+      body it hands back, for the shard reader's digest check;
+      ``limit`` defaults to 1.
+
+    Returns ``"tear"`` when the caller must corrupt the body, else None.
+    """
+    spec = active_spec()
+    if spec is None:
+        return None
+    import time
+
+    ctx = "%s:%s" % (op or "", context or "")
+    for clause in spec:
+        if clause.kind not in ("netflake", "netslow", "netdown", "nettorn"):
+            continue
+        limit = None if clause.kind == "netdown" else 1
+        if not _clause_fires(clause, ctx, None, default_limit=limit):
+            continue
+        if clause.kind == "netslow":
+            time.sleep(float(clause.params.get("seconds", 2.0)))
+            return None
+        if clause.kind == "nettorn":
+            return "tear"
+        raise ConnectionError(
+            "cnmf-tpu injected fault: %s (%s) — remote store unreachable"
+            % (clause.kind, ctx))
+    return None

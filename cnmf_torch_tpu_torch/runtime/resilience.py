@@ -242,7 +242,8 @@ class ReplicateGuard:
 
     def record_shard_fault(self, kind: str, context: dict):
         """Book a staging fault of the row-sharded path (``kind``:
-        ``shard_upload_failed``, ``shard_stall`` or ``shard_read_torn``)
+        ``shard_upload_failed``, ``shard_stall``, ``shard_read_torn`` or
+        ``remote_store``)
         into the same ledger as the quarantines, before the run aborts."""
         self.shard_faults.append(dict(context, kind=str(kind)))
         self._emit(str(kind), dict(context))

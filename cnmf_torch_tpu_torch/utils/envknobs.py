@@ -18,8 +18,9 @@ _FALSE_WORDS = ("0", "false", "off", "no")
 # name -> what it does (the solver recipe knobs of ops/recipe.py, the
 # lane and precision knobs of ops/sparse.py and ops/nmf.py, the sweep's
 # memory budget of parallel/replicates.py, the fault harness of
-# runtime/faults.py, the retry policy of runtime/resilience.py and the
-# telemetry base's knobs, with the JAX package's types and defaults)
+# runtime/faults.py, the retry policy of runtime/resilience.py, the
+# telemetry base's, the store's and the cost model's knobs, with the JAX
+# package's types and defaults)
 KNOBS = {
     "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
     "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
@@ -85,7 +86,27 @@ KNOBS = {
     "CNMF_TPU_STREAM_STALL_S": "seconds without progress after which a "
                                "slab upload is a stall (default 0: off)",
     "CNMF_TPU_STORE_URI": "where the shard store lives: unset (local "
-                          "paths) or file:///base",
+                          "paths), file:///base or "
+                          "http(s)://host:port/prefix (an object store)",
+    # the remote object store's transport (utils/storebackend.py)
+    "CNMF_TPU_STORE_RETRIES": "network retries of a remote store operation "
+                              "(default 3; 0 off)",
+    "CNMF_TPU_STORE_BACKOFF_S": "remote store retry backoff base in seconds "
+                                "(default 0.05)",
+    "CNMF_TPU_STORE_TIMEOUT_S": "socket timeout of a remote slab transfer "
+                                "in seconds; metadata uses max(1, t/4) "
+                                "(default 30)",
+    "CNMF_TPU_STORE_HEDGE_S": "seconds after which a remote GET is hedged "
+                              "by a second request (default 0: off)",
+    "CNMF_TPU_STORE_CACHE_BYTES": "read-through cache budget of a remote "
+                                  "store, <store>.cache (default 1 GiB; 0 "
+                                  "off)",
+    # the roofline cost model and the snapshot diff (obs/costmodel.py,
+    # obs/regress.py)
+    "CNMF_TPU_PERF_MODEL": "flag: factorize emits perf_model events under "
+                           "the telemetry (default 0)",
+    "CNMF_TPU_PERF_GATE_BAND": "relative band a bench metric must move past "
+                               "before benchdiff calls it (default 0.6)",
 }
 
 

@@ -20,6 +20,11 @@ digest. A store either package writes opens in the other.
   * :class:`HostResidency` — the live host-bytes ledger of one staging
     call, whose peak the slab-budget checks read.
 
+A remote store (``utils/storebackend.py``) that stays unreachable after
+its transport retries raises :class:`~.storebackend.RemoteStoreError`
+(re-exported here), which escapes the torn-read re-reads and reaches the
+resilience ledger as :class:`TornShardError` does.
+
 Knobs (``utils/envknobs.py``): ``CNMF_TPU_OOC`` (auto|0|1),
 ``CNMF_TPU_OOC_BUDGET_BYTES`` (host slab budget), ``CNMF_TPU_OOC_SLAB_ROWS``
 (write-time slab rows; 0 = from the budget), ``CNMF_TPU_OOC_SHARD_BYTES``
@@ -41,7 +46,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from .envknobs import env_int, env_str
-from .storebackend import resolve_backend, store_cache_dir
+from .storebackend import RemoteStoreError, resolve_backend, store_cache_dir
 
 __all__ = [
     "OOC_ENV",
@@ -51,6 +56,7 @@ __all__ = [
     "SHARD_RETRIES_ENV",
     "STORE_SCHEMA",
     "TornShardError",
+    "RemoteStoreError",
     "ShardStore",
     "SlabCursor",
     "HostResidency",
@@ -487,7 +493,12 @@ class ShardStore:
         ``shard_read`` chaos clause (``runtime/faults.py``) injects the
         corruption deterministically. ``residency`` (a
         :class:`HostResidency`) is charged with the slab's raw bytes —
-        the caller releases when the buffer is dropped."""
+        the caller releases when the buffer is dropped.
+
+        On a remote backend this ladder sits above the transport's own
+        retries: a load that exhausted them raises
+        :class:`RemoteStoreError`, which the catch below does not take
+        (re-reading a dead network heals nothing)."""
         from ..runtime import faults
 
         meta = self.slabs[i]
@@ -667,7 +678,9 @@ def open_shard_store(store_dir, backend=None, events=None) -> ShardStore:
             backend.get(_MANIFEST, op="manifest",
                         events=events).decode("utf-8"))
     except (OSError, ValueError) as exc:
-        # FileNotFoundError and JSONDecodeError both land here
+        # FileNotFoundError (a file or an HTTP 404) and JSONDecodeError
+        # land here; RemoteStoreError does not: a down remote fails by
+        # name, never reads as "no store"
         raise TornShardError(f"{path}: unreadable manifest ({exc})")
     if int(manifest.get("schema", -1)) != STORE_SCHEMA:
         raise TornShardError(
@@ -702,7 +715,9 @@ def probe_shard_store(store_dir, events=None):
     """``(store, None)`` when present AND valid, ``(None, 'missing')``
     when absent, else ``(None, reason)`` — callers treat anything
     non-valid as "no store" (the matrix file still exists in the
-    default double-write mode)."""
+    default double-write mode). A remote endpoint that is down (not merely
+    empty) raises :class:`RemoteStoreError` instead of reading as
+    missing."""
     store_dir = os.fspath(store_dir)
     backend = resolve_backend(store_dir)
     if not backend.exists(_MANIFEST, events=events):

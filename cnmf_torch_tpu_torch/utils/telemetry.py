@@ -225,11 +225,13 @@ class EventLog:
 
     def emit_stream(self, context: str, stats):
         """One ``StreamStats`` (``parallel/streaming.py``) as a ``stream``
-        event: the phase walls and bytes, and for a shard-store staging the
-        disk wall, bytes, read rate and the host slab-residency peak."""
+        event: the phase walls and bytes, for a shard-store staging the
+        disk wall, bytes, read rate and the host slab-residency peak, and
+        for a remote store its transport counters."""
         if not self.enabled or stats is None:
             return
         disk_s = float(stats.disk_s)
+        remote = bool(stats.store_remote)
         self.emit(
             "stream", context=context, wall_s=round(stats.wall_s, 4),
             host_prep_s=round(stats.host_prep_s, 4),
@@ -242,7 +244,17 @@ class EventLog:
             disk_gb_per_s=(round(stats.read_gb_per_s(), 3)
                            if disk_s > 0 else None),
             host_peak_bytes=(int(stats.host_peak_bytes)
-                             if stats.host_peak_bytes > 0 else None))
+                             if stats.host_peak_bytes > 0 else None),
+            store_remote=(True if remote else None),
+            store_retries=(int(stats.store_retries) if remote else None),
+            store_hedges=(int(stats.store_hedges) if remote else None),
+            store_hedges_won=(int(stats.store_hedges_won)
+                              if remote else None),
+            store_cache_hits=(int(stats.store_cache_hits)
+                              if remote else None),
+            store_cache_misses=(int(stats.store_cache_misses)
+                                if remote else None),
+            store_degraded=(int(stats.store_degraded) if remote else None))
 
     # -- internals -----------------------------------------------------
 

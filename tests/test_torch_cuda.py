@@ -627,3 +627,76 @@ def test_a_store_staged_on_the_card_is_the_matrix(cuda_device, tmp_path):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert np.array_equal(a.cpu().numpy(), X.toarray())
+
+
+# ---------------------------------------------------------------------------
+# the remote object store and the cost model on the card
+# ---------------------------------------------------------------------------
+
+def test_a_remote_store_staged_on_the_card_is_the_local_one(
+        cuda_device, tmp_path, monkeypatch):
+    """A store read over HTTP from the fixture server stages on the card to
+    the same bits as the same store on local disk, dense and as the ELL
+    encoding."""
+    from cnmf_torch_tpu_torch.parallel.rowshard import (stream_ell_to_mesh,
+                                                        stream_rows_to_mesh)
+    from cnmf_torch_tpu_torch.utils import shardstore
+    from cnmf_torch_tpu_torch.utils.netstore import ObjectStoreServer
+
+    X, _ = _atlas_ell(30_000, 500, 0.05, 29, "cpu")
+    monkeypatch.delenv("CNMF_TPU_STORE_URI", raising=False)
+    shardstore.write_shard_store(tmp_path / "local", X, slab_rows=7_000)
+    local = shardstore.open_shard_store(tmp_path / "local")
+    with ObjectStoreServer() as srv:
+        monkeypatch.setenv("CNMF_TPU_STORE_URI", srv.url + "/card")
+        shardstore.write_shard_store(tmp_path / "remote", X, slab_rows=7_000)
+        remote = shardstore.open_shard_store(tmp_path / "remote")
+        assert remote.backend.kind == "remote"
+        a, _ = stream_rows_to_mesh(remote, cuda_device)
+        ea, _ = stream_ell_to_mesh(remote, cuda_device)
+    b, _ = stream_rows_to_mesh(local, cuda_device)
+    eb, _ = stream_ell_to_mesh(local, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for leaf in ("vals", "cols", "rows_t", "perm_t"):
+        assert torch.equal(getattr(ea, leaf), getattr(eb, leaf))
+
+
+def test_a_perf_model_event_on_the_kernels_lane(cuda_device, tmp_path,
+                                                monkeypatch):
+    """A KL factorize on the card under the telemetry and
+    ``CNMF_TPU_PERF_MODEL``: one ``perf_model`` event on ``ell-cuda``
+    with the card's data-sheet peaks, not exempt, its fractions in
+    (0, 1.05]."""
+    import os
+
+    from cnmf_torch_tpu_torch import Frame, cNMF, save_df_to_npz
+    from cnmf_torch_tpu_torch.obs import costmodel
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    monkeypatch.setenv("CNMF_TPU_TELEMETRY", "1")
+    monkeypatch.setenv("CNMF_TPU_PERF_MODEL", "1")
+    rng = np.random.default_rng(3)
+    usage = rng.dirichlet(np.ones(5) * 0.2, size=3000)
+    spectra = rng.gamma(0.25, 1.0, size=(5, 1500)) * 40.0 / 1500
+    counts = rng.poisson(usage @ spectra * 6.0).astype(np.float64)
+    counts[counts.sum(axis=1) == 0, 0] = 1.0
+    fn = str(tmp_path / "counts.df.npz")
+    save_df_to_npz(Frame(counts, np.asarray([f"c{i}" for i in range(3000)]),
+                         np.asarray([f"g{j}" for j in range(1500)])), fn)
+    obj = cNMF(str(tmp_path), "pm", device=cuda_device)
+    obj.prepare(fn, components=[5, 7], n_iter=4, seed=2,
+                num_highvar_genes=800, beta_loss="kullback-leibler",
+                batch_size=1000)
+    obj.factorize()
+    assert obj.factorize_info["kernel"] == "ell-cuda"
+    events_fn = os.path.join(str(tmp_path), "pm", "cnmf_tmp",
+                             "pm.events.jsonl")
+    telemetry.validate_events_file(events_fn)
+    (pm,) = [e for e in telemetry.read_events(events_fn)
+             if e["t"] == "perf_model"]
+    roof = pm["roofline"]
+    assert (pm["stage"], pm["lane"]) == ("factorize", "ell-cuda")
+    assert roof["peak_source"] == "datasheet" and not roof["perf_exempt"]
+    assert costmodel.device_peaks(cuda_device)["source"] == "datasheet"
+    assert 0 < roof["mfu"] <= 1.05 and 0 < roof["bw_frac"] <= 1.05

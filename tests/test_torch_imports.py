@@ -67,13 +67,36 @@ assert atlas.factorize_info["mode"] == "rowshard"
 atlas.combine()
 atlas.consensus(3, density_threshold=2.0)
 atlas.k_selection_plot()
-del os.environ["CNMF_TPU_OOC"]
+# the remote object store, and the cost model's events
+from cnmf_torch_tpu_torch.utils.netstore import ObjectStoreServer
+os.environ["CNMF_TPU_PERF_MODEL"] = "1"
+with ObjectStoreServer() as srv:
+    os.environ["CNMF_TPU_STORE_URI"] = srv.url + "/p"
+    remote = cNMF(d, "remote", device="cpu", rowshard_threshold=50)
+    remote.prepare(fn, components=[3], n_iter=4, seed=1,
+                   num_highvar_genes=40, beta_loss="kullback-leibler",
+                   batch_size=32, max_NMF_iter=50)
+    remote.factorize()
+    remote.combine()
+    remote.consensus(3, density_threshold=2.0)
+    assert remote._probe_store().backend.kind == "remote"
+del os.environ["CNMF_TPU_STORE_URI"], os.environ["CNMF_TPU_OOC"]
+from cnmf_torch_tpu_torch.obs import regress
+snap = regress.build_snapshot(dict(kl=dict(wall_seconds=1.0)),
+                              fingerprint="f", created=0.0)
+regress.save_snapshot(snap, os.path.join(d, "snap.json"))
 from cnmf_torch_tpu_torch.cli import main
 from cnmf_torch_tpu_torch.utils.telemetry import validate_events_file
 assert validate_events_file(os.path.join(d, "tiny", "cnmf_tmp",
                                          "tiny.events.jsonl")) > 10
 main(["report", os.path.join(d, "tiny")])
 main(["trace", os.path.join(d, "tiny")])
+main(["report", os.path.join(d, "remote")])
+try:
+    main(["benchdiff", os.path.join(d, "snap.json"),
+          os.path.join(d, "snap.json")])
+except SystemExit as exc:
+    assert exc.code == 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -130,7 +153,8 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
                  "obs/slo.py", "utils/storebackend.py",
                  "utils/shardstore.py", "runtime/checkpoint.py",
-                 "parallel/streaming.py", "parallel/rowshard.py"]
+                 "parallel/streaming.py", "parallel/rowshard.py",
+                 "utils/netstore.py", "obs/costmodel.py", "obs/regress.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

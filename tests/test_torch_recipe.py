@@ -136,7 +136,9 @@ def test_the_port_reads_no_unregistered_knob():
     # fault and retry knobs of tests/test_torch_resilience.py, and the
     # telemetry base's knobs of tests/test_torch_telemetry.py, and the
     # out-of-core layer's of tests/test_torch_shardstore.py,
-    # test_torch_streaming.py and test_torch_checkpoint.py
+    # test_torch_streaming.py and test_torch_checkpoint.py, and the
+    # remote store's and the cost model's of tests/test_torch_remote.py
+    # and test_torch_regress.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -152,4 +154,8 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_CKPT_MIN_INTERVAL_S",
                          "CNMF_TPU_STREAM_DEPTH", "CNMF_TPU_STREAM_THREADS",
                          "CNMF_TPU_STREAM_BYTES", "CNMF_TPU_STREAM_STALL_S",
-                         "CNMF_TPU_STORE_URI"} == set(envknobs.KNOBS)
+                         "CNMF_TPU_STORE_URI", "CNMF_TPU_STORE_RETRIES",
+                         "CNMF_TPU_STORE_BACKOFF_S", "CNMF_TPU_STORE_TIMEOUT_S",
+                         "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
+                         "CNMF_TPU_PERF_MODEL",
+                         "CNMF_TPU_PERF_GATE_BAND"} == set(envknobs.KNOBS)

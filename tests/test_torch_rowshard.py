@@ -722,10 +722,19 @@ def test_the_cli_store_uri(small_run, monkeypatch, tmp_path):
 
     # the CLI exports the knob into os.environ; an empty value set here
     # first makes the teardown restore the knob's absence
+    from cnmf_torch_tpu_torch.utils.netstore import ObjectStoreServer
+
     monkeypatch.setenv("CNMF_TPU_STORE_URI", "")
-    with pytest.raises(NotImplementedError, match="remote object store"):
+    # an unsupported scheme fails before any work
+    with pytest.raises(ValueError, match="expected empty"):
         main(["factorize", "--output-dir", small_run.output_dir, "--name",
-              "s", "--device", "cpu", "--store-uri", "http://localhost:9/x"])
+              "s", "--device", "cpu", "--store-uri", "ftp://localhost:9/x"])
+    # an object store with no store of this run: factorize probes it
+    # through the remote backend and reads the matrix file
+    with ObjectStoreServer() as srv:
+        main(["factorize", "--output-dir", small_run.output_dir, "--name",
+              "s", "--device", "cpu", "--store-uri", srv.url + "/x"])
+    assert os.environ["CNMF_TPU_STORE_URI"].endswith("/x")
     monkeypatch.setenv("CNMF_TPU_STORE_URI", "")
     main(["factorize", "--output-dir", small_run.output_dir, "--name", "s",
           "--device", "cpu", "--store-uri", f"file://{tmp_path}"])

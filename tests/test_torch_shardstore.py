@@ -347,8 +347,10 @@ def test_store_uri_resolution(tmp_path, monkeypatch):
                              uri=f"file://{tmp_path}/elsewhere")
     assert bk.root == str(tmp_path / "elsewhere" / "run.store")
     monkeypatch.setenv("CNMF_TPU_STORE_URI", "http://localhost:1/prefix")
-    with pytest.raises(NotImplementedError, match="remote object store"):
-        tbk.resolve_backend(tmp_path / "run.store")
+    bk = tbk.resolve_backend(tmp_path / "run.store")
+    assert bk.kind == "remote"
+    assert bk.base == "http://localhost:1/prefix/run.store"
+    assert bk.cache_dir == str(tmp_path / "run.store") + ".cache"
     with pytest.raises(ValueError, match="expected empty"):
         tbk.resolve_backend(tmp_path / "x", uri="ftp://host/x")
 
