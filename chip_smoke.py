@@ -212,6 +212,21 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     removed and slab reads down, factorize ends with ``RemoteStoreError``
     and the resilience ledger records ``remote_store``. It prints the
     phase's walls beside the card's name and power limit.
+11. The multi-device layer, every mesh repeating the one card, each
+    sub-phase with its own launch counts: (a) the replicate axis on a
+    2-entry mesh within ``1e-4`` of no mesh, each entry launching the three
+    KL kernels; (b) ``nmf_fit_rowsharded`` on 9a's 250,000 rows over 1, 2
+    and 4 cells shards from one init, within ``1e-4`` (W) and ``1e-5``
+    (objectives) of one shard, ``w_numer`` and ``beta_err_partials`` once a
+    shard and pass, shard 0's kernels held to their plain versions at
+    ``rtol 2e-5`` and timed; (c) the 2 x 2 (replicates x cells) mesh and
+    (d) the 2 x 2 grid within the same bands of one shard, the grid with
+    no launch, its ``collective`` bytes, one pass timed with the overlap on
+    and off, and its ``perf_model`` gate; (e) a host loss re-meshing 4 ->
+    3 shards; (f) ``run_parallel --engine multihost --rowshard`` with two
+    processes on a gloo group, within ``1e-5`` of one process; (g)
+    ``run_parallel --engine subprocess`` with two workers, within ``1e-4``
+    of one.
 
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
@@ -2993,6 +3008,542 @@ def phase10(stages, Xn, atlas) -> dict:
     return p10
 
 
+# -- phase 11: the multi-device layer ----------------------------------------
+
+# the phase's solves stop at these pass caps (the sharded and one-shard
+# solves then ran the same passes)
+P11_PASSES = 15
+P11_GRID_PASSES = 5
+# a sharded solve against the one-shard solve from the same init: max
+# |a - b| / max |a| of W and the largest relative gap of the per-pass
+# objectives. On an NVIDIA H100 80GB HBM3 at 700 W, 11b-11d read at most
+# 7.5e-7 in W and 9.6e-8 in the objectives (on this data each shard's usage
+# solve stops where the whole one does); the bands leave about 100x
+P11_W_RTOL = 1e-4
+P11_TRACE_RTOL = 1e-5
+# two processes against one process over as many shards: the same sums in
+# the same order (gloo adds two ranks exactly as one process adds two
+# shards)
+P11_PROC_RTOL = 1e-5
+MESH_KERNELS = ("h_stats", "w_numer", "beta_err_partials")
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _trace_gap(tr, ref) -> float:
+    m = np.isfinite(ref) & np.isfinite(tr)
+    return float(np.max(np.abs(tr[m] - ref[m]) / np.abs(ref[m])))
+
+
+def replicate_axis(Xn, stages) -> dict:
+    """11a: the online KL sweep at K=9, 20 replicates, on a 2-entry mesh
+    on the card against the same sweep with no mesh, under strict f32;
+    each entry's sub-sweep launches the three kernels."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.parallel import replicates
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+
+    seeds = list(range(SEED, SEED + REPLICATES))
+    kw = dict(beta_loss="kullback-leibler", mode="online",
+              online_chunk_size=CHUNK, device=CARD)
+    per_entry = []
+    inner = replicates.replicate_sweep
+
+    def spy(*args, **kwargs):
+        if kwargs.get("mesh") is not None:
+            return inner(*args, **kwargs)
+        before = dict(kl_ell.launches)
+        got = inner(*args, **kwargs)
+        per_entry.append({k: kl_ell.launches[k] - before[k]
+                          for k in MESH_KERNELS})
+        return got
+
+    with knobs(CNMF_TPU_BF16_RATIO="0"):
+        ref = stages.run("11a sweep, no mesh", lambda: inner(
+            Xn, seeds, CONSENSUS_K, **kw))
+        kl_ell.reset_launches()
+        replicates.replicate_sweep = spy
+        try:
+            got = stages.run("11a sweep, 2-entry mesh", lambda: inner(
+                Xn, seeds, CONSENSUS_K,
+                mesh=Mesh([CARD] * 2, ("replicates",)), **kw))
+        finally:
+            replicates.replicate_sweep = inner
+    launches = dict(kl_ell.launches)
+    check(len(per_entry) == 2, f"11a: {len(per_entry)} entry sweeps")
+    for i, counts in enumerate(per_entry):
+        for name in MESH_KERNELS:
+            check(counts[name] > 0, f"11a entry {i}: {name} never launched")
+    gap = _rel(got[0], ref[0])
+    check(got[0].shape == ref[0].shape and gap <= 1e-4,
+          f"11a: mesh sweep {got[0].shape} {gap:.3g} from the plain sweep")
+    log(f"11a: 20 replicates over a 2-entry mesh, spectra {gap:.3g} from "
+        f"the sweep with no mesh (strict f32); launches an entry "
+        f"{per_entry}")
+    return {"gap": gap, "per_entry": per_entry, "launches": launches}
+
+
+def rowshard_shards(Xa, stages, rows) -> dict:
+    """11b: ``nmf_fit_rowsharded(k=9)`` on the 250,000 x 2,000 CSR (the
+    ELL lane) over 1, 2 and 4 cells shards on the card, from one init: the
+    objectives and W within the bands of the one-shard solve, and
+    ``w_numer`` and ``beta_err_partials`` launched once a shard and pass
+    (``h_stats`` at least as often). Shard 0's kernels are held to their
+    plain versions on its own encoding (one global width, the shard's
+    transpose width) at ``rtol 2e-5``, and timed beside the one-shard
+    ones."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+    from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
+                                                        stream_ell_to_mesh)
+
+    n, g = Xa.shape
+    H0, W0 = random_init(SEED, n, g, CONSENSUS_K, float(Xa.sum()) / (n * g))
+    init = (H0.numpy(), W0.numpy())
+    out = {"solves": {}, "kernels": {}}
+    base = None
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for shards in (1, 2, 4):
+        target = CARD if shards == 1 else Mesh([CARD] * shards, ("cells",))
+        staged, _ = stages.run(f"11b stage ELL, {shards} shard(s)",
+                               lambda: stream_ell_to_mesh(Xa, target))
+        parts = staged.parts if shards > 1 else [staged]
+        payloads = []
+        kl_ell.reset_launches()
+        _H, W, err = stages.run(
+            f"11b nmf_fit_rowsharded, {shards} shard(s)",
+            lambda: nmf_fit_rowsharded(
+                staged, CONSENSUS_K, beta_loss="kullback-leibler",
+                n_passes=P11_PASSES, init_factors=init, n_orig=n,
+                telemetry_sink=payloads.append, device=CARD))
+        launches = dict(kl_ell.launches)
+        passes = int(payloads[0]["iters"][0])
+        trace = payloads[0]["trace"][0]
+        check(np.isfinite(W).all() and np.isfinite(err),
+              f"11b {shards} shards: nonfinite solve")
+        for name in ("w_numer", "beta_err_partials"):
+            check(launches[name] == shards * passes,
+                  f"11b {shards} shards: {name} launched {launches[name]} "
+                  f"times, not once a shard and pass ({shards} x {passes})")
+        check(launches["h_stats"] >= shards * passes,
+              f"11b {shards} shards: h_stats launched {launches['h_stats']}")
+        rec = {"passes": passes, "err": err, "launches": launches,
+               "t_width": int(parts[0].rows_t.shape[-1])}
+        if base is None:
+            base = (W, trace, err)
+        else:
+            rec["w_gap"] = _rel(W, base[0])
+            rec["trace_gap"] = _trace_gap(trace, base[1])
+            check(rec["w_gap"] <= P11_W_RTOL
+                  and rec["trace_gap"] <= P11_TRACE_RTOL,
+                  f"11b {shards} shards against one: W {rec['w_gap']:.3g}, "
+                  f"objectives {rec['trace_gap']:.3g}")
+        out["solves"][shards] = rec
+        # shard 0's kernels at R=1, timed
+        x = parts[0]
+        nnz = int((x.vals > 0).sum())
+        H = (torch.rand((1, x.vals.shape[0], CONSENSUS_K), generator=gen)
+             + 0.1).to(CARD)
+        Wt = (torch.rand((1, CONSENSUS_K, g), generator=gen) + 0.1).to(CARD)
+        tag = f"shard of {shards}"
+        errs = {"w_numer": w_numer_check(kl_ell, x, H, Wt, False, tag),
+                "beta_err_partials": beta_err_check(kl_ell, x, H, Wt,
+                                                    tag)[0]}
+        got = kl_ell.h_stats(x.vals, x.cols, H, Wt, False)
+        again = kl_ell.h_stats(x.vals, x.cols, H, Wt, False)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"h_stats {tag} not repeatable")
+        errs["h_stats"] = max_abs_err(
+            got, kl_ell.h_stats_plain(x.vals, x.cols, H, Wt, False), 2e-5)
+        del got, again
+        for name in MESH_KERNELS:
+            r = _time_kernel(kl_ell, name, x, x.vals, H, Wt, False, nnz,
+                             with_plain=False)
+            out["kernels"][f"{name} {shards}"] = {
+                "ms": r["ms"], "bound_ms": r["bound_ms"],
+                "max_abs_err": errs[name],
+                "rows": int(x.vals.shape[0]), "t_width": rec["t_width"]}
+            rows.append(f"  {name:18s} {tag}: "
+                        f"{x.vals.shape[0]} rows, t_width {rec['t_width']}: "
+                        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms), "
+                        f"max_abs_err {errs[name]:.3g} against plain")
+        del staged, parts, x, H, Wt
+        torch.cuda.empty_cache()
+        log(f"11b {shards} shard(s): {rec}")
+    return out
+
+
+def mesh_2d_sweep(Xa, stages) -> dict:
+    """11c: ``replicate_sweep_2d`` on a 2 x 2 mesh on the card (dense
+    staging, two replicates), each replicate against the one-shard ELL
+    solve from the same seed."""
+    from cnmf_torch_tpu_torch.parallel.multihost import (mesh_2d,
+                                                         replicate_sweep_2d,
+                                                         stage_x_2d)
+    from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
+                                                        stream_ell_to_mesh)
+
+    mesh = mesh_2d(devices=[CARD] * 4, replicate_shards=2)
+    staged = stages.run("11c stage 2x2 (dense)",
+                        lambda: stage_x_2d(Xa, mesh))
+    seeds = [SEED, SEED + 1]
+    spectra, errs = stages.run("11c replicate_sweep_2d, 2 replicates",
+                               lambda: replicate_sweep_2d(
+                                   staged, seeds, CONSENSUS_K, mesh,
+                                   beta_loss="kullback-leibler",
+                                   n_passes=P11_PASSES))
+    del staged
+    torch.cuda.empty_cache()
+    x1, _ = stream_ell_to_mesh(Xa, CARD)
+    gaps = []
+    for r, s in enumerate(seeds):
+        _H, W, err = stages.run(f"11c one-shard solve, seed {s}",
+                                lambda: nmf_fit_rowsharded(
+                                    x1, CONSENSUS_K,
+                                    beta_loss="kullback-leibler", seed=s,
+                                    n_passes=P11_PASSES, device=CARD))
+        gaps.append((_rel(spectra[r], W), abs(float(errs[r]) - err) / err))
+        check(gaps[-1][0] <= P11_W_RTOL and gaps[-1][1] <= P11_TRACE_RTOL,
+              f"11c replicate {r} against the one-shard solve: {gaps[-1]}")
+    log(f"11c: 2 x 2 mesh, (W, objective) gaps to the one-shard solve "
+        f"{gaps}")
+    return {"gaps": gaps}
+
+
+def grid_phase(Xa, counts_fn, stages) -> dict:
+    """11d: ``nmf_fit_grid2d`` on a 2 x 2 grid on the card against the
+    one-shard dense solve over the same passes; no kernel launches; the
+    ``collective`` event's bytes are ``coll_bytes_per_pass``; one pass
+    timed with the overlap on and off (``measure_collectives``); then a
+    grid factorize of phase 3's counts (K=9, 2 replicates) through ``cNMF``
+    with its ``perf_model`` event gated."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel.grid2d import (coll_bytes_per_pass,
+                                                      measure_collectives,
+                                                      mesh_grid2d,
+                                                      nmf_fit_grid2d,
+                                                      stage_x_grid)
+    from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
+                                                        stream_rows_to_mesh)
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    n, g = Xa.shape
+    H0, W0 = random_init(SEED, n, g, CONSENSUS_K, float(Xa.sum()) / (n * g))
+    init = (H0.numpy(), W0.numpy())
+    mesh = mesh_grid2d(2, 2, devices=[CARD] * 4)
+    gx, _, _ = stages.run("11d stage grid 2x2",
+                          lambda: stage_x_grid(Xa, mesh))
+    rec = EventRecorder()
+    kl_ell.reset_launches()
+    _H, Wg, eg = stages.run("11d nmf_fit_grid2d 2x2", lambda: nmf_fit_grid2d(
+        gx, CONSENSUS_K, mesh, beta_loss="kullback-leibler",
+        n_passes=P11_GRID_PASSES, init_factors=init, n_orig=n, g_orig=g,
+        events=rec))
+    launches = dict(kl_ell.launches)
+    check(sum(launches.values()) == 0, f"11d: the grid launched {launches}")
+    colls = [e for e in rec.events if e["t"] == "collective"]
+    check(len(colls) == 1, f"11d: collective events {colls}")
+    ctx = colls[0]["context"]
+    want = coll_bytes_per_pass(gx.rows_per, gx.cols_per, CONSENSUS_K, 1.0,
+                               ctx["blocks"][0], ctx["blocks"][1], 4)
+    check(colls[0]["nbytes"] == want,
+          f"11d: collective bytes {colls[0]['nbytes']} != {want}")
+    coll = stages.run("11d measure_collectives 2x2, overlap on and off",
+                      lambda: measure_collectives(gx, CONSENSUS_K, beta=1.0,
+                                                  repeats=5))
+    check(coll["nbytes_per_pass"] == want,
+          f"11d: measure_collectives bytes {coll['nbytes_per_pass']}")
+    log(f"11d: one grid pass, overlap on {coll['pass_overlap_s']} s, off "
+        f"{coll['pass_serial_s']} s (medians of 5); the sums alone "
+        f"{coll['coll_s']} s, hidden fraction "
+        f"{coll['pass_hidden_fraction']}")
+    del gx
+    torch.cuda.empty_cache()
+    Xd, _ = stream_rows_to_mesh(Xa, CARD)
+    _H, W1, e1 = stages.run("11d one-shard dense solve", lambda: (
+        nmf_fit_rowsharded(Xd, CONSENSUS_K, beta_loss="kullback-leibler",
+                           n_passes=P11_GRID_PASSES, init_factors=init,
+                           device=CARD)))
+    del Xd
+    torch.cuda.empty_cache()
+    w_gap, e_gap = _rel(Wg, W1), abs(eg - e1) / e1
+    check(w_gap <= P11_W_RTOL and e_gap <= P11_TRACE_RTOL,
+          f"11d: grid against the one-shard solve W {w_gap:.3g}, "
+          f"objective {e_gap:.3g}")
+    log(f"11d: 2 x 2 grid, {P11_GRID_PASSES} passes in "
+        f"{colls[0]['wall_s']:.3f} s, W {w_gap:.3g} and objective "
+        f"{e_gap:.3g} from the one-shard dense solve; collective bytes a "
+        f"pass {want} (blocks {ctx['blocks']}, overlap {ctx['overlap']})")
+    obj = prepared_run("grid", counts_fn, [CONSENSUS_K], "kullback-leibler",
+                       n_iter=2)
+    kl_ell.reset_launches()
+    with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_PERF_MODEL="1"):
+        stages.run("11d grid factorize (cNMF, K=9)", lambda: obj.factorize(
+            mesh=mesh_grid2d(2, 2, devices=[CARD] * 4)))
+    check(sum(kl_ell.launches.values()) == 0,
+          f"11d: the grid factorize launched {dict(kl_ell.launches)}")
+    check(obj.factorize_info["mode"] == "grid2d",
+          f"11d: factorize ran {obj.factorize_info['mode']}")
+    events = telemetry.read_events(obj._events.path)
+    pm = perf_model_gate(events, "factorize_grid2d", "grid2d", "11d")
+    return {"w_gap": w_gap, "err_gap": e_gap, "wall_s": colls[0]["wall_s"],
+            "coll_bytes": want, "overlap": coll, "perf_model": pm}
+
+
+def elastic_phase(atlas, stages) -> dict:
+    """11e: one replicate of 9a's store-backed run factorized on a 4-shard
+    cells mesh with a ``hostloss`` fault after the first pass: re-meshed
+    over the survivors, resumed from the pass checkpoint, ``host_loss``
+    and ``remesh`` events, finite non-negative spectra."""
+    from cnmf_torch_tpu_torch import load_df_from_npz
+    from cnmf_torch_tpu_torch.models.cnmf import _ledger_ints
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    obj2 = atlas[2]
+    with knobs(CNMF_TPU_TELEMETRY="1",
+               CNMF_TPU_FAULT_SPEC="hostloss:context=pass,after=1"):
+        stages.run("11e factorize, hostloss on 4 shards", lambda: (
+            obj2.factorize(worker_i=0, total_workers=len(ATLAS_KS)
+                           * ATLAS_REPLICATES, rowshard=True,
+                           mesh=Mesh([CARD] * 4, ("cells",)))))
+    info = obj2.factorize_info
+    every = telemetry.read_events(obj2._events.path)
+    resumes = [e["context"] for e in every if e["t"] == "checkpoint"
+               and e.get("action") == "resume"]
+    check(resumes and resumes[-1]["pass_idx"] >= 1,
+          f"11e: checkpoint resume events {resumes}")
+    events = [e for e in every if e["t"] == "fault"]
+    kinds = [e["kind"] for e in events]
+    remesh = [e["context"] for e in events if e["kind"] == "remesh"]
+    check("host_loss" in kinds and remesh
+          and (remesh[-1]["from_devices"], remesh[-1]["to_devices"])
+          == (4, 3) and info["mesh_devices_final"] == 3,
+          f"11e: fault events {kinds}, remesh {remesh}, final mesh "
+          f"{info.get('mesh_devices_final')}")
+    ledger = load_df_from_npz(obj2.paths["nmf_replicate_parameters"])
+    k = int(_ledger_ints(ledger, "n_components")[0])
+    it = int(_ledger_ints(ledger, "iter")[0])
+    W = load_df_from_npz(obj2.paths["iter_spectra"] % (k, it)).values
+    check(np.isfinite(W).all() and (W >= 0).all(),
+          "11e: the re-meshed replicate's spectra are not finite and "
+          "non-negative")
+    log(f"11e: host loss after pass 1 re-meshed {remesh[-1]}, resumed "
+        f"from pass {resumes[-1]['pass_idx']}; spectra {W.shape} of k={k} "
+        f"iter {it} finite and non-negative")
+    return {"faults": kinds, "remesh": remesh[-1],
+            "resumed_from_pass": resumes[-1]["pass_idx"]}
+
+
+def _spawn_ranks(argv_of, timeout=300):
+    """Start one process a rank, wait for all (killing every one on the
+    first failure or past ``timeout``); returns their return codes."""
+    procs = [subprocess.Popen(argv) for argv in argv_of]
+    t0 = time.monotonic()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            check(time.monotonic() - t0 < timeout,
+                  f"ranks still running after {timeout} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def mesh_rank_main(rank: int, world: int, port: int, out: str,
+                   device: str) -> int:
+    """One rank of 11f's two-process ELL solve (``chip_smoke.py
+    --mesh-rank R --mesh-world N --mesh-port P --mesh-out DIR
+    --mesh-device D``): joins the mesh, solves phase 3's matrix on its
+    cells shard and writes its launches, W and collective events."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh, global_devices
+    from cnmf_torch_tpu_torch.parallel.multihost import (
+        initialize_distributed)
+    from cnmf_torch_tpu_torch.parallel.rowshard import nmf_fit_rowsharded
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, device=device)
+    from cnmf_torch_tpu_torch.parallel.mesh import backend
+
+    X = sp.load_npz(os.path.join(out, "X.npz")).tocsr()
+    init = np.load(os.path.join(out, "init.npz"))
+    devices, owners = global_devices([torch.device(device)])
+    mesh = Mesh(devices, ("cells",), owners=owners)
+    if torch.device(device).type == "cuda":
+        kl_ell.build()
+    kl_ell.reset_launches()
+    rec = EventRecorder()
+    _H, W, err = nmf_fit_rowsharded(
+        X, CONSENSUS_K, beta_loss="kullback-leibler", n_passes=P11_PASSES,
+        init_factors=(init["H0"], init["W0"]), mesh=mesh, events=rec)
+    np.save(os.path.join(out, f"W{rank}.npy"), W)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": dict(kl_ell.launches), "err": err,
+                   "backend": backend(),
+                   "collectives": [e for e in rec.events
+                                   if e["t"] == "collective"]}, f)
+    return 0
+
+
+def two_processes(counts_fn, Xn, stages) -> dict:
+    """11f: ``run_parallel --engine multihost`` with two processes on the
+    card (one cells shard each, a gloo group) running a row-sharded KL
+    factorize of phase 3's counts (K=9, 2 replicates): the cross-process
+    ``all_reduce`` ran (``collective`` events), and the spectra equal a
+    one-process run over two shards. Then two ranks solve phase 3's CSR
+    on the ELL lane over the same two-process mesh: the three kernels
+    launch in each, and W is the one-process two-shard solve's."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch import cNMF, load_df_from_npz
+    from cnmf_torch_tpu_torch.launcher import run_pipeline
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+    from cnmf_torch_tpu_torch.parallel.rowshard import nmf_fit_rowsharded
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    prep = dict(components=[CONSENSUS_K], n_iter=2, seed=SEED,
+                numgenes=N_HVG, beta_loss="kullback-leibler",
+                batch_size=CHUNK)
+    with knobs(CNMF_TPU_TELEMETRY="1"):
+        stages.run("11f run_parallel --engine multihost (2 processes)",
+                   lambda: run_pipeline(
+                       counts_fn, OUT, "mh", total_workers=2,
+                       engine="multihost", factorize_flags=["--rowshard"],
+                       device=CARD, timeout_s=600, **prep))
+    mh = cNMF(OUT, "mh", device=CARD)
+    colls = [e for e in telemetry.read_events(mh._events.path)
+             if e["t"] == "collective"]
+    check(colls and all(c["context"]["backend"] == "gloo"
+                        and c["context"]["processes"] == 2
+                        and c["context"]["all_reduces"] > 0
+                        for c in colls),
+          f"11f: collective events {colls}")
+    one = cNMF(OUT, "mh1", device=CARD)
+    one.prepare(counts_fn, components=prep["components"],
+                n_iter=prep["n_iter"], seed=SEED, num_highvar_genes=N_HVG,
+                beta_loss="kullback-leibler", batch_size=CHUNK)
+    stages.run("11f one process, 2 shards", lambda: one.factorize(
+        rowshard=True, mesh=Mesh([CARD] * 2, ("cells",))))
+    gaps = []
+    for it in range(prep["n_iter"]):
+        a = load_df_from_npz(mh.paths["iter_spectra"]
+                             % (CONSENSUS_K, it)).values
+        b = load_df_from_npz(one.paths["iter_spectra"]
+                             % (CONSENSUS_K, it)).values
+        gaps.append(_rel(a, b))
+    check(max(gaps) <= P11_PROC_RTOL,
+          f"11f: two processes against one process {gaps}")
+    # the ELL lane over the two-process mesh
+    sub = os.path.join(OUT, "mesh_ranks")
+    os.makedirs(sub, exist_ok=True)
+    n, g = Xn.shape
+    H0, W0 = random_init(SEED, n, g, CONSENSUS_K, float(Xn.sum()) / (n * g))
+    sp.save_npz(os.path.join(sub, "X.npz"), Xn.tocsr())
+    np.savez(os.path.join(sub, "init.npz"), H0=H0.numpy(), W0=W0.numpy())
+    from cnmf_torch_tpu_torch.launcher import _free_port
+
+    port = _free_port()
+    rcs = stages.run("11f two ranks, ELL solve", lambda: _spawn_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+          "--mesh-world", "2", "--mesh-port", str(port), "--mesh-out", sub,
+          "--mesh-device", CARD] for r in range(2)]))
+    check(rcs == [0, 0], f"11f ranks exited {rcs}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(sub, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        for name in MESH_KERNELS:
+            check(ranks[r]["launches"][name] > 0,
+                  f"11f rank {r}: {name} never launched")
+        check(ranks[r]["backend"] == "gloo" and ranks[r]["collectives"],
+              f"11f rank {r}: backend {ranks[r]['backend']}, collectives "
+              f"{ranks[r]['collectives']}")
+    _H, W1, _e = nmf_fit_rowsharded(
+        Xn, CONSENSUS_K, beta_loss="kullback-leibler", n_passes=P11_PASSES,
+        init_factors=(H0.numpy(), W0.numpy()),
+        mesh=Mesh([CARD] * 2, ("cells",)))
+    ell_gap = max(_rel(np.load(os.path.join(sub, f"W{r}.npy")), W1)
+                  for r in range(2))
+    check(ell_gap <= P11_PROC_RTOL,
+          f"11f: two-rank ELL solve {ell_gap:.3g} from one process")
+    log(f"11f: multihost factorize spectra {gaps} from one process over "
+        f"two shards; {len(colls)} collective events "
+        f"({colls[0]['context']['all_reduces']} all_reduces, "
+        f"{colls[0]['nbytes']} bytes in the first); ELL ranks' launches "
+        f"{[r['launches'] for r in ranks]}, W {ell_gap:.3g} from one "
+        f"process")
+    return {"spectra_gaps": gaps, "collectives": len(colls),
+            "rank_launches": [r["launches"] for r in ranks],
+            "ell_gap": ell_gap}
+
+
+def subprocess_workers(counts_fn, stages) -> dict:
+    """11g: ``run_parallel --engine subprocess`` with 2 workers on phase
+    3's counts (K in {5, 9}, 4 replicates) under strict f32, its merged
+    spectra against a single-worker run's."""
+    from cnmf_torch_tpu_torch import cNMF, load_df_from_npz
+    from cnmf_torch_tpu_torch.launcher import run_pipeline
+
+    ks = [5, CONSENSUS_K]
+    prep = dict(components=ks, n_iter=4, seed=SEED, numgenes=N_HVG,
+                beta_loss="kullback-leibler", batch_size=CHUNK)
+    with knobs(CNMF_TPU_BF16_RATIO="0"):
+        stages.run("11g run_parallel --engine subprocess (2 workers)",
+                   lambda: run_pipeline(counts_fn, OUT, "sp",
+                                        total_workers=2, device=CARD,
+                                        **prep))
+        one = cNMF(OUT, "sp1", device=CARD)
+        one.prepare(counts_fn, components=ks, n_iter=4, seed=SEED,
+                    num_highvar_genes=N_HVG, beta_loss="kullback-leibler",
+                    batch_size=CHUNK)
+        stages.run("11g one worker", one.factorize)
+        one.combine()
+    sp_ = cNMF(OUT, "sp", device=CARD)
+    gaps = {k: _rel(load_df_from_npz(sp_.paths["merged_spectra"] % k).values,
+                    load_df_from_npz(one.paths["merged_spectra"] % k).values)
+            for k in ks}
+    check(max(gaps.values()) <= 1e-4,
+          f"11g: two workers against one {gaps}")
+    log(f"11g: merged spectra of 2 workers against 1: {gaps}")
+    return {"gaps": gaps}
+
+
+def phase11(stages, counts_fn, Xn, atlas, rows) -> dict:
+    """The multi-device layer on the one card, every mesh repeating it."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    out = {}
+    out["a"] = replicate_axis(Xn, stages)
+    Xa = atlas[1]._read_norm_counts().X.tocsr()
+    out["b"] = rowshard_shards(Xa, stages, rows)
+    out["c"] = mesh_2d_sweep(Xa, stages)
+    out["d"] = grid_phase(Xa, counts_fn, stages)
+    del Xa
+    out["e"] = elastic_phase(atlas, stages)
+    out["f"] = two_processes(counts_fn, Xn, stages)
+    out["g"] = subprocess_workers(counts_fn, stages)
+    # this process's launches on the phase's main paths (11a's mesh sweep
+    # and 11b's solves; the children's are in 11f's rank records)
+    out["launches"] = {name: int(out["a"]["launches"][name])
+                       + sum(int(r["launches"][name])
+                             for r in out["b"]["solves"].values())
+                       for name in kl_ell.KERNELS}
+    return out
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -3218,6 +3769,19 @@ def main() -> int:
         log(f"  {name:44s} {wall:8.3f} s  peak {peak:7.3f} GiB")
     log(f"phase 10 kernel launches: {p10['launches']}")
 
+    # -- phase 11: the multi-device layer ------------------------------------
+    n_stages = len(stages.rows)
+    mesh_rows = []
+    p11 = phase11(stages, counts_fn, Xn, atlas, mesh_rows)
+    log(f"phase 11 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log("phase 11 kernels a shard at R=1, k=9 (median of CUDA-event timed "
+        "launches):")
+    for line in mesh_rows:
+        log(line)
+    log(f"phase 11 kernel launches: {p11['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -3226,7 +3790,8 @@ def main() -> int:
                            + int(p8["launches"][name])
                            + int(p8["profiled_launches"][name])
                            + int(p9["kernel_launches"][name])
-                           + int(p10["launches"][name]))
+                           + int(p10["launches"][name])
+                           + int(p11["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -3237,7 +3802,7 @@ def main() -> int:
                            "phase8_profiled": p8["profiled_launches"]},
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
-              "phase10": p10,
+              "phase10": p10, "phase11": p11,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
@@ -3258,4 +3823,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        def _arg(flag):
+            return sys.argv[sys.argv.index(flag) + 1]
+
+        sys.exit(mesh_rank_main(int(_arg("--mesh-rank")),
+                                int(_arg("--mesh-world")),
+                                int(_arg("--mesh-port")),
+                                _arg("--mesh-out"), _arg("--mesh-device")))
     sys.exit(main())

@@ -4,7 +4,13 @@ stages, plus ``--device`` (default ``cuda``; there is no CPU fallback,
 pass ``--device cpu`` to run on the CPU), the telemetry renderers
 ``report [run_dir] [--json]`` and ``trace [run_dir]``, and
 ``benchdiff BASE NEW [--band F] [--json]``, the noise-aware comparison of
-two bench snapshots (``obs/regress.py``; exit 1 on a regression).
+two bench snapshots (``obs/regress.py``; exit 1 on a regression), and
+``run_parallel`` (prepare -> factorize workers -> combine ->
+``k_selection_plot``, ``launcher.py``; ``--engine subprocess|multihost``,
+``--devices-per-host``, ``--clean``). ``factorize --mesh-2d`` runs the
+(replicates x cells) mesh, ``--mesh-grid2d`` the (cells x genes) grid, and
+``--distributed`` (implied by ``CNMF_COORDINATOR_ADDRESS``) joins the
+processes named by the ``CNMF_*`` coordinates into one mesh.
 
 Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
 the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
@@ -41,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "command", type=str,
         choices=["prepare", "factorize", "combine", "consensus",
-                 "k_selection_plot", "report", "trace"])
+                 "k_selection_plot", "run_parallel", "report", "trace"])
     parser.add_argument(
         "run_dir", type=str, nargs="?", default=None,
         help="[report|trace] Run directory ([output-dir]/[name]) whose "
@@ -126,6 +132,39 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--rowshard-threshold", type=int, default=200_000,
                         help="[factorize] Cell count at which factorize "
                              "auto-switches to the row-sharded path")
+    parser.add_argument("--mesh-2d", dest="mesh_2d", action="store_true",
+                        default=False,
+                        help="[factorize] Run the sweep over the 2-D "
+                             "(replicates x cells) mesh — the multi-process "
+                             "layout: replicate rows across processes, "
+                             "cells-axis sums within one")
+    parser.add_argument("--mesh-grid2d", dest="mesh_grid2d",
+                        action="store_true", default=False,
+                        help="[factorize] Run replicates over the 2-D "
+                             "(cells x genes) grid with block-wise "
+                             "statistics sums (MPI-FAUN): X over "
+                             "both axes, W over genes, H over cells")
+    parser.add_argument("--distributed", action="store_true", default=False,
+                        help="[factorize] Join the processes named by "
+                             "CNMF_COORDINATOR_ADDRESS / CNMF_NUM_PROCESSES "
+                             "/ CNMF_PROCESS_ID into one mesh "
+                             "(torch.distributed) before running (also "
+                             "implied when those env vars are set)")
+    parser.add_argument("--engine", type=str, default="subprocess",
+                        choices=["subprocess", "multihost"],
+                        help="[run_parallel] How factorize workers run: "
+                             "independent processes sharing files (the "
+                             "reference's GNU-parallel model) or processes "
+                             "joined into one mesh")
+    parser.add_argument("--devices-per-host", type=int, default=None,
+                        help="[run_parallel] Mesh entries a multihost "
+                             "process: simulated CPU entries with --device "
+                             "cpu, else that many cards of its own; omit "
+                             "to split the visible cards evenly")
+    parser.add_argument("--clean", action="store_true", default=False,
+                        help="[run_parallel] Delete per-replicate spectra, "
+                             "leftover checkpoints, heartbeats, temp files "
+                             "and the remote store's cache after combine")
     parser.add_argument("--store-uri", type=str, default=None,
                         help="[all] Shard-store transport URI (exports "
                              "CNMF_TPU_STORE_URI for this run): unset = "
@@ -194,6 +233,16 @@ def main(argv=None):
         os.environ[STORE_URI_ENV] = args.store_uri
         resolve_backend(os.path.join(args.output_dir, args.name))
 
+    if args.command == "run_parallel":
+        return _run_parallel(parser, args)
+    if args.command == "factorize" and (
+            args.distributed or os.environ.get("CNMF_COORDINATOR_ADDRESS")):
+        from .parallel.multihost import initialize_distributed
+
+        pid, nproc = initialize_distributed(auto=args.distributed,
+                                            device=args.device)
+        print(f"torch.distributed: process {pid}/{nproc}")
+
     from .models.cnmf import cNMF
 
     obj = cNMF(output_dir=args.output_dir, name=args.name,
@@ -217,7 +266,10 @@ def main(argv=None):
                           batched=not args.sequential,
                           rowshard=args.rowshard,
                           rowshard_threshold=args.rowshard_threshold,
-                          packed=False if args.per_k_programs else None)
+                          packed=False if args.per_k_programs else None,
+                          mesh="2d" if args.mesh_2d else None,
+                          mesh_shape="grid2d" if args.mesh_grid2d
+                          else None)
         except UnhealthySweepError as exc:
             print(f"factorize: {exc}", file=sys.stderr)
             sys.exit(UNHEALTHY_EXIT_CODE)
@@ -231,6 +283,41 @@ def main(argv=None):
                           build_ref=args.build_reference)
     elif args.command == "k_selection_plot":
         obj.k_selection_plot(close_fig=True)
+
+
+def _run_parallel(parser, args) -> None:
+    """``run_parallel``: prepare -> factorize workers -> combine ->
+    ``k_selection_plot`` (-> ``--clean``), forwarding the factorize-mode
+    flags to every worker (``launcher.py:run_pipeline``)."""
+    from .launcher import run_pipeline
+
+    if args.counts is None or args.components is None:
+        parser.error("run_parallel requires --counts/-c and "
+                     "--components/-k")
+    flags = []
+    if args.mesh_2d:
+        flags.append("--mesh-2d")
+    if args.mesh_grid2d:
+        flags.append("--mesh-grid2d")
+    if args.sequential:
+        flags.append("--sequential")
+    if args.rowshard is not None:
+        flags.append("--rowshard" if args.rowshard else "--no-rowshard")
+    flags += ["--rowshard-threshold", str(args.rowshard_threshold)]
+    if args.skip_completed_runs:
+        flags.append("--skip-completed-runs")
+    if args.per_k_programs:
+        flags.append("--per-k-programs")
+    # --store-uri reaches the workers as CNMF_TPU_STORE_URI, exported above
+    run_pipeline(
+        args.counts, args.output_dir, args.name,
+        components=args.components, n_iter=args.n_iter,
+        total_workers=max(args.total_workers, 1), seed=args.seed,
+        numgenes=args.numgenes, genes_file=args.genes_file, tpm=args.tpm,
+        beta_loss=args.beta_loss, init=args.init,
+        max_nmf_iter=args.max_nmf_iter, batch_size=args.batch_size,
+        engine=args.engine, devices_per_host=args.devices_per_host,
+        clean=args.clean, factorize_flags=flags, device=args.device)
 
 
 def _benchdiff(argv) -> int:

@@ -87,7 +87,8 @@ from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width)
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
-from ..parallel.replicates import (_auto_packed, replicate_sweep,
+from ..parallel.replicates import (_auto_packed, default_mesh,
+                                   replicate_sweep,
                                    worker_filter)
 from ..runtime import faults, resilience
 from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
@@ -503,7 +504,8 @@ class cNMF:
     def factorize(self, worker_i=0, total_workers=1,
                   skip_completed_runs=False, batched=True,
                   replicates_per_batch=None, packed=None, rowshard=None,
-                  rowshard_threshold: int | None = None, mesh_shape=None):
+                  rowshard_threshold: int | None = None, mesh_shape=None,
+                  mesh=None):
         """Run this worker's share of the replicate ledger.
 
         Batched lane (default): the tasks are grouped per K and each group
@@ -546,11 +548,31 @@ class cNMF:
         the matrix staged once (dense, as the JAX package stages it, so a
         store-backed run is bit for bit the in-memory one), with pass
         checkpoints every ``CNMF_TPU_CKPT_EVERY_PASSES`` passes and resume
-        from them. ``mesh_shape`` ``'1d'``/``'rowshard'`` forces it;
-        ``'2d'``/``'grid2d'`` raise ``NotImplementedError`` (the
-        multi-device layouts are a later slice). A shard store written by
-        ``prepare`` is read from disk: the row-sharded path streams it,
-        the others assemble it.
+        from them. A shard store written by ``prepare`` is read from disk:
+        the row-sharded path streams it, the others assemble it.
+
+        Layouts (``parallel/``, as the JAX package names them): with no
+        ``mesh`` the batched sweep and the row-sharded path run on
+        ``self.device`` alone (the JAX package spreads them over every
+        device; on several H100s the port's spread was slower than one
+        card, so it is asked for: ``mesh=parallel.default_mesh()``
+        spreads the batched sweep's replicates over every visible card).
+        ``mesh_shape`` ``'1d'`` / ``'rowshard'`` forces the row-sharded
+        path over the cells mesh (every visible card, or every process's
+        cards after ``parallel.multihost.initialize_distributed``);
+        ``'2d'`` (or
+        ``mesh='2d'``, CLI ``--mesh-2d``) runs the (replicates x cells)
+        mesh (``parallel/multihost.py``); ``'grid2d'``/``'grid'`` (or
+        ``mesh='grid2d'``, CLI ``--mesh-grid2d``) the (cells x genes) grid
+        (``parallel/grid2d.py``). ``mesh`` may also be a
+        ``parallel.mesh.Mesh`` whose axes name the layout. A conflicting
+        pair raises ``ValueError``. Across processes only process 0 writes
+        artifacts. Under ``CNMF_TPU_HEARTBEAT_S`` each worker stamps its
+        liveness (``runtime/elastic.py``); a host loss on the row-sharded
+        and grid paths (a ``hostloss`` fault or a lost device) re-plans
+        the mesh over the survivors, re-stages X and resumes from the pass
+        checkpoint (``fault`` events ``host_loss`` and ``remesh``), and on
+        the 2-D path reruns the K's sweep.
 
         Observability (``obs/``): the worker's ``factorize.worker`` span
         (under ``CNMF_TPU_TRACE_SAMPLE``), the
@@ -570,7 +592,7 @@ class cNMF:
                 skip_completed_runs=skip_completed_runs, batched=batched,
                 replicates_per_batch=replicates_per_batch, packed=packed,
                 rowshard=rowshard, rowshard_threshold=rowshard_threshold,
-                mesh_shape=mesh_shape)
+                mesh_shape=mesh_shape, mesh=mesh)
         finally:
             obs_tracing.emit_span(
                 self._events, ctx, "factorize.worker",
@@ -580,22 +602,40 @@ class cNMF:
 
     def _factorize_impl(self, worker_i, total_workers, skip_completed_runs,
                         batched, replicates_per_batch, packed, rowshard=None,
-                        rowshard_threshold=None, mesh_shape=None):
-        # a layout request is checked before any file is read
-        if mesh_shape is not None:
-            if mesh_shape in ("2d", "grid2d", "grid"):
-                raise NotImplementedError(
-                    f"mesh_shape={mesh_shape!r}: the (replicates x cells) "
-                    "mesh and the (cells x genes) grid come with the "
-                    "multi-device slice (ROADMAP item 4); this build runs "
-                    "the 1-D row-sharded solver on one card "
-                    "(mesh_shape='1d')")
-            if mesh_shape not in ("1d", "rowshard"):
+                        rowshard_threshold=None, mesh_shape=None, mesh=None):
+        from ..parallel.mesh import Mesh, process_count, process_index
+
+        # a layout request is checked before any file is read (the JAX
+        # package's named layout dispatch)
+        if mesh_shape is not None and mesh_shape not in (
+                "1d", "rowshard", "2d", "grid2d", "grid"):
+            raise ValueError(
+                f"mesh_shape={mesh_shape!r}: expected '1d'/'rowshard', "
+                "'2d' (replicates x cells), or 'grid2d' (cells x genes)")
+        axes = tuple(mesh.axis_names) if isinstance(mesh, Mesh) else None
+        wants_2d = (mesh == "2d" or mesh_shape == "2d"
+                    or axes == ("replicates", "cells"))
+        if mesh_shape in ("1d", "rowshard"):
+            if wants_2d:
                 raise ValueError(
-                    f"mesh_shape={mesh_shape!r}: expected '1d'/'rowshard', "
-                    "'2d' (replicates x cells), or 'grid2d' (cells x "
-                    "genes)")
+                    "conflicting execution layouts: mesh requests the "
+                    "(replicates x cells) mesh while mesh_shape "
+                    "requests the 1-D cells mesh — pass one of them")
             rowshard = True
+        grid = (mesh == "grid2d" or mesh_shape in ("grid2d", "grid")
+                or axes == ("cells", "genes"))
+        if grid and wants_2d:
+            raise ValueError(
+                "conflicting execution layouts: mesh requests the "
+                "(replicates x cells) mesh while mesh_shape requests the "
+                "(cells x genes) grid — pass one of them")
+        layout_mesh = mesh if isinstance(mesh, Mesh) else None
+        if (layout_mesh is None and mesh_shape in ("1d", "rowshard")
+                and process_count() == 1):
+            # the 1-D layout asked for by name spans every visible card
+            layout_mesh = default_mesh(axis_name="cells", device=self.device)
+        # only process 0 writes artifacts when the mesh spans processes
+        self._writer = process_index() == 0
         ledger = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         # a shard store defers reading the matrix: the row-sharded path
         # streams it from disk, the resident lanes assemble it below
@@ -716,6 +756,27 @@ class cNMF:
                      if quarantined_idx else ""))
             return
 
+        heartbeat = None
+        from ..runtime import elastic
+
+        if elastic.heartbeat_s() > 0:
+            heartbeat = elastic.Heartbeat(
+                os.path.dirname(self.paths["resilience_ledger"]), self.name,
+                int(worker_i), events=self._events)
+        if wants_2d and not grid:
+            credit_completed(jobs)
+            self._factorize_2d(jobs, ks, iters, seeds, norm, kw, worker_i,
+                               layout_mesh, replicates_per_batch,
+                               store=store)
+            return
+        if grid:
+            credit_completed(jobs)
+            self._factorize_rowsharded(jobs, ks, iters, seeds, norm, kw,
+                                       guard, worker_i,
+                                       resume=skip_completed_runs,
+                                       store=store, mesh=layout_mesh,
+                                       grid=True, heartbeat=heartbeat)
+            return
         if rowshard_threshold is None:
             rowshard_threshold = self.rowshard_threshold
         if rowshard is None:
@@ -733,7 +794,8 @@ class cNMF:
             self._factorize_rowsharded(jobs, ks, iters, seeds, norm, kw,
                                        guard, worker_i,
                                        resume=skip_completed_runs,
-                                       store=store)
+                                       store=store, mesh=layout_mesh,
+                                       heartbeat=heartbeat)
             return
         if store is not None:
             norm = self._read_norm_counts(store)
@@ -841,7 +903,7 @@ class cNMF:
             l1_ratio_H=kw.get("l1_ratio_H", 0.0),
             replicates_per_batch=replicates_per_batch,
             n_rows=n if use_ell else None, recipe=recipe,
-            device=self.device)
+            device=self.device, mesh=layout_mesh)
         self._perf_iters = {}
         perf_t0 = time.perf_counter()
         for k, tasks in sorted(by_k.items()):
@@ -849,6 +911,8 @@ class cNMF:
             seeds_k = [t[1] for t in tasks]
             print("[Worker %d]. Running %d replicates for k=%d as one "
                   "batched solve." % (worker_i, len(tasks), k))
+            if heartbeat is not None:
+                heartbeat.beat(phase="sweep", cursor=k)
             faults.maybe_straggle(context="factorize", worker=worker_i)
             trace: list = []
             payloads: list = []
@@ -888,86 +952,147 @@ class cNMF:
             bf16_ratio=bf16)
 
     def _factorize_rowsharded(self, jobs, ks, iters, seeds, norm, kw, guard,
-                              worker_i, resume=False, store=None):
-        """The atlas path: the matrix staged once on the card, dense (as the
-        JAX package stages it, so a store-backed run is bit for bit the
-        in-memory one), then one row-sharded solve a replicate
+                              worker_i, resume=False, store=None, mesh=None,
+                              grid=False, heartbeat=None):
+        """The atlas path: the matrix staged once, dense (as the JAX package
+        stages it, so a store-backed run is bit for bit the in-memory one),
+        over the cells mesh (``mesh``, else every process's cards when
+        ``torch.distributed`` joins processes, else a one-entry mesh on
+        ``self.device``), then one row-sharded solve a replicate
         (``parallel/rowshard.py:nmf_fit_rowsharded``). A store whose dense
         shard exceeds the resident budget is not staged: each solve runs
-        the slab-looped tier on it.
+        the slab-looped tier on it. ``grid``: the same shell over the
+        (cells x genes) grid (``parallel/grid2d.py``; ``mesh`` a grid mesh,
+        else ``mesh_grid2d()``), X staged as tiles.
 
         Pass checkpoints (``runtime/checkpoint.py``): every
         ``CNMF_TPU_CKPT_EVERY_PASSES`` passes (default 1; 0 off) a
         replicate's pass state lands in ``pass_checkpoint``, pinned to the
         matrix (its digest, or the store's), the solver parameters, the
-        recipe and the ingest tier; a resume (``skip_completed_runs``)
-        continues an interrupted replicate from it, bit for bit while H
-        fits the checkpoint's byte budget. A staging fault (an exhausted
-        upload retry, a stall, a slab torn past its re-reads, a remote
-        store down past its retries with no cached copy) lands in the
-        resilience ledger before the run aborts."""
+        recipe, the ingest tier and the layout; a resume
+        (``skip_completed_runs``) continues an interrupted replicate from
+        it, bit for bit while H fits the checkpoint's byte budget. A
+        staging fault (an exhausted upload retry, a stall, a slab torn
+        past its re-reads, a remote store down past its retries with no
+        cached copy) lands in the resilience ledger before the run aborts.
+
+        Elastic (``runtime/elastic.py``, one process, ``CNMF_TPU_ELASTIC``
+        on): a host loss (a ``hostloss`` fault at a pass or replicate
+        boundary, or a lost device) re-plans the mesh over the surviving
+        entries, re-stages X and re-enters the solve from its pass
+        checkpoint (``fault`` events ``host_loss`` and ``remesh``)."""
         import glob
 
-        from ..parallel.rowshard import (nmf_fit_rowsharded,
+        from ..parallel.grid2d import mesh_grid2d, nmf_fit_grid2d, \
+            stage_x_grid
+        from ..parallel.mesh import Mesh, global_devices, process_count
+        from ..parallel.multihost import local_devices, sync_hosts
+        from ..parallel.rowshard import (RowShards, nmf_fit_rowsharded,
                                          prepare_rowsharded, store_dispatch)
         from ..parallel.streaming import (ShardStallError, ShardUploadError,
                                           StreamStats)
         from ..runtime import checkpoint as ckpt_mod
+        from ..runtime import elastic
         from ..utils.shardstore import RemoteStoreError, TornShardError
 
+        if mesh is None and grid:
+            mesh = mesh_grid2d(device=self.device)
+        if mesh is None and process_count() > 1:
+            devices, owners = global_devices(local_devices(self.device))
+            mesh = Mesh(devices, ("cells",), owners=owners)
+        if mesh is None:
+            mesh = Mesh([self.device], ("cells",))
         beta = beta_loss_to_float(kw["beta_loss"])
         init = kw.get("init", "random")
         n, g = norm.X.shape
-        slab_loop = False
-        stage_stats = StreamStats() if self._events.enabled else None
-        try:
-            if store is not None:
-                _, slab_loop = store_dispatch(store, beta, init=init,
-                                              force_dense=True,
-                                              device=self.device)
-            if slab_loop:
-                print("[Worker %d]. Store-backed shard exceeds the resident "
-                      "budget — running slab-looped out-of-core passes "
-                      "(CNMF_TPU_OOC_SHARD_BYTES)." % worker_i)
-                Xd, n_orig = store, store.n_rows
-            else:
-                Xd, n_orig = prepare_rowsharded(
-                    store if store is not None else norm.X, self.device,
-                    stats=stage_stats, events=self._events)
-        except (ShardUploadError, ShardStallError, TornShardError,
-                RemoteStoreError) as exc:
-            kind = ("shard_stall" if isinstance(exc, ShardStallError)
-                    else "shard_read_torn" if isinstance(exc, TornShardError)
-                    else "remote_store"
-                    if isinstance(exc, RemoteStoreError)
-                    else "shard_upload_failed")
-            guard.record_shard_fault(kind, {"stage": "rowshard_stage_x",
-                                            "error": str(exc)})
-            guard.finalize()
-            raise
-        self._events.emit_stream("rowshard_stage_x", stage_stats)
+        elastic_on = elastic.elastic_enabled() and not mesh.spans_processes
+        if heartbeat is not None:
+            heartbeat.beat(phase="stage_x", force=True)
+        topo = {"mesh": mesh, "slab_loop": False}
+
+        def stage(mesh_):
+            """Stage (or re-stage, after a degraded re-mesh) X on
+            ``mesh_``."""
+            stage_stats = StreamStats() if self._events.enabled else None
+            try:
+                if grid:
+                    Xd_, _, _ = stage_x_grid(
+                        store if store is not None else norm.X, mesh_,
+                        stats=stage_stats, events=self._events)
+                    n_orig_ = int(n)
+                else:
+                    if store is not None:
+                        _, topo["slab_loop"] = store_dispatch(
+                            store, beta, init=init, force_dense=True,
+                            mesh=mesh_)
+                    if topo["slab_loop"]:
+                        print("[Worker %d]. Store-backed shard exceeds the "
+                              "resident budget — running slab-looped "
+                              "out-of-core passes "
+                              "(CNMF_TPU_OOC_SHARD_BYTES)." % worker_i)
+                        Xd_, n_orig_ = store, store.n_rows
+                    else:
+                        Xd_, n_orig_ = prepare_rowsharded(
+                            store if store is not None else norm.X, mesh_,
+                            stats=stage_stats, events=self._events)
+            except (ShardUploadError, ShardStallError, TornShardError,
+                    RemoteStoreError) as exc:
+                kind = ("shard_stall" if isinstance(exc, ShardStallError)
+                        else "shard_read_torn"
+                        if isinstance(exc, TornShardError)
+                        else "remote_store"
+                        if isinstance(exc, RemoteStoreError)
+                        else "shard_upload_failed")
+                guard.record_shard_fault(kind, {"stage": "rowshard_stage_x",
+                                                "error": str(exc)})
+                guard.finalize()
+                raise
+            self._events.emit_stream("rowshard_stage_x", stage_stats)
+            return Xd_, n_orig_
+
+        topo["Xd"], n_orig = stage(mesh)
+        slab_loop = topo["slab_loop"]
         _, n_passes, _ = resolve_online_schedule(beta, 0.05,
                                                  kw.get("n_passes"))
         chunk_max_iter = int(kw.get("online_chunk_max_iter", 1000))
-        print("[Worker %d]. Row-sharded factorize: %d cells on one device, "
-              "%d tasks." % (worker_i, n_orig, len(jobs)))
+        layout = "grid2d" if grid else "rowshard"
+        if grid:
+            c_dim, g_dim = (int(d) for d in mesh.devices.shape)
+            print("[Worker %d]. 2-D grid factorize: %d cells x %d genes over "
+                  "a %d x %d (cells x genes) grid, %d tasks."
+                  % (worker_i, n_orig, g, c_dim, g_dim, len(jobs)))
+        else:
+            print("[Worker %d]. Row-sharded factorize: %d cells over %d "
+                  "shard(s), %d tasks." % (worker_i, n_orig, mesh.size,
+                                           len(jobs)))
         recipe = resolve_recipe(
             beta, "rowshard", algo="mu", n=int(n), g=int(g),
             k=max((int(ks[i]) for i in jobs), default=None))
         self._events.emit("dispatch", decision="solver_recipe",
-                          context=dict(recipe.as_context(), mode="rowshard"))
+                          context=dict(recipe.as_context(), mode=layout))
         tier = "slab_loop" if slab_loop else "resident"
-        self.factorize_info = {
-            "lane": "dense", "mode": "rowshard", "packed": False,
+        grid_ctx = {}
+        if grid:
+            from ..parallel.grid2d import grid_blocks, grid_overlap_enabled
+
+            gx = topo["Xd"]
+            grid_ctx = {"mesh_shape": [c_dim, g_dim],
+                        "overlap": bool(grid_overlap_enabled()),
+                        "blocks": [grid_blocks(gx.cols_per),
+                                   grid_blocks(gx.rows_per)]}
+        self.factorize_info = dict(grid_ctx, **{
+            "lane": "dense", "mode": layout, "packed": False,
             "kernel": kernel_label(False, self.device, False, beta),
             "solver_recipe": recipe.label,
             "kl_newton": bool(recipe.kl_newton), "bf16_ratio": False,
             "n_passes": n_passes, "online_h_tol": 0.05,
+            "mesh_devices": int(mesh.size),
             "ooc_ingest": None if store is None else
             ("slab_loop" if slab_loop else "store_resident"),
             "ledger_keys_ignored": ["mode", "online_chunk_size"],
-            "trace": {}, "errs": {}, "jobs": len(jobs)}
-        self._save_factorize_provenance("rowshard", worker_i, kw)
+            "trace": {}, "errs": {}, "jobs": len(jobs)})
+        if self._writer:
+            self._save_factorize_provenance(layout, worker_i, kw)
 
         ckpt_every = ckpt_mod.ckpt_every_passes()
         if ckpt_every <= 0:
@@ -977,7 +1102,7 @@ class cNMF:
         else:
             digest = ckpt_mod.input_digest(norm.X)
         # the identity pins a checkpoint to the settings it ran under: a
-        # changed cap, penalty, recipe or ingest tier restarts the
+        # changed cap, penalty, recipe, ingest tier or layout restarts the
         # replicate instead of splicing two trajectories
         params_sig = repr(sorted({
             "init": str(init), "tol": float(kw.get("tol", 1e-4)),
@@ -987,18 +1112,20 @@ class cNMF:
             "alpha_H": float(kw.get("alpha_H", 0.0)),
             "l1_ratio_H": float(kw.get("l1_ratio_H", 0.0)),
             "recipe": recipe.signature(), "ingest_tier": tier,
-            "layout": "rowshard", "encoding": "dense"}.items()))
+            "layout": layout, "encoding": "dense"}.items()))
 
-        def make_ckpt(k_c, it_c, seed_c, attempt=0):
+        def make_ckpt(k_c, it_c, seed_c, attempt=0, force_resume=False):
             """A replicate's checkpoint policy; a retry checkpoints under
             an attempt-suffixed path with its derived seed, and always
-            resumes (the retry ladder's seeds are deterministic)."""
+            resumes (the retry ladder's seeds are deterministic);
+            ``force_resume`` (the elastic continuation) loads the
+            checkpoint this session's interrupted solve just wrote."""
             if ckpt_every <= 0:
                 return None
             path = self.paths["pass_checkpoint"] % (int(k_c), int(it_c))
             if int(attempt) > 0:
                 path = path[:-4] + ".a%d.npz" % int(attempt)
-            elif not resume:
+            elif not resume and not force_resume and self._writer:
                 # a fresh run voids the retry cursors with the base one
                 for stale in glob.glob(path[:-4] + ".a*.npz"):
                     try:
@@ -1011,7 +1138,8 @@ class cNMF:
                       "attempt": int(attempt), "digest": digest,
                       "beta": float(beta), "params": params_sig},
                 events=self._events, worker=worker_i,
-                resume=bool(resume) if int(attempt) == 0 else True)
+                resume=(bool(resume or force_resume) if int(attempt) == 0
+                        else True))
 
         def sink(payload):
             self.factorize_info["trace"].setdefault(
@@ -1019,18 +1147,69 @@ class cNMF:
             self._emit_replicates_event(payload)
 
         def solve(k_r, seed_r, ckpt):
-            _H, spectra, err = nmf_fit_rowsharded(
-                Xd, int(k_r), beta_loss=kw["beta_loss"], init=init,
-                seed=int(seed_r), tol=float(kw.get("tol", 1e-4)),
-                n_passes=n_passes, chunk_max_iter=chunk_max_iter,
+            common = dict(
+                beta_loss=kw["beta_loss"], init=init, seed=int(seed_r),
+                tol=float(kw.get("tol", 1e-4)), n_passes=n_passes,
+                chunk_max_iter=chunk_max_iter,
                 alpha_W=kw.get("alpha_W", 0.0),
                 l1_ratio_W=kw.get("l1_ratio_W", 0.0),
                 alpha_H=kw.get("alpha_H", 0.0),
                 l1_ratio_H=kw.get("l1_ratio_H", 0.0), n_orig=n_orig,
                 telemetry_sink=sink, checkpoint=ckpt, recipe=recipe,
-                events=self._events, store_slab_loop=slab_loop,
-                device=self.device)
+                events=self._events, heartbeat=heartbeat)
+            if grid:
+                _H, spectra, err = nmf_fit_grid2d(
+                    topo["Xd"], int(k_r), topo["mesh"], g_orig=int(g),
+                    **common)
+            else:
+                _H, spectra, err = nmf_fit_rowsharded(
+                    topo["Xd"], int(k_r),
+                    store_slab_loop=not isinstance(topo["Xd"], RowShards),
+                    mesh=topo["mesh"], device=self.device, **common)
             return np.asarray(spectra), float(err)
+
+        def remesh_after_loss(exc):
+            """Re-plan the mesh over the surviving entries, free the staged
+            matrix and re-stage X from the original input."""
+            lost = elastic.resolve_lost_devices(exc, topo["mesh"])
+            old_n = topo["mesh"].size
+            guard.record_shard_fault(
+                "host_loss", {"context": layout, "lost_devices": lost,
+                              "error": str(exc)})
+            new_mesh = elastic.plan_degraded_mesh(topo["mesh"], lost)
+            warnings.warn(
+                "host/device loss mid-factorize (%s); continuing degraded "
+                "on %d of %d devices — in-flight replicates resume from "
+                "their pass checkpoints" % (exc, new_mesh.size, old_n),
+                RuntimeWarning, stacklevel=2)
+            topo["Xd"] = None
+            topo["mesh"] = new_mesh
+            topo["Xd"], _ = stage(new_mesh)
+            self._events.emit(
+                "fault", kind="remesh",
+                context={"context": layout, "from_devices": int(old_n),
+                         "to_devices": int(new_mesh.size)})
+
+        def solve_elastic(k_r, it_r, seed_r, attempt=0):
+            """One replicate solve that survives a topology loss: the mesh
+            shrinks to the survivors and the solve re-enters from its pass
+            checkpoint."""
+            force_resume = False
+            while True:
+                ckpt = make_ckpt(k_r, it_r, seed_r, attempt=attempt,
+                                 force_resume=force_resume)
+                try:
+                    out = solve(k_r, seed_r, ckpt)
+                    # a loss at the replicate boundary: after the final
+                    # checkpoint, before the artifact write
+                    faults.maybe_hostloss(context="replicate",
+                                          worker=worker_i)
+                    return out + (ckpt,)
+                except BaseException as exc:
+                    if not (elastic_on and elastic.is_device_loss(exc)):
+                        raise
+                    remesh_after_loss(exc)  # DegradedMeshError aborts
+                    force_resume = True
 
         perf_t0 = time.perf_counter()
         perf_passes: dict[int, int] = {}
@@ -1040,8 +1219,7 @@ class cNMF:
             # job, as the JAX package counts it
             perf_passes[k] = perf_passes.get(k, 0) + int(n_passes)
             faults.maybe_straggle(context="factorize", worker=worker_i)
-            ckpt = make_ckpt(k, it, seed)
-            spectra, err = solve(k, seed, ckpt)
+            spectra, err, ckpt = solve_elastic(k, it, seed)
             sp3, errs = faults.maybe_poison_lanes(
                 k, [it], spectra[None], np.asarray([err]), seeds=[seed])
             self.factorize_info["errs"].setdefault(k, []).append(
@@ -1050,7 +1228,7 @@ class cNMF:
                                     resilience.lane_health(errs, spectra=sp3))
             if healthy[0]:
                 self._write_iter_spectra(k, it, sp3[0], norm.var_names)
-            if ckpt is not None:
+            if ckpt is not None and self._writer:
                 # the artifact (or the quarantine record) supersedes the
                 # cursor; discarded after the write, so a kill in between
                 # resumes from the final checkpoint
@@ -1058,21 +1236,120 @@ class cNMF:
             faults.maybe_kill("factorize", worker_i)
         self.factorize_info["errs"] = {
             k: np.asarray(v) for k, v in self.factorize_info["errs"].items()}
+        self.factorize_info["mesh_devices_final"] = int(topo["mesh"].size)
 
         def rerun(k_r, seeds_r, iters=None, attempt=0):
             outs = []
             for j, s in enumerate(seeds_r):
-                ckpt = make_ckpt(k_r, iters[j], s, attempt=attempt)
-                outs.append(solve(k_r, s, ckpt))
-                if ckpt is not None:
+                spectra, err, ckpt = solve_elastic(k_r, iters[j], s,
+                                                   attempt=attempt)
+                outs.append((spectra, err))
+                if ckpt is not None and self._writer:
                     ckpt.discard()
             return (np.stack([o[0] for o in outs]),
                     np.asarray([o[1] for o in outs], np.float64))
 
         self._finish_resilience(guard, rerun, norm.var_names, worker_i)
         self._emit_perf_model(
-            "factorize_rowshard", self.factorize_info["kernel"], int(n),
-            int(g), perf_passes, time.perf_counter() - perf_t0, beta=beta)
+            "factorize_grid2d" if grid else "factorize_rowshard",
+            "grid2d" if grid else self.factorize_info["kernel"], int(n),
+            int(g), perf_passes, time.perf_counter() - perf_t0, beta=beta,
+            grid_shape=grid_ctx.get("mesh_shape"),
+            grid_blocks=(max(grid_ctx["blocks"]) if grid_ctx else None))
+        sync_hosts("factorize_rowshard", heartbeat=heartbeat)
+
+    def _factorize_2d(self, jobs, ks, iters, seeds, norm, kw, worker_i,
+                      mesh=None, replicates_per_batch=None, store=None):
+        """Factorize over the (replicates, cells) mesh
+        (``parallel/multihost.py``): each replicate row-shards its cells
+        over its replicate row's cells fiber, the replicate axis spreads
+        the replicates (across processes, one row a process, with no
+        cross-process sum). X stages once, reused by every per-K sweep.
+        A host loss (one process) re-plans the mesh over the survivors,
+        re-stages X and reruns the K's sweep. Only process 0 writes
+        artifacts; the processes meet at a barrier at the end."""
+        from ..parallel.mesh import process_count
+        from ..parallel.multihost import (mesh_2d, replicate_sweep_2d,
+                                          stage_x_2d, sync_hosts)
+        from ..runtime import elastic
+
+        if mesh is None:
+            mesh = mesh_2d(device=self.device)
+        heartbeat = None
+        if elastic.heartbeat_s() > 0:
+            from ..parallel.mesh import process_index
+
+            heartbeat = elastic.Heartbeat(
+                os.path.dirname(self.paths["resilience_ledger"]), self.name,
+                int(process_index()), events=self._events)
+            heartbeat.beat(phase="stage_x_2d", force=True)
+        elastic_on = elastic.elastic_enabled() and process_count() == 1
+        x_src = store if store is not None else norm.X
+        Xd = stage_x_2d(x_src, mesh, events=self._events)
+        beta = beta_loss_to_float(kw["beta_loss"])
+        _, n_passes, _ = resolve_online_schedule(beta, 0.05,
+                                                 kw.get("n_passes"))
+        r_dim, c_dim = mesh.devices.shape
+        print("[Worker %d]. 2-D factorize: %d cells x %d replicate shards "
+              "(%d x %d mesh, %d processes), %d tasks."
+              % (worker_i, norm.X.shape[0], r_dim, r_dim, c_dim,
+                 process_count(), len(jobs)))
+        self.factorize_info = {
+            "lane": "dense", "mode": "mesh2d", "packed": False,
+            "kernel": kernel_label(False, self.device, False, beta),
+            "mesh_shape": [int(r_dim), int(c_dim)],
+            "num_processes": int(process_count()), "n_passes": n_passes,
+            "ledger_keys_ignored": ["mode", "online_chunk_size"],
+            "errs": {}, "jobs": len(jobs)}
+        if self._writer:
+            self._save_factorize_provenance("mesh2d", worker_i, kw)
+        by_k: dict[int, list] = {}
+        for idx in jobs:
+            by_k.setdefault(int(ks[idx]), []).append(
+                (int(iters[idx]), int(seeds[idx])))
+        for k, tasks in sorted(by_k.items()):
+            its = [t[0] for t in tasks]
+            sds = [t[1] for t in tasks]
+            if heartbeat is not None:
+                heartbeat.beat(phase="sweep2d", cursor=k, force=True)
+            while True:
+                try:
+                    spectra, errs = replicate_sweep_2d(
+                        Xd, sds, k, mesh, beta_loss=kw["beta_loss"],
+                        init=kw.get("init", "random"),
+                        tol=kw.get("tol", 1e-4), n_passes=n_passes,
+                        chunk_max_iter=kw.get("online_chunk_max_iter", 1000),
+                        alpha_W=kw.get("alpha_W", 0.0),
+                        l1_ratio_W=kw.get("l1_ratio_W", 0.0),
+                        alpha_H=kw.get("alpha_H", 0.0),
+                        l1_ratio_H=kw.get("l1_ratio_H", 0.0),
+                        replicates_per_batch=replicates_per_batch)
+                    break
+                except BaseException as exc:
+                    if not (elastic_on and elastic.is_device_loss(exc)):
+                        raise
+                    lost = elastic.resolve_lost_devices(exc, mesh)
+                    old_n = mesh.size
+                    self._events.emit(
+                        "fault", kind="host_loss",
+                        context={"context": "sweep2d", "lost_devices": lost,
+                                 "error": str(exc)})
+                    mesh = elastic.plan_degraded_mesh(mesh, lost)
+                    warnings.warn(
+                        "host/device loss mid-sweep (%s); re-planned a "
+                        "%d x %d mesh over %d of %d devices and rerunning "
+                        "k=%d" % (exc, *mesh.devices.shape, mesh.size,
+                                  old_n, k), RuntimeWarning, stacklevel=2)
+                    Xd = stage_x_2d(x_src, mesh, events=self._events)
+                    self._events.emit(
+                        "fault", kind="remesh",
+                        context={"context": "sweep2d",
+                                 "from_devices": int(old_n),
+                                 "to_devices": int(mesh.size)})
+            self.factorize_info["errs"][k] = errs
+            for r, it in enumerate(its):
+                self._write_iter_spectra(k, it, spectra[r], norm.var_names)
+        sync_hosts("factorize_2d", heartbeat=heartbeat)
 
     def _factorize_sequential(self, jobs, ks, iters, seeds, norm, kw,
                               recipe, Xs, guard, worker_i):
@@ -1160,7 +1437,8 @@ class cNMF:
                 int(r.get("iters", 0)) for r in records)
 
     def _emit_perf_model(self, stage, lane, n, g, iters_by_k, wall_s, *,
-                         beta, ell_width=None, bf16_ratio=False):
+                         beta, ell_width=None, bf16_ratio=False,
+                         grid_shape=None, grid_blocks=None):
         """One ``perf_model`` event: the lane's analytic cost
         (``obs/costmodel.py``) times the iterations a K, joined with the
         measured wall into the roofline verdict against the peaks of this
@@ -1182,7 +1460,8 @@ class cNMF:
             for k, n_iters in sorted(iters_by_k.items()):
                 c = lane_cost(lane, n, g, int(k), beta=beta,
                               ell_width=ell_width, bf16_ratio=bf16_ratio,
-                              device=self.device)
+                              device=self.device, grid_shape=grid_shape,
+                              grid_blocks=grid_blocks)
                 exempt = exempt or bool(c.get("perf_exempt"))
                 tot_f += c["flops"] * int(n_iters)
                 tot_b += c["bytes"] * int(n_iters)
@@ -1203,7 +1482,9 @@ class cNMF:
 
     def _write_iter_spectra(self, k, it, spectrum, columns):
         """One replicate's spectra artifact (atomic; stored, not
-        deflated)."""
+        deflated); process 0 writes it when the mesh spans processes."""
+        if not getattr(self, "_writer", True):
+            return
         save_df_to_npz(Frame(spectrum, np.arange(1, int(k) + 1), columns),
                        self.paths["iter_spectra"] % (int(k), int(it)),
                        compress=False)

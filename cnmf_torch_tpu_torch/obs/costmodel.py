@@ -86,22 +86,32 @@ def device_peaks(device) -> dict:
 
 def lane_cost(lane: str, n: int, g: int, k: int, *, beta: float = 1.0,
               ell_width: int | None = None, t_width: int | None = None,
-              bf16_ratio: bool = False, device=None) -> dict:
+              bf16_ratio: bool = False, device=None, grid_shape=None,
+              grid_blocks: int | None = None) -> dict:
     """Flops and bytes of ONE update iteration (H and W) on a kernel lane
-    (a label of ``ops/kernels:kernel_label``, or ``bundled``). Returns
-    ``{flops, bytes, lane, ...}``; the ``ell-cuda`` lane adds
-    ``perf_exempt`` (``device`` not a card). A degenerate window (n, g
-    or k zero, or an ELL lane without a width) costs exactly zero."""
+    (a label of ``ops/kernels:kernel_label``, ``bundled``, or ``grid2d``).
+    Returns ``{flops, bytes, lane, ...}``; the ``ell-cuda`` lane adds
+    ``perf_exempt`` (``device`` not a card), the ``grid2d`` lane the
+    per-device cost of one grid pass on a ``grid_shape`` grid with
+    ``grid_blocks`` statistics blocks and its ``collective_bytes``
+    (``parallel/grid2d.py:grid_pass_cost``, as the JAX package prices it).
+    A degenerate window (n, g or k zero, or an ELL lane without a width)
+    costs exactly zero."""
     n, g, k = int(n), int(g), int(k)
-    if lane == "grid2d":
-        raise NotImplementedError(
-            "lane_cost('grid2d'): the 2-D grid lane's cost "
-            "(parallel/grid2d.py:grid_pass_cost) comes with the "
-            "multi-device slice, ROADMAP item 4")
     if n <= 0 or g <= 0 or k <= 0 or (
             lane in ("ell-torch", "ell-cuda") and not ell_width):
         return {"flops": 0.0, "bytes": 0.0, "lane": lane,
                 "degenerate": True}
+    if lane == "grid2d":
+        from ..parallel.grid2d import grid_pass_cost
+
+        gs = grid_shape or [1, 1]
+        n_dev = max(1, int(gs[0]) * int(gs[1]))
+        rows_loc = -(-n // max(int(gs[0]), 1))
+        g_loc = -(-g // max(int(gs[1]), 1))
+        nblk = max(1, int(grid_blocks or 1))
+        return grid_pass_cost(rows_loc, g_loc, k, beta,
+                              nblk_h=nblk, nblk_w=nblk, n_dev=n_dev)
     if lane == "ell-cuda":
         from ..ops.kernels import cuda_stats_cost
 

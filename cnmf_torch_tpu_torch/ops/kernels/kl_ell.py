@@ -5,7 +5,8 @@ Source: ``cnmf_torch_tpu_torch/csrc/kl_ell.cu``, built with ``nvcc`` for
 (a plain C interface: pointers and the stream as ``c_void_p``). Each wrapper
 checks device, dtype, shape and contiguity (on the CPU too, so the CPU
 tests hold callers to the kernels' layout), allocates its outputs,
-launches on ``torch.cuda.current_stream()`` and raises when the launch
+launches on the current stream of the tensors' card, with that card's
+context current (``_on``), and raises when the launch
 reports an error. A CUDA tensor launches the kernel or raises; a CPU tensor
 takes the kernel's plain torch version (``ops/sparse.py``).
 
@@ -101,6 +102,7 @@ Kernels, and the TPU kernels they replace
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -215,8 +217,13 @@ def build():
         return lib
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+@contextlib.contextmanager
+def _on(device):
+    """Launch on ``device``: its CUDA context current and its current
+    stream (the kernels' C side reads the current device), whatever device
+    the caller's thread has current. Yields the stream handle."""
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _ptr(t):
@@ -287,9 +294,10 @@ def h_stats(vals, cols, H, W, bf16: bool = False):
         return h_stats_plain(vals, cols, H, W, bf16)
     lib = build()
     numer = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
-    err = lib.kl_h_stats(_ptr(vals), int(vals.dtype == torch.bfloat16),
-                         _ptr(cols), _ptr(H), _ptr(W), _ptr(numer),
-                         R, n, w, k, g, int(bool(bf16)), _stream())
+    with _on(H.device) as stream:
+        err = lib.kl_h_stats(_ptr(vals), int(vals.dtype == torch.bfloat16),
+                             _ptr(cols), _ptr(H), _ptr(W), _ptr(numer),
+                             R, n, w, k, g, int(bool(bf16)), stream)
     _raise_on(err, "h_stats")
     launches["h_stats"] += 1
     return numer
@@ -351,10 +359,11 @@ def w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
     vals_t = torch.empty((g, wt), device=dev,
                          dtype=torch.bfloat16 if bf16 else torch.float32)
     numer = torch.empty((R, k, g), dtype=torch.float32, device=dev)
-    err = lib.kl_w_numer(_ptr(vals), int(vals.dtype == torch.bfloat16),
-                         _ptr(rows_t), _ptr(perm_t), _ptr(H), _ptr(W),
-                         _ptr(packed), _ptr(vals_t), _ptr(numer), R, n, w,
-                         k, g, wt, nq, int(bool(bf16)), _stream())
+    with _on(dev) as stream:
+        err = lib.kl_w_numer(_ptr(vals), int(vals.dtype == torch.bfloat16),
+                             _ptr(rows_t), _ptr(perm_t), _ptr(H), _ptr(W),
+                             _ptr(packed), _ptr(vals_t), _ptr(numer), R, n,
+                             w, k, g, wt, nq, int(bool(bf16)), stream)
     _raise_on(err, "w_numer")
     launches["w_numer"] += 1
     return numer
@@ -368,8 +377,10 @@ def beta_err_partials(vals, cols, H, W):
         return beta_err_plain(vals, cols, H, W)
     lib = build()
     partials = torch.empty((R, n), dtype=torch.float32, device=H.device)
-    err = lib.kl_beta_err_partials(_ptr(vals), _ptr(cols), _ptr(H), _ptr(W),
-                                   _ptr(partials), R, n, w, k, g, _stream())
+    with _on(H.device) as stream:
+        err = lib.kl_beta_err_partials(_ptr(vals), _ptr(cols), _ptr(H),
+                                       _ptr(W), _ptr(partials), R, n, w, k,
+                                       g, stream)
     _raise_on(err, "beta_err_partials")
     launches["beta_err_partials"] += 1
     return partials
@@ -392,9 +403,10 @@ def h_newton_stats(vals, cols, H, W):
     lib = build()
     numer = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
     hess = torch.empty((R, n, k), dtype=torch.float32, device=H.device)
-    err = lib.kl_h_newton_stats(_ptr(vals), _ptr(cols), _ptr(H), _ptr(W),
-                                _ptr(numer), _ptr(hess), R, n, w, k, g,
-                                _stream())
+    with _on(H.device) as stream:
+        err = lib.kl_h_newton_stats(_ptr(vals), _ptr(cols), _ptr(H),
+                                    _ptr(W), _ptr(numer), _ptr(hess), R, n,
+                                    w, k, g, stream)
     _raise_on(err, "h_newton_stats")
     launches["h_newton_stats"] += 1
     return numer, hess
@@ -423,8 +435,9 @@ def wh_at_nz(cols, H, W):
         return wh_at_nz_plain(cols, H, W)
     lib = build()
     out = torch.empty((R, n, w), dtype=torch.float32, device=H.device)
-    err = lib.kl_wh_at_nz(_ptr(cols), _ptr(H), _ptr(W), _ptr(out), R, n, w,
-                          k, g, _stream())
+    with _on(H.device) as stream:
+        err = lib.kl_wh_at_nz(_ptr(cols), _ptr(H), _ptr(W), _ptr(out), R, n,
+                              w, k, g, stream)
     _raise_on(err, "wh_at_nz")
     launches["wh_at_nz"] += 1
     return out

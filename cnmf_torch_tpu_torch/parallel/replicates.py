@@ -17,6 +17,16 @@ Inits: the seeded random init, or the nndsvd family, whose SVD base is
 computed once per sweep and whose exact zeros each replicate fills from
 its own seed (:func:`stacked_inits`).
 
+The replicate axis over devices (:func:`default_mesh`, ``mesh=``): the
+replicates are padded to a multiple of the mesh's entries (the pad copies
+are computed and dropped), each entry takes its block of them, each device
+holds its own copy of X and runs its entries' sweeps with its own memory
+budget; the stacks come back in replicate order. The JAX package spreads
+a factorize sweep over every local device this way
+(``replicates.py:default_mesh``); the port's factorize does so only when
+given the mesh, since on four H100s the spread ran slower than one card
+(``scripts/multicard_check.py`` times both).
+
 Telemetry: a sweep given a ``telemetry_sink`` hands it one
 :func:`_sweep_telemetry_payload` per K under ``CNMF_TPU_TELEMETRY``, built
 from the objective traces the solvers already bring to the host, laid
@@ -50,7 +60,7 @@ from ..utils.telemetry import telemetry_enabled
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar")
 
 __all__ = ["worker_filter", "auto_replicates_per_batch", "replicate_sweep",
-           "replicate_sweep_packed", "stacked_inits"]
+           "replicate_sweep_packed", "stacked_inits", "default_mesh"]
 
 # f32 element budget when the device reports no free memory (the CPU)
 _FALLBACK_BUDGET_ELEMS = 1 << 28
@@ -154,6 +164,64 @@ def worker_filter(iterable, worker_index: int, total_workers: int):
     position is congruent to i modulo ``total_workers``."""
     return (p for i, p in enumerate(iterable)
             if (i - worker_index) % total_workers == 0)
+
+
+def default_mesh(axis_name: str = "replicates", device="cuda"):
+    """A 1-D mesh over every visible card of this process, each once;
+    None with one card (or on the CPU), where a mesh is pure overhead."""
+    from .mesh import Mesh, visible_devices
+
+    devices = visible_devices(device)
+    if len(devices) <= 1:
+        return None
+    return Mesh(devices, (axis_name,))
+
+
+def _sweep_over_mesh(X, seeds, k, mesh, inits, n_rows, return_usages,
+                     kw):
+    """:func:`replicate_sweep` with its replicates spread over ``mesh``'s
+    entries (one process): padded to a multiple of the entries, a block
+    of them an entry, the host encoding made once and copied to each
+    device, the entries' sweeps run one after the other (one thread a
+    card was slower still on four H100s: the online sweep's host steps
+    contend; ``scripts/multicard_check.py`` times the axis); results in
+    replicate order."""
+    if mesh.spans_processes:
+        raise ValueError("the replicate axis runs within one process; "
+                         "use mesh_2d for a mesh across processes")
+    R, D = len(seeds), mesh.size
+    per = -(-R // D)
+    order = list(range(R)) + [i % R for i in range((-R) % D)]
+    beta = beta_loss_to_float(kw["beta_loss"])
+    host, n_host = X, n_rows
+    if sp.issparse(X) and kw["init"] == "random" and resolve_sparse_beta(
+            beta, density=X.nnz / max(X.shape[0] * X.shape[1], 1),
+            width=ell_row_width(X), g=X.shape[1]):
+        chunk = int(min(kw["online_chunk_size"], X.shape[0]))
+        host, n_host = _stage(X, beta, kw["init"], kw["mode"], chunk,
+                              torch.device("cpu"))
+    staged: dict = {}
+    spectra, usages, errs = [None] * R, [None] * R, [None] * R
+    for e in range(D):
+        idx = order[e * per:(e + 1) * per]
+        if not idx:
+            continue
+        dev = resolve_device(mesh.device_of(e))
+        if dev not in staged:
+            staged[dev] = (host.to(dev) if isinstance(host, EllMatrix)
+                           else dense_on_device(host, dev))
+        sub = (None if inits is None else
+               (np.asarray(inits[0])[idx], np.asarray(inits[1])[idx]))
+        sp_, us_, er_ = replicate_sweep(
+            staged[dev], [seeds[i] for i in idx], k, inits=sub,
+            n_rows=n_host, return_usages=return_usages, device=dev, **kw)
+        for j, i in enumerate(idx):
+            if spectra[i] is None:
+                spectra[i], errs[i] = sp_[j], er_[j]
+                if return_usages:
+                    usages[i] = us_[j]
+    return (np.stack(spectra), np.stack(usages) if return_usages else None,
+            np.asarray(errs))
 
 
 def _device_budget_elems(device) -> int:
@@ -291,7 +359,7 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
                     n_rows: int | None = None, inits=None,
                     return_usages: bool = False, trace: list | None = None,
                     recipe: SolverRecipe | None = None,
-                    telemetry_sink=None, device="cuda"):
+                    telemetry_sink=None, device="cuda", mesh=None):
     """Run ``len(seeds)`` NMF replicates at one K.
 
     ``X``: a host matrix (dense, or scipy-sparse — ELL-encoded when the
@@ -313,9 +381,27 @@ def replicate_sweep(X, seeds, k: int, beta_loss="frobenius",
     of per-pass objectives (online) or one
     :class:`~..ops.nmf.SolverTelemetry` (batch). ``telemetry_sink``: a
     callable receiving, under ``CNMF_TPU_TELEMETRY``, one
-    :func:`_sweep_telemetry_payload` for the whole sweep. Returns
+    :func:`_sweep_telemetry_payload` for the whole sweep (one a mesh
+    entry on a mesh). ``mesh``: a 1-D :class:`~.mesh.Mesh` of this
+    process's devices to spread the replicates over (:func:`default_mesh`;
+    ``device`` is then unused); each entry's block runs this sweep on its
+    device with that device's budget, one entry after the other. Returns
     ``(spectra (R, k, g), usages (R, n, k) | None, errs (R,))`` as numpy
     in seed order."""
+    if mesh is not None and mesh.size > 1 and len(seeds):
+        return _sweep_over_mesh(
+            X, list(seeds), k, mesh, inits, n_rows, return_usages,
+            dict(beta_loss=beta_loss, init=init, mode=mode, tol=tol,
+                 online_chunk_size=online_chunk_size,
+                 online_chunk_max_iter=online_chunk_max_iter,
+                 batch_max_iter=batch_max_iter, n_passes=n_passes,
+                 alpha_W=alpha_W, l1_ratio_W=l1_ratio_W, alpha_H=alpha_H,
+                 l1_ratio_H=l1_ratio_H,
+                 replicates_per_batch=replicates_per_batch,
+                 online_h_tol=online_h_tol, trace=trace, recipe=recipe,
+                 telemetry_sink=telemetry_sink))
+    if mesh is not None:
+        device = mesh.device_of(0)
     dev = resolve_device(device)
     if mode not in ("online", "batch"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -452,7 +538,7 @@ def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",
                            online_h_tol: float | None = None,
                            on_slice=None, trace: list | None = None,
                            recipe: SolverRecipe | None = None,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     """Run a multi-K sweep of ``len(seeds)`` (k, seed) tasks with the JAX
     package's packed contract: results in task order, ``spectra (R, K_max,
     g)`` with exact zeros beyond each task's k, ``usages (R, n, K_max) |
@@ -472,7 +558,9 @@ def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",
     recipes). ``on_slice(task_indices, spectra (r, K_max, g), errs (r,))``
     is called with numpy results as each slice completes, and the function
     then returns ``None``. ``trace`` receives each slice's entries (as
-    :func:`replicate_sweep`'s) before ``on_slice`` is called for it."""
+    :func:`replicate_sweep`'s) before ``on_slice`` is called for it.
+    ``mesh``: the replicate axis of every per-K sweep
+    (:func:`replicate_sweep`'s)."""
     if isinstance(X, EllMatrix):
         raise ValueError(
             "replicate_sweep_packed does not support ELL-encoded X; use "
@@ -481,7 +569,7 @@ def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",
         raise ValueError("packed K-sweeps require init='random'")
     if mode not in ("online", "batch"):
         raise ValueError(f"unknown mode {mode!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device_of(0) if mesh is not None else device)
     Xd = dense_on_device(X, dev)
     n, g = Xd.shape
     beta = beta_loss_to_float(beta_loss)
@@ -514,7 +602,7 @@ def replicate_sweep_packed(X, ks, seeds, beta_loss="frobenius",
               l1_ratio_H=l1_ratio_H, online_h_tol=online_h_tol,
               replicates_per_batch=replicates_per_batch,
               return_usages=return_usages, trace=trace, recipe=recipe,
-              device=dev)
+              device=dev, mesh=mesh)
     order, parts = [], []
     for kv in sorted(by_k):
         idxs = by_k[kv]

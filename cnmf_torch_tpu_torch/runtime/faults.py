@@ -22,11 +22,13 @@ calls the hooks of the layers it has:
   digest check and re-read;
 * ``netflake``, ``netslow``, ``netdown``, ``nettorn`` --
   :func:`maybe_netfault` fails, delays or tears a request of the remote
-  object store (``utils/storebackend.py``) before its socket opens.
+  object store (``utils/storebackend.py``) before its socket opens;
+* ``hostloss`` -- :func:`maybe_hostloss` raises :class:`HostLossError` at
+  a pass, replicate or 2-D sweep boundary, for the elastic re-mesh
+  (``runtime/elastic.py``).
 
-The other kinds (``hostloss``, ``replicadeath``, ``replicawedge``) parse
-here, and their hooks wait for the layers that call them (the
-multi-device and serving layers, not ported yet).
+The serving kinds (``replicadeath``, ``replicawedge``) parse here, and
+their hooks wait for the serving layer, not ported yet.
 
 Spec grammar (semicolon-separated clauses)::
 
@@ -53,7 +55,8 @@ import threading
 __all__ = ["FAULT_SPEC_ENV", "FaultClause", "parse_fault_spec",
            "active_spec", "maybe_poison_lanes", "maybe_kill", "maybe_tear",
            "maybe_fail", "maybe_straggle", "maybe_stall",
-           "maybe_shard_read", "maybe_netfault"]
+           "maybe_shard_read", "maybe_netfault", "HostLossError",
+           "maybe_hostloss"]
 
 FAULT_SPEC_ENV = "CNMF_TPU_FAULT_SPEC"
 
@@ -61,6 +64,21 @@ _KINDS = ("nonfinite", "kill", "torn", "upload", "stall", "hostloss",
           "straggler", "shard_read", "netflake", "netslow", "netdown",
           "nettorn", "replicadeath", "replicawedge")
 _CONTROL_KEYS = ("after", "limit", "once")
+
+
+class HostLossError(RuntimeError):
+    """Injected topology failure: a mesh participant (host/device) died.
+
+    ``lost`` names the simulated lost device ids (empty = "lose the last
+    ``count`` devices of whatever mesh the catcher holds"). The elastic
+    controller treats this exactly like a real device-loss error; a real
+    loss identifies its dead devices by probing, an injected one by
+    decree."""
+
+    def __init__(self, message: str, lost=(), count: int = 1):
+        super().__init__(message)
+        self.lost = tuple(int(d) for d in lost)
+        self.count = int(count)
 
 
 class FaultClause:
@@ -300,6 +318,36 @@ def maybe_tear(path) -> bool:
         except OSError:
             return False
     return False
+
+
+def maybe_hostloss(context=None, worker=None) -> None:
+    """Raise :class:`HostLossError` when a ``hostloss`` clause matches —
+    the injectable form of a host/device dying mid-run. Selectors:
+    ``context`` (substring match against the hook site — ``pass`` for the
+    rowsharded per-pass boundary, ``replicate`` for the post-solve
+    boundary, ``sweep2d`` for the 2-D sweep's slice loop), ``worker``.
+    Clause params ``devices`` (``+``-separated ids, e.g. ``devices=2+3``)
+    or ``count=N`` (default 1: lose the last N devices of the mesh the
+    catcher holds) describe WHAT died. ``limit`` defaults to 1 — one
+    topology loss per process, so the degraded continuation itself runs
+    clean and the recovery is observable."""
+    spec = active_spec()
+    if spec is None:
+        return
+    for clause in spec:
+        if clause.kind != "hostloss":
+            continue
+        if not _clause_fires(clause, context, worker, default_limit=1):
+            continue
+        params = clause.params
+        lost = [int(d) for d in
+                str(params.get("devices", "")).split("+") if d != ""]
+        raise HostLossError(
+            "cnmf-tpu injected fault: hostloss (context=%s, lost=%s, "
+            "count=%s) — a mesh participant died"
+            % (context, lost or "last-%d" % int(params.get("count", 1)),
+               params.get("count", 1)),
+            lost=lost, count=int(params.get("count", 1)))
 
 
 def maybe_straggle(context=None, worker=None) -> float:

@@ -107,6 +107,24 @@ KNOBS = {
                            "the telemetry (default 0)",
     "CNMF_TPU_PERF_GATE_BAND": "relative band a bench metric must move past "
                                "before benchdiff calls it (default 0.6)",
+    # the multi-device layer (parallel/mesh.py, parallel/multihost.py,
+    # parallel/grid2d.py, runtime/elastic.py, launcher.py), the JAX text
+    "CNMF_TPU_GRID_OVERLAP": "compute-overlapped grid collectives (MPI-FAUN): each statistics block's psum dispatches while the next block's local gemm computes; `0` serializes reduce→gemm with a barrier — results are bit-identical either way, only scheduling freedom differs",
+    "CNMF_TPU_GRID_BLOCKS": "statistics sub-blocks per overlapped reduction on the (cells × genes) grid (clamped to a divisor of the local rows/cols); `0` derives 4 blocks when the tile affords them, `1` disables blocking (one psum per statistic)",
+    "CNMF_TPU_GRID_SHAPE": "pin the (cells × genes) grid factorization as `CxG` (e.g. `4x2`); `auto` lays cells across hosts / genes within a host on pods (the O(rows·k) reductions stay on ICI, only k×g/k×k crosses DCN) and factors most-square single-host",
+    "CNMF_TPU_BARRIER_TIMEOUT_S": "cross-host barrier watchdog: a barrier a dead host can never join raises `HostBarrierTimeout` (clean abort; relaunch resumes from checkpoints) instead of a distributed hang",
+    "CNMF_TPU_WORKER_TIMEOUT": "per-worker wall timeout in seconds for the subprocess launcher engine; an over-budget worker is killed (and respawned, below)",
+    "CNMF_TPU_WORKER_RESPAWNS": "how many times the launcher respawns a dead/timed-out worker onto its unfinished ledger shard (`--skip-completed-runs`) before falling back to skip-missing combine",
+    "CNMF_TPU_WORKER_BACKOFF_S": "respawn backoff base: attempt N waits `base * 2^(N-1)` seconds",
+    "CNMF_TPU_ELASTIC": "elastic degraded-mode execution: after a host/device loss the rowshard and 2-D factorize paths re-plan a smaller mesh over the surviving devices, re-stage X, and resume in-flight replicates from their pass checkpoints; the launcher additionally lets the idle fleet adopt a dead or straggling worker's shard (work-stealing). `0` restores abort-and-relaunch",
+    "CNMF_TPU_HEARTBEAT_S": "mesh-participant liveness interval: each process/worker stamps an atomic heartbeat file (pass cursor included) at pass/stage boundaries; barrier timeouts and straggler containment then name the silent culprit (index, last-beat age, pass) instead of a generic timeout. A peer is presumed dead after 3x this interval",
+    "CNMF_TPU_STRAGGLER_S": "launcher straggler grace (elastic layer; needs `CNMF_TPU_HEARTBEAT_S` — conviction is evidence-based): a worker whose run exceeds the longest clean finisher's wall time by this many seconds AND whose heartbeat is stale (older than max(grace, 3× heartbeat interval)) is killed and its shard adopted by the fleet — containment before a slow shard wedges the sweep. Clocks start at each process's own spawn, so adoptions redoing a full shard get a full allowance; a worker stamping liveness on schedule is never convicted",
+    "CNMF_TPU_MIN_DEVICES": "degraded-mesh floor: elastic continuation refuses to shrink below this many surviving devices and re-raises the loss (clean, checkpoint-resumable abort) instead",
+    "CNMF_COORDINATOR_ADDRESS": "multi-host pod coordinate: coordinator `host:port` (set all three together)",
+    "CNMF_NUM_PROCESSES": "multi-host pod coordinate: total process count (set all three together)",
+    "CNMF_PROCESS_ID": "multi-host pod coordinate: this process's id (set all three together)",
+    "CNMF_SIM_CPU_DEVICES": "simulate an N-device CPU pod host (launcher/tests)",
+
 }
 
 

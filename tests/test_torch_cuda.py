@@ -700,3 +700,54 @@ def test_a_perf_model_event_on_the_kernels_lane(cuda_device, tmp_path,
     assert roof["peak_source"] == "datasheet" and not roof["perf_exempt"]
     assert costmodel.device_peaks(cuda_device)["source"] == "datasheet"
     assert 0 < roof["mfu"] <= 1.05 and 0 < roof["bw_frac"] <= 1.05
+
+
+def test_a_two_shard_mesh_on_the_card_matches_the_cpu_mesh(cuda_device):
+    """The row-sharded ELL solve over a 2-shard cells mesh on the card (the
+    kernels launched on every shard: ``w_numer`` and ``beta_err_partials``
+    once a shard and pass) against the same 2-shard mesh of CPU entries
+    (the plain versions): objective and W within ``rtol 1e-4`` after 8
+    passes."""
+    from cnmf_torch_tpu_torch.ops.nmf import random_init
+    from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+    from cnmf_torch_tpu_torch.parallel.rowshard import nmf_fit_rowsharded
+
+    X, _ = _atlas_ell(20_000, 400, 0.05, 23, "cpu")
+    init = tuple(t.numpy() for t in random_init(
+        4, 20_000, 400, 6, float(X.sum()) / (20_000 * 400)))
+    kl_ell.reset_launches()
+    payloads = []
+    card = nmf_fit_rowsharded(X, 6, beta_loss="kullback-leibler", n_passes=8,
+                              init_factors=init,
+                              mesh=Mesh([cuda_device] * 2, ("cells",)),
+                              telemetry_sink=payloads.append)
+    passes = int(payloads[0]["iters"][0])
+    assert kl_ell.launches["w_numer"] == 2 * passes
+    assert kl_ell.launches["beta_err_partials"] == 2 * passes
+    assert kl_ell.launches["h_stats"] >= 2 * passes
+    cpu = nmf_fit_rowsharded(X, 6, beta_loss="kullback-leibler", n_passes=8,
+                             init_factors=init,
+                             mesh=Mesh(["cpu"] * 2, ("cells",)))
+    assert abs(card[2] - cpu[2]) / cpu[2] < 1e-4
+    assert (np.abs(card[1] - cpu[1]).max() / np.abs(cpu[1]).max()) < 1e-4
+
+
+def test_a_shard_on_the_second_card_stays_there(cuda_device):
+    """The kernel binding launches on the tensors' card, whatever card is
+    current: a shard on ``cuda:1`` with ``cuda:0`` current gives the plain
+    version's result on ``cuda:1``. Needs two cards; skips on one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (a launch on cuda:1 with cuda:0 "
+                    "current)")
+    x, H, W = edge_inputs(300, 200, 9, 1, 0.06, 1, "cpu")
+    second = torch.device("cuda", 1)
+    xs = x.to(second)
+    with torch.cuda.device(0):
+        got = kl_ell.h_stats(xs.vals, xs.cols, H.to(second), W.to(second))
+        numer = kl_ell.w_numer(xs.vals, xs.cols, xs.rows_t, xs.perm_t,
+                               H.to(second), W.to(second))
+        torch.cuda.synchronize(second)
+    assert got.device == second and numer.device == second
+    _close(got, kl_ell.h_stats_plain(x.vals, x.cols, H, W), 2e-5)
+    _close(numer, kl_ell.w_numer_plain(x.vals, x.cols, x.rows_t, x.perm_t,
+                                       H, W), 2e-5)

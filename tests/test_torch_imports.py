@@ -48,6 +48,16 @@ obj.prepare(fn, components=[3], n_iter=4, seed=1, num_highvar_genes=40,
 obj.factorize()
 obj.factorize(skip_completed_runs=True)
 obj.factorize(batched=False)
+# the multi-device layer on meshes of CPU entries
+from cnmf_torch_tpu_torch import launcher
+from cnmf_torch_tpu_torch.parallel.grid2d import mesh_grid2d
+from cnmf_torch_tpu_torch.parallel.mesh import Mesh
+from cnmf_torch_tpu_torch.parallel.multihost import mesh_2d
+from cnmf_torch_tpu_torch.runtime import elastic
+obj.factorize(rowshard=True, mesh=Mesh(["cpu"] * 2, ("cells",)))
+obj.factorize(mesh=mesh_2d(devices=["cpu"] * 4))
+obj.factorize(mesh=mesh_grid2d(2, 2, devices=["cpu"] * 4))
+assert obj.factorize_info["mode"] == "grid2d"
 from cnmf_torch_tpu_torch.runtime import faults, resilience
 from cnmf_torch_tpu_torch.ops import sketch
 assert resilience.derive_retry_seed(5, 1) == 4
@@ -140,7 +150,8 @@ def _imported_roots(path):
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "multicard_check.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -154,7 +165,9 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "obs/slo.py", "utils/storebackend.py",
                  "utils/shardstore.py", "runtime/checkpoint.py",
                  "parallel/streaming.py", "parallel/rowshard.py",
-                 "utils/netstore.py", "obs/costmodel.py", "obs/regress.py"]
+                 "utils/netstore.py", "obs/costmodel.py", "obs/regress.py",
+                 "parallel/mesh.py", "parallel/multihost.py",
+                 "parallel/grid2d.py", "runtime/elastic.py", "launcher.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

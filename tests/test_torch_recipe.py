@@ -126,6 +126,15 @@ def test_auto_inner_repeats_and_sketch_rows_match_jax(clean_env):
         assert trec.auto_sketch_rows(n) == jrec.auto_sketch_rows(n)
 
 
+MULTI_DEVICE_KNOBS = (
+    "CNMF_TPU_GRID_OVERLAP", "CNMF_TPU_GRID_BLOCKS", "CNMF_TPU_GRID_SHAPE",
+    "CNMF_TPU_BARRIER_TIMEOUT_S", "CNMF_TPU_WORKER_TIMEOUT",
+    "CNMF_TPU_WORKER_RESPAWNS", "CNMF_TPU_WORKER_BACKOFF_S",
+    "CNMF_TPU_ELASTIC", "CNMF_TPU_HEARTBEAT_S", "CNMF_TPU_STRAGGLER_S",
+    "CNMF_TPU_MIN_DEVICES", "CNMF_COORDINATOR_ADDRESS",
+    "CNMF_NUM_PROCESSES", "CNMF_PROCESS_ID", "CNMF_SIM_CPU_DEVICES")
+
+
 def test_the_port_reads_no_unregistered_knob():
     from cnmf_torch_tpu_torch.utils import envknobs
 
@@ -138,7 +147,8 @@ def test_the_port_reads_no_unregistered_knob():
     # out-of-core layer's of tests/test_torch_shardstore.py,
     # test_torch_streaming.py and test_torch_checkpoint.py, and the
     # remote store's and the cost model's of tests/test_torch_remote.py
-    # and test_torch_regress.py
+    # and test_torch_regress.py, and the multi-device layer's of
+    # tests/test_torch_elastic.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -158,4 +168,5 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_STORE_BACKOFF_S", "CNMF_TPU_STORE_TIMEOUT_S",
                          "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
                          "CNMF_TPU_PERF_MODEL",
-                         "CNMF_TPU_PERF_GATE_BAND"} == set(envknobs.KNOBS)
+                         "CNMF_TPU_PERF_GATE_BAND"} | set(
+        MULTI_DEVICE_KNOBS) == set(envknobs.KNOBS)

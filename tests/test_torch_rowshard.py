@@ -55,6 +55,7 @@ from cnmf_torch_tpu_torch.models import cnmf as tmodel
 from cnmf_torch_tpu_torch.ops import nmf as tnmf
 from cnmf_torch_tpu_torch.ops.recipe import SolverRecipe
 from cnmf_torch_tpu_torch.parallel import rowshard as trs
+from cnmf_torch_tpu_torch.parallel.mesh import Mesh as TMesh
 from cnmf_torch_tpu_torch.utils import shardstore as tss
 
 RTOL = 1e-4
@@ -232,8 +233,9 @@ def test_unsupported_losses_and_layouts_raise():
     with pytest.raises(ValueError, match="requires beta=1"):
         trs.nmf_fit_rowsharded(X, 3, recipe=SolverRecipe("dna", 1, True),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trs._psum(torch.ones(2), group=object())
+    with pytest.raises(ValueError, match="multiple of the mesh axis"):
+        trs.stream_rows_to_mesh(X, TMesh(["cpu"] * 3, ("cells",)),
+                                pad_multiple=4)
 
 
 # ---------------------------------------------------------------------------
@@ -688,8 +690,12 @@ def test_the_auto_rule_and_its_overrides(small_run, kw, mode):
 
 @pytest.mark.parametrize("shape", ["2d", "grid2d", "grid"])
 def test_the_multi_device_layouts_raise(small_run, shape):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        small_run.factorize(mesh_shape=shape)
+    """The multi-device layouts run (tests/test_torch_multihost.py,
+    test_torch_grid2d.py); a request that names two layouts raises before
+    any file is read, as in the JAX package."""
+    other = "grid2d" if shape == "2d" else "2d"
+    with pytest.raises(ValueError, match="conflicting execution layouts"):
+        small_run.factorize(mesh_shape=shape, mesh=other)
 
 
 def test_an_unknown_layout_raises(small_run):
