@@ -142,7 +142,7 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    files phase 3's bytes); and
    that each stage event's wall is within 10% + 50 ms of this script's
    synchronized wall of the same call. Then the same factorize with the
-   knobs off and on in turns (off, on, on, off, three times; logged, no
+   knobs off and on in turns (off, on, on, off, twice; logged, no
    gate), and
    one factorize at K=9 under
    ``CNMF_TPU_PROFILE_DIR``, whose Chrome trace must name
@@ -227,6 +227,36 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     processes on a gloo group, within ``1e-5`` of one process; (g)
     ``run_parallel --engine subprocess`` with two workers, within ``1e-4``
     of one.
+12. Serving and the fleet (``serving/``, plain torch: the serve path
+    launches no kernel of ours), each sub-phase with its own launch
+    counts. (a) ``ServeDaemon`` over phase 3's k=9 consensus reference
+    (KL, chunks of 5,000, the run's inner cap) on a unix socket,
+    ``max_batch`` 8, linger 2 ms: 64 requests of 33, 256, 1,000, 5,000
+    and 7,500 rows (two lanes) of phase 3's normalized HVG counts, dense
+    f32 on the ``b64`` wire, from 8 client threads and 4 tenants, each
+    reply within ``rtol 1e-5`` of the port's solo ``fit_h`` on the card
+    from the same default init (the bit-identical replies counted); at
+    least one batch of more than one request; no cold dispatch after the
+    eager warmup; 8 repeats warm-started and within ``1e-5`` of a solo fit
+    from the previous usage; a NaN request graded poison while the good
+    requests sent with it match solo, its tenant quarantined (403) after
+    the third strike; the events valid, ``report``'s serving section and
+    the ``serve`` ``perf_model`` event (priced at the iteration cap,
+    logged). It prints the warmup wall, the solve ms of every (lanes,
+    rows) bucket (lanes 1-8 x rows 64-5,000), the client p50/p95/p99,
+    requests and cells a second, mean lanes a batch and the peak memory.
+    (b) Phase 5's Frobenius reference (``W W^T`` resident): 16 requests
+    under the same gates. (c) ``python -m cnmf_torch_tpu_torch fleet``
+    over phase 3's run, two ``serve`` subprocesses on the card, 4 tenants
+    of load; a ``replicadeath`` clause kills replica 0, which respawns;
+    then ``/rollover`` to phase 4's k=9 consensus spectra; then a poison
+    tenant: no request fails outside it, every reply is within ``1e-5`` of
+    the solo refit against the reference its generation names (and not
+    the other's), the ``replica_death``, ``failover`` and ``rollover``
+    events are there, the poison tenant is refused at the router (403),
+    and a clean shutdown leaves no replica alive. It prints the failover
+    gap, the respawn and rollover walls and the p99 before, during and
+    after.
 
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
@@ -2061,16 +2091,16 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
     log(f"phase 8: {len(theirs)} artifacts byte-identical to phase 3's")
 
     # the same factorize with the telemetry knobs off and on, in turns:
-    # six pairs, each side first in three
+    # four pairs, each side first in two
     turns = {"off": [], "on": []}
-    for state in ("off", "on", "on", "off") * 3:
+    for state in ("off", "on", "on", "off") * 2:
         env = {key: ("1" if state == "on" else "0")
                for key in TELEMETRY_KNOBS}
         with knobs(**env):
             stages.run(f"factorize telemetry {state}", obj.factorize)
         turns[state].append(stages.rows[-1][1])
     log(f"phase 8: factorize with the telemetry knobs off {turns['off']} "
-        f"s, on {turns['on']} s (turns off, on, on, off, three times); "
+        f"s, on {turns['on']} s (turns off, on, on, off, twice); "
         f"medians off {statistics.median(turns['off']):.4f} s, on "
         f"{statistics.median(turns['on']):.4f} s")
 
@@ -3544,6 +3574,572 @@ def phase11(stages, counts_fn, Xn, atlas, rows) -> dict:
     return out
 
 
+# -- phase 12: serving and the fleet -------------------------------------------
+
+SERVE_SIZES = [33, 256, 1_000, 5_000, 7_500]   # 7,500 rows is two lanes
+SERVE_REQUESTS = 64
+SERVE_THREADS = 8
+SERVE_TENANTS = 4
+SERVE_BATCH = 8
+SERVE_LINGER_MS = 2.0
+SERVE_REPEATS = 8
+SERVE_B2_REQUESTS = 16
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6
+SERVE_BUCKET_LANES = [1, 2, 4, 8]
+SERVE_BUCKET_ROWS = [64, 256, 1_024, 5_000]
+FLEET_SIZES = [33, 256, 1_000]
+FLEET_QUERIES = 12
+FLEET_TENANTS = 4
+FLEET_HEALTH_S = 0.25
+FLEET_DEATH_AFTER = 8          # supervision ticks of slot 0 before its kill
+# a replica took 13.8 s to respawn and two 18.8 s to warm for a rollover
+# on an H100 at 700 W: about four times that
+FLEET_WARM_TIMEOUT_S = 80.0
+FLEET_DEADLINE_S = 150.0
+
+
+def serve_rows(Xn, n: int, i: int) -> np.ndarray:
+    """Request ``i`` of ``n`` rows: a dense f32 window of phase 3's
+    normalized HVG counts, starting at a row that moves with ``i``."""
+    lo = (i * 997) % (Xn.shape[0] - n + 1)
+    return np.asarray(Xn[lo:lo + n].toarray(), dtype=np.float32)
+
+
+def serve_solo(ref, X, H_init=None):
+    """The port's solo refit on the card: ``cNMF.refit_usage``'s
+    ``fit_h`` with the reference's parameters, from the same default
+    init (or ``H_init``)."""
+    from cnmf_torch_tpu_torch.ops.nmf import fit_h
+
+    return fit_h(X, ref.W, H_init=H_init, chunk_size=ref.chunk_size,
+                 chunk_max_iter=ref.chunk_max_iter, h_tol=ref.h_tol,
+                 l1_reg_H=ref.l1_H, l2_reg_H=0.0, beta=ref.beta,
+                 device=CARD)
+
+
+def solo_gap(H, want, label) -> float:
+    """Max relative gap of a reply to its solo refit; fails outside
+    ``SERVE_RTOL``/``SERVE_ATOL``."""
+    diff = np.abs(H - want)
+    bad = diff > SERVE_ATOL + SERVE_RTOL * np.abs(want)
+    check(H.shape == want.shape and not bad.any(),
+          f"{label}: {int(bad.sum())} of {want.size} usage entries outside "
+          f"rtol {SERVE_RTOL} of solo fit_h (max diff {float(diff.max())})")
+    return float((diff / (np.abs(want) + SERVE_ATOL)).max())
+
+
+def _threads(fns, timeout=120.0):
+    threads = [__import__("threading").Thread(target=f) for f in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        check(not t.is_alive(), "a client thread passed its deadline")
+
+
+def bucket_times(ref, Xn) -> dict:
+    """The batched program's solve time at every ``(lanes, rows)`` bucket
+    of the daemon, on rows of phase 3's counts (CUDA events, median of 5
+    after one warm call)."""
+    from cnmf_torch_tpu_torch.ops.nmf import fit_h_default_init
+    from cnmf_torch_tpu_torch.serving.batcher import batched_project
+
+    init = fit_h_default_init(max(SERVE_BUCKET_ROWS), ref.k).numpy()
+    out = {}
+    for b in SERVE_BUCKET_LANES:
+        for n in SERVE_BUCKET_ROWS:
+            Xb = torch.from_numpy(np.stack(
+                [serve_rows(Xn, n, 31 * b + i) for i in range(b)])).to(CARD)
+            Hb = torch.from_numpy(
+                np.broadcast_to(init[:n], (b, n, ref.k)).copy()).to(CARD)
+
+            def solve():
+                return batched_project(
+                    Xb, Hb, ref.Wd, ref.WWT, ref.w_colsum, ref.h_tol_dev,
+                    beta=ref.beta, max_iter=ref.chunk_max_iter,
+                    l1=ref.l1_H, l2=0.0)
+
+            out[f"{b}x{n}"] = cuda_ms(solve, iters=5, warmup=1)
+            del Xb, Hb
+    return out
+
+
+def serve_load(ref, Xn, sock, n_requests, label, events=None) -> dict:
+    """A ``ServeDaemon`` over ``ref`` on ``sock`` under ``n_requests``
+    requests from ``SERVE_THREADS`` client threads and ``SERVE_TENANTS``
+    tenants (sizes in turn, dense f32 on the b64 wire); every reply held
+    to its solo refit. Then the repeats (warm starts) and the poison
+    tenant. Returns the daemon's stats and the client-side numbers."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.serving import (PoisonError,
+                                              ProjectionService,
+                                              QuarantinedError, ServeClient,
+                                              ServeDaemon)
+
+    kl_ell.reset_launches()
+    svc = ProjectionService(ref, device=CARD, max_batch=SERVE_BATCH,
+                            linger_ms=SERVE_LINGER_MS, events=events)
+    daemon = ServeDaemon(svc, socket_path=sock)
+    t0 = time.perf_counter()
+    daemon.start()
+    start_s = time.perf_counter() - t0
+    sizes = SERVE_SIZES
+    reqs = [(f"tenant-{i % SERVE_TENANTS}", sizes[i % len(sizes)], i)
+            for i in range(n_requests)]
+    replies = [None] * n_requests
+    lat = [0.0] * n_requests
+    errors = []
+
+    def worker(w):
+        cli = ServeClient(socket_path=sock, timeout=120.0)
+        for j in range(w, n_requests, SERVE_THREADS):
+            tenant, n, i = reqs[j]
+            try:
+                t = time.perf_counter()
+                replies[j] = cli.project(serve_rows(Xn, n, i), tenant=tenant)
+                lat[j] = (time.perf_counter() - t) * 1e3
+            except Exception as exc:
+                errors.append(f"request {j}: {exc!r}")
+
+    try:
+        t_load = time.perf_counter()
+        _threads([lambda w=w: worker(w) for w in range(SERVE_THREADS)])
+        load_s = time.perf_counter() - t_load
+        check(not errors, f"{label}: {errors[:3]}")
+        gaps, identical = [], 0
+        for (tenant, n, i), (H, meta) in zip(reqs, replies):
+            want = serve_solo(ref, serve_rows(Xn, n, i))
+            gaps.append(solo_gap(H, want, f"{label} request {i} ({n} rows)"))
+            identical += int(np.array_equal(H, want))
+        multi = sum(1 for _, meta in replies if meta["batch_requests"] > 1)
+        # repeats: the same tenant sends a matrix again and is warm-started
+        cli = ServeClient(socket_path=sock, timeout=120.0)
+        warm_gaps = []
+        for j in range(SERVE_REPEATS if events is not None else 0):
+            tenant, n, i = reqs[j]
+            X = serve_rows(Xn, n, i)
+            H, meta = cli.project(X, tenant=tenant)
+            check(meta["warm_start"], f"{label}: repeat {j} not warm-started")
+            warm_gaps.append(solo_gap(
+                H, serve_solo(ref, X, H_init=replies[j][0]),
+                f"{label} warm repeat {j}"))
+        # the poison tenant: a NaN request among good ones from others
+        poison = {}
+        if events is not None:
+            bad = serve_rows(Xn, 256, 5)
+            bad[3, 7] = np.nan
+            mates = [(f"mate-{m}", serve_rows(Xn, 256, 100 + m))
+                     for m in range(3)]
+            got = {}
+
+            def send(tenant, X):
+                try:
+                    got[tenant] = ServeClient(
+                        socket_path=sock, timeout=120.0).project(
+                            X, tenant=tenant)
+                except Exception as exc:
+                    got[tenant] = exc
+
+            _threads([lambda: send("toxic", bad)]
+                     + [lambda t=t, X=X: send(t, X) for t, X in mates])
+            check(isinstance(got["toxic"], PoisonError),
+                  f"{label}: NaN request answered {got['toxic']!r}")
+            shared = 0
+            for t, X in mates:
+                H, meta = got[t]
+                solo_gap(H, serve_solo(ref, X), f"{label} {t}")
+                shared += int(meta["batch_requests"] > 1)
+            for _ in range(2):
+                try:
+                    cli.project(bad, tenant="toxic")
+                    check(False, f"{label}: a poison request was served")
+                except PoisonError:
+                    pass
+            status, body = cli._request(
+                "POST", "/project",
+                {"tenant": "toxic", "data": serve_rows(Xn, 33, 1).tolist()})
+            check(status == 403 and body["status"] == "quarantined",
+                  f"{label}: the third strike's tenant got {status} {body}")
+            try:
+                cli.project(serve_rows(Xn, 33, 2), tenant="toxic")
+                check(False, f"{label}: a quarantined tenant was served")
+            except QuarantinedError:
+                pass
+            poison = {"mates_batched_with_others": shared,
+                      "strikes_then": status}
+        stats = cli.stats()
+    finally:
+        daemon.close()
+    if events is not None:
+        svc.emit_perf_model()
+    launches = dict(kl_ell.launches)
+    check(sum(launches.values()) == 0,
+          f"{label}: the serve path launched kernels {launches}")
+    check(stats["cold_dispatches_after_warmup"] == 0,
+          f"{label}: {stats['cold_dispatches_after_warmup']} cold dispatches")
+    check(multi > 0 and stats["multi_request_batches"] > 0,
+          f"{label}: no batch held more than one request")
+    cells = sum(n for _, n, _ in reqs)
+    out = {"requests": n_requests, "threads": SERVE_THREADS,
+           "tenants": SERVE_TENANTS, "sizes": list(sizes),
+           "daemon_start_s": start_s, "warmup_s": stats["warmup_s"],
+           "load_s": load_s, "requests_per_s": n_requests / load_s,
+           "cells_per_s": cells / load_s,
+           "client_ms": {"p50": float(np.percentile(lat, 50)),
+                         "p95": float(np.percentile(lat, 95)),
+                         "p99": float(np.percentile(lat, 99))},
+           "daemon_latency_ms": stats["latency_ms"],
+           "batches": stats["batches"], "mean_lanes": stats["mean_lanes"],
+           "max_lanes": stats["max_lanes"],
+           "multi_request_batches": stats["multi_request_batches"],
+           "replies_batched_with_others": multi,
+           "bit_identical_to_solo": identical,
+           "max_rel_gap_to_solo": max(gaps),
+           "warm_started": stats["warm_started"],
+           "max_rel_gap_warm": max(warm_gaps) if warm_gaps else None,
+           "poison": poison, "launches": launches}
+    log(f"{label}: {n_requests} requests in {load_s:.3f} s "
+        f"({out['requests_per_s']:.1f} requests/s, "
+        f"{out['cells_per_s']:.0f} cells/s); client p50/p95/p99 "
+        f"{out['client_ms']['p50']:.2f}/{out['client_ms']['p95']:.2f}/"
+        f"{out['client_ms']['p99']:.2f} ms (in the daemon "
+        f"{stats['latency_ms'].get('p50', 0):.2f}/"
+        f"{stats['latency_ms'].get('p99', 0):.2f}); {stats['batches']} "
+        f"batches, "
+        f"mean lanes {stats['mean_lanes']}, {stats['multi_request_batches']}"
+        f" with more than one request; warmup {stats['warmup_s']:.3f} s; "
+        f"{identical}/{n_requests} replies bit-identical to solo, max "
+        f"relative gap {max(gaps):.3g}")
+    return out
+
+
+def serve_phase(stages, Xn) -> dict:
+    """12a: the daemon over phase 3's k=9 consensus reference (KL) under
+    load, its events and report; the bucket times."""
+    from cnmf_torch_tpu_torch.serving import load_reference
+    from cnmf_torch_tpu_torch.utils.telemetry import (EventLog, read_events,
+                                                      render_report,
+                                                      validate_events_file)
+
+    run = os.path.join(OUT, "serve12")
+    os.makedirs(os.path.join(run, "cnmf_tmp"), exist_ok=True)
+    ref = load_reference(os.path.join(OUT, "pipeline"), k=CONSENSUS_K,
+                         density_threshold=0.5)
+    check((ref.beta, ref.k, ref.n_genes, ref.chunk_size)
+          == (1.0, CONSENSUS_K, Xn.shape[1], CHUNK),
+          f"12a reference {ref.describe()}")
+    with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_PERF_MODEL="1"):
+        ev_path = os.path.join(run, "cnmf_tmp", "serve12.events.jsonl")
+        events = EventLog(ev_path, manifest_extra={"run_name": "serve12",
+                                                   "role": "serve"},
+                          device=CARD)
+        out = stages.run("serve 12a daemon under load", lambda: serve_load(
+            ref, Xn, os.path.join(OUT, "serve12.sock"), SERVE_REQUESTS,
+            "12a", events=events))
+    out["bucket_ms"] = stages.run("serve 12a bucket times",
+                                  lambda: bucket_times(ref, Xn))
+    log("12a solve ms by bucket (lanes x rows): " + ", ".join(
+        f"{key} {ms:.3f}" for key, ms in out["bucket_ms"].items()))
+    check(validate_events_file(ev_path) > 0, "12a events do not validate")
+    evs = read_events(ev_path)
+    kinds = {e["t"] for e in evs}
+    check({"manifest", "serve_request", "serve_batch", "fault"} <= kinds,
+          f"12a event kinds {sorted(kinds)}")
+    pms = [e for e in evs if e["t"] == "perf_model"]
+    check(len(pms) == 1 and pms[0]["stage"] == "serve",
+          f"12a perf_model events {pms}")
+    pred = pms[0]["predicted"]
+    check(all(np.isfinite(pred[key]) and pred[key] > 0
+              for key in ("flops", "bytes")),
+          f"12a perf_model predictions {pred}")
+    # priced at the iteration cap, so its fractions overstate the work:
+    # logged, not gated
+    out["perf_model"] = {"predicted": pred,
+                         "measured": pms[0]["measured"],
+                         "roofline": pms[0]["roofline"]}
+    log(f"12a perf_model (iteration cap priced): {out['perf_model']}")
+    report = render_report(run)
+    check("Serving (projection daemon)" in report,
+          "12a report has no serving section")
+    with open(os.path.join(OUT, "phase12_report.txt"), "w") as f:
+        f.write(report)
+    out["peak_gib"] = stages.rows[-2][2]
+    out["events"] = len(evs)
+    ref.Wd = ref.WWT = ref.w_colsum = ref.h_tol_dev = None
+    return out
+
+
+def serve_b2_phase(stages, Xn) -> dict:
+    """12b: phase 5's Frobenius k=9 consensus reference, ``W W^T``
+    resident, under the same gates."""
+    from cnmf_torch_tpu_torch.serving import load_reference
+
+    ref = load_reference(os.path.join(OUT, "frobenius"), k=CONSENSUS_K,
+                         density_threshold=0.5)
+    check(ref.beta == 2.0, f"12b reference beta {ref.beta}")
+    out = stages.run("serve 12b beta=2 daemon", lambda: serve_load(
+        ref, Xn, os.path.join(OUT, "serve12b.sock"), SERVE_B2_REQUESTS,
+        "12b"))
+    check(ref.WWT is not None and ref.WWT.shape == (1, ref.k, ref.k)
+          and ref.w_colsum is None, "12b: W W^T is not resident")
+    ref.Wd = ref.WWT = ref.h_tol_dev = None
+    return out
+
+
+def _alive(pid) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _children(pid) -> list:
+    """The live child processes of ``pid`` (from ``/proc``)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().split(")")[-1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def _stop_fleet(proc, pids):
+    """Stop a fleet started by 12c on any path: SIGTERM (the router
+    drains its replicas), then SIGKILL for the fleet and every replica
+    still alive."""
+    if proc.poll() is None:
+        kids = _children(proc.pid)
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        pids.update(kids)
+    for pid in pids:
+        if _alive(pid):
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+
+
+def _p99(vals):
+    return float(np.percentile(vals, 99)) if vals else None
+
+
+def fleet_phase(stages, Xn) -> dict:
+    """12c: ``fleet`` over phase 3's run as a subprocess (two ``serve``
+    subprocesses on the card), a ``replicadeath`` under load from four
+    tenants, a rollover to phase 4's k=9 consensus spectra, then a poison
+    tenant and a clean shutdown."""
+    import threading
+
+    from cnmf_torch_tpu_torch.serving import load_reference
+    from cnmf_torch_tpu_torch.serving.fleet import FleetClient
+    from cnmf_torch_tpu_torch.utils.telemetry import (read_events,
+                                                      validate_events_file)
+
+    run_dir = os.path.join(OUT, "pipeline")
+    v2_path = os.path.join(OUT, "batch", "cnmf_tmp",
+                           "batch.spectra.k_9.dt_0_5.consensus.df.npz")
+    refs = [load_reference(run_dir, k=CONSENSUS_K, density_threshold=0.5),
+            load_reference(run_dir, spectra_path=v2_path)]
+    check(refs[0].genes == refs[1].genes, "12c: v2 has other genes")
+    queries = [serve_rows(Xn, FLEET_SIZES[i % len(FLEET_SIZES)], 500 + i)
+               for i in range(FLEET_QUERIES)]
+    wants = [[serve_solo(r, X) for X in queries] for r in refs]
+    ev_path = os.path.join(run_dir, "cnmf_tmp", "pipeline.fleet.events.jsonl")
+    if os.path.exists(ev_path):
+        os.unlink(ev_path)
+    sock = os.path.join(OUT, "fleet12.sock")
+    env = dict(os.environ, CNMF_TPU_TELEMETRY="1",
+               CNMF_TPU_SERVE_WARM_START="0",
+               CNMF_TPU_FLEET_HEALTH_S=str(FLEET_HEALTH_S),
+               CNMF_TPU_FLEET_WARM_TIMEOUT_S=str(FLEET_WARM_TIMEOUT_S),
+               CNMF_TPU_FAULT_SPEC=f"replicadeath:context=fleet,worker=0,"
+                                   f"after={FLEET_DEATH_AFTER}",
+               PYTHONPATH=os.pathsep.join(
+                   [HERE] + ([os.environ["PYTHONPATH"]]
+                             if os.environ.get("PYTHONPATH") else [])))
+    log_f = open(os.path.join(OUT, "fleet12.log"), "wb")
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cnmf_torch_tpu_torch", "fleet", run_dir,
+         "-k", str(CONSENSUS_K), "--local-density-threshold", "0.5",
+         "--replicas", "2", "--socket", sock, "--device", CARD],
+        stdout=log_f, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+    pids, records, errors = set(), [], []
+    stop = threading.Event()
+    cli = FleetClient(socket_path=sock, timeout=120.0)
+    out = {}
+    try:
+        deadline = time.monotonic() + FLEET_DEADLINE_S
+        while True:
+            check(proc.poll() is None, "12c: the fleet exited while "
+                  "warming (build/chip_smoke/fleet12.log)")
+            try:
+                if cli.healthz()["replicas_up"] == 2:
+                    break
+            except (OSError, ValueError):
+                pass
+            check(time.monotonic() < deadline, "12c: fleet never healthy")
+            time.sleep(0.1)
+        out["fleet_start_s"] = time.perf_counter() - t_spawn
+
+        def tenant(t):
+            c = FleetClient(socket_path=sock, timeout=120.0)
+            i = t
+            while not stop.is_set():
+                j = i % FLEET_QUERIES
+                t0 = time.time()
+                try:
+                    H, meta = c.project(queries[j], tenant=f"tenant-{t}")
+                    records.append((t0, time.time(), j,
+                                    meta.get("generation"), H))
+                except Exception as exc:
+                    errors.append(f"tenant-{t} query {j}: {exc!r}")
+                i += FLEET_TENANTS
+
+        threads = [threading.Thread(target=tenant, args=(t,))
+                   for t in range(FLEET_TENANTS)]
+        for th in threads:
+            th.start()
+
+        def poll():
+            st = cli.stats()
+            pids.update(r["pid"] for r in st["replicas"]
+                        if r["pid"] is not None)
+            return st
+
+        st = poll()
+        while st["replica_deaths"] < 1:
+            check(time.monotonic() < deadline, "12c: no replica death")
+            time.sleep(0.05)
+            st = poll()
+        t_dead = time.time()
+        while not (st["replicas_up"] == 2
+                   and all(r["in_ring"] for r in st["replicas"])):
+            check(time.monotonic() < deadline, "12c: no respawn")
+            time.sleep(0.05)
+            st = poll()
+        t_back = time.time()
+        time.sleep(0.5)
+        t_roll = time.time()
+        roll = cli.rollover(v2_path)
+        t_rolled = time.time()
+        poll()
+        time.sleep(0.5)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120.0)
+            check(not th.is_alive(), "12c: a tenant passed its deadline")
+        check(not errors, f"12c: {len(errors)} failed requests: "
+              f"{errors[:3]}")
+        # every reply is one reference's solo refit, the one it names
+        by_gen = {0: 0, 1: 0}
+        gaps = []
+        for _, _, j, gen, H in records:
+            check(gen in (0, 1), f"12c: reply of generation {gen}")
+            gaps.append(solo_gap(H, wants[gen][j],
+                                 f"12c query {j} (generation {gen})"))
+            other = wants[1 - gen][j]
+            check(not np.allclose(H, other, rtol=SERVE_RTOL,
+                                  atol=SERVE_ATOL),
+                  f"12c query {j}: a reply matches both references")
+            by_gen[gen] += 1
+        check(by_gen[0] > 0 and by_gen[1] > 0,
+              f"12c replies by generation {by_gen}")
+        # the poison tenant: strikes at the router, then 403 there
+        bad = queries[0].copy()
+        bad[1, 5] = np.nan
+        codes = []
+        for _ in range(4):
+            status, body = cli._request(
+                "POST", "/project", {"tenant": "toxic", "shape":
+                                     list(bad.shape), "b64": __import__(
+                                         "base64").b64encode(bad.tobytes())
+                                     .decode("ascii")})
+            codes.append(status)
+        check(codes == [422, 422, 422, 403],
+              f"12c poison tenant answered {codes}")
+        st = poll()
+        check("toxic" in st["quarantined_tenants"],
+              "12c: the router did not quarantine the poison tenant")
+        out["replica_ready_s"] = [r["ready_s"] for r in st["replicas"]]
+        out["router_stats"] = {key: st[key] for key in (
+            "requests", "ok", "poison", "quarantined", "error", "retries",
+            "failovers", "replica_deaths", "rollovers", "generation")}
+        check(st["error"] == 0, f"12c router errors {st['error']}")
+        check(cli.shutdown(), "12c: shutdown refused")
+        check(proc.wait(timeout=120) == 0,
+              f"12c: the fleet exited {proc.returncode}")
+    finally:
+        stop.set()
+        time.sleep(0.5)
+        alive = [p for p in pids if _alive(p)]
+        _stop_fleet(proc, pids)
+        log_f.close()
+    check(not alive, f"12c: replica processes outlived the fleet: {alive}")
+    check(not os.path.exists(sock), "12c: the fleet left its socket")
+    check(validate_events_file(ev_path) > 0, "12c events do not validate")
+    evs = read_events(ev_path)
+    deaths = [e for e in evs if e["t"] == "replica_death"]
+    fails = [e for e in evs if e["t"] == "failover"]
+    rolls = [e for e in evs if e["t"] == "rollover"]
+    check(deaths and fails and rolls,
+          f"12c events: {len(deaths)} deaths, {len(fails)} failovers, "
+          f"{len(rolls)} rollovers")
+    kill_ts = deaths[0]["ts"] - deaths[0].get("since_kill_s", 0.0)
+    lat = [(t0, (t1 - t0) * 1e3) for t0, t1, *_ in records]
+    out.update(
+        replies=len(records), replies_by_generation=by_gen,
+        max_rel_gap_to_solo=max(gaps), pids=len(pids),
+        failover_gap_s=deaths[0].get("since_kill_s"),
+        respawn_wall_s=t_back - deaths[0]["ts"],
+        death_seen_s=t_dead - kill_ts,
+        rollover_wall_s=rolls[0]["wall_s"], rollover_call_s=t_rolled - t_roll,
+        p99_ms={"before": _p99([ms for t, ms in lat if t < kill_ts]),
+                "during": _p99([ms for t, ms in lat
+                                if kill_ts <= t < t_back]),
+                "after": _p99([ms for t, ms in lat if t_back <= t < t_roll]),
+                "rollover": _p99([ms for t, ms in lat
+                                  if t_roll <= t < t_rolled]),
+                "after_rollover": _p99([ms for t, ms in lat
+                                        if t >= t_rolled])},
+        poison_codes=codes, rollover=roll)
+    log(f"12c fleet: started in {out['fleet_start_s']:.2f} s; "
+        f"{len(records)} replies ({by_gen}), max relative gap to solo "
+        f"{max(gaps):.3g}; failover gap {out['failover_gap_s']} s, respawn "
+        f"wall {out['respawn_wall_s']:.2f} s, rollover wall "
+        f"{out['rollover_wall_s']} s; p99 ms {out['p99_ms']}")
+    return out
+
+
+def phase12(stages, Xn) -> dict:
+    """Serving and the fleet on the card."""
+    out = {"a": serve_phase(stages, Xn)}
+    out["b"] = serve_b2_phase(stages, Xn)
+    out["c"] = stages.run("serve 12c fleet", lambda: fleet_phase(stages,
+                                                                 Xn))
+    torch.cuda.empty_cache()
+    out["launches"] = {name: int(out["a"]["launches"].get(name, 0))
+                       + int(out["b"]["launches"].get(name, 0))
+                       for name in out["a"]["launches"]}
+    return out
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -3782,6 +4378,14 @@ def main() -> int:
         log(line)
     log(f"phase 11 kernel launches: {p11['launches']}")
 
+    # -- phase 12: serving and the fleet ------------------------------------
+    n_stages = len(stages.rows)
+    p12 = phase12(stages, Xn)
+    log(f"phase 12 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 12 kernel launches: {p12['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -3791,7 +4395,8 @@ def main() -> int:
                            + int(p8["profiled_launches"][name])
                            + int(p9["kernel_launches"][name])
                            + int(p10["launches"][name])
-                           + int(p11["launches"][name]))
+                           + int(p11["launches"][name])
+                           + int(p12["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -3802,7 +4407,7 @@ def main() -> int:
                            "phase8_profiled": p8["profiled_launches"]},
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
-              "phase10": p10, "phase11": p11,
+              "phase10": p10, "phase11": p11, "phase12": p12,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

@@ -4,7 +4,11 @@ stages, plus ``--device`` (default ``cuda``; there is no CPU fallback,
 pass ``--device cpu`` to run on the CPU), the telemetry renderers
 ``report [run_dir] [--json]`` and ``trace [run_dir]``, and
 ``benchdiff BASE NEW [--band F] [--json]``, the noise-aware comparison of
-two bench snapshots (``obs/regress.py``; exit 1 on a regression), and
+two bench snapshots (``obs/regress.py``; exit 1 on a regression),
+``serve <run_dir>`` and ``fleet <run_dir>`` (the projection daemon and the
+replicated fleet, ``serving/``; ``-k``, ``--local-density-threshold``,
+``--spectra``, ``--socket`` or ``--port``, ``--replicas``,
+``--replica-index``), and
 ``run_parallel`` (prepare -> factorize workers -> combine ->
 ``k_selection_plot``, ``launcher.py``; ``--engine subprocess|multihost``,
 ``--devices-per-host``, ``--clean``). ``factorize --mesh-2d`` runs the
@@ -47,11 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "command", type=str,
         choices=["prepare", "factorize", "combine", "consensus",
-                 "k_selection_plot", "run_parallel", "report", "trace"])
+                 "k_selection_plot", "run_parallel", "report", "trace",
+                 "serve", "fleet"])
     parser.add_argument(
         "run_dir", type=str, nargs="?", default=None,
-        help="[report|trace] Run directory ([output-dir]/[name]) whose "
-             "telemetry to render; defaults to --output-dir/--name")
+        help="[report|trace|serve|fleet] Run directory "
+             "([output-dir]/[name]) whose telemetry to render / whose "
+             "consensus reference to serve; defaults to "
+             "--output-dir/--name")
     parser.add_argument("--name", type=str, nargs="?", default="cNMF",
                         help="[all] Name for analysis. All output will be "
                              "placed in [output-dir]/[name]/...")
@@ -178,9 +185,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "sweep per K and records the packed rule's "
                              "choice in the provenance)")
     parser.add_argument("--local-density-threshold", type=float,
-                        default=0.5,
+                        default=None,
                         help="[consensus] Threshold for the local density "
-                             "filtering, >0 and <=2 (default 0.5)")
+                             "filtering, >0 and <=2 (default 0.5); "
+                             "[serve|fleet] pick the consensus artifact at "
+                             "this threshold (default: the run's only "
+                             "one)")
     parser.add_argument("--local-neighborhood-size", type=float, default=0.30,
                         help="[consensus] Fraction of the number of "
                              "replicates to use as nearest neighbors for "
@@ -189,6 +199,28 @@ def build_parser() -> argparse.ArgumentParser:
                         action=argparse.BooleanOptionalAction, default=True,
                         help="[consensus] Generate reference spectra for "
                              "use in starCAT")
+    parser.add_argument("--socket", type=str, default=None,
+                        help="[serve|fleet] Unix-socket path for the "
+                             "projection daemon / fleet router (default: "
+                             "<run_dir>/cnmf_tmp/<name>.serve.sock or "
+                             "<name>.fleet.sock)")
+    parser.add_argument("--port", type=int, default=None,
+                        help="[serve|fleet] Serve HTTP on 127.0.0.1:PORT "
+                             "instead of the unix socket")
+    parser.add_argument("--spectra", type=str, default=None,
+                        help="[serve|fleet] Explicit reference spectra: a "
+                             "consensus .df.npz artifact or a shard-store "
+                             "directory (overrides -k/--local-density-"
+                             "threshold selection)")
+    parser.add_argument("--replicas", type=int, default=None,
+                        help="[fleet] Number of serve replicas to spawn "
+                             "and route over (default: "
+                             "CNMF_TPU_FLEET_REPLICAS)")
+    parser.add_argument("--replica-index", type=int, default=0,
+                        help="[serve] Replica ordinal within a fleet "
+                             "(keys the daemon's heartbeat stamp and "
+                             "events stream so N replicas of one run "
+                             "directory never collide)")
     parser.add_argument("--json", action="store_true", default=False,
                         help="[report] Print the summary of the run's "
                              "events as JSON instead of the rendered "
@@ -205,12 +237,13 @@ def main(argv=None):
     parser = build_parser()
     # intermixed, so flags may precede or follow the optional run_dir
     args = parser.parse_intermixed_args(argv)
-    if args.command not in ("report", "trace") and args.run_dir is not None:
+    if (args.command not in ("report", "trace", "serve", "fleet")
+            and args.run_dir is not None):
         # a stray positional (e.g. `consensus 9` meaning `-k 9`) fails
         # fast instead of being swallowed
         parser.error(f"unrecognized argument: {args.run_dir!r} (a "
-                     "positional run directory applies to 'report' and "
-                     "'trace' only)")
+                     "positional run directory applies to 'report', "
+                     "'trace', 'serve' and 'fleet' only)")
     if args.command in ("report", "trace"):
         run_dir = args.run_dir or os.path.join(args.output_dir, args.name)
         if not os.path.isdir(run_dir):
@@ -233,6 +266,8 @@ def main(argv=None):
         os.environ[STORE_URI_ENV] = args.store_uri
         resolve_backend(os.path.join(args.output_dir, args.name))
 
+    if args.command in ("serve", "fleet"):
+        raise SystemExit(_serve(parser, args))
     if args.command == "run_parallel":
         return _run_parallel(parser, args)
     if args.command == "factorize" and (
@@ -278,11 +313,41 @@ def main(argv=None):
     elif args.command == "consensus":
         ks = args.components or obj.ledger_components()
         for k in ks:
-            obj.consensus(int(k), args.local_density_threshold,
+            obj.consensus(int(k), 0.5 if args.local_density_threshold
+                          is None else args.local_density_threshold,
                           args.local_neighborhood_size,
                           build_ref=args.build_reference)
     elif args.command == "k_selection_plot":
         obj.k_selection_plot(close_fig=True)
+
+
+def _serve(parser, args) -> int:
+    """``serve`` (one projection daemon over the run's consensus
+    reference) or ``fleet`` (N serve replicas behind the router), until
+    SIGINT/SIGTERM. The reference is picked by ``-k`` and
+    ``--local-density-threshold`` only when given, or by ``--spectra``;
+    a missing or ambiguous reference is a usage error."""
+    cmd = args.command
+    run_dir = args.run_dir or os.path.join(args.output_dir, args.name)
+    if not os.path.isdir(run_dir):
+        parser.error(f"{cmd}: run directory not found: {run_dir}")
+    if args.socket is not None and args.port is not None:
+        parser.error(f"{cmd}: pass --socket or --port, not both")
+    if cmd == "fleet" and args.replicas is not None and args.replicas < 1:
+        parser.error("fleet: --replicas must be >= 1")
+    from .serving import ReferenceError, fleet_forever, serve_forever
+
+    k = args.components[0] if args.components else None
+    common = dict(k=k, density_threshold=args.local_density_threshold,
+                  spectra_path=args.spectra, socket_path=args.socket,
+                  port=args.port, device=args.device)
+    try:
+        if cmd == "serve":
+            return serve_forever(run_dir, replica=args.replica_index,
+                                 **common)
+        return fleet_forever(run_dir, replicas=args.replicas, **common)
+    except ReferenceError as exc:
+        parser.error(f"{cmd}: {exc}")
 
 
 def _run_parallel(parser, args) -> None:

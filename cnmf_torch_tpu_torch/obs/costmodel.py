@@ -23,10 +23,12 @@ the bound verdict. Peaks come from :data:`CHIP_PEAKS`, keyed by
 ``torch.cuda.get_device_name()``; any other device gets a nominal CPU
 envelope and ``perf_exempt``, so its verdict renders but never gates.
 
-Not here yet: the 2-D grid lane (``lane_cost("grid2d")``) comes with the
-multi-device slice, ``plan_cost`` with the planner and
-``serve_project_cost`` with serving; the JAX package's ``xla_cost`` has
-no counterpart (torch has no compiled cost analysis that reports bytes).
+:func:`serve_project_cost` prices one batched dispatch of the serving
+tier (``serving/batcher.py``) with the JAX package's formula.
+
+Not here yet: ``plan_cost`` comes with the planner; the JAX package's
+``xla_cost`` has no counterpart (torch has no compiled cost analysis that
+reports bytes).
 
 Host arithmetic only: with ``CNMF_TPU_PERF_MODEL`` unset nothing here
 runs, and with it set no launch or artifact changes.
@@ -37,7 +39,8 @@ from __future__ import annotations
 import math
 
 __all__ = ["CHIP_PEAKS", "PERF_MODEL_ENV", "chip_peaks", "lane_cost",
-           "roofline", "perf_model_enabled", "device_peaks"]
+           "roofline", "perf_model_enabled", "device_peaks",
+           "serve_project_cost"]
 
 PERF_MODEL_ENV = "CNMF_TPU_PERF_MODEL"
 
@@ -130,6 +133,31 @@ def lane_cost(lane: str, n: int, g: int, k: int, *, beta: float = 1.0,
                           bundled=(lane == "bundled"))
     c["lane"] = lane
     return c
+
+
+def serve_project_cost(b: int, n: int, g: int, k: int, *,
+                       beta: float = 2.0, iters: int = 1) -> dict:
+    """Cost of one batched serve dispatch: an H-only fit on a padded
+    ``(b, n, g)`` lane stack with the reference Gram resident (beta=2) or
+    the ratio chain (beta=1), times ``iters`` inner iterations. Serving
+    prices the iteration cap (the lanes' trip counts are not read back),
+    so events built on this carry ``iters_assumed_cap``."""
+    b, n, g, k, iters = int(b), int(n), int(g), int(k), max(int(iters), 1)
+    if b <= 0 or n <= 0 or g <= 0 or k <= 0:
+        return {"flops": 0.0, "bytes": 0.0, "lane": "serve-project",
+                "degenerate": True}
+    f = 4.0
+    if beta == 2.0:
+        flops = b * (2 * n * g * k + 2 * n * k * k + 3 * n * k)
+        bytes_ = b * ((n * g + k * g + n * k) * f
+                      + (n * k + k * k + n * k) * f
+                      + 4 * n * k * f)
+    else:
+        flops = b * (4 * n * g * k + 2 * n * g + k * (g - 1) + 3 * n * k)
+        bytes_ = b * ((n * k + k * g + n * g) * f + 3 * n * g * f
+                      + (n * g + k * g + n * k) * f + 4 * n * k * f)
+    return {"flops": float(flops * iters), "bytes": float(bytes_ * iters),
+            "lane": "serve-project"}
 
 
 def roofline(flops: float, nbytes: float, wall_s: float,

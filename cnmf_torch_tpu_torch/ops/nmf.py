@@ -266,10 +266,12 @@ def _bf16_eps(t):
 
 
 def _update_H(X, H, W, beta: float, l1: float, l2: float,
-              bf16_ratio: bool = False):
+              bf16_ratio: bool = False, w_colsum=None):
     """One MU step of the usages. ``X`` is a dense ``(n, g)`` tensor or an
     :class:`EllMatrix` (beta in {1, 0}); bf16 mode expects ``X`` already
-    cast (the solvers cast once per chunk)."""
+    cast (the solvers cast once per chunk). ``w_colsum`` (dense beta=1):
+    the resident ``W.sum(-1)`` of a fixed W (the serving reference), the
+    same reduction this step would run, so the same bits."""
     if isinstance(X, EllMatrix):
         if beta == 1.0:
             numer, denom = kl_ell.kl_h_stats(X, H, W, bf16_ratio)
@@ -290,7 +292,8 @@ def _update_H(X, H, W, beta: float, l1: float, l2: float,
         denom = W.sum(-1)[:, None, :].expand(H.shape)
     elif beta == 1.0:
         numer = (X / torch.clamp_min(H @ W, EPS)) @ W.mT
-        denom = W.sum(-1)[:, None, :].expand(H.shape)
+        colsum = W.sum(-1) if w_colsum is None else w_colsum
+        denom = colsum[:, None, :].expand(H.shape)
     elif beta == 0.0 and bf16_ratio:
         wb = W.to(torch.bfloat16)
         wh = H.to(torch.bfloat16) @ wb
@@ -452,33 +455,42 @@ def _lane_tensor(v, R, device):
 
 
 def _masked_loop(M, step, max_iter: int, tol, active,
-                 return_count: bool = False):
+                 return_count: bool = False, return_resid: bool = False):
     """Iterate ``M <- step(M)`` per lane until the lane's relative change
     drops below ``tol`` or it has run ``max_iter`` steps (the semantics of
     the JAX ``while_loop``s under ``vmap``); with ``return_count`` also
-    the steps each lane took, ``(R,)`` int32."""
+    the steps each lane took, ``(R,)`` int32; with ``return_resid``
+    (instead) each lane's relative change at its last step, ``(R,)`` f32
+    (inf for a lane that took none), the JAX loop's final ``rel``."""
     R = M.shape[0]
     M = M.contiguous()      # a chunk's block of (R, C, chunk, k) is strided
     tol = _lane_tensor(tol, R, M.device)
     active = (torch.ones(R, dtype=torch.bool, device=M.device)
               if active is None else active.clone())
     it = torch.zeros(R, dtype=torch.int32, device=M.device)
+    resid = (torch.full((R,), float("inf"), device=M.device)
+             if return_resid else None)
     steps = 0
     while steps < max_iter:
         M_new = step(M)
         rel = _rel_change(M_new, M)
         M = torch.where(active[:, None, None], M_new, M)
+        if return_resid:
+            resid = torch.where(active, rel, resid)
         it = it + active.to(torch.int32)
         active = active & (it < max_iter) & (rel >= tol)
         steps += 1
         if steps % EVAL_EVERY == 0 and not bool(active.any()):
             break
+    if return_resid:
+        return M, resid
     return (M, it) if return_count else M
 
 
 def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
                    bf16_ratio: bool = False, active=None, x_cast=None,
-                   kl_newton: bool = False, row_block: int = 0):
+                   kl_newton: bool = False, row_block: int = 0,
+                   w_colsum=None, return_resid: bool = False):
     """Inner MU loop on one chunk's usage block with W fixed; for beta=2
     the numerator ``x @ W.T`` is precomputed once. ``kl_newton`` (beta=1,
     the dna recipe): each inner step is a Diagonalized-Newton H step with
@@ -487,7 +499,13 @@ def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
     ``row_block`` (a dense ``x`` with beta != 2): each step runs over row
     blocks of at most this many rows, so its ``(rows, genes)`` temporaries
     (WH, the ratio) stay block-sized; the rows are independent and the
-    stopping rule still reads the whole block."""
+    stopping rule still reads the whole block.
+
+    The serving program's two extras: ``w_colsum`` (dense beta=1) is the
+    resident ``W.sum(-1)`` the MU denominator would compute each step, and
+    ``return_resid`` returns ``(h, rel)`` with each lane's last relative
+    change, the per-lane health signal (a nonfinite lane stops on its
+    first NaN comparison with ``rel`` nonfinite)."""
     if kl_newton and beta == 1.0:
         xs = x
 
@@ -503,13 +521,15 @@ def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
             rate = torch.where(denom < EPS, torch.zeros_like(denom),
                                numer0 / torch.clamp_min(denom, EPS))
             return hh * rate
-        return _masked_loop(h, step, max_iter, h_tol, active)
+        return _masked_loop(h, step, max_iter, h_tol, active,
+                            return_resid=return_resid)
     else:
         bf16 = bool(bf16_ratio) and beta in (1.0, 0.0)
         xs = _cast_x(x, bf16) if x_cast is None else x_cast
 
         def step_on(xb, hh):
-            return _update_H(xb, hh, W, beta, l1, l2, bf16_ratio=bf16)
+            return _update_H(xb, hh, W, beta, l1, l2, bf16_ratio=bf16,
+                             w_colsum=w_colsum)
     n = int(xs.shape[-2]) if not isinstance(xs, EllMatrix) else 0
     if row_block and n > row_block:
         spans = _row_spans(n, row_block)
@@ -520,7 +540,8 @@ def _chunk_h_solve(x, h, W, WWT, beta, l1, l2, max_iter, h_tol,
     else:
         def step(hh):
             return step_on(xs, hh)
-    return _masked_loop(h, step, max_iter, h_tol, active)
+    return _masked_loop(h, step, max_iter, h_tol, active,
+                        return_resid=return_resid)
 
 
 def _row_spans(n: int, rows: int):

@@ -27,8 +27,9 @@ calls the hooks of the layers it has:
   a pass, replicate or 2-D sweep boundary, for the elastic re-mesh
   (``runtime/elastic.py``).
 
-The serving kinds (``replicadeath``, ``replicawedge``) parse here, and
-their hooks wait for the serving layer, not ported yet.
+* ``replicadeath``, ``replicawedge`` -- :func:`maybe_replicadeath` and
+  :func:`maybe_replicawedge` tell the fleet router's supervisor
+  (``serving/fleet.py``) to SIGKILL or SIGSTOP a serve replica.
 
 Spec grammar (semicolon-separated clauses)::
 
@@ -56,7 +57,7 @@ __all__ = ["FAULT_SPEC_ENV", "FaultClause", "parse_fault_spec",
            "active_spec", "maybe_poison_lanes", "maybe_kill", "maybe_tear",
            "maybe_fail", "maybe_straggle", "maybe_stall",
            "maybe_shard_read", "maybe_netfault", "HostLossError",
-           "maybe_hostloss"]
+           "maybe_hostloss", "maybe_replicadeath", "maybe_replicawedge"]
 
 FAULT_SPEC_ENV = "CNMF_TPU_FAULT_SPEC"
 
@@ -475,3 +476,33 @@ def maybe_netfault(op=None, context=None) -> str | None:
             "cnmf-tpu injected fault: %s (%s) — remote store unreachable"
             % (clause.kind, ctx))
     return None
+
+
+def _replica_clause_fires(kind: str, context, worker) -> bool:
+    spec = active_spec()
+    if spec is None:
+        return False
+    for clause in spec:
+        if clause.kind != kind:
+            continue
+        if _clause_fires(clause, context, worker, default_limit=1):
+            return True
+    return False
+
+
+def maybe_replicadeath(context=None, worker=None) -> bool:
+    """True when a ``replicadeath`` clause matches: a serve replica dies
+    (OOM kill, preemption, segfault). The fleet supervisor calls it once
+    per up replica per tick with ``worker`` the replica's slot and
+    SIGKILLs the subprocess when it fires, so failover and respawn run
+    against a real dead process. ``limit`` defaults to 1 (the respawned
+    replica runs clean)."""
+    return _replica_clause_fires("replicadeath", context, worker)
+
+
+def maybe_replicawedge(context=None, worker=None) -> bool:
+    """True when a ``replicawedge`` clause matches: a replica alive but
+    unresponsive. The fleet supervisor SIGSTOPs the subprocess (connects
+    succeed, replies never come, its heartbeat goes stale), the evidence
+    its wedge conviction needs. ``limit`` defaults to 1."""
+    return _replica_clause_fires("replicawedge", context, worker)

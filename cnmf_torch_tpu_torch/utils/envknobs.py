@@ -19,8 +19,9 @@ _FALSE_WORDS = ("0", "false", "off", "no")
 # lane and precision knobs of ops/sparse.py and ops/nmf.py, the sweep's
 # memory budget of parallel/replicates.py, the fault harness of
 # runtime/faults.py, the retry policy of runtime/resilience.py, the
-# telemetry base's, the store's and the cost model's knobs, with the JAX
-# package's types and defaults)
+# telemetry base's, the store's and the cost model's knobs, the
+# multi-device layer's and the serving tier's, with the JAX package's
+# types and defaults)
 KNOBS = {
     "CNMF_TPU_ACCEL": "solver acceleration: auto (default), 0 or 1",
     "CNMF_TPU_INNER_REPEATS": "amu inner repeats (auto or an integer)",
@@ -124,6 +125,24 @@ KNOBS = {
     "CNMF_NUM_PROCESSES": "multi-host pod coordinate: total process count (set all three together)",
     "CNMF_PROCESS_ID": "multi-host pod coordinate: this process's id (set all three together)",
     "CNMF_SIM_CPU_DEVICES": "simulate an N-device CPU pod host (launcher/tests)",
+    # the serving tier and the fleet (serving/), the JAX text
+    "CNMF_TPU_SERVE_BATCH": 'projection daemon (`cnmf-tpu serve`): max request lanes coalesced into one batched device dispatch; `1` disables cross-request batching (every request solves solo)',
+    "CNMF_TPU_SERVE_LINGER_MS": 'micro-batching linger: after the first queued request, the dispatcher waits up to this many milliseconds for batchmates before launching the (possibly smaller) batch; `0` dispatches immediately',
+    "CNMF_TPU_SERVE_BUCKETS": "padded-shape bucket schedule for the serve program cache: request row counts round up to the next bucket (the run's online chunk size is always appended as the top bucket) so a bounded program set serves every request shape with zero steady-state compiles",
+    "CNMF_TPU_SERVE_TIMEOUT_S": 'admission deadline: a request still undispatched this long after arrival is shed with a clear error instead of waiting behind an overloaded queue (the queue itself is bounded at 4x the batch size; arrivals beyond it shed immediately)',
+    "CNMF_TPU_SERVE_WARM_START": "serve-path usage warm starts: a repeat (tenant, matrix) projection re-solves from the tenant's previous usage matrix instead of the constant init — repeat projections converge in a fraction of the inner iterations; `0` restores the stateless solo-identical init for every request",
+    "CNMF_TPU_SERVE_DRAIN_S": "shutdown drain budget: on `POST /shutdown` (or any daemon close) the accept loop stops first, then every already-accepted request runs to its real reply for up to this many seconds before the batcher is torn down — no accepted request is lost across a clean shutdown, which is what the fleet's zero-downtime rollover drains ride",
+    "CNMF_TPU_FLEET_REPLICAS": '`cnmf-tpu fleet`: serve replicas the router spawns and fronts (also `--replicas`); each is a full `serve` daemon subprocess with its own unix socket, heartbeat file, and AOT-warmed program cache',
+    "CNMF_TPU_FLEET_HEALTH_S": 'fleet supervision cadence: every tick the router reaps dead replica processes, polls `/healthz`, reads heartbeat stamps, and runs the wedge-conviction bookkeeping',
+    "CNMF_TPU_FLEET_HEDGE_MS": 'tail hedging: when the primary replica has not replied after this many milliseconds the router launches ONE duplicate attempt (same idempotency id) on the next candidate and takes whichever answers first — bounds the p99 paid for a momentarily slow replica; `0` disables hedging',
+    "CNMF_TPU_FLEET_REPLICA_TELEMETRY": "`1` leaves telemetry ON inside fleet replica subprocesses (their per-replica events land in `<name>.r<ordinal>.events.jsonl`). Default off: the router's own event stream already carries per-request outcomes, and N replicas would otherwise multi-count `serve_request` in `cnmf-tpu report`",
+    "CNMF_TPU_FLEET_RESPAWNS": "respawn budget per replica slot: each death schedules a respawn after the launcher's deterministic exponential backoff (`CNMF_TPU_WORKER_BACKOFF_S` base) until the budget is exhausted, after which the slot stays down and its tenants remain failed over to the survivors",
+    "CNMF_TPU_FLEET_RETRIES": 'router failover retries per request on TRANSPORT errors (replica died mid-request, connect refused): the retry carries the same idempotency id to the next consistent-hash candidate, so a request that actually solved is never solved twice; replica-side verdicts (shed/poison/quarantine) pass through without retry',
+    "CNMF_TPU_FLEET_TENANT_QPS": 'per-tenant token-bucket admission rate at the router (requests/s): a tenant exceeding its bucket sheds with HTTP 429 BEFORE consuming replica queue space, so one hot tenant cannot starve the fleet; `0` disables quota admission',
+    "CNMF_TPU_FLEET_TENANT_BURST": 'token-bucket burst capacity per tenant; `0` defaults to `2x` the rate (one second of headroom on top of sustained `CNMF_TPU_FLEET_TENANT_QPS`)',
+    "CNMF_TPU_FLEET_WARM_TIMEOUT_S": 'rollover warm budget: `POST /rollover` spawns a fresh replica set against the new reference and waits up to this long for every one to answer `/healthz` before any traffic moves; on timeout (or a fresh replica dying) the new set is killed and the old generation keeps serving untouched',
+    "CNMF_TPU_FLEET_WEDGE_POLLS": 'wedge conviction threshold: a replica whose `/healthz` fails this many CONSECUTIVE ticks while its heartbeat is stale or absent is convicted as wedged (alive-but-unresponsive), SIGKILLed, and respawned — one failed poll on a busy replica never convicts',
+    "CNMF_TPU_WARM_DUMMY_BUDGET_BYTES": 'cap on dataset-sized warm-up dummy allocations (consensus/K-selection/Harmony warms)',
 
 }
 

@@ -751,3 +751,89 @@ def test_a_shard_on_the_second_card_stays_there(cuda_device):
     _close(got, kl_ell.h_stats_plain(x.vals, x.cols, H, W), 2e-5)
     _close(numer, kl_ell.w_numer_plain(x.vals, x.cols, x.rows_t, x.perm_t,
                                        H, W), 2e-5)
+
+
+def _serve_reference(beta, k=9, g=2000, seed=0):
+    from cnmf_torch_tpu_torch.serving import ResidentReference
+
+    rng = np.random.default_rng(seed)
+    W = rng.gamma(0.3, 1.0, size=(k, g)).astype(np.float32)
+    return ResidentReference(W, beta=beta, chunk_size=5000,
+                             chunk_max_iter=1000, h_tol=0.05)
+
+
+def _serve_query(ref, n, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.dirichlet(np.ones(ref.k) * 0.3, size=n)
+    X = rng.poisson(u @ ref.W * 2.0).astype(np.float32)
+    X[X.sum(axis=1) == 0, 0] = 1.0
+    return X
+
+
+@pytest.mark.parametrize("beta", [1.0, 2.0])
+def test_served_requests_on_the_card_match_solo(cuda_device, beta):
+    """Concurrent requests of 33 to 7,500 rows (two lanes) served from the
+    card, each within ``rtol 1e-5`` of the port's solo ``fit_h`` on the
+    card from the same default init; the serve path launches no CUDA
+    kernel of ours."""
+    import threading
+
+    from cnmf_torch_tpu_torch.ops.nmf import fit_h
+    from cnmf_torch_tpu_torch.serving import ProjectionService
+
+    ref = _serve_reference(beta)
+    sizes = (33, 256, 1000, 5000, 7500, 100)
+    queries = [_serve_query(ref, n, i) for i, n in enumerate(sizes)]
+    kl_ell.reset_launches()
+    results = [None] * len(queries)
+    with ProjectionService(ref, device="cuda", max_batch=8, linger_ms=50.0,
+                           warm_start=False) as svc:
+        assert ref.Wd.is_cuda and ref.h_tol_dev.is_cuda
+
+        def go(i):
+            results[i] = svc.project(queries[i], tenant=f"t{i}")
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        stats = svc.stats()
+    assert sum(kl_ell.launches.values()) == 0
+    assert stats["ok"] == len(queries)
+    assert stats["cold_dispatches_after_warmup"] == 0
+    identical = 0
+    for X, (H, meta) in zip(queries, results):
+        want = fit_h(X, ref.W, chunk_size=5000, chunk_max_iter=1000,
+                     h_tol=0.05, beta=beta, device="cuda")
+        np.testing.assert_allclose(H, want, rtol=1e-5, atol=1e-6)
+        identical += int(np.array_equal(H, want))
+    print(f"beta={beta}: {identical}/{len(queries)} replies bit-identical "
+          f"to solo fit_h on the card")
+
+
+@pytest.mark.parametrize("beta", [1.0, 2.0])
+def test_the_batched_program_on_the_card_matches_the_cpu(cuda_device, beta):
+    from cnmf_torch_tpu_torch.serving.batcher import batched_project
+
+    ref_c = _serve_reference(beta, g=800).stage("cuda")
+    ref_h = _serve_reference(beta, g=800).stage("cpu")
+    rng = np.random.default_rng(3)
+    Xb = np.zeros((4, 256, 800), np.float32)
+    Hb = np.zeros((4, 256, 9), np.float32)
+    for i, m in enumerate((256, 100, 33, 0)):
+        if m:
+            Xb[i, :m] = _serve_query(ref_h, m, 10 + i)
+            Hb[i, :m] = rng.random((m, 9), dtype=np.float32)
+    outs = []
+    for ref in (ref_c, ref_h):
+        dev = ref.device
+        H, rel = batched_project(
+            torch.from_numpy(Xb).to(dev), torch.from_numpy(Hb).to(dev),
+            ref.Wd, ref.WWT, ref.w_colsum, ref.h_tol_dev, beta=beta,
+            max_iter=1000, l1=0.0, l2=0.0)
+        outs.append((H.cpu().numpy(), rel.cpu().numpy()))
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-6)
+    assert not outs[0][0][1, 100:].any() and not outs[0][0][3].any()
+    assert (outs[0][1][:3] < 0.05).all() and outs[0][1][3] == 0.0

@@ -107,6 +107,19 @@ try:
           os.path.join(d, "snap.json")])
 except SystemExit as exc:
     assert exc.code == 0
+# the serving tier: the daemon over the tiny run's reference, the ring
+from cnmf_torch_tpu_torch.serving import (ProjectionService, ServeClient,
+                                          ServeDaemon, load_reference)
+from cnmf_torch_tpu_torch.serving.fleet import FleetRouter, HashRing
+ref = load_reference(os.path.join(d, "tiny"), k=3)
+svc = ProjectionService(ref, device="cpu", warm_start=False)
+sock = os.path.join(d, "serve.sock")
+daemon = ServeDaemon(svc, socket_path=sock).start()
+H, meta = ServeClient(socket_path=sock, timeout=60).project(
+    np.ones((5, ref.n_genes), np.float32))
+assert H.shape == (5, 3) and np.isfinite(H).all()
+daemon.close()
+assert HashRing([0, 1]).route("t") in (0, 1)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -167,7 +180,10 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "parallel/streaming.py", "parallel/rowshard.py",
                  "utils/netstore.py", "obs/costmodel.py", "obs/regress.py",
                  "parallel/mesh.py", "parallel/multihost.py",
-                 "parallel/grid2d.py", "runtime/elastic.py", "launcher.py"]
+                 "parallel/grid2d.py", "runtime/elastic.py", "launcher.py",
+                 "serving/__init__.py", "serving/reference.py",
+                 "serving/batcher.py", "serving/daemon.py",
+                 "serving/fleet.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -204,6 +220,20 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         tnmf.run_nmf(np.ones((4, 3), np.float32), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["combine", "--output-dir", str(tmp_path)])
+    from cnmf_torch_tpu_torch.serving import (ProjectionService,
+                                              ResidentReference,
+                                              fleet_forever, serve_forever)
+
+    ref = ResidentReference(np.ones((2, 3), np.float32), beta=2.0,
+                            chunk_size=8, chunk_max_iter=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ref.stage()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProjectionService(ref).start()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_forever(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet_forever(str(tmp_path))
     # asking for the CPU is the only way to run without a card
     assert cNMF(output_dir=str(tmp_path), name="y",
                 device="cpu").device.type == "cpu"

@@ -134,6 +134,17 @@ MULTI_DEVICE_KNOBS = (
     "CNMF_TPU_MIN_DEVICES", "CNMF_COORDINATOR_ADDRESS",
     "CNMF_NUM_PROCESSES", "CNMF_PROCESS_ID", "CNMF_SIM_CPU_DEVICES")
 
+SERVING_KNOBS = (
+    "CNMF_TPU_SERVE_BATCH", "CNMF_TPU_SERVE_LINGER_MS",
+    "CNMF_TPU_SERVE_BUCKETS", "CNMF_TPU_SERVE_TIMEOUT_S",
+    "CNMF_TPU_SERVE_WARM_START", "CNMF_TPU_SERVE_DRAIN_S",
+    "CNMF_TPU_FLEET_REPLICAS", "CNMF_TPU_FLEET_HEALTH_S",
+    "CNMF_TPU_FLEET_HEDGE_MS", "CNMF_TPU_FLEET_REPLICA_TELEMETRY",
+    "CNMF_TPU_FLEET_RESPAWNS", "CNMF_TPU_FLEET_RETRIES",
+    "CNMF_TPU_FLEET_TENANT_QPS", "CNMF_TPU_FLEET_TENANT_BURST",
+    "CNMF_TPU_FLEET_WARM_TIMEOUT_S", "CNMF_TPU_FLEET_WEDGE_POLLS",
+    "CNMF_TPU_WARM_DUMMY_BUDGET_BYTES")
+
 
 def test_the_port_reads_no_unregistered_knob():
     from cnmf_torch_tpu_torch.utils import envknobs
@@ -148,7 +159,8 @@ def test_the_port_reads_no_unregistered_knob():
     # test_torch_streaming.py and test_torch_checkpoint.py, and the
     # remote store's and the cost model's of tests/test_torch_remote.py
     # and test_torch_regress.py, and the multi-device layer's of
-    # tests/test_torch_elastic.py
+    # tests/test_torch_elastic.py, and the serving tier's of
+    # tests/test_torch_serving.py and test_torch_fleet.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -169,4 +181,13 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
                          "CNMF_TPU_PERF_MODEL",
                          "CNMF_TPU_PERF_GATE_BAND"} | set(
-        MULTI_DEVICE_KNOBS) == set(envknobs.KNOBS)
+        MULTI_DEVICE_KNOBS) | set(SERVING_KNOBS) == set(envknobs.KNOBS)
+
+
+def test_the_serving_knobs_carry_the_jax_text():
+    from cnmf_torch_tpu.utils import envknobs as jknobs
+    from cnmf_torch_tpu_torch.utils import envknobs as tknobs
+
+    assert len(SERVING_KNOBS) == 17
+    for name in SERVING_KNOBS:
+        assert tknobs.KNOBS[name] == jknobs.REGISTRY[name].doc, name
