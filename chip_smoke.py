@@ -258,6 +258,26 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     gap, the respawn and rollover walls and the p99 before, during and
     after.
 
+13. Formats and the planner (``native/``, ``utils/io.py:read_10x_mtx``,
+    ``utils/autotune.py``, ``runtime/planner.py``), each sub-phase with its
+    own launch counts. (a) Phase 3's raw counts written as a gzipped 10x
+    directory by a vectorised writer, read by the native reader (which must
+    have built) and by scipy, the two CSR matrices equal; then ``prepare``
+    from the directory writes phase 3's normalized counts, HVG list and
+    TPM statistics byte for byte. (b) ``CNMF_TPU_AUTOTUNE=1`` into the
+    smoke's private cache (``build/chip_smoke/autotune``, which every phase
+    reads from the start): ``h_stats`` and ``w_numer`` launch, the
+    fingerprint names the card, the three rho scales and the four plan
+    points are finite. (c) Phase 3's online KL factorize at k=9 under
+    ``auto`` with that cache and the telemetry on: one ``plan`` event, the
+    encoding and streaming groups ``autotuned``, ``ell-cuda``; ``plan
+    <run_dir> --out``; ``factorize --plan`` into a fresh run: the same
+    signature, the iter spectra and the consensus usages byte for byte,
+    the sources ``pin``; a missing plan file exits non-zero naming it. The
+    environment is restored after the replay. It prints the 10x write and
+    the two read times, the autotune wall, scales and points, and the
+    factorize and replay walls.
+
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
 ``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
@@ -4140,6 +4160,295 @@ def phase12(stages, Xn) -> dict:
     return out
 
 
+# -- phase 13: formats and the planner on the card ---------------------------
+
+PLAN_K = 9              # 13c's factorize: one K, the pipeline's replicates
+PLAN_DT = 0.5           # 13c's consensus density threshold
+
+
+def _int_digits(a: np.ndarray, width: int):
+    """The decimal digits of non-negative ints ``a`` as an ``(n, width)``
+    uint8 matrix of ASCII, right-aligned, and the mask of the digits that
+    are not leading zeros (``0`` keeps one)."""
+    a = a.astype(np.int64)
+    digits = np.empty((a.size, width), np.uint8)
+    rest = a.copy()
+    for j in range(width - 1, -1, -1):
+        digits[:, j] = 48 + rest % 10
+        rest //= 10
+    n_dig = np.ones(a.size, np.int64)
+    for j in range(1, width):
+        n_dig += a >= 10 ** j
+    keep = np.arange(width)[None, :] >= (width - n_dig)[:, None]
+    return digits, keep
+
+
+def write_10x(d: str, X, cells, genes) -> str:
+    """A gzipped 10x directory of the integer counts ``X`` (cells x genes,
+    CSR): ``matrix.mtx.gz`` (genes x cells, sorted by cell as 10x writes
+    it), ``features.tsv.gz`` and ``barcodes.tsv.gz``. The coordinate lines
+    are built as one byte buffer with numpy (no per-line Python), then
+    gzipped at level 1. Returns the matrix's path."""
+    import gzip
+
+    os.makedirs(d, exist_ok=True)
+    Xc = X.tocsr()
+    n, g = Xc.shape
+    rows = Xc.indices.astype(np.int64) + 1                    # genes
+    cols = np.repeat(np.arange(1, n + 1), np.diff(Xc.indptr))  # cells
+    vals = Xc.data.astype(np.int64)
+    check(np.array_equal(vals, Xc.data), "10x writer: non-integer counts")
+    parts, masks = [], []
+    for a in (rows, cols, vals):
+        dig, keep = _int_digits(a, len(str(int(a.max()))))
+        parts += [dig, np.full((a.size, 1), 32, np.uint8)]
+        masks += [keep, np.ones((a.size, 1), bool)]
+    parts[-1][:] = 10                                         # newline
+    body = np.hstack(parts)[np.hstack(masks)].tobytes()
+    head = (f"%%MatrixMarket matrix coordinate integer general\n"
+            f"%metadata_json: {{\"software_version\": \"chip_smoke\"}}\n"
+            f"{g} {n} {Xc.nnz}\n").encode()
+    mtx = os.path.join(d, "matrix.mtx.gz")
+    with open(mtx, "wb") as f:
+        f.write(gzip.compress(head + body, compresslevel=1))
+    with gzip.open(os.path.join(d, "features.tsv.gz"), "wt") as f:
+        f.write("".join(f"{x}\t{x}\tGene Expression\n" for x in genes))
+    with gzip.open(os.path.join(d, "barcodes.tsv.gz"), "wt") as f:
+        f.write("".join(f"{c}\n" for c in cells))
+    return mtx
+
+
+def _file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def tenx_phase(stages, counts_fn, ref_obj, smi) -> dict:
+    """13a: phase 3's raw counts as a gzipped 10x directory, read by the
+    native reader and by scipy (equal CSR), then ``prepare`` from it: the
+    normalized counts, the HVG list and the TPM statistics byte for byte
+    phase 3's prepare from ``.npz``."""
+    import gzip
+
+    import scipy.io
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.native import native_available
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz, read_10x_mtx
+
+    df = load_df_from_npz(counts_fn)
+    X = sp.csr_matrix(df.values)
+    t0 = time.perf_counter()
+    mtx = write_10x(os.path.join(OUT, "tenx"), X, df.index, df.columns)
+    write_s = time.perf_counter() - t0
+    check(native_available(), "the native .mtx reader did not build")
+    t0 = time.perf_counter()
+    native = read_10x_mtx(os.path.dirname(mtx))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with gzip.open(mtx, "rb") as f:
+        via_scipy = sp.csr_matrix(scipy.io.mmread(f)).T.tocsr()
+    scipy_s = time.perf_counter() - t0
+    for name, got in (("native", native.X), ("scipy", via_scipy)):
+        check(got.shape == X.shape and (got != X).nnz == 0,
+              f"13a: the {name} read differs from the counts")
+    for attr in ("data", "indices", "indptr"):
+        check(np.array_equal(getattr(native.X, attr),
+                             getattr(via_scipy, attr)),
+              f"13a: native and scipy CSR {attr} differ")
+    check(list(native.obs_names) == list(df.index.astype(str))
+          and list(native.var_names) == list(df.columns.astype(str)),
+          "13a: 10x names")
+    log(f"13a on {smi}: {X.nnz} stored counts, 10x directory written in "
+        f"{write_s:.3f} s ({os.path.getsize(mtx) / 2 ** 20:.1f} MiB "
+        f"gzipped); read native {native_s:.3f} s, scipy {scipy_s:.3f} s")
+    obj = cNMF(OUT, "tenx_run", device=CARD)
+    stages.run("13a prepare from 10x", lambda: obj.prepare(
+        mtx, components=KS, n_iter=REPLICATES, seed=SEED,
+        beta_loss="kullback-leibler", num_highvar_genes=N_HVG,
+        batch_size=CHUNK))
+    for key in ("normalized_counts", "nmf_genes_list", "tpm_stats"):
+        check(_file_bytes(obj.paths[key]) == _file_bytes(ref_obj.paths[key]),
+              f"13a: {key} from 10x differs from the .npz prepare")
+    log("13a: prepare from 10x wrote the normalized counts, HVG list and "
+        "TPM statistics of the .npz prepare byte for byte")
+    return {"nnz": int(X.nnz), "write_s": write_s, "native_read_s": native_s,
+            "scipy_read_s": scipy_s,
+            "mtx_gz_bytes": os.path.getsize(mtx)}
+
+
+def autotune_phase(smi) -> dict:
+    """13b: ``CNMF_TPU_AUTOTUNE=1`` into the smoke's private cache: the
+    ELL lane of the microbench launches ``h_stats`` and ``w_numer``; the
+    fingerprint names the card; the scales and the four plan points are
+    finite."""
+    import math
+
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils import autotune
+
+    kl_ell.reset_launches()
+    with knobs(CNMF_TPU_AUTOTUNE="1"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rho = autotune.maybe_autotune_rho(beta=1.0, device=CARD)
+        plan = autotune.maybe_autotune_plan(device=CARD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kl_ell.launches)
+    for name in ("h_stats", "w_numer"):
+        check(launches[name] > 0, f"13b: the autotuner launched no {name}")
+    path = autotune.cache_path(device=CARD)
+    with open(path) as f:
+        payload = json.load(f)
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    check(path.startswith(OUT) and card in payload["fingerprint"],
+          f"13b: cache {path} fingerprint {payload['fingerprint']}")
+    scales, points = payload["scales"], payload["plan_points"]
+    check(set(scales) == {"b2", "dense", "ell"}, f"13b: scales {scales}")
+    check(set(points) == {"ell_density_crossover", "grid_blocks",
+                          "stream_threads", "sketch_dim"},
+          f"13b: plan points {points}")
+    for v in list(scales.values()) + list(points.values()):
+        check(math.isfinite(v) and v > 0, f"13b: {scales} {points}")
+    check(rho["scales"] == scales and plan["plan_points"] == points,
+          "13b: the returned payloads are not the cache's")
+    log(f"13b on {smi}: autotune wall {wall:.3f} s, fingerprint "
+        f"{payload['fingerprint']}, probe {payload['probe']}")
+    log(f"  rho scales {scales}; plan points {points}; launches {launches}")
+    return {"wall_s": wall, "fingerprint": payload["fingerprint"],
+            "probe": payload["probe"], "scales": scales, "points": points,
+            "launches": launches}
+
+
+def _plan_events(obj) -> list:
+    from cnmf_torch_tpu_torch.utils.telemetry import read_events
+
+    return [e for e in read_events(os.path.join(
+        OUT, obj.name, "cnmf_tmp", f"{obj.name}.events.jsonl"))
+        if e["t"] == "plan"]
+
+
+def _run_files(obj, pattern) -> dict:
+    d = os.path.join(OUT, obj.name, "cnmf_tmp")
+    return {f[len(obj.name):]: _file_bytes(os.path.join(d, f))
+            for f in sorted(os.listdir(d)) if pattern in f}
+
+
+def plan_phase(stages, counts_fn, smi) -> dict:
+    """13c: phase 3's online KL factorize at k=9 under ``auto`` with the
+    13b cache (telemetry on): one ``plan`` event, the measured groups
+    ``autotuned``, ``ell-cuda``; ``plan --out``; ``factorize --plan`` into
+    a fresh run: the same signature, the same iter spectra and consensus
+    usages byte for byte, the sources ``pin``; a missing plan file exits
+    non-zero naming it. The environment is restored after the replay."""
+    import io
+
+    from cnmf_torch_tpu_torch.cli import main as cli_main
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    env0 = dict(os.environ)
+    plan_fn = os.path.join(OUT, "plan13.json")
+    out = {}
+    try:
+        with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_AUTOTUNE="auto"):
+            a = prepared_run("planned", counts_fn, [PLAN_K], "kullback-"
+                             "leibler")
+            kl_ell.reset_launches()
+            stages.run("13c factorize (autotuned)", a.factorize)
+            out["factorize_s"] = stages.rows[-1][1]
+            out["launches"] = dict(kl_ell.launches)
+        for name in ONLINE_KERNELS:
+            check(out["launches"][name] > 0, f"13c: {name} never launched")
+        evs = _plan_events(a)
+        check(len(evs) == 1, f"13c: {len(evs)} plan events")
+        plan = evs[0]["plan"]
+        check(plan["kernel"] == "ell-cuda" and a.factorize_info["kernel"]
+              == "ell-cuda", f"13c: kernel {plan['kernel']}")
+        for group in ("encoding", "streaming"):
+            check(plan["sources"][group] == "autotuned",
+                  f"13c: {group} source {plan['sources'][group]}")
+        text = cli_text(["plan", os.path.join(OUT, a.name), "--out",
+                         plan_fn])
+        check("[autotuned]" in text and os.path.exists(plan_fn),
+              "13c: plan --out")
+        log(text.rstrip())
+        b = prepared_run("replayed", counts_fn, [PLAN_K], "kullback-leibler")
+        os.environ["CNMF_TPU_TELEMETRY"] = "1"
+        kl_ell.reset_launches()
+        stages.run("13c factorize --plan", lambda: cli_main(
+            ["factorize", "--output-dir", OUT, "--name", b.name, "--device",
+             CARD, "--plan", plan_fn]))
+        out["replay_s"] = stages.rows[-1][1]
+        replay_launches = dict(kl_ell.launches)
+        check(os.environ.get("CNMF_TPU_AUTOTUNE") == "0",
+              "13c: the replay pinned no knobs")
+    finally:
+        os.environ.clear()
+        os.environ.update(env0)
+    for name in ONLINE_KERNELS:
+        check(replay_launches[name] > 0, f"13c replay: {name} not launched")
+    evs_b = _plan_events(b)
+    check(len(evs_b) == 1, f"13c replay: {len(evs_b)} plan events")
+    check(evs_b[0]["signature"] == evs[0]["signature"],
+          f"13c: signatures {evs[0]['signature']} != "
+          f"{evs_b[0]['signature']}")
+    for group in ("encoding", "streaming", "recipe", "kernel"):
+        check(evs_b[0]["plan"]["sources"][group] == "pin",
+              f"13c replay: {group} source "
+              f"{evs_b[0]['plan']['sources'][group]}")
+    for obj in (a, b):
+        stages.run(f"13c {obj.name} combine", obj.combine)
+        stages.run(f"13c {obj.name} consensus", lambda obj=obj:
+                   obj.consensus(PLAN_K, density_threshold=PLAN_DT))
+    spectra_a = _run_files(a, ".iter_")
+    check(len(spectra_a) == REPLICATES
+          and spectra_a == _run_files(b, ".iter_"),
+          "13c: the replay's iter spectra differ")
+    usages_a = _run_files(a, ".usages.")
+    check(usages_a and usages_a == _run_files(b, ".usages."),
+          "13c: the replay's consensus usages differ")
+    missing = os.path.join(OUT, "no_such_plan.json")
+    err = io.StringIO()
+    code = 0
+    try:
+        with contextlib.redirect_stderr(err):
+            cli_main(["factorize", "--output-dir", OUT, "--name", b.name,
+                      "--device", CARD, "--plan", missing])
+    except SystemExit as exc:
+        code = exc.code
+    finally:
+        os.environ.clear()
+        os.environ.update(env0)
+    check(code not in (0, None) and missing in err.getvalue(),
+          f"13c: a missing plan file exited {code}: {err.getvalue()!r}")
+    log(f"13c on {smi}: signature {evs[0]['signature']} both runs; "
+        f"sources {evs[0]['plan']['sources']} -> "
+        f"{evs_b[0]['plan']['sources']}; {len(spectra_a)} iter spectra "
+        f"and {len(usages_a)} usage files byte-identical; a missing plan "
+        f"exits {code}")
+    out.update(signature=evs[0]["signature"],
+               sources=evs[0]["plan"]["sources"],
+               replay_sources=evs_b[0]["plan"]["sources"],
+               replay_launches=replay_launches, missing_plan_exit=code)
+    return out
+
+
+def phase13(stages, counts_fn, ref_obj, smi) -> dict:
+    """Formats and the planner on the card."""
+    out = {"a": tenx_phase(stages, counts_fn, ref_obj, smi),
+           "b": autotune_phase(smi)}
+    out["c"] = plan_phase(stages, counts_fn, smi)
+    out["launches"] = {
+        name: int(out["b"]["launches"][name])
+        + int(out["c"]["launches"][name])
+        + int(out["c"]["replay_launches"][name])
+        for name in out["b"]["launches"]}
+    torch.cuda.empty_cache()
+    return out
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -4180,6 +4489,11 @@ def main() -> int:
     # -- phase 1: build --------------------------------------------------
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
+    # every phase reads (and 13b writes) the smoke's own autotune cache,
+    # emptied above: no cache of another run decides a phase's dispatch
+    from cnmf_torch_tpu_torch.utils import autotune
+
+    autotune.set_cache_dir(os.path.join(OUT, "autotune"))
     kl_ell.build()
     log(f"built {SOURCE} in {kl_ell.build_info['seconds']:.2f} s: "
         f"{kl_ell.build_info['command']}")
@@ -4386,6 +4700,14 @@ def main() -> int:
         log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
     log(f"phase 12 kernel launches: {p12['launches']}")
 
+    # -- phase 13: formats and the planner ----------------------------------
+    n_stages = len(stages.rows)
+    p13 = phase13(stages, counts_fn, obj, smi)
+    log(f"phase 13 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 13 kernel launches: {p13['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -4396,7 +4718,8 @@ def main() -> int:
                            + int(p9["kernel_launches"][name])
                            + int(p10["launches"][name])
                            + int(p11["launches"][name])
-                           + int(p12["launches"][name]))
+                           + int(p12["launches"][name])
+                           + int(p13["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -4408,6 +4731,7 @@ def main() -> int:
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
               "phase10": p10, "phase11": p11, "phase12": p12,
+              "phase13": p13,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

@@ -15,6 +15,12 @@ replicated fleet, ``serving/``; ``-k``, ``--local-density-threshold``,
 (replicates x cells) mesh, ``--mesh-grid2d`` the (cells x genes) grid, and
 ``--distributed`` (implied by ``CNMF_COORDINATOR_ADDRESS``) joins the
 processes named by the ``CNMF_*`` coordinates into one mesh.
+``plan <run_dir> [--out p.json]`` renders the execution plan a run's
+factorize recorded (its ``plan`` event; telemetry on) and dumps it;
+``factorize --plan p.json`` replays it (sets ``CNMF_TPU_PLAN``): the same
+dispatch, the same signature and the same files bit for bit. ``prepare``
+reads ``.df.npz``, tab-delimited text, a 10x ``.mtx[.gz]`` directory and
+``.h5ad`` (with h5py).
 
 Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
 the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
@@ -52,10 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
         "command", type=str,
         choices=["prepare", "factorize", "combine", "consensus",
                  "k_selection_plot", "run_parallel", "report", "trace",
-                 "serve", "fleet"])
+                 "serve", "fleet", "plan"])
     parser.add_argument(
         "run_dir", type=str, nargs="?", default=None,
-        help="[report|trace|serve|fleet] Run directory "
+        help="[report|trace|serve|fleet|plan] Run directory "
              "([output-dir]/[name]) whose telemetry to render / whose "
              "consensus reference to serve; defaults to "
              "--output-dir/--name")
@@ -70,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "raises when no card is present)")
     parser.add_argument("-c", "--counts", type=str,
                         help="[prepare] Input (cell x gene) counts matrix as "
-                             "df.npz or tab delimited text file")
+                             "df.npz, tab delimited text, h5ad (needs "
+                             "h5py) or the matrix.mtx[.gz] of a 10x "
+                             "directory")
     parser.add_argument("-k", "--components", type=int, nargs="+",
                         help="[prepare] Number of components (k) for matrix "
                              "factorization. Several can be specified with "
@@ -184,6 +192,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "package's flag; the port always runs one "
                              "sweep per K and records the packed rule's "
                              "choice in the provenance)")
+    parser.add_argument("--plan", type=str, default=None,
+                        help="[factorize] Replay a dumped execution plan "
+                             "(JSON from `plan <run_dir> --out`): pins the "
+                             "whole dispatch so the run reproduces it "
+                             "(sets CNMF_TPU_PLAN for this run)")
+    parser.add_argument("--out", type=str, default=None,
+                        help="[plan] Also dump the plan JSON to this file "
+                             "(replayable with factorize --plan)")
     parser.add_argument("--local-density-threshold", type=float,
                         default=None,
                         help="[consensus] Threshold for the local density "
@@ -237,13 +253,23 @@ def main(argv=None):
     parser = build_parser()
     # intermixed, so flags may precede or follow the optional run_dir
     args = parser.parse_intermixed_args(argv)
-    if (args.command not in ("report", "trace", "serve", "fleet")
+    if (args.command not in ("report", "trace", "serve", "fleet", "plan")
             and args.run_dir is not None):
         # a stray positional (e.g. `consensus 9` meaning `-k 9`) fails
         # fast instead of being swallowed
         parser.error(f"unrecognized argument: {args.run_dir!r} (a "
                      "positional run directory applies to 'report', "
-                     "'trace', 'serve' and 'fleet' only)")
+                     "'trace', 'serve', 'fleet' and 'plan' only)")
+    if args.command == "plan":
+        return _plan(parser, args)
+    if args.command == "factorize" and args.plan:
+        # the flag is the knob: factorize pins the plan before any
+        # dispatch resolves; a missing file is a usage error now
+        from .runtime.planner import PLAN_ENV
+
+        if not os.path.isfile(args.plan):
+            parser.error(f"factorize: plan file not found: {args.plan}")
+        os.environ[PLAN_ENV] = args.plan
     if args.command in ("report", "trace"):
         run_dir = args.run_dir or os.path.join(args.output_dir, args.name)
         if not os.path.isdir(run_dir):
@@ -348,6 +374,27 @@ def _serve(parser, args) -> int:
         return fleet_forever(run_dir, replicas=args.replicas, **common)
     except ReferenceError as exc:
         parser.error(f"{cmd}: {exc}")
+
+
+def _plan(parser, args) -> None:
+    """``plan [run_dir] [--out p.json]``: the run's recorded plan,
+    rendered, and dumped for ``factorize --plan`` (host files only)."""
+    from .runtime.planner import ExecutionPlan, plan_from_run_dir, render_plan
+
+    run_dir = args.run_dir or os.path.join(args.output_dir, args.name)
+    if not os.path.isdir(run_dir):
+        parser.error(f"plan: run directory not found: {run_dir}")
+    plan_dict = plan_from_run_dir(run_dir)
+    if plan_dict is None:
+        parser.error(f"plan: no `plan` event recorded under {run_dir}; run "
+                     "factorize with CNMF_TPU_TELEMETRY=1")
+    print(f"Execution plan — {run_dir}")
+    for line in render_plan(plan_dict):
+        print(line)
+    if args.out:
+        ExecutionPlan.from_dict(plan_dict).save(args.out)
+        print(f"plan JSON written to {args.out} (replay with: factorize "
+              f"--plan {args.out})")
 
 
 def _run_parallel(parser, args) -> None:

@@ -371,7 +371,8 @@ def run_pipeline(counts: str, output_dir: str, name: str, components,
                  max_nmf_iter: int = 1000, batch_size: int = 5000,
                  engine: str = "subprocess",
                  devices_per_host: int | None = None,
-                 clean: bool = False,
+                 clean: bool = False, k_selection: bool = True,
+                 env_extra: dict | None = None,
                  factorize_flags: list | None = None, device="cuda",
                  timeout_s: float | None = None) -> None:
     """prepare -> parallel factorize -> combine -> ``k_selection_plot``
@@ -383,6 +384,8 @@ def run_pipeline(counts: str, output_dir: str, name: str, components,
     simulated pod) and that many cards of its own on cards (default: the
     visible cards split evenly; with fewer cards than processes they share
     them, and the collectives run on gloo).
+    ``k_selection=False`` skips ``k_selection_plot``; ``env_extra`` is
+    merged into every worker's environment (values as strings).
     ``factorize_flags``: CLI flags forwarded to every factorize worker
     (``--mesh-2d``, ``--rowshard``, ``--sequential``, ...); ``device``
     rides along as ``--device``. ``timeout_s``: the multihost engine's
@@ -408,6 +411,8 @@ def run_pipeline(counts: str, output_dir: str, name: str, components,
     base_env["PYTHONPATH"] = os.pathsep.join(
         [pkg_root] + ([base_env["PYTHONPATH"]]
                       if base_env.get("PYTHONPATH") else []))
+    if env_extra:
+        base_env.update({k: str(v) for k, v in env_extra.items()})
 
     # the launcher owns the run's root trace when sampling is on; workers
     # parent their spans on it through the environment
@@ -446,7 +451,8 @@ def run_pipeline(counts: str, output_dir: str, name: str, components,
                        device=device)
 
     obj.combine(skip_missing_files=any_failed)
-    obj.k_selection_plot(close_fig=True)
+    if k_selection:
+        obj.k_selection_plot(close_fig=True)
     if clean:
         _clean_run_dir(os.path.join(output_dir, name))
 

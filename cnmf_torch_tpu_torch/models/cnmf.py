@@ -77,7 +77,7 @@ from ..ops.kernels import kernel_label
 from ..ops.kmeans import kmeans
 from ..ops.metrics import local_density as knn_local_density
 from ..ops.metrics import silhouette_score
-from ..ops.nmf import (beta_loss_to_float, fit_h, resolve_bf16_ratio,
+from ..ops.nmf import (beta_loss_to_float, dense_on_device, fit_h,
                        resolve_online_schedule, run_nmf, run_nmf_use_ell,
                        sweep_x_mean)
 from ..ops.ols import ols_all_cols
@@ -87,10 +87,11 @@ from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width)
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
                          normalize_total, row_sums, scale_columns)
-from ..parallel.replicates import (_auto_packed, default_mesh,
-                                   replicate_sweep,
+from ..parallel.replicates import (default_mesh, replicate_sweep,
                                    worker_filter)
 from ..runtime import faults, resilience
+from ..runtime.planner import DeviceInventory, InputStats, build_plan
+from ..utils.autotune import maybe_autotune_plan, maybe_autotune_rho
 from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
                         load_df_from_npz, load_df_from_text, load_matrix,
                         peek_matrix, save_df_to_npz, save_df_to_text,
@@ -179,6 +180,9 @@ class cNMF:
         # the streamed consensus passes' StreamStats (walls, bytes, host
         # residency peak) by context
         self.stream_stats: dict = {}
+        # the ExecutionPlan (runtime/planner.py) the last batched or
+        # sequential factorize resolved its dispatch through
+        self.plan = None
 
     # ------------------------------------------------------------------
     # prepare
@@ -205,7 +209,9 @@ class cNMF:
                 counts.X, row_scale=cell_scale_factors(totals, 1e6),
                 device=dev)
         else:
-            tpm = load_counts(tpm_fn, densify=densify)
+            # an h5ad or 10x TPM stays as stored (the JAX package's rule)
+            tpm = load_counts(tpm_fn, densify=densify and not tpm_fn.endswith(
+                (".h5ad", ".mtx", ".mtx.gz")))
             tpm_moments, _ = column_moments_staged(tpm.X, device=dev)
             counts_moments, _ = column_moments_staged(counts.X, device=dev)
         save_matrix(self.paths["tpm"], tpm.X, tpm.obs_names, tpm.var_names)
@@ -604,6 +610,12 @@ class cNMF:
                         batched, replicates_per_batch, packed, rowshard=None,
                         rowshard_threshold=None, mesh_shape=None, mesh=None):
         from ..parallel.mesh import Mesh, process_count, process_index
+        from ..runtime.planner import maybe_apply_plan_env
+
+        # a replayed plan (CNMF_TPU_PLAN, the CLI's --plan) pins the whole
+        # dispatch before any knob below resolves; a missing or invalid
+        # plan file raises here
+        maybe_apply_plan_env()
 
         # a layout request is checked before any file is read (the JAX
         # package's named layout dispatch)
@@ -649,6 +661,12 @@ class cNMF:
                 else self._read_norm_counts())
         kw = self._solver_params()
         beta = beta_loss_to_float(kw["beta_loss"])
+        # the autotuner (utils/autotune.py): the rho scales measure only
+        # when the accel knobs explicitly engage amu, the plan points only
+        # under CNMF_TPU_AUTOTUNE=1; an existing cache of this device is
+        # consumed by the resolvers from here on
+        maybe_autotune_rho(beta=beta, device=self.device)
+        maybe_autotune_plan(device=self.device)
         mode = kw.get("mode", "online")
         init = kw.get("init", "random")
         algo = kw.get("algo", "mu")
@@ -817,38 +835,54 @@ class cNMF:
                          ",".join(str(k) for k in sorted(ks_incomplete))))
             jobs = expanded
         credit_completed(jobs)
-        # the lane, the recipe and the bf16 decision, resolved once for
-        # both lanes. The lane: the JAX planner's rule (resolve_encoding:
-        # sparse input, beta in {1, 0}, random init and plain MU, then the
-        # dispatch rule); the sequential lane's run_nmf also reads
-        # fp_precision
-        use_ell = run_nmf_use_ell(
-            X, beta, init=init, algo=algo,
-            fp_precision=("float" if batched
-                          else kw.get("fp_precision", "float")))
         by_k: dict[int, list] = {}
-        if batched:
-            if use_ell and packed:
+        for idx in jobs:
+            by_k.setdefault(int(ks[idx]), []).append(
+                (int(iters[idx]), int(seeds[idx])))
+        # the whole dispatch of both lanes in one plan (runtime/planner.py):
+        # the lane, the recipe, the bf16 chain and the kernel label, the
+        # packed rule, streaming and the serve schedule, each with who
+        # decided it (pin > autotuned > heuristic)
+        sparse_in = sp.issparse(X)
+        density = X.nnz / max(n * g, 1) if sparse_in else 1.0
+        overrides = {"packed": packed if batched else False, "layout": "1d",
+                     "mesh_devices": (1 if layout_mesh is None
+                                      else int(layout_mesh.devices.size)),
+                     "ooc_engaged": store is not None}
+        if not batched:
+            # each run_nmf call resolves its own lane (fp_precision too)
+            # and is given the recipe resolved here, unsized
+            overrides.update(sequential=True, use_ell=run_nmf_use_ell(
+                X, beta, init=init, algo=algo,
+                fp_precision=kw.get("fp_precision", "float")))
+        plan = build_plan(
+            InputStats(
+                n=n, g=g, beta=beta, mode=mode, init=init, algo=algo,
+                sparse=sparse_in, density=density if sparse_in else None,
+                ell_width=ell_row_width(X) if sparse_in else None,
+                k_max=int(ks.max()) if ks.size else None, n_ks=len(by_k),
+                max_replicates=max((len(t) for t in by_k.values()),
+                                   default=0),
+                total_workers=max(1, int(total_workers)),
+                has_store=store is not None),
+            DeviceInventory.probe(self.device), overrides)
+        self.plan = plan
+        self._events.emit("plan", plan=plan.to_dict(),
+                          signature=plan.signature())
+        use_ell = plan.use_ell
+        if batched and packed:
+            if use_ell:
                 raise ValueError(
                     "packed K-sweeps run dense only; set "
                     "CNMF_TPU_SPARSE_BETA=0 to keep packed=True, or drop "
                     "packed for the ELL path")
-            if packed and init != "random":
+            if init != "random":
                 raise ValueError(
                     "packed K-sweeps require init='random' (the nndsvd "
                     "family's SVD base is K-truncated); rerun with "
                     "packed=False / --per-k-programs")
-            for idx in jobs:
-                by_k.setdefault(int(ks[idx]), []).append(
-                    (int(iters[idx]), int(seeds[idx])))
-            if packed is None:
-                packed = _auto_packed(
-                    use_ell, algo, init, len(by_k),
-                    max((len(t) for t in by_k.values()), default=0),
-                    total_workers)
-        packed = bool(packed) and batched
+        packed = plan.packed and batched
         X_host = X
-        density = X.nnz / max(n * g, 1) if sp.issparse(X) else 1.0
         if use_ell:
             Xe = (ell_chunk_rows(X, chunk)[0] if mode == "online"
                   else csr_to_ell(X))
@@ -856,17 +890,15 @@ class cNMF:
             print("factorize: ELL sparse path engaged for beta=%g "
                   "(density %.3f, width %d of %d genes)."
                   % (beta, density, X.width, g))
-        # the batched lane sizes the recipe to its sweeps; the sequential
-        # lane resolves it as a run_nmf call would (the JAX package's
-        # rule), and pins it on every call
-        sizes = (dict(n=n, g=g, k=int(ks.max()) if ks.size else None,
-                      ell_width=X.width if use_ell else None)
-                 if batched else {})
-        recipe = resolve_recipe(beta, mode, algo=algo, ell=use_ell, **sizes)
-        bf16 = (False if recipe.kl_newton or recipe.algo == "sketch"
-                else resolve_bf16_ratio(beta, mode))
-        kernel = kernel_label(use_ell, self.device, bf16, beta)
-        if batched and sp.issparse(X_host) and beta in (1.0, 0.0):
+        elif batched and sparse_in:
+            # the plan's dense lane: a host CSR would be re-resolved by the
+            # sweep's staging under the static rule, so it gets the matrix
+            # dense on the device, once for every K
+            X = dense_on_device(X, self.device)
+        recipe = plan.solver_recipe()
+        bf16 = plan.bf16_ratio
+        kernel = plan.kernel
+        if batched and sparse_in and beta in (1.0, 0.0):
             self._events.emit(
                 "dispatch", decision="ell_vs_dense",
                 context={"use_ell": bool(use_ell), "beta": float(beta),

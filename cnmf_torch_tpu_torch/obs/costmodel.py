@@ -26,9 +26,10 @@ envelope and ``perf_exempt``, so its verdict renders but never gates.
 :func:`serve_project_cost` prices one batched dispatch of the serving
 tier (``serving/batcher.py``) with the JAX package's formula.
 
-Not here yet: ``plan_cost`` comes with the planner; the JAX package's
-``xla_cost`` has no counterpart (torch has no compiled cost analysis that
-reports bytes).
+:func:`plan_cost` prices a resolved execution plan
+(``runtime/planner.py:ExecutionPlan.cost_inputs``) with the JAX package's
+formula. The JAX package's ``xla_cost`` has no counterpart (torch has no
+compiled cost analysis that reports bytes).
 
 Host arithmetic only: with ``CNMF_TPU_PERF_MODEL`` unset nothing here
 runs, and with it set no launch or artifact changes.
@@ -40,7 +41,7 @@ import math
 
 __all__ = ["CHIP_PEAKS", "PERF_MODEL_ENV", "chip_peaks", "lane_cost",
            "roofline", "perf_model_enabled", "device_peaks",
-           "serve_project_cost"]
+           "plan_cost", "serve_project_cost"]
 
 PERF_MODEL_ENV = "CNMF_TPU_PERF_MODEL"
 
@@ -133,6 +134,24 @@ def lane_cost(lane: str, n: int, g: int, k: int, *, beta: float = 1.0,
                           bundled=(lane == "bundled"))
     c["lane"] = lane
     return c
+
+
+def plan_cost(plan_inputs: dict, n: int, g: int, k: int,
+              lane: str | None = None, device=None) -> dict:
+    """The per-iteration cost of a resolved plan (``ExecutionPlan.
+    cost_inputs()`` or an equal dict) at a problem shape: its kernel
+    label's :func:`lane_cost`, or the grid pass on a ``grid2d`` layout.
+    ``lane`` overrides the plan's label when the caller knows which lane
+    dispatched."""
+    p = dict(plan_inputs or {})
+    resolved = lane or str(p.get("kernel") or "dense")
+    if p.get("layout") == "grid2d" or resolved == "grid2d":
+        resolved = "grid2d"
+    return lane_cost(
+        resolved, n, g, k, beta=float(p.get("beta", 1.0)),
+        ell_width=p.get("ell_width"), bf16_ratio=bool(p.get("bf16_ratio")),
+        device=device, grid_shape=p.get("grid_shape"),
+        grid_blocks=p.get("grid_blocks"))
 
 
 def serve_project_cost(b: int, n: int, g: int, k: int, *,

@@ -127,11 +127,12 @@ def auto_sketch_rows(n: int | None) -> int:
 
 
 def _measured_rho_scale(beta: float, ell: bool):
-    """The measured correction to the static amu cost ratio. The JAX
-    package reads it from its per-device autotune cache and returns
-    ``None`` when no cache exists; the port has no autotune cache, so it
-    always takes that branch and the static ratio stands."""
-    return None
+    """The measured correction to the static amu cost ratio, from the
+    per-device autotune cache (``utils/autotune.py``); ``None`` (the
+    static ratio stands) when no cache exists or ``CNMF_TPU_AUTOTUNE=0``."""
+    from ..utils.autotune import cached_rho_scale
+
+    return cached_rho_scale(beta, ell=ell)
 
 
 def auto_inner_repeats(beta: float, n: int | None = None,
@@ -212,7 +213,12 @@ def resolve_recipe(beta: float, mode: str, *, algo: str = "mu",
             m = 0 if raw_dim in ("", "auto") \
                 else (env_int(SKETCH_DIM_ENV, 0, lo=0) or 0)
         if not m:
-            m = auto_sketch_rows(n)
+            # the measured sketch-rows point (utils/autotune.py) wins over
+            # the static n/8; the env and caller pins above win outright
+            from ..utils.autotune import cached_plan_point
+
+            m = cached_plan_point("sketch_dim")
+            m = int(m) if m else auto_sketch_rows(n)
         if n:
             m = min(int(m), int(n))
         E = sketch_exact_every

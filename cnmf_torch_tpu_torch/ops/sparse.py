@@ -228,18 +228,23 @@ def ell_chunk_rows(X, chunk_size: int, width: int | None = None,
 
 def resolve_sparse_beta(beta: float, density: float | None = None,
                         width: int | None = None, g: int | None = None,
-                        override=None) -> bool:
+                        override=None,
+                        threshold: float | None = None) -> bool:
     """Should a beta != 2 solve take the ELL lane? On for beta in {1, 0}
     at density <= SPARSE_DENSITY_THRESHOLD and width <= g/8.
     ``CNMF_TPU_SPARSE_BETA``: ``0`` forces dense, ``1`` forces ELL (for
     beta in {1, 0}), a value in (0, 1) replaces the density threshold (the
     width guard stays); anything else raises. An explicit ``override``
-    wins over the knob."""
+    wins over the knob. ``threshold`` replaces the static crossover
+    without outranking the knob: the planner's slot for the measured
+    crossover (``runtime/planner.py:resolve_encoding``; pin > autotuned >
+    heuristic)."""
     if beta not in (1.0, 0.0):
         return False
     if override is not None:
         return bool(override)
-    threshold = SPARSE_DENSITY_THRESHOLD
+    threshold = (SPARSE_DENSITY_THRESHOLD if threshold is None
+                 else float(threshold))
     env = env_str("CNMF_TPU_SPARSE_BETA", "")
     if env:
         try:

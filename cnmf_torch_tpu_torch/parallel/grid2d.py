@@ -80,10 +80,16 @@ def grid_overlap_enabled() -> bool:
 def grid_blocks(extent: int) -> int:
     """Statistics blocks of the overlap loop, clamped to a divisor of
     ``extent`` (the local rows or columns being blocked). ``0`` (default)
-    derives: 4 blocks when the extent affords them, else 1."""
+    derives: the measured block count of the autotune cache when there is
+    one (``utils/autotune.py``), else 4 blocks when the extent affords
+    them, else 1 (pin > autotuned > heuristic)."""
+    from ..utils.autotune import cached_plan_point
     from ..utils.envknobs import env_int
 
     want = env_int(GRID_BLOCKS_ENV, 0, lo=0)
+    if want <= 0:
+        tuned = cached_plan_point("grid_blocks")
+        want = int(tuned) if tuned else 0
     if want <= 0:
         want = 4 if extent >= 64 else 1
     want = max(1, min(int(want), max(int(extent), 1)))

@@ -56,6 +56,7 @@ from ..obs import metrics as obs_metrics
 from ..runtime.faults import maybe_fail as _maybe_fail_fault
 from ..utils.envknobs import env_float as _env_float
 from ..utils.envknobs import env_int as _env_int
+from ..utils.envknobs import env_str as _env_str
 
 __all__ = ["StreamStats", "SlabBufferPool", "run_pipeline", "nnz_bucket",
            "stream_threads", "stream_depth", "stream_to_device",
@@ -102,9 +103,18 @@ def stream_stall_s() -> float:
 
 
 def stream_threads() -> int:
-    """Host-prep worker count (``CNMF_TPU_STREAM_THREADS``); 0 is the
-    serial path. The default leaves one core to the committing thread."""
+    """Host-prep worker count: ``CNMF_TPU_STREAM_THREADS`` when set, else
+    the measured staging point of the autotune cache
+    (``utils/autotune.py``), else a default that leaves one core to the
+    committing thread (pin > autotuned > heuristic); 0 is the serial
+    path."""
     static = max(1, min(4, (os.cpu_count() or 2) - 1))
+    if _env_str(THREADS_ENV, "").strip() == "":
+        from ..utils.autotune import cached_plan_point
+
+        tuned = cached_plan_point("stream_threads")
+        if tuned is not None:
+            return max(0, int(tuned))
     return _env_int(THREADS_ENV, static, lo=0)
 
 

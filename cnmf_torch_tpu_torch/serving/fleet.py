@@ -1061,6 +1061,16 @@ class FleetDaemon:
         t.start()
         return self
 
+    def serve_forever(self):
+        """Serve on this thread until the server is shut down (another
+        thread's ``server.shutdown()``), then :meth:`close`, which stops
+        the router. The router is started by the caller, as in the JAX
+        package."""
+        try:
+            self.server.serve_forever()
+        finally:
+            self.close()
+
     def close(self):
         if self._closed:
             return

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["KNOBS", "env_int", "env_float", "env_str", "env_flag"]
+__all__ = ["KNOBS", "env_int", "env_float", "env_str", "env_flag",
+           "env_is_set", "pin_knob"]
 
 _FALSE_WORDS = ("0", "false", "off", "no")
 
@@ -143,6 +144,12 @@ KNOBS = {
     "CNMF_TPU_FLEET_WARM_TIMEOUT_S": 'rollover warm budget: `POST /rollover` spawns a fresh replica set against the new reference and waits up to this long for every one to answer `/healthz` before any traffic moves; on timeout (or a fresh replica dying) the new set is killed and the old generation keeps serving untouched',
     "CNMF_TPU_FLEET_WEDGE_POLLS": 'wedge conviction threshold: a replica whose `/healthz` fails this many CONSECUTIVE ticks while its heartbeat is stale or absent is convicted as wedged (alive-but-unresponsive), SIGKILLed, and respawned — one failed poll on a busy replica never convicts',
     "CNMF_TPU_WARM_DUMMY_BUDGET_BYTES": 'cap on dataset-sized warm-up dummy allocations (consensus/K-selection/Harmony warms)',
+    # h5ad output (utils/anndata_lite.py), the execution planner
+    # (runtime/planner.py) and its autotuner (utils/autotune.py), the JAX
+    # text and defaults
+    "CNMF_H5_COMPRESSION": "h5ad artifact compression: `none` (reference-matching default; gzip-1 was ~5 s of a 22 s prepare), `gzip` (level 1), or `lzf`",
+    "CNMF_TPU_PLAN": "path to a dumped execution-plan JSON (the env spelling of `cnmf-tpu factorize --plan`): loaded before any dispatch resolves and pinned knob-by-knob, so the run reproduces the recorded dispatch bit-identically (`runtime/planner.py`; the resolved plan of every factorize is logged as a `plan` telemetry event and printed by `cnmf-tpu plan <run_dir>`)",
+    "CNMF_TPU_AUTOTUNE": "the microbench autotuner behind the execution planner (`utils/autotune.py`): `auto` (default) consumes an existing per-device measured cache (ρ cost ratios, ELL density crossover, Pallas-vs-jnp, grid blocks, stream threads, sketch dim) but only measures when an explicitly engaged lane needs it; `1` measures all plan points up front (once per device fingerprint, ~2 s); `0` disables measuring AND consuming — static heuristics only, the deterministic escape hatch",
 
 }
 
@@ -204,3 +211,18 @@ def env_flag(name: str, default: bool) -> bool:
     if raw is None or not raw.strip():
         return default
     return raw.strip().lower() not in _FALSE_WORDS
+
+
+def env_is_set(name: str) -> bool:
+    """True when the knob is present in the environment (even empty): the
+    "an explicit pin wins" predicate of the execution planner."""
+    _raw(name)
+    return name in os.environ
+
+
+def pin_knob(name: str, value) -> None:
+    """Set a knob's value in this process's environment: the planner's
+    replay (``runtime/planner.py:apply_plan``). Only a knob the port reads
+    may be pinned."""
+    _raw(name)
+    os.environ[name] = str(value)

@@ -8,7 +8,10 @@ the JAX package keeps as h5ad (normalized counts, TPM) are stored here as a
 scipy-style sparse (or dense) ``.npz`` with the row and column names beside
 it (:func:`save_matrix` / :func:`load_matrix`).
 
-Counts input in this slice: ``.df.npz`` DataFrames and tab-delimited text.
+Counts input (:func:`load_counts`): ``.df.npz`` DataFrames, tab-delimited
+text, a 10x-Genomics ``.mtx[.gz]`` directory (:func:`read_10x_mtx`, through
+the native reader of ``native/``) and ``.h5ad`` (``utils/anndata_lite.py``,
+on a machine with h5py).
 
 Each labelled-matrix writer (:func:`save_df_to_npz`, :func:`save_df_to_text`,
 :func:`save_matrix`) calls the fault harness's torn-file hook after its
@@ -21,10 +24,11 @@ from __future__ import annotations
 import contextlib
 import csv
 import errno
+import gzip
 import os
 import tempfile
 import zipfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
@@ -34,7 +38,7 @@ from ..runtime.faults import maybe_tear
 __all__ = ["Frame", "Counts", "atomic_artifact", "check_dir_exists",
            "save_df_to_npz", "save_df_to_text", "load_df_from_npz",
            "load_df_from_text", "save_matrix", "load_matrix", "peek_matrix",
-           "load_counts"]
+           "read_10x_mtx", "load_counts"]
 
 
 @dataclass
@@ -69,11 +73,16 @@ class Frame:
 @dataclass
 class Counts:
     """A cells x genes matrix (dense ndarray or scipy CSR) with its cell
-    (``obs_names``) and gene (``var_names``) labels."""
+    (``obs_names``) and gene (``var_names``) labels, and the annotation
+    columns an h5ad or 10x input carries (``obs`` / ``var``: column name ->
+    1-D array; ``obsm``: name -> per-cell matrix)."""
 
     X: object
     obs_names: np.ndarray
     var_names: np.ndarray
+    obs: dict = field(default_factory=dict)
+    var: dict = field(default_factory=dict)
+    obsm: dict = field(default_factory=dict)
 
 
 @contextlib.contextmanager
@@ -200,15 +209,70 @@ def peek_matrix(filename: str):
     return tuple(int(v) for v in shape), var
 
 
+def _find_10x_sidecar(counts_dir: str, stems) -> str | None:
+    for stem in stems:
+        for suffix in ("", ".gz"):
+            p = os.path.join(counts_dir, stem + suffix)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def _read_tsv(path: str) -> list[list[str]]:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt", newline="") as f:
+        return [row for row in csv.reader(f, delimiter="\t") if row]
+
+
+def read_10x_mtx(path: str) -> Counts:
+    """A 10x-Genomics directory: ``matrix.mtx[.gz]`` (genes x cells on
+    disk), ``features.tsv[.gz]`` or ``genes.tsv[.gz]``, and
+    ``barcodes.tsv[.gz]``, as cells x genes CSR with f64 values (the JAX
+    package's ``read_10x_mtx``). Gene names come from the symbol column
+    when the features file has one, else from the id column (then also
+    ``var["gene_ids"]``); the matrix goes through ``native.read_mtx``."""
+    from ..native import read_mtx
+
+    mtx_fn = _find_10x_sidecar(path, ["matrix.mtx"])
+    if mtx_fn is None:
+        raise FileNotFoundError(f"no matrix.mtx[.gz] in {path}")
+    X = read_mtx(mtx_fn).T.tocsr()
+    genes_fn = _find_10x_sidecar(path, ["features.tsv", "genes.tsv"])
+    barcodes_fn = _find_10x_sidecar(path, ["barcodes.tsv"])
+    if genes_fn is None or barcodes_fn is None:
+        raise FileNotFoundError(
+            f"missing features/genes or barcodes tsv in {path}")
+    genes = _read_tsv(genes_fn)
+    barcodes = _read_tsv(barcodes_fn)
+    with_symbols = len(genes[0]) > 1 if genes else False
+    var_names = np.asarray([r[1] if with_symbols else r[0] for r in genes])
+    var = ({"gene_ids": np.asarray([r[0] for r in genes], dtype=object)}
+           if with_symbols else {})
+    obs_names = np.asarray([r[0] for r in barcodes])
+    if X.shape != (len(obs_names), len(var_names)):
+        raise ValueError(
+            f"{path}: matrix {X.shape[::-1]} (genes x cells) does not match "
+            f"{len(var_names)} features x {len(obs_names)} barcodes")
+    return Counts(X, obs_names, var_names, var=var)
+
+
 def load_counts(counts_fn: str, densify: bool = False) -> Counts:
-    """Extension-dispatched counts loader: ``.npz`` DataFrames (the
-    ``save_df_to_npz`` container) and tab-delimited text. The matrix comes
-    back as CSR unless ``densify``."""
-    if counts_fn.endswith((".h5ad", ".mtx", ".mtx.gz")):
-        raise NotImplementedError(
-            f"{counts_fn}: .h5ad and .mtx input is not ported yet; convert "
-            "to a .df.npz DataFrame or tab-delimited text")
-    df = (load_df_from_npz(counts_fn) if counts_fn.endswith(".npz")
-          else load_df_from_text(counts_fn))
-    X = df.values if densify else sp.csr_matrix(df.values)
-    return Counts(X, df.index.astype(str), df.columns.astype(str))
+    """Extension-dispatched counts loader (the JAX package's): ``.h5ad``
+    (its ``X`` as stored), ``.mtx`` / ``.mtx.gz`` (the 10x directory that
+    holds the file), ``.npz`` DataFrames (the ``save_df_to_npz`` container)
+    and tab-delimited text. A sparse matrix comes back as CSR unless
+    ``densify``; an npz or text matrix is made CSR unless ``densify``."""
+    if counts_fn.endswith(".h5ad"):
+        from .anndata_lite import read_h5ad
+
+        counts = read_h5ad(counts_fn)
+    elif counts_fn.endswith((".mtx", ".mtx.gz")):
+        counts = read_10x_mtx(os.path.dirname(counts_fn))
+    else:
+        df = (load_df_from_npz(counts_fn) if counts_fn.endswith(".npz")
+              else load_df_from_text(counts_fn))
+        X = df.values if densify else sp.csr_matrix(df.values)
+        return Counts(X, df.index.astype(str), df.columns.astype(str))
+    if sp.issparse(counts.X) and densify:
+        counts.X = np.asarray(counts.X.todense())
+    return counts

@@ -1022,9 +1022,11 @@ def render_report(run_dir: str) -> str:
         lines.append("")
         lines.append("Plan")
         lines.append("-" * 4)
+        from ..runtime.planner import render_plan
+
         try:
             lines.extend("  " + ln
-                         for ln in _render_plan(plan_sum["plan"]))
+                         for ln in render_plan(plan_sum["plan"]))
         except Exception:
             lines.append("  (unrenderable plan payload)")
         if plan_sum.get("signature"):
@@ -1380,55 +1382,3 @@ def _stage_waterfall(stages: dict) -> list[str]:
         out.append(f"  {name:<36s} {v['wall_s']:>9.3f} s  "
                    f"{bar:<{width}s}{extra}")
     return out
-
-
-def _render_plan(plan_dict: dict) -> list[str]:
-    """Text lines for the report's Plan section, from a ``plan`` event's
-    dict (the JAX planner's ``render_plan``, copied: the port's planner is
-    still to come, and its report renders a JAX run's plan the same)."""
-    d = dict(plan_dict)
-    src = d.get("sources") or {}
-
-    def tag(group):
-        s = src.get(group)
-        return f" [{s}]" if s else ""
-
-    lines = []
-    lines.append(
-        f"  plan v{d.get('plan_version')}  package "
-        f"{d.get('package_version')}  device {d.get('fingerprint')}")
-    enc = "ell" if d.get("use_ell") else "dense"
-    dens = d.get("density")
-    thr = d.get("density_threshold")
-    lines.append(
-        f"  encoding: {enc}"
-        + (f" (density {dens}" + (f" vs crossover {thr})"
-                                  if thr is not None else ")")
-           if dens is not None else "")
-        + tag("encoding"))
-    lines.append(
-        f"  recipe:   {d.get('recipe_label')}  (beta={d.get('beta')}, "
-        f"mode={d.get('mode')})" + tag("recipe"))
-    lines.append(f"  kernel:   {d.get('kernel')}" + tag("kernel"))
-    lines.append(
-        f"  program:  {'packed K-sweep' if d.get('packed') else 'per-K'}"
-        + tag("packed"))
-    lay = f"  layout:   {d.get('layout')} x{d.get('mesh_devices')} device(s)"
-    if d.get("grid_shape"):
-        lay += (f"  grid {d['grid_shape'][0]}x{d['grid_shape'][-1]}"
-                f" blocks={d.get('grid_blocks')}"
-                f" overlap={'on' if d.get('grid_overlap') else 'off'}"
-                + tag("grid"))
-    lines.append(lay)
-    lines.append(
-        f"  stream:   transport={d.get('stream_transport')} "
-        f"threads={d.get('stream_threads')} depth={d.get('stream_depth')}"
-        + tag("streaming"))
-    lines.append(
-        f"  ingest:   {'out-of-core shard store' if d.get('ooc_engaged') else 'resident'}"
-        + tag("ooc") + f"  store={d.get('store_backend')}" + tag("store"))
-    if d.get("serve_buckets"):
-        lines.append(
-            "  serve:    buckets="
-            + ",".join(str(b) for b in d["serve_buckets"]) + tag("serve"))
-    return lines

@@ -837,3 +837,142 @@ def test_the_batched_program_on_the_card_matches_the_cpu(cuda_device, beta):
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-6)
     assert not outs[0][0][1, 100:].any() and not outs[0][0][3].any()
     assert (outs[0][1][:3] < 0.05).all() and outs[0][1][3] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the autotuner and the execution planner on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def private_autotune(tmp_path, monkeypatch):
+    """A private autotune cache, the dispatch knobs cleared, and the whole
+    environment restored afterwards (a replay pins knobs)."""
+    import os
+
+    from cnmf_torch_tpu_torch.runtime.planner import DISPATCH_KNOBS
+    from cnmf_torch_tpu_torch.utils import autotune
+
+    env0 = dict(os.environ)
+    for knob in DISPATCH_KNOBS:
+        monkeypatch.delenv(knob, raising=False)
+    prev = autotune.set_cache_dir(str(tmp_path / "autotune"))
+    monkeypatch.setattr(autotune, "_active_device", None)
+    yield autotune
+    autotune.set_cache_dir(prev)
+    os.environ.clear()
+    os.environ.update(env0)
+
+
+def test_autotune_on_the_card_launches_the_path_kernels(cuda_device,
+                                                        private_autotune,
+                                                        monkeypatch):
+    """``CNMF_TPU_AUTOTUNE=1`` measures on the card: the ELL lane of the
+    microbench launches ``h_stats`` and ``w_numer``; the cache's
+    fingerprint names the card; every scale and plan point is finite."""
+    import json
+    import math
+
+    autotune = private_autotune
+    monkeypatch.setenv("CNMF_TPU_AUTOTUNE", "1")
+    kl_ell.reset_launches()
+    rho = autotune.maybe_autotune_rho(beta=1.0, device="cuda")
+    plan = autotune.maybe_autotune_plan(device="cuda")
+    assert kl_ell.launches["h_stats"] > 0 and kl_ell.launches["w_numer"] > 0
+    name = torch.cuda.get_device_name(0).replace(" ", "_")
+    path = autotune.cache_path(device="cuda")
+    assert name in path
+    with open(path) as f:
+        payload = json.load(f)
+    assert payload["fingerprint"] == autotune.device_fingerprint("cuda")
+    assert f"-cuda-{name}-x{torch.cuda.device_count()}" in \
+        payload["fingerprint"]
+    assert set(payload["scales"]) == {"b2", "dense", "ell"}
+    assert set(payload["plan_points"]) == {
+        "ell_density_crossover", "grid_blocks", "stream_threads",
+        "sketch_dim"}
+    for v in list(payload["scales"].values()) + list(
+            payload["plan_points"].values()):
+        assert math.isfinite(v) and v > 0
+    assert rho["scales"] == payload["scales"]
+    assert plan["plan_points"] == payload["plan_points"]
+    print(f"autotune on {torch.cuda.get_device_name(0)}: {payload}")
+
+
+def _replay_counts(n=2000, g=3000, seed=14):
+    rng = np.random.default_rng(seed)
+    usage = rng.dirichlet(np.ones(6) * 0.2, size=n)
+    spectra = rng.gamma(0.25, 1.0, size=(6, g)) * 40.0 / g
+    X = rng.poisson(usage @ spectra * 25.0).astype(np.float32)
+    X[X.sum(axis=1) == 0, 0] = 1.0
+    return X
+
+
+def test_a_plan_replay_on_the_card_is_byte_identical(cuda_device,
+                                                     private_autotune,
+                                                     tmp_path):
+    """An autotuned online KL factorize on the card, its plan dumped with
+    ``plan --out``, then ``factorize --plan`` into a fresh run: one plan
+    event each, the same signature, the ``ell-cuda`` kernel, the iter
+    spectra and the consensus usages byte for byte, and the tuned groups'
+    sources ``pin`` after the replay."""
+    import os
+
+    from cnmf_torch_tpu_torch import Frame, save_df_to_npz
+    from cnmf_torch_tpu_torch.cli import main
+    from cnmf_torch_tpu_torch.utils.telemetry import read_events
+
+    autotune = private_autotune
+    os.environ["CNMF_TPU_AUTOTUNE"] = "1"
+    autotune.maybe_autotune_plan(device="cuda")
+    os.environ["CNMF_TPU_AUTOTUNE"] = "auto"
+    os.environ["CNMF_TPU_TELEMETRY"] = "1"
+    X = _replay_counts()
+    fn = str(tmp_path / "counts.df.npz")
+    save_df_to_npz(Frame(X, np.asarray([f"c{i}" for i in range(len(X))]),
+                         np.asarray([f"g{j}" for j in range(X.shape[1])])),
+                   fn)
+    out = str(tmp_path / "out")
+    plan_fn = str(tmp_path / "p.json")
+
+    def run(name, *extra):
+        common = ["--output-dir", out, "--name", name, "--device", "cuda"]
+        main(["prepare", "-c", fn, "-k", "5", "7", "-n", "6", "--seed", "3",
+              "--numgenes", "1000", "--beta-loss", "kullback-leibler",
+              "--batch_size", "1000"] + common)
+        env0 = dict(os.environ)
+        main(["factorize"] + common + list(extra))
+        os.environ.clear()
+        os.environ.update(env0)
+        main(["combine"] + common)
+        main(["consensus", "-k", "5", "--local-density-threshold", "2.0",
+              "--no-build-reference"] + common)
+
+    run("a")
+    main(["plan", os.path.join(out, "a"), "--out", plan_fn])
+    run("b", "--plan", plan_fn)
+    plans = {}
+    for name in ("a", "b"):
+        evs = [e for e in read_events(os.path.join(
+            out, name, "cnmf_tmp", f"{name}.events.jsonl"))
+            if e["t"] == "plan"]
+        assert len(evs) == 1
+        plans[name] = evs[0]
+    assert plans["a"]["signature"] == plans["b"]["signature"]
+    assert plans["a"]["plan"]["kernel"] == "ell-cuda"
+    assert plans["a"]["plan"]["sources"]["encoding"] == "autotuned"
+    assert plans["a"]["plan"]["sources"]["streaming"] == "autotuned"
+    assert plans["b"]["plan"]["sources"]["encoding"] == "pin"
+    assert plans["b"]["plan"]["sources"]["streaming"] == "pin"
+
+    def files(name, pattern):
+        d = os.path.join(out, name, "cnmf_tmp")
+        got = {}
+        for f in sorted(os.listdir(d)):
+            if pattern in f:
+                with open(os.path.join(d, f), "rb") as fh:
+                    got[f[len(name):]] = fh.read()
+        return got
+
+    assert len(files("a", ".iter_")) == 12
+    assert files("a", ".iter_") == files("b", ".iter_")
+    assert files("a", ".usages.") == files("b", ".usages.")

@@ -610,6 +610,29 @@ def test_fleet_daemon_http_surface(tmp_path):
     assert not os.path.exists(sock)
 
 
+def test_f6_fleet_daemon_serve_forever_closes_the_router(tmp_path):
+    """JAX's blocking ``FleetDaemon.serve_forever``: it serves until
+    another thread shuts the server down, then returns with the router
+    closed (every replica drain-stopped) and the socket removed."""
+    log = []
+    router = _fake_router(log, spectra_path="v1.df.npz")
+    sock = str(tmp_path / "fleet.sock")
+    daemon = FleetDaemon(router, socket_path=sock)
+    router.start(supervise=False)
+    thread = threading.Thread(target=daemon.serve_forever, daemon=True)
+    thread.start()
+    cli = FleetClient(socket_path=sock, timeout=DEADLINE_S)
+    assert cli.healthz()["replicas_up"] == 2
+    H, _ = cli.project(np.ones((1, G), np.float32), tenant="acme")
+    assert H.shape == (1, K)
+    threading.Thread(target=daemon.server.shutdown, daemon=True).start()
+    thread.join(timeout=DEADLINE_S)
+    assert not thread.is_alive()
+    assert daemon._closed and not router._running
+    assert sorted(o for what, o in log if what == "shutdown") == [0, 1]
+    assert not os.path.exists(sock)
+
+
 # ---------------------------------------------------------------------------
 # CLI surface
 # ---------------------------------------------------------------------------

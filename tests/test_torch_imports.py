@@ -120,6 +120,28 @@ H, meta = ServeClient(socket_path=sock, timeout=60).project(
 assert H.shape == (5, 3) and np.isfinite(H).all()
 daemon.close()
 assert HashRing([0, 1]).route("t") in (0, 1)
+# 10x .mtx input through the native reader, the planner's CLI, and an
+# h5ad read that names the missing h5py
+import gzip, scipy.io, scipy.sparse
+from cnmf_torch_tpu_torch.native import native_available
+from cnmf_torch_tpu_torch.utils.io import load_counts
+tenx = os.path.join(d, "tenx")
+os.makedirs(tenx)
+scipy.io.mmwrite(os.path.join(tenx, "matrix.mtx"),
+                 scipy.sparse.coo_matrix(counts.T), field="integer")
+with open(os.path.join(tenx, "genes.tsv"), "w") as f:
+    f.write("".join("id%d\tg%d\n" % (j, j) for j in range(90)))
+with gzip.open(os.path.join(tenx, "barcodes.tsv.gz"), "wt") as f:
+    f.write("".join("c%d\n" % i for i in range(60)))
+assert native_available()
+c10x = load_counts(os.path.join(tenx, "matrix.mtx"))
+assert np.array_equal(c10x.X.toarray(), counts)
+main(["plan", os.path.join(d, "tiny"), "--out", os.path.join(d, "p.json")])
+try:
+    load_counts(os.path.join(d, "x.h5ad"))
+    raise AssertionError("an h5ad read without h5py")
+except ImportError as exc:
+    assert "h5py" in str(exc)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -183,7 +205,9 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "parallel/grid2d.py", "runtime/elastic.py", "launcher.py",
                  "serving/__init__.py", "serving/reference.py",
                  "serving/batcher.py", "serving/daemon.py",
-                 "serving/fleet.py"]
+                 "serving/fleet.py", "native/__init__.py",
+                 "utils/anndata_lite.py", "utils/autotune.py",
+                 "runtime/planner.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

@@ -271,3 +271,42 @@ def test_multihost_device_envs_on_the_cpu_and_too_few_cards():
         launcher._device_envs(2, 2, "cuda", ["0", "1", "2"])
     assert launcher._visible_cards({"CUDA_VISIBLE_DEVICES": "3, 5"}) == [
         "3", "5"]
+
+
+def test_f5_run_pipeline_takes_k_selection_and_env_extra(tmp_path):
+    """JAX's two keywords with JAX's defaults: ``env_extra`` reaches every
+    worker's environment (here it turns the worker's telemetry on, so its
+    factorize writes an event log the parent never would), and
+    ``k_selection=False`` writes no K-selection statistics. The call is the
+    JAX package's own smoke call (``scripts/chaos_smoke.py``), on the CPU."""
+    import inspect
+
+    from cnmf_torch_tpu_torch import Frame, save_df_to_npz
+    from cnmf_torch_tpu_torch.utils.telemetry import read_events
+
+    for kw in ("k_selection", "env_extra"):
+        assert (inspect.signature(launcher.run_pipeline).parameters[kw]
+                .default == inspect.signature(jlauncher.run_pipeline)
+                .parameters[kw].default)
+    rng = np.random.default_rng(5)
+    X = rng.poisson(rng.gamma(0.5, 1.0, (80, 1))
+                    * rng.gamma(0.5, 1.0, (1, 120)) * 4.0).astype(np.float32)
+    X[X.sum(1) == 0, 0] = 1.0
+    fn = str(tmp_path / "c.df.npz")
+    save_df_to_npz(Frame(X, np.asarray([f"c{i}" for i in range(80)]),
+                         np.asarray([f"g{j}" for j in range(120)])), fn)
+    assert "CNMF_TPU_TELEMETRY" not in os.environ
+    launcher.run_pipeline(
+        fn, str(tmp_path), "f5", components=[3, 4], n_iter=3,
+        total_workers=1, seed=4, numgenes=50, k_selection=False,
+        env_extra={"CNMF_TPU_TELEMETRY": 1, "OMP_NUM_THREADS": "1"},
+        device="cpu", timeout_s=120)
+    from cnmf_torch_tpu_torch import cNMF
+
+    paths = cNMF(str(tmp_path), "f5", device="cpu").paths
+    assert not os.path.exists(paths["k_selection_stats"])
+    assert os.path.exists(paths["merged_spectra"] % 3)
+    events = read_events(str(tmp_path / "f5" / "cnmf_tmp"
+                             / "f5.events.jsonl"))
+    stages = {e.get("stage") for e in events if e["t"] == "stage"}
+    assert "factorize" in stages and "prepare" not in stages

@@ -8,6 +8,7 @@ behaviour when no cache exists.
 """
 
 import itertools
+import os
 
 import pytest
 
@@ -145,6 +146,10 @@ SERVING_KNOBS = (
     "CNMF_TPU_FLEET_WARM_TIMEOUT_S", "CNMF_TPU_FLEET_WEDGE_POLLS",
     "CNMF_TPU_WARM_DUMMY_BUDGET_BYTES")
 
+# h5ad output, the execution planner and its autotuner
+FORMAT_PLAN_KNOBS = ("CNMF_H5_COMPRESSION", "CNMF_TPU_PLAN",
+                     "CNMF_TPU_AUTOTUNE")
+
 
 def test_the_port_reads_no_unregistered_knob():
     from cnmf_torch_tpu_torch.utils import envknobs
@@ -160,7 +165,9 @@ def test_the_port_reads_no_unregistered_knob():
     # remote store's and the cost model's of tests/test_torch_remote.py
     # and test_torch_regress.py, and the multi-device layer's of
     # tests/test_torch_elastic.py, and the serving tier's of
-    # tests/test_torch_serving.py and test_torch_fleet.py
+    # tests/test_torch_serving.py and test_torch_fleet.py, and the h5ad
+    # writer's and the planner's of tests/test_torch_formats.py,
+    # test_torch_planner.py and test_torch_autotune.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -181,7 +188,19 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
                          "CNMF_TPU_PERF_MODEL",
                          "CNMF_TPU_PERF_GATE_BAND"} | set(
-        MULTI_DEVICE_KNOBS) | set(SERVING_KNOBS) == set(envknobs.KNOBS)
+        MULTI_DEVICE_KNOBS) | set(SERVING_KNOBS) | set(
+        FORMAT_PLAN_KNOBS) == set(envknobs.KNOBS)
+
+
+def test_the_format_and_planner_knobs_carry_the_jax_text():
+    from cnmf_torch_tpu.utils import envknobs as jknobs
+    from cnmf_torch_tpu_torch.utils import envknobs as tknobs
+
+    for name in FORMAT_PLAN_KNOBS:
+        assert tknobs.KNOBS[name] == jknobs.REGISTRY[name].doc, name
+        assert tknobs.env_is_set(name) == (name in os.environ)
+    with pytest.raises(ValueError, match="not one the port reads"):
+        tknobs.pin_knob("CNMF_TPU_PALLAS", "1")
 
 
 def test_the_serving_knobs_carry_the_jax_text():
