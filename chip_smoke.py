@@ -142,8 +142,7 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    files phase 3's bytes); and
    that each stage event's wall is within 10% + 50 ms of this script's
    synchronized wall of the same call. Then the same factorize with the
-   knobs off and on in turns (off, on, on, off, twice; logged, no
-   gate), and
+   knobs off and on in turns (off, on, on, off; logged, no gate), and
    one factorize at K=9 under
    ``CNMF_TPU_PROFILE_DIR``, whose Chrome trace must name
    ``h_stats_kernel``. It logs the telemetry-on factorize wall against
@@ -278,6 +277,36 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     the two read times, the autotune wall, scales and points, and the
     factorize and replay walls.
 
+14. The preprocess sidecar (``models/preprocess.py``, ``ops/seurat_v3.py``,
+    ``ops/pca.py``, ``ops/harmony.py``, ``ops/mutual_info.py``, plain
+    torch) and the figures (``models/plots.py``). (a) Phase 3's model at
+    full width, 10,000 cells x 5,000 genes, with four donors of 2,500
+    cells whose rates carry a planted effect a gene (``lognormal(0,
+    0.5)``), ten ``MT-`` and ten dotted gene names and a 50-feature
+    "Antibody Capture" block: ``filter_adata`` and ``preprocess_for_cnmf``
+    (the CITE-seq split, 2,000 seurat_v3 HVGs, PCA to 50, Harmony over
+    the donors with theta 1 and 20 iterations: 100 clusters, then the
+    gene-space MOE ridge), twice on the card. It checks a non-negative
+    cells x 2,000 corrected matrix, TF32 off, each block of TP10K summing
+    to 1e4 a cell, the mean donor centroid gap in PC space after Harmony
+    below 0.35 of the one before, the two runs within 1e-6, and on 2,000
+    cells the card within 1e-3 (of the largest value) of the port's own
+    CPU run; it prints the walls of the HVGs, PCA, Harmony, its cluster
+    phase and the MOE ridge, the Harmony iterations and cluster rounds
+    and the peak. (b) The three files written as ``.df.npz`` and text
+    (the card's machine has no h5py), then ``prepare`` (KL, K in {7, 9},
+    10 replicates), factorize, combine, consensus (k=9, threshold 2.0,
+    the default ``show_clustering=True``) and ``k_selection_plot``, for
+    the Harmony output (the dense lane by the lane rule, no launch) and
+    for ``harmony_vars=None`` (sparse; the lane rule's own choice logged,
+    the ELL lane asked for with ``CNMF_TPU_SPARSE_BETA=1``, the three path
+    kernels launched), the launch counts set to 0 before each; without
+    matplotlib both figures skipped with the warning that names them and
+    no PNG written, every artifact and statistic there. (c)
+    ``select_features_MI`` on 2,000 cells against each cell's largest
+    program of (b)'s sparse run, card against CPU: the same top 70 and
+    MI within 1e-5.
+
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
 ``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
@@ -395,13 +424,20 @@ def ptxas_summary(text: str):
     return lines
 
 
-def synthetic_counts(n, g, k_true=14, scale=60.0, seed=SEED):
+def synthetic_counts(n, g, k_true=14, scale=60.0, seed=SEED, donors=None):
     """The low-rank Poisson GEP model of ``bench.py`` (Dirichlet usages,
-    gamma spectra) at ``scale`` counts per unit of usage."""
+    gamma spectra) at ``scale`` counts per unit of usage. ``donors`` (one
+    id a cell, 0 .. D-1) multiplies each donor's rates by a planted effect
+    per gene, ``lognormal(0, DONOR_SIGMA)`` (median 1)."""
     rng = np.random.default_rng(seed)
     usage = rng.dirichlet(np.ones(k_true) * 0.2, size=n)
     spectra = rng.gamma(0.25, 1.0, size=(k_true, g)) * 40.0 / g
-    counts = rng.poisson(usage @ spectra * scale).astype(np.float32)
+    rate = usage @ spectra * scale
+    if donors is not None:
+        effect = rng.lognormal(0.0, DONOR_SIGMA,
+                               size=(int(donors.max()) + 1, g))
+        rate *= effect[donors]
+    counts = rng.poisson(rate).astype(np.float32)
     counts[counts.sum(axis=1) == 0, 0] = 1.0
     return counts
 
@@ -2111,16 +2147,16 @@ def telemetry_phase(counts_fn, stages, ref, ref_launches) -> dict:
     log(f"phase 8: {len(theirs)} artifacts byte-identical to phase 3's")
 
     # the same factorize with the telemetry knobs off and on, in turns:
-    # four pairs, each side first in two
+    # two pairs, each side first in one
     turns = {"off": [], "on": []}
-    for state in ("off", "on", "on", "off") * 2:
+    for state in ("off", "on", "on", "off"):
         env = {key: ("1" if state == "on" else "0")
                for key in TELEMETRY_KNOBS}
         with knobs(**env):
             stages.run(f"factorize telemetry {state}", obj.factorize)
         turns[state].append(stages.rows[-1][1])
     log(f"phase 8: factorize with the telemetry knobs off {turns['off']} "
-        f"s, on {turns['on']} s (turns off, on, on, off, twice); "
+        f"s, on {turns['on']} s (turns off, on, on, off); "
         f"medians off {statistics.median(turns['off']):.4f} s, on "
         f"{statistics.median(turns['on']):.4f} s")
 
@@ -4449,6 +4485,333 @@ def phase13(stages, counts_fn, ref_obj, smi) -> dict:
     return out
 
 
+PP_DONORS = 4            # 14a's donors, 2,500 cells each
+DONOR_SIGMA = 0.5        # the planted donor effect a gene: lognormal(0, 0.5)
+PP_MT, PP_DOT, PP_ADT = 10, 10, 50   # MT- genes, dotted names, ADT features
+ADT = "Antibody Capture"
+PP_FILTER = dict(min_cells_per_gene=10, min_counts_per_cell=100,
+                 filter_mito_genes=True, filter_mito_thresh=0.2)
+PP_HARMONY = dict(feature_type_col="feature_types", harmony_vars="batch",
+                  n_top_rna_genes=N_HVG, theta=1, max_iter_harmony=20)
+PP_GAP_MAX = 0.35        # JAX's band (tests/test_preprocess.py:124)
+PP_REPEAT_TOL = 1e-6     # two card runs, of the largest corrected value
+PP_SUB = 2_000           # the subsample of 14a's CPU run and of 14c
+PP_CPU_TOL = 1e-3        # card against CPU, of the largest corrected value
+PP_KS = [7, 9]
+PP_ITER = 10
+PP_K = 9
+MI_TOP = 70
+MI_TOL = 1e-5
+
+
+def donor_counts():
+    """14a's input: phase 3's low-rank Poisson model at full width with
+    four donors of 2,500 cells and their planted effect, ten ``MT-`` genes
+    and ten dotted names among the 5,000 genes, and a 50-feature ADT block
+    (``var["feature_types"]``), as CSR ``Counts`` with ``obs["batch"]``."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch.utils.io import Counts
+
+    donors = np.arange(N_CELLS) * PP_DONORS // N_CELLS
+    rna = synthetic_counts(N_CELLS, N_GENES, donors=donors)
+    rng = np.random.default_rng(SEED + 1)
+    adt = rng.poisson(rng.gamma(2.0, 5.0, size=(1, PP_ADT)),
+                      size=(N_CELLS, PP_ADT)).astype(np.float32)
+    genes = [f"g{j}" for j in range(N_GENES)]
+    genes[:PP_MT] = [f"MT-{j}" for j in range(PP_MT)]
+    genes[PP_MT:PP_MT + PP_DOT] = [f"AC{j}.1" for j in range(PP_DOT)]
+    names = genes + [f"adt{j}" for j in range(PP_ADT)]
+    X = sp.hstack([sp.csr_matrix(rna), sp.csr_matrix(adt)]).tocsr()
+    return Counts(X, np.asarray([f"c{i}" for i in range(N_CELLS)]),
+                  np.asarray(names),
+                  obs={"batch": np.asarray([f"donor{d}" for d in donors],
+                                           dtype=object)},
+                  var={"feature_types": np.asarray(
+                      ["Gene Expression"] * N_GENES + [ADT] * PP_ADT,
+                      dtype=object)})
+
+
+@contextlib.contextmanager
+def timed_calls(targets, walls: dict, results: list):
+    """Wrap ``(module, name, label)`` functions for the block: each call's
+    synchronized wall lands in ``walls[label]`` and its result in
+    ``results`` as ``(label, result)``."""
+    saved = []
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls.setdefault(_label, []).append(time.perf_counter() - t0)
+            results.append((_label, out))
+            return out
+
+        setattr(mod, name, wrapped)
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _donor_gaps(M, donors) -> list:
+    """Centroid distance of every pair of donors in the rows of ``M``."""
+    ids = sorted(set(donors))
+    cents = [M[donors == d].mean(0) for d in ids]
+    return [float(np.linalg.norm(cents[a] - cents[b]))
+            for a in range(len(ids)) for b in range(a + 1, len(ids))]
+
+
+def sidecar_phase(stages, smi) -> dict:
+    """14a: ``filter_adata`` and ``preprocess_for_cnmf`` with Harmony on the
+    card, twice; then the port's CPU run against the card's on a
+    subsample."""
+    from cnmf_torch_tpu_torch import Preprocess
+    from cnmf_torch_tpu_torch.models import preprocess as pp_mod
+    from cnmf_torch_tpu_torch.ops import harmony as hm
+
+    t0 = time.perf_counter()
+    counts = donor_counts()
+    log(f"14a: counts {counts.shape} ({counts.X.nnz} stored, "
+        f"{counts.X[:, :N_GENES].sum() / N_CELLS:.1f} RNA UMI a cell), "
+        f"{PP_DONORS} donors, made in {time.perf_counter() - t0:.2f} s")
+    spies = [(pp_mod, "seurat_v3_hvg", "hvg"), (pp_mod, "pca", "pca"),
+             (pp_mod, "run_harmony", "harmony"),
+             (hm, "_cluster_phase", "cluster_phase"),
+             (pp_mod, "_moe_ridge", "moe_genes")]
+    runs, walls, results = [], {}, []
+    for i in (1, 2):
+        pp = Preprocess(SEED, device=CARD)
+        filt = stages.run(f"14a filter_adata #{i}", lambda: pp.filter_adata(
+            counts, **PP_FILTER))
+        with timed_calls(spies if i == 1 else [], walls, results):
+            out = stages.run(f"14a preprocess_for_cnmf #{i}",
+                             lambda: pp.preprocess_for_cnmf(filt,
+                                                            **PP_HARMONY))
+        runs.append((filt,) + out)
+    whole_s, peak = stages.rows[-3][1], stages.rows[-3][2]
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "14a: TF32 matmuls are on")
+    filt, rna, tp10k, hvgs = runs[0]
+    n = filt.shape[0]
+    check(not any("MT-" in v or "." in v for v in filt.var_names),
+          "14a: filter_adata kept an MT- or dotted gene")
+    check(rna.X.shape == (n, N_HVG) and len(hvgs) == N_HVG,
+          f"14a: corrected matrix {rna.X.shape}")
+    check(bool((rna.X >= 0).all()) and bool(np.isfinite(rna.X).all()),
+          "14a: the corrected matrix is negative or not finite")
+    ft = np.asarray(tp10k.var["feature_types"])
+    sums = {k: np.asarray(tp10k.X[:, m].sum(1)).ravel()
+            for k, m in (("rna", ft != ADT), ("adt", ft == ADT))}
+    for k, v in sums.items():
+        check(np.allclose(v, 1e4, rtol=1e-5),
+              f"14a: {k} TP10K sums {v.min()}-{v.max()}")
+    donors = np.asarray(filt.obs["batch"])
+    before = _donor_gaps(rna.obsm["X_pca"], donors)
+    after = _donor_gaps(rna.obsm["X_pca_harmony"], donors)
+    ratio = float(np.mean(after) / np.mean(before))
+    check(ratio < PP_GAP_MAX, f"14a: donor gap ratio {ratio}")
+    repeat = float(np.abs(runs[1][1].X - rna.X).max())
+    check(repeat <= PP_REPEAT_TOL * float(np.abs(rna.X).max())
+          and runs[1][3] == hvgs, f"14a: two card runs differ by {repeat}")
+    res = [r for label, r in results if label == "harmony"][0]
+    rounds = [int(r[5]) for label, r in results if label == "cluster_phase"]
+    log(f"14a on {smi}: {n} cells x {N_HVG} HVGs corrected, K="
+        f"{res.K} clusters, {len(res.objective_harmony)} Harmony "
+        f"iterations, cluster rounds {rounds}; donor centroid gaps "
+        f"before {np.round(before, 3).tolist()} after "
+        f"{np.round(after, 3).tolist()} (mean ratio {ratio:.4f}); two "
+        f"card runs differ by {repeat}")
+    sub_rows = np.sort(np.random.default_rng(SEED).choice(
+        n, PP_SUB, replace=False))
+    sub = {}
+    for dev in (CARD, "cpu"):
+        sub[dev] = stages.run(
+            f"14a preprocess_for_cnmf, {PP_SUB} cells ({dev})",
+            lambda dev=dev: Preprocess(SEED, device=dev).preprocess_for_cnmf(
+                filt.take(rows=sub_rows), **PP_HARMONY))
+    scale = float(np.abs(sub["cpu"][0].X).max())
+    cpu_gap = float(np.abs(sub[CARD][0].X - sub["cpu"][0].X).max())
+    check(sub[CARD][2] == sub["cpu"][2], "14a: card and CPU HVGs differ")
+    check(cpu_gap <= PP_CPU_TOL * scale,
+          f"14a: card and CPU differ by {cpu_gap} (largest value {scale})")
+    log(f"14a: {PP_SUB} cells, card against CPU: max gap {cpu_gap:.3e} "
+        f"of the largest value {scale:.4f} ({cpu_gap / scale:.3e})")
+    out = {"cells": n, "walls": {k: [float(x) for x in v]
+                                 for k, v in walls.items()},
+           "whole_s": whole_s, "peak_gib": peak,
+           "harmony_iterations": len(res.objective_harmony),
+           "cluster_rounds": rounds, "K": res.K,
+           "gap_before": before, "gap_after": after, "gap_ratio": ratio,
+           "repeat_gap": repeat, "cpu_gap": cpu_gap, "cpu_scale": scale}
+    log(f"14a walls (s): hvg {sum(walls['hvg']):.3f}, pca "
+        f"{sum(walls['pca']):.3f}, Harmony {sum(walls['harmony']):.3f} "
+        f"(cluster phase {sum(walls['cluster_phase']):.3f} over "
+        f"{len(walls['cluster_phase'])} calls), gene-space MOE ridge "
+        f"{sum(walls['moe_genes']):.3f}, the whole call {whole_s:.3f}; "
+        f"peak {peak:.3f} GiB")
+    return out, runs[0]
+
+
+def _handoff_files(base, rna, tp10k, hvgs):
+    """The sidecar's three files as the card's machine can write them
+    (no h5py): the two matrices as dense ``.df.npz``, the HVGs as text."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch import Frame, save_df_to_npz
+
+    for suffix, c in ((".Corrected.HVG.Varnorm.df.npz", rna),
+                      (".TP10K.df.npz", tp10k)):
+        X = c.X.toarray() if sp.issparse(c.X) else np.asarray(c.X)
+        save_df_to_npz(Frame(X.astype(np.float32), c.obs_names,
+                             c.var_names), base + suffix)
+    with open(base + ".Corrected.HVGs.txt", "w") as f:
+        f.write("\n".join(hvgs))
+    return (base + ".Corrected.HVG.Varnorm.df.npz", base + ".TP10K.df.npz",
+            base + ".Corrected.HVGs.txt")
+
+
+def handoff_phase(stages, side, smi) -> dict:
+    """14b: the sidecar's files into ``prepare -> factorize -> combine ->
+    consensus -> k_selection_plot``, for the Harmony output (the lane rule
+    as it stands) and for ``harmony_vars=None`` (sparse; the ELL lane asked
+    for with ``CNMF_TPU_SPARSE_BETA=1``, the rule's own choice logged);
+    launches gated against each run's lane, the figures against the
+    machine's matplotlib (D17)."""
+    import importlib.util
+    import warnings
+
+    from cnmf_torch_tpu_torch import Preprocess, cNMF
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.sparse import resolve_sparse_beta
+    from cnmf_torch_tpu_torch.utils.io import load_matrix
+
+    filt, rna_h, tp_h, hvgs_h = side
+    plain = stages.run("14b preprocess_for_cnmf (no Harmony)",
+                       lambda: Preprocess(SEED, device=CARD)
+                       .preprocess_for_cnmf(filt, **dict(
+                           PP_HARMONY, harmony_vars=None)))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = {}
+    for label, (rna, tp, hvgs) in (("harmony", (rna_h, tp_h, hvgs_h)),
+                                   ("plain", plain)):
+        name = f"pp14_{label}"
+        counts_fn, tpm_fn, genes_fn = _handoff_files(
+            os.path.join(OUT, name), rna, tp, hvgs)
+        obj = cNMF(OUT, name, device=CARD)
+        kl_ell.reset_launches()
+        stages.run(f"14b {label} prepare", lambda: obj.prepare(
+            counts_fn, tpm_fn=tpm_fn, genes_file=genes_fn,
+            components=PP_KS, n_iter=PP_ITER, seed=SEED,
+            beta_loss="kullback-leibler", batch_size=CHUNK))
+        Xn = load_matrix(obj.paths["normalized_counts"]).X
+        dens = Xn.nnz / (Xn.shape[0] * Xn.shape[1])
+        width = int(np.diff(Xn.indptr).max())
+        auto = ("ell" if resolve_sparse_beta(1.0, dens, width, Xn.shape[1])
+                else "dense")
+        log(f"14b {label}: normalized counts {Xn.shape}, density "
+            f"{dens:.4f}, widest row {width} (guard {Xn.shape[1] // 8}): "
+            f"the lane rule picks {auto}")
+        with knobs(**({"CNMF_TPU_SPARSE_BETA": "1"} if label == "plain"
+                      else {})):
+            stages.run(f"14b {label} factorize", obj.factorize)
+            stages.run(f"14b {label} combine", obj.combine)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                stages.run(f"14b {label} consensus", lambda: obj.consensus(
+                    PP_K, density_threshold=2.0))
+                stats = stages.run(f"14b {label} k_selection_plot",
+                                   obj.k_selection_plot)
+        launches = dict(kl_ell.launches)
+        info = obj.factorize_info
+        lane = info["lane"]
+        check(lane in ("ell", "dense"), f"14b {label}: lane {lane}")
+        for kname in kl_ell.KERNELS:
+            want = lane == "ell" and kname in ONLINE_KERNELS
+            check((launches[kname] > 0) == want,
+                  f"14b {label} on the {lane} lane: {kname} launched "
+                  f"{launches[kname]} times")
+        pngs = [obj.paths["clustering_plot"] % (PP_K, "2_0"),
+                obj.paths["k_selection_plot"]]
+        skipped = [str(w.message) for w in caught
+                   if issubclass(w.category, RuntimeWarning)
+                   and "matplotlib" in str(w.message)]
+        for png in pngs:
+            if have_mpl:
+                check(os.path.exists(png), f"14b {label}: no {png}")
+            else:
+                check(not os.path.exists(png)
+                      and any(png in m for m in skipped),
+                      f"14b {label}: {png} not skipped with the warning")
+        for key in ("consensus_spectra", "consensus_usages",
+                    "gene_spectra_tpm", "gene_spectra_score"):
+            check(os.path.exists(obj.paths[key] % (PP_K, "2_0")),
+                  f"14b {label}: no {key}")
+        check(os.path.exists(obj.paths["k_selection_stats"])
+              and stats.shape == (len(PP_KS), 4)
+              and np.isfinite(stats.values).all(),
+              f"14b {label}: K-selection statistics")
+        log(f"14b {label} on {smi}: lane {lane}, kernel "
+            f"{info['kernel']}, launches {launches}; figures "
+            f"{'written' if have_mpl else 'skipped (no matplotlib)'}: "
+            f"{len(skipped)} warnings")
+        out[label] = {"lane": lane, "auto_lane": auto, "density": dens,
+                      "width": width, "kernel": info["kernel"],
+                      "launches": launches, "figures_skipped": skipped,
+                      "obj": obj}
+    check(out["harmony"]["lane"] == out["harmony"]["auto_lane"] == "dense",
+          "14b: the corrected (dense) hand-off did not take the dense lane")
+    check(out["plain"]["lane"] == "ell",
+          "14b: the sparse hand-off did not take the ELL lane")
+    return out
+
+
+def mi_phase(stages, filt, obj, smi) -> dict:
+    """14c: ``select_features_MI`` on the card against the port's CPU path
+    on a subsample, the label each cell's largest program of 14b's
+    sparse run."""
+    from cnmf_torch_tpu_torch import Preprocess
+    from cnmf_torch_tpu_torch.utils.io import load_df_from_npz
+
+    usages = load_df_from_npz(obj.paths["consensus_usages"] % (PP_K, "2_0"))
+    check(list(usages.index) == list(filt.obs_names), "14c: cell order")
+    labels = np.argmax(usages.values, axis=1)
+    rows = np.sort(np.random.default_rng(SEED + 2).choice(
+        filt.shape[0], PP_SUB, replace=False))
+    sub = filt.take(rows=rows)
+    got = {}
+    for dev in (CARD, "cpu"):
+        got[dev] = stages.run(
+            f"14c select_features_MI, {PP_SUB} cells ({dev})",
+            lambda dev=dev: Preprocess(SEED, device=dev).select_features_MI(
+                sub, labels[rows], n_top_features=MI_TOP))
+    top = {dev: set(np.asarray(c.var_names)[c.var["highly_variable"]])
+           for dev, c in got.items()}
+    gap = float(np.abs(got[CARD].var["MI"] - got["cpu"].var["MI"]).max())
+    check(len(top[CARD]) == MI_TOP and top[CARD] == top["cpu"],
+          "14c: card and CPU top features differ")
+    check(gap <= MI_TOL, f"14c: MI differs by {gap}")
+    log(f"14c on {smi}: {sub.shape} features, {len(set(labels[rows]))} "
+        f"labels; the top {MI_TOP} equal, MI gap {gap:.3e}, largest MI "
+        f"{float(got[CARD].var['MI'].max()):.4f}")
+    return {"features": int(sub.shape[1]), "mi_gap": gap}
+
+
+def phase14(stages, smi) -> dict:
+    """The preprocess sidecar on the card."""
+    a, side = sidecar_phase(stages, smi)
+    b = handoff_phase(stages, side, smi)
+    c = mi_phase(stages, side[0], b["plain"].pop("obj"), smi)
+    b["harmony"].pop("obj")
+    torch.cuda.empty_cache()
+    return {"a": a, "b": b, "c": c, "launches": b["plain"]["launches"]}
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -4708,6 +5071,14 @@ def main() -> int:
         log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
     log(f"phase 13 kernel launches: {p13['launches']}")
 
+    # -- phase 14: the preprocess sidecar ------------------------------------
+    n_stages = len(stages.rows)
+    p14 = phase14(stages, smi)
+    log(f"phase 14 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 14 kernel launches: {p14['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -4719,7 +5090,8 @@ def main() -> int:
                            + int(p10["launches"][name])
                            + int(p11["launches"][name])
                            + int(p12["launches"][name])
-                           + int(p13["launches"][name]))
+                           + int(p13["launches"][name])
+                           + int(p14["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -4731,7 +5103,7 @@ def main() -> int:
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
               "phase10": p10, "phase11": p11, "phase12": p12,
-              "phase13": p13,
+              "phase13": p13, "phase14": p14,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

@@ -13,13 +13,15 @@ card is present unless the caller asked for ``"cpu"``.
 from .utils.io import Frame, load_df_from_npz, save_df_to_npz
 from .version import __version__
 
-__all__ = ["cNMF", "Frame", "main", "save_df_to_npz", "load_df_from_npz",
-           "__version__"]
+__all__ = ["cNMF", "Preprocess", "Frame", "main", "save_df_to_npz",
+           "load_df_from_npz", "__version__"]
 
 
 def __getattr__(name):
     _lazy = {
         "cNMF": ("cnmf_torch_tpu_torch.models.cnmf", "cNMF"),
+        "Preprocess": ("cnmf_torch_tpu_torch.models.preprocess",
+                       "Preprocess"),
         "main": ("cnmf_torch_tpu_torch.cli", "main"),
     }
     if name in _lazy:

@@ -23,8 +23,10 @@ reads ``.df.npz``, tab-delimited text, a 10x ``.mtx[.gz]`` directory and
 ``.h5ad`` (with h5py).
 
 Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
-the K-selection statistics (``<name>.k_selection_stats.df.npz``); its
-figure is not written yet (the plots are not ported). ``report`` renders a
+the K-selection statistics (``<name>.k_selection_stats.df.npz``) and the
+figure (``<name>.k_selection.png``), and ``consensus --show-clustering``
+the clustergram; without matplotlib a figure is skipped with a warning
+naming it and everything else is written. ``report`` renders a
 run's telemetry (the events file of a ``CNMF_TPU_TELEMETRY=1`` run, else
 the timings TSV) and ``trace`` its sampled span waterfalls; both read
 files only and never touch a device. ``factorize --rowshard`` /
@@ -211,6 +213,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="[consensus] Fraction of the number of "
                              "replicates to use as nearest neighbors for "
                              "local density filtering")
+    parser.add_argument("--show-clustering", dest="show_clustering",
+                        action="store_true",
+                        help="[consensus] Produce a clustergram figure "
+                             "summarizing the spectra clustering")
     parser.add_argument("--build-reference", dest="build_reference",
                         action=argparse.BooleanOptionalAction, default=True,
                         help="[consensus] Generate reference spectra for "
@@ -342,7 +348,9 @@ def main(argv=None):
             obj.consensus(int(k), 0.5 if args.local_density_threshold
                           is None else args.local_density_threshold,
                           args.local_neighborhood_size,
-                          build_ref=args.build_reference)
+                          args.show_clustering,
+                          build_ref=args.build_reference,
+                          close_clustergram_fig=True)
     elif args.command == "k_selection_plot":
         obj.k_selection_plot(close_fig=True)
 

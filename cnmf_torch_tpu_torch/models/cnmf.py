@@ -76,7 +76,7 @@ from ..ops.hvg import highvar_genes
 from ..ops.kernels import kernel_label
 from ..ops.kmeans import kmeans
 from ..ops.metrics import local_density as knn_local_density
-from ..ops.metrics import silhouette_score
+from ..ops.metrics import pairwise_euclidean, silhouette_score
 from ..ops.nmf import (beta_loss_to_float, dense_on_device, fit_h,
                        resolve_online_schedule, run_nmf, run_nmf_use_ell,
                        sweep_x_mean)
@@ -99,6 +99,7 @@ from ..utils.io import (Counts, Frame, atomic_artifact, load_counts,
 from ..utils.paths import build_paths
 from ..utils.profiling import StageTimer, trace
 from ..utils.telemetry import EventLog, replicate_records
+from . import plots
 
 __all__ = ["cNMF"]
 
@@ -1702,9 +1703,10 @@ class cNMF:
     # ------------------------------------------------------------------
 
     def _consensus(self, k, density_threshold=0.5,
-                   local_neighborhood_size=0.30, show_clustering=False,
+                   local_neighborhood_size=0.30, show_clustering=True,
                    build_ref=True, skip_density_and_return_after_stats=False,
-                   refit_usage=True, normalize_tpm_spectra=False,
+                   close_clustergram_fig=False, refit_usage=True,
+                   normalize_tpm_spectra=False,
                    norm_counts=None, _sketch=None, _stream_store=None,
                    _stream_error_collector=None):
         """Consensus spectra and usages from the merged replicate matrix:
@@ -1712,8 +1714,12 @@ class cNMF:
         (k, 10 inits, seed 1), cluster medians, usage refits, TPM- and
         z-score-unit spectra. With ``skip_density_and_return_after_stats``
         returns the K-selection statistics instead of writing artifacts.
-        The clustergram figure is not ported (no matplotlib on the card's
-        machine).
+        ``show_clustering`` also draws the clustergram
+        (``paths["clustering_plot"]``, ``models/plots.py``): the filtered
+        distances of the density pass, or on a sketched run or a cached
+        density those of the clustered features. Without matplotlib the
+        figure is skipped with a warning and everything else is written
+        (``ROADMAP.md`` D17).
 
         Sketched consensus (``ops/sketch.py``, ``CNMF_TPU_SKETCH``): when
         it engages, the density filter, k-means and the silhouette run on
@@ -1739,9 +1745,6 @@ class cNMF:
         x genes matrix. ``_stream_store`` / ``_stream_error_collector``:
         :meth:`k_selection_stats` hands its store over and collects each
         K's spectra for its one shared error pass."""
-        if show_clustering:
-            raise NotImplementedError(
-                "the clustergram figure is not ported yet")
         dev = self.device
         k = int(k)
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
@@ -1778,14 +1781,15 @@ class cNMF:
             context=dict(self.consensus_info[k], k=k, packed=False,
                          distance_shape=[int(l2.shape[0])] * 2))
         keep = np.ones(l2.shape[0], dtype=bool)
+        density = topics_dist = None
         if not skip_density_and_return_after_stats:
             cache = self.paths["local_density_cache"] % k
             if not sk.engaged and os.path.isfile(cache):
                 density = load_df_from_npz(cache).values[:, 0]
             else:
                 with self._timer.stage("consensus.density"):
-                    density, _ = knn_local_density(feats, n_neighbors,
-                                                   device=dev)
+                    density, topics_dist = knn_local_density(
+                        feats, n_neighbors, device=dev)
                 if not sk.engaged:
                     # projected densities never enter the exact cache
                     save_df_to_npz(Frame(density[:, None], index,
@@ -1878,6 +1882,16 @@ class cNMF:
                 save_df_to_npz(frame, self.paths[key] % (k, dt_repl))
                 save_df_to_text(frame,
                                 self.paths[key + "__txt"] % (k, dt_repl))
+        if show_clustering:
+            png = self.paths["clustering_plot"] % (k, dt_repl)
+            # the distances are computed only when the figure is drawn
+            if plots.pyplot_or_skip(png) is not None:
+                topics_dist = (pairwise_euclidean(feats, device=dev)
+                               if topics_dist is None
+                               else topics_dist[np.ix_(keep, keep)])
+                plots.clustergram(topics_dist, labels + 1, density, keep,
+                                  density_threshold, png,
+                                  close_fig=close_clustergram_fig)
         if build_ref:
             with self._timer.stage("consensus.build_ref"):
                 self.build_reference(k, density_threshold, spectra_tpm=tpm_f)
@@ -2081,6 +2095,7 @@ class cNMF:
             context=dict(self.consensus_info["k_selection"],
                          K_max=int(max(ks)), packed=False))
         rows = [self._consensus(k, skip_density_and_return_after_stats=True,
+                                show_clustering=False,
                                 norm_counts=norm_counts, _sketch=sk,
                                 _stream_store=store,
                                 _stream_error_collector=collector
@@ -2099,15 +2114,14 @@ class cNMF:
 
     @_timed("k_selection_plot")
     def k_selection_plot(self, close_fig=False):
-        """The JAX package's K-selection step: writes the statistics of
-        :meth:`k_selection_stats` (``<name>.k_selection_stats.df.npz``)
-        and returns them. The stability/error figure is not written yet:
-        the plots (matplotlib) come to the port later. ``close_fig`` is
-        accepted for the JAX package's signature."""
+        """The K-selection step: writes the statistics of
+        :meth:`k_selection_stats` (``<name>.k_selection_stats.df.npz``),
+        draws the stability/error figure (``<name>.k_selection.png``;
+        skipped with a warning without matplotlib, ``ROADMAP.md`` D17) and
+        returns the statistics."""
         stats = self.k_selection_stats()
-        print("k_selection_plot: wrote %s; the K-selection figure is not "
-              "written yet (plots are not ported)."
-              % self.paths["k_selection_stats"])
+        plots.k_selection_figure(stats, self.paths["k_selection_plot"],
+                                 close_fig=close_fig)
         return stats
 
     def load_results(self, K, density_threshold, n_top_genes=100,

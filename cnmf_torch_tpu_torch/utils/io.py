@@ -84,6 +84,35 @@ class Counts:
     var: dict = field(default_factory=dict)
     obsm: dict = field(default_factory=dict)
 
+    @property
+    def shape(self):
+        return self.X.shape
+
+    def take(self, rows=None, cols=None) -> "Counts":
+        """The cells ``rows`` and genes ``cols`` (boolean masks or
+        positions; ``None`` keeps all) as a new :class:`Counts`, with the
+        ``obs``/``obsm`` rows and ``var`` entries carried along."""
+        n, g = self.X.shape
+        r = np.arange(n) if rows is None else _positions_of(rows, n)
+        c = np.arange(g) if cols is None else _positions_of(cols, g)
+        X = self.X[r][:, c]
+        return Counts(X, np.asarray(self.obs_names)[r],
+                      np.asarray(self.var_names)[c],
+                      obs={k: np.asarray(v)[r] for k, v in self.obs.items()},
+                      var={k: np.asarray(v)[c] for k, v in self.var.items()},
+                      obsm={k: np.asarray(v)[r]
+                            for k, v in self.obsm.items()})
+
+
+def _positions_of(sel, length: int) -> np.ndarray:
+    sel = np.asarray(sel)
+    if sel.dtype == bool:
+        if sel.shape != (length,):
+            raise IndexError(f"boolean mask of {sel.shape} for an axis of "
+                             f"{length}")
+        return np.flatnonzero(sel)
+    return sel.astype(np.int64)
+
 
 @contextlib.contextmanager
 def atomic_artifact(path: str):

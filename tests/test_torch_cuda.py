@@ -976,3 +976,86 @@ def test_a_plan_replay_on_the_card_is_byte_identical(cuda_device,
     assert len(files("a", ".iter_")) == 12
     assert files("a", ".iter_") == files("b", ".iter_")
     assert files("a", ".usages.") == files("b", ".usages.")
+
+
+def _donor_counts(n=300, g=400, seed=17):
+    """Low-rank Poisson counts of three donors with a multiplicative donor
+    effect per gene, as CSR with the donor column in ``obs``."""
+    import scipy.sparse as sp
+
+    from cnmf_torch_tpu_torch.utils.io import Counts
+
+    rng = np.random.default_rng(seed)
+    batch = np.arange(n) % 3
+    usage = rng.dirichlet(np.ones(4) * 0.4, size=n)
+    spectra = rng.gamma(0.4, 1.0, size=(4, g)) * 40.0 / g
+    effect = rng.lognormal(0.0, 0.5, size=(3, g))
+    X = rng.poisson(usage @ spectra * 400.0 * effect[batch]).astype(float)
+    X[X.sum(axis=1) == 0, 0] = 1.0
+    return Counts(sp.csr_matrix(X), np.asarray([f"c{i}" for i in range(n)]),
+                  np.asarray([f"g{j}" for j in range(g)]),
+                  obs={"batch": np.asarray([f"d{b}" for b in batch],
+                                           dtype=object)})
+
+
+def test_preprocess_on_the_card_matches_the_cpu(cuda_device):
+    """``filter_adata`` and ``preprocess_for_cnmf`` with Harmony on the
+    card against the CPU from the same seed: the same cells, genes and
+    HVGs, the TP10K at rtol 1e-6, the corrected matrix within 1e-3 of its
+    largest value (f32 soft k-means over 5 iterations in another
+    summation order) and non-negative."""
+    from cnmf_torch_tpu_torch import Preprocess
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pp = Preprocess(0, device=dev)
+        filt = pp.filter_adata(_donor_counts(), min_cells_per_gene=5,
+                               min_counts_per_cell=50)
+        out[dev] = (filt,) + pp.preprocess_for_cnmf(
+            filt, harmony_vars="batch", n_top_rna_genes=100,
+            max_iter_harmony=5)
+    (fc, rc, tc, hc), (fp, rp, tp, hp) = out["cuda"], out["cpu"]
+    assert list(fc.var_names) == list(fp.var_names) and hc == hp
+    np.testing.assert_allclose(tc.X.toarray(), tp.X.toarray(), rtol=1e-6)
+    assert (rc.X >= 0).all() and rc.X.shape == (fc.shape[0], 100)
+    np.testing.assert_allclose(rc.X, rp.X, rtol=0,
+                               atol=1e-3 * np.abs(rp.X).max())
+
+
+def test_mutual_info_on_the_card_matches_plain(cuda_device):
+    """The sorted-window neighbour search on the card against the plain
+    brute-force version: the same counts, MI within 1e-10 (digamma on
+    the card)."""
+    from cnmf_torch_tpu_torch.ops.mutual_info import (
+        mutual_info_classif, mutual_info_classif_plain)
+
+    rng = np.random.default_rng(18)
+    cluster = rng.integers(0, 4, size=400)
+    X = rng.poisson(5.0, size=(400, 60)).astype(float)
+    for c in range(4):
+        X[np.ix_(cluster == c, range(6))] += 8 * c
+    got = mutual_info_classif(X, cluster, 3, 0, device="cuda")
+    np.testing.assert_allclose(got, mutual_info_classif_plain(X, cluster, 3,
+                                                              0),
+                               rtol=0, atol=1e-10)
+
+
+def test_run_harmony_is_repeatable_on_the_card(cuda_device):
+    """Two card runs from one seed give the same bits, and the CPU run
+    the same iterations with the embedding within 1e-3."""
+    from cnmf_torch_tpu_torch.ops import run_harmony
+
+    rng = np.random.default_rng(19)
+    batch = np.arange(600) % 3
+    Z = rng.normal(size=(600, 20)).astype(np.float32)
+    Z[batch == 1, 1] += 4.0
+    Z[batch == 2, 2] += 3.0
+    meta = {"batch": batch}
+    runs = [run_harmony(Z, meta, "batch", theta=2.0, max_iter_harmony=10,
+                        random_state=1, device=dev)
+            for dev in ("cuda", "cuda", "cpu")]
+    np.testing.assert_array_equal(runs[0].Z_corr, runs[1].Z_corr)
+    np.testing.assert_array_equal(runs[0].R, runs[1].R)
+    assert len(runs[0].objective_harmony) == len(runs[2].objective_harmony)
+    np.testing.assert_allclose(runs[0].Z_corr, runs[2].Z_corr, rtol=0,
+                               atol=1e-3)

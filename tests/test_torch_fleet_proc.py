@@ -64,7 +64,7 @@ def run_dir(tmp_path_factory):
                 max_NMF_iter=100, batch_size=128)
     obj.factorize()
     obj.combine()
-    obj.consensus(3, density_threshold=2.0)
+    obj.consensus(3, density_threshold=2.0, show_clustering=False)
     return os.path.join(tmp, "fl")
 
 

@@ -142,6 +142,35 @@ try:
     raise AssertionError("an h5ad read without h5py")
 except ImportError as exc:
     assert "h5py" in str(exc)
+# the preprocess sidecar: seurat_v3, PCA, Harmony and the MI ranking; the
+# figures skipped with a warning, the .h5ad write naming the missing h5py
+import warnings
+from scipy import sparse as _sparse
+from cnmf_torch_tpu_torch import Preprocess
+from cnmf_torch_tpu_torch.utils.io import Counts
+pp = Preprocess(0, plot_dir=d, device="cpu")
+raw = Counts(_sparse.csr_matrix(counts),
+             np.array(["c%d" % i for i in range(60)]),
+             np.array(["g%d" % j for j in range(90)]),
+             obs={{"batch": np.array(["a", "b", "c"] * 20, dtype=object)}})
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    filt = pp.filter_adata(raw, min_cells_per_gene=1, min_counts_per_cell=1,
+                           makeplots=True)
+assert any("log10_n_counts.png" in str(w.message) for w in caught)
+rna, tp10k, hvgs = pp.preprocess_for_cnmf(filt, harmony_vars="batch",
+                                          n_top_rna_genes=40,
+                                          max_iter_harmony=2)
+assert rna.X.shape == (filt.shape[0], 40) and (rna.X >= 0).all()
+picked = pp.select_features_MI(filt, np.array([0, 1, 2] * 20),
+                               n_top_features=5)
+assert picked.var["highly_variable"].sum() == 5
+try:
+    pp.preprocess_for_cnmf(filt, n_top_rna_genes=40,
+                           save_output_base=os.path.join(d, "pp"))
+    raise AssertionError("an h5ad write without h5py")
+except ImportError as exc:
+    assert "h5py" in str(exc)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -207,7 +236,9 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "serving/batcher.py", "serving/daemon.py",
                  "serving/fleet.py", "native/__init__.py",
                  "utils/anndata_lite.py", "utils/autotune.py",
-                 "runtime/planner.py"]
+                 "runtime/planner.py", "models/plots.py",
+                 "models/preprocess.py", "ops/harmony.py", "ops/pca.py",
+                 "ops/seurat_v3.py", "ops/mutual_info.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -258,6 +289,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         serve_forever(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet_forever(str(tmp_path))
+    from cnmf_torch_tpu_torch import Preprocess
+    from cnmf_torch_tpu_torch.ops import (moe_correct_ridge, pca,
+                                          run_harmony, seurat_v3_hvg)
+    from cnmf_torch_tpu_torch.ops.mutual_info import mutual_info_classif
+
+    X = np.ones((6, 4), np.float32)
+    for call in (Preprocess, lambda: pca(X, 2), lambda: seurat_v3_hvg(X, 2),
+                 lambda: run_harmony(X, {"b": np.arange(6) % 2}, "b"),
+                 lambda: moe_correct_ridge(X.T, np.ones((1, 6)),
+                                           np.ones((2, 6)), [0.0, 1.0]),
+                 lambda: mutual_info_classif(X, np.arange(6) % 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     # asking for the CPU is the only way to run without a card
     assert cNMF(output_dir=str(tmp_path), name="y",
                 device="cpu").device.type == "cpu"

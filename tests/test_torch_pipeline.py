@@ -218,7 +218,7 @@ def kl_run(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(kl_ell, "h_stats_plain",
                    lambda *a, **kw: calls.append(1) or plain(*a, **kw))
-        obj.consensus(4, density_threshold=2.0)
+        obj.consensus(4, density_threshold=2.0, show_clustering=False)
     stats = obj.k_selection_stats()
     return obj, stats, len(calls)
 

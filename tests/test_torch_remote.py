@@ -641,7 +641,7 @@ def _pipeline(d, name, fn, consensus=True):
     obj.factorize()
     if consensus:
         obj.combine()
-        obj.consensus(3, density_threshold=2.0)
+        obj.consensus(3, density_threshold=2.0, show_clustering=False)
     return obj
 
 

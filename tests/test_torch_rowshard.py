@@ -532,7 +532,7 @@ def atlas_runs(tmp_path_factory):
         port.prepare(fn, **PREP)
         port.factorize()
         port.combine()
-        port.consensus(4, density_threshold=2.0)
+        port.consensus(4, density_threshold=2.0, show_clustering=False)
         runs["port_stats"] = port.k_selection_plot()
         runs["port"] = port
         mp.setenv("CNMF_TPU_OOC", "1")
@@ -540,7 +540,7 @@ def atlas_runs(tmp_path_factory):
         ooc.prepare(fn, **PREP)
         ooc.factorize()
         ooc.combine()
-        ooc.consensus(4, density_threshold=2.0)
+        ooc.consensus(4, density_threshold=2.0, show_clustering=False)
         runs["ooc_stats"] = ooc.k_selection_plot()
         runs["ooc"] = ooc
     with pytest.MonkeyPatch.context() as mp:

@@ -557,7 +557,7 @@ def serve_run(tmp_path_factory):
                 max_NMF_iter=100)
     obj.factorize()
     obj.combine()
-    obj.consensus(3, density_threshold=2.0)
+    obj.consensus(3, density_threshold=2.0, show_clustering=False)
     return obj, os.path.join(tmp, "srv")
 
 

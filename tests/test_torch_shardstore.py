@@ -475,7 +475,7 @@ def test_an_atlas_run_reports_as_the_jax_package_renders_it(tmp_path,
     obj = _prepared(tmp_path, "a", _counts_file(tmp_path), n_iter=4)
     obj.factorize()
     obj.combine()
-    obj.consensus(3, density_threshold=2.0)
+    obj.consensus(3, density_threshold=2.0, show_clustering=False)
     path = str(tmp_path / "a" / "cnmf_tmp" / "a.events.jsonl")
     n = ttel.validate_events_file(path)
     assert n == jtel.validate_events_file(path) > 10

@@ -389,7 +389,7 @@ def _consensus_runs(tmp_path, monkeypatch, mode):
     monkeypatch.setattr(tmodel, "kmeans", kmeans_with_jax_ids)
     stats = {}
     for name, obj in (("port", port), ("jax", ref)):
-        kw = {} if name == "port" else dict(show_clustering=False)
+        kw = dict(show_clustering=False)
         if mode == "stats":
             stats[name] = obj.consensus(
                 4, skip_density_and_return_after_stats=True, **kw)

@@ -308,7 +308,7 @@ def _port_pipeline(root, name, env):
                     batch_size=64, max_NMF_iter=60)
         obj.factorize()
         obj.combine()
-        obj.consensus(3, density_threshold=2.0)
+        obj.consensus(3, density_threshold=2.0, show_clustering=False)
         obj.k_selection_plot()
     return obj
 
