@@ -307,6 +307,23 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     program of (b)'s sparse run, card against CPU: the same top 70 and
     MI within 1e-5.
 
+15. Lint and the sanitizer (``analysis/``, ``utils/sanitize.py``). (a)
+    ``python -m cnmf_torch_tpu_torch.analysis.gate`` over the port: its
+    ``LINT_GATE:`` line and wall, every family at 0 with nothing
+    baselined (a finding fails the run), and ``lint --knob-table`` equal
+    to ``KNOBS.md``. (b) The negative control: a bare ``.item()`` under
+    ``sync_guard`` must raise and the same read inside ``host_read()``
+    pass. Then, the inputs staged and every path warmed outside the guard,
+    at the main path's width (phase 3's normalized counts in chunks of
+    5,000 rows, 2,000 genes, R=20, k=13) under ``sync_guard``: the online
+    KL sweep on the ELL lane with the bf16 chain for 3 passes, batch
+    ``dna`` and beta=2 for 20 iterations on the first chunk, one
+    row-sharded pass (R=1) and ``batched_project`` at 4 lanes x 1,024
+    rows. It prints each solve's wall, chosen host reads (a pass, for the
+    online sweep) and launches; every output must be finite and every
+    kernel launch under the guard. A sync error is not caught: it fails
+    the run.
+
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
 ``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
@@ -4812,6 +4829,188 @@ def phase14(stages, smi) -> dict:
     return {"a": a, "b": b, "c": c, "launches": b["plain"]["launches"]}
 
 
+# -- phase 15: lint and the sanitizer ----------------------------------------
+
+SAN_K = 13              # 15b's solves: k, replicates and the online passes
+SAN_R = 20
+SAN_PASSES = 3
+SAN_DNA_ITERS = 20
+SAN_LANES, SAN_ROWS = 4, 1_024      # 15b's batched_project bucket
+
+
+def lint_phase(stages) -> dict:
+    """15a: the lint gate over the port, as a user runs it, and the knob
+    table it generates."""
+    def gate():
+        return subprocess.run(
+            [sys.executable, "-m", "cnmf_torch_tpu_torch.analysis.gate"],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+
+    t0 = time.perf_counter()
+    proc = stages.run("15a lint gate", gate)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("LINT_GATE:")]
+    check(len(lines) == 1, f"15a: no LINT_GATE line: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    log(f"15a {lines[0]} ({wall:.2f} s)")
+    counts = {key: int(val) for key, val in
+              re.findall(r"([a-z]+)=(\d+)", lines[0])}
+    findings = {k: v for k, v in counts.items()
+                if k not in ("baselined", "suppressed", "files")}
+    check(proc.returncode == 0 and not any(findings.values())
+          and counts.get("baselined") == 0,
+          f"15a: the lint gate failed (rc {proc.returncode}): "
+          f"{proc.stdout[-3000:]}")
+    table = subprocess.run(
+        [sys.executable, "-m", "cnmf_torch_tpu_torch", "lint",
+         "--knob-table"], cwd=HERE, capture_output=True, text=True,
+        timeout=120)
+    with open(os.path.join(HERE, "cnmf_torch_tpu_torch", "KNOBS.md")) as f:
+        knobs_md = f.read()
+    check(table.returncode == 0 and table.stdout == knobs_md,
+          "15a: lint --knob-table differs from KNOBS.md")
+    n_lines = len(table.stdout.splitlines())
+    log(f"15a lint --knob-table: {n_lines} lines, KNOBS.md byte for byte")
+    return {"gate_line": lines[0], "gate_wall_s": wall, "counts": counts,
+            "knob_table_lines": n_lines}
+
+
+def guarded(fn):
+    """``fn()`` under ``sync_guard`` on the card: ``(out, host reads,
+    launches)``. A sync error is not caught."""
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    kl_ell.reset_launches()
+    with sync_guard(CARD) as guard:
+        check(guard.active, "15b: sync_guard did not engage on the card")
+        out = fn()
+    return out, guard.reads, dict(kl_ell.launches)
+
+
+def sanitize_phase(stages, Xn) -> dict:
+    """15b: the negative control, then the solver paths under
+    ``sync_guard`` at the main path's width, their inputs staged and the
+    kernels warmed outside it."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
+    from cnmf_torch_tpu_torch.parallel.rowshard import _rowsharded_pass
+    from cnmf_torch_tpu_torch.serving import ResidentReference
+    from cnmf_torch_tpu_torch.serving.batcher import batched_project
+    from cnmf_torch_tpu_torch.utils.sanitize import host_read, sync_guard
+
+    # the negative control: a guard that never engaged would pass below
+    probe = torch.ones(8, device=CARD)
+    caught = None
+    with sync_guard(CARD) as guard:
+        try:
+            probe.sum().item()
+        except RuntimeError as exc:
+            caught = str(exc)
+        with host_read():
+            marked = probe.sum().item()
+    check(guard.active and caught is not None,
+          "15b: a bare .item() under sync_guard did not raise")
+    check(marked == 8.0 and guard.reads == 1,
+          "15b: host_read() did not let its read through")
+    log(f"15b negative control: a bare .item() under sync_guard raised "
+        f"({caught.strip().splitlines()[0][:120]})")
+
+    # inputs, staged before any guard: the pipeline's counts in chunks of
+    # CHUNK rows (online), its first chunk with the transpose set (batch
+    # and the row-sharded pass), and random inits
+    rng = np.random.default_rng(SEED)
+    n, g = Xn.shape
+    xc, _ = ell_chunk_rows(Xn, CHUNK)
+    xc = xc.to(CARD)
+    C = xc.vals.shape[0]
+    x0 = csr_to_ell(Xn[:CHUNK]).to(CARD)
+    scale = float(np.sqrt(Xn.sum() / (n * g) / SAN_K))
+
+    def init(*shape):
+        return torch.as_tensor(
+            (scale * (rng.random(shape) + 0.1)).astype(np.float32)).to(CARD)
+
+    Hc0, W0 = init(SAN_R, C, CHUNK, SAN_K), init(SAN_R, SAN_K, g)
+    Hb0 = init(SAN_R, CHUNK, SAN_K)
+    H1, W1 = init(1, CHUNK, SAN_K), init(1, SAN_K, g)
+    Xd = torch.as_tensor(Xn[:CHUNK].toarray().astype(np.float32)).to(CARD)
+    h_tol, _, h_tol_start = nmf.resolve_online_schedule(1.0)
+    ref = ResidentReference(
+        rng.gamma(0.3, 1.0, (SAN_K, g)).astype(np.float32), beta=1.0,
+        chunk_size=CHUNK, chunk_max_iter=1000, h_tol=0.05).stage(CARD)
+    Xq = torch.as_tensor(
+        Xn[CHUNK:CHUNK + SAN_LANES * SAN_ROWS].toarray().astype(
+            np.float32).reshape(SAN_LANES, SAN_ROWS, g)).to(CARD)
+    Hq = torch.full((SAN_LANES, SAN_ROWS, SAN_K), 1.0 / SAN_K, device=CARD)
+
+    solves = {
+        "online_kl_ell_bf16": lambda p, trace: nmf.nmf_fit_online(
+            xc, Hc0, W0, beta=1.0, tol=1e-4, h_tol=h_tol,
+            h_tol_start=h_tol_start, chunk_max_iter=1000, n_passes=p,
+            bf16_ratio=True, trace=trace),
+        "batch_dna": lambda p, trace: nmf.nmf_fit_batch(
+            x0, Hb0, W0, beta=1.0, tol=0.0, max_iter=p, kl_newton=True,
+            trace=trace),
+        "batch_beta2": lambda p, trace: nmf.nmf_fit_batch(
+            Xd, Hb0, W0, beta=2.0, tol=0.0, max_iter=p, trace=trace),
+        "rowsharded_pass": lambda p, trace: _rowsharded_pass(
+            [x0], [H1], W1, 1.0, 0.05, 1000, 0.0, 0.0, 0.0, 0.0),
+        "batched_project": lambda p, trace: batched_project(
+            Xq, Hq, ref.Wd, ref.WWT, ref.w_colsum, ref.h_tol_dev, beta=1.0,
+            max_iter=1000, l1=0.0, l2=0.0),
+    }
+    depth = {"online_kl_ell_bf16": SAN_PASSES, "batch_dna": SAN_DNA_ITERS,
+             "batch_beta2": SAN_DNA_ITERS, "rowsharded_pass": 1,
+             "batched_project": 1}
+    # warm every path (cuBLAS handles, the allocator's pools) outside the
+    # guard, one step each
+    for solve in solves.values():
+        solve(1, [])
+    torch.cuda.synchronize()
+
+    out, total = {}, {name: 0 for name in kl_ell.KERNELS}
+    for name, solve in solves.items():
+        trace = []
+        res, reads, launches = stages.run(
+            f"15b {name} under sync_guard",
+            lambda: guarded(lambda: solve(depth[name], trace)))
+        wall = stages.rows[-1][1]
+        tensors = [t for t in (res if isinstance(res, tuple) else (res,))
+                   if isinstance(t, torch.Tensor)]
+        if name == "rowsharded_pass":
+            tensors = [res[0][0], res[1], res[2]]
+        elif name == "batched_project":
+            tensors = [res[0]]
+        finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+        check(finite, f"15b {name}: a nonfinite output")
+        for k_, v in launches.items():
+            total[k_] += v
+        rec = {"wall_s": wall, "host_reads": reads, "launches": launches}
+        if name == "online_kl_ell_bf16":
+            rec["passes"] = len(trace)
+            rec["host_reads_a_pass"] = reads / max(len(trace), 1)
+        out[name] = rec
+        log(f"15b {name}: {wall:.3f} s under sync_guard, {reads} host "
+            f"reads"
+            + (f" ({rec['host_reads_a_pass']:.1f} a pass over "
+               f"{rec['passes']} passes)" if "passes" in rec else "")
+            + f", launches {launches}")
+    for name in kl_ell.KERNELS:
+        check(total[name] > 0, f"15b: {name} never launched under "
+              "sync_guard")
+    torch.cuda.empty_cache()
+    return {"solves": out, "launches": total,
+            "negative_control": caught.strip().splitlines()[0]}
+
+
+def phase15(stages, Xn) -> dict:
+    """Lint and the sanitizer."""
+    return {"a": lint_phase(stages), "b": sanitize_phase(stages, Xn)}
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -5079,6 +5278,15 @@ def main() -> int:
         log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
     log(f"phase 14 kernel launches: {p14['launches']}")
 
+    # -- phase 15: lint and the sanitizer ------------------------------------
+    n_stages = len(stages.rows)
+    p15 = phase15(stages, Xn)
+    log(f"phase 15 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    log(f"phase 15 kernel launches under sync_guard: "
+        f"{p15['b']['launches']}")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -5091,7 +5299,8 @@ def main() -> int:
                            + int(p11["launches"][name])
                            + int(p12["launches"][name])
                            + int(p13["launches"][name])
-                           + int(p14["launches"][name]))
+                           + int(p14["launches"][name])
+                           + int(p15["b"]["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -5103,7 +5312,7 @@ def main() -> int:
               "phase6_retries": other_retries, "phase7": p7, "phase8": p8,
               "phase9": p9, "phase9_kernels": atlas_records,
               "phase10": p10, "phase11": p11, "phase12": p12,
-              "phase13": p13, "phase14": p14,
+              "phase13": p13, "phase14": p14, "phase15": p15,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

@@ -5,6 +5,10 @@ pass ``--device cpu`` to run on the CPU), the telemetry renderers
 ``report [run_dir] [--json]`` and ``trace [run_dir]``, and
 ``benchdiff BASE NEW [--band F] [--json]``, the noise-aware comparison of
 two bench snapshots (``obs/regress.py``; exit 1 on a regression),
+``lint [paths] [--format text|json] [--baseline FILE] [--write-baseline]
+[--no-doc-check] [--knob-table]``, the port's static analysis
+(``analysis/engine.py``; exit 1 on a finding; ``--knob-table`` prints
+``KNOBS.md``),
 ``serve <run_dir>`` and ``fleet <run_dir>`` (the projection daemon and the
 replicated fleet, ``serving/``; ``-k``, ``--local-density-threshold``,
 ``--spectra``, ``--socket`` or ``--port``, ``--replicas``,
@@ -60,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
         "command", type=str,
         choices=["prepare", "factorize", "combine", "consensus",
                  "k_selection_plot", "run_parallel", "report", "trace",
-                 "serve", "fleet", "plan"])
+                 "serve", "fleet", "plan", "lint"])
     parser.add_argument(
         "run_dir", type=str, nargs="?", default=None,
         help="[report|trace|serve|fleet|plan] Run directory "
@@ -252,6 +256,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "lint":
+        # the static analysis owns its arguments (paths, --format,
+        # --baseline, ...: analysis/engine.py) and touches no device
+        from .analysis.engine import main as lint_main
+
+        raise SystemExit(lint_main(argv[1:]))
     if argv and argv[0] == "benchdiff":
         # two positionals do not fit the stage parser's optional run_dir,
         # so the command owns its arguments and dispatches first
@@ -259,6 +269,11 @@ def main(argv=None):
     parser = build_parser()
     # intermixed, so flags may precede or follow the optional run_dir
     args = parser.parse_intermixed_args(argv)
+    if args.command == "lint":     # e.g. `--name x lint`
+        parser.error("lint takes its own options; use: python -m "
+                     "cnmf_torch_tpu_torch lint [paths ...] [--format "
+                     "text|json] [--baseline FILE] [--write-baseline] "
+                     "[--no-doc-check] [--knob-table]")
     if (args.command not in ("report", "trace", "serve", "fleet", "plan")
             and args.run_dir is not None):
         # a stray positional (e.g. `consensus 9` meaning `-k 9`) fails
@@ -302,8 +317,10 @@ def main(argv=None):
         raise SystemExit(_serve(parser, args))
     if args.command == "run_parallel":
         return _run_parallel(parser, args)
+    from .utils.envknobs import env_str
+
     if args.command == "factorize" and (
-            args.distributed or os.environ.get("CNMF_COORDINATOR_ADDRESS")):
+            args.distributed or env_str("CNMF_COORDINATOR_ADDRESS")):
         from .parallel.multihost import initialize_distributed
 
         pid, nproc = initialize_distributed(auto=args.distributed,

@@ -168,6 +168,8 @@ def _nvcc() -> str:
 def build():
     """Compile ``kl_ell.cu`` (once per source content) and load it."""
     global _lib
+    from ...utils.io import atomic_artifact
+
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -186,9 +188,9 @@ def build():
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            with open(f"{tmp}.log", "w") as f:
-                f.write(log)
-            os.replace(f"{tmp}.log", f"{so}.log")
+            with atomic_artifact(f"{so}.log") as log_tmp:
+                with open(log_tmp, "w") as f:
+                    f.write(log)
             os.replace(tmp, so)
         elif os.path.exists(f"{so}.log"):
             # built by an earlier process: its -Xptxas -v report

@@ -17,7 +17,10 @@ Every loop keeps a per-lane ``active`` mask and applies
 ``torch.where(active, new, old)``, so a lane that has stopped keeps its
 state while the others go on — each lane's result is its solo solve. The
 host reads ``active.any()`` at most once every ``EVAL_EVERY`` inner
-iterations (and once per pass in the pass loop).
+iterations (and once per pass in the pass loop). Those reads, a pass's
+trace and the result copies are the solvers' chosen host reads: each sits
+in ``utils/sanitize.py:host_read``, so ``sync_guard`` lets it through and
+raises on any other device-to-host sync.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.envknobs import env_flag
+from ..utils.sanitize import host_read
 from .kernels import kl_ell
 from .recipe import SolverRecipe, resolve_recipe
 from .sparse import (EllMatrix, csr_to_ell, ell_beta_err, ell_chunk_rows,
@@ -243,7 +247,8 @@ def _sketch_rows(step: int, m: int, n: int, stream: int, rows, device):
     else:
         gen = torch.Generator().manual_seed((int(stream) << 32) + int(step))
         idx = torch.randint(0, int(n), (int(m),), generator=gen)
-    return idx.to(device)
+    with host_read():   # the draws are made on the host, then uploaded
+        return idx.to(device)
 
 
 def _sketched_w_update(X, H, W, idx, l1, l2, n_total):
@@ -262,7 +267,8 @@ def _sketched_w_update(X, H, W, idx, l1, l2, n_total):
 
 
 def _bf16_eps(t):
-    return torch.tensor(EPS, dtype=torch.bfloat16, device=t.device)
+    # a fill, not torch.tensor: a scalar copied from the host syncs
+    return torch.full((), EPS, dtype=torch.bfloat16, device=t.device)
 
 
 def _update_H(X, H, W, beta: float, l1: float, l2: float,
@@ -448,6 +454,13 @@ def _rel_change(new, old):
             / (torch.linalg.vector_norm(old, dim=(1, 2)) + EPS))
 
 
+def _host_any(mask) -> bool:
+    """``mask.any()`` read on the host: a chosen read, the loops' only
+    question to the card between objective evaluations."""
+    with host_read():
+        return bool(mask.any())
+
+
 def _lane_tensor(v, R, device):
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.float32)
@@ -480,7 +493,7 @@ def _masked_loop(M, step, max_iter: int, tol, active,
         it = it + active.to(torch.int32)
         active = active & (it < max_iter) & (rel >= tol)
         steps += 1
-        if steps % EVAL_EVERY == 0 and not bool(active.any()):
+        if steps % EVAL_EVERY == 0 and not _host_any(active):
             break
     if return_resid:
         return M, resid
@@ -660,18 +673,19 @@ def _batch_loop(X, H0, W0, beta, tol, max_iter, step, trace,
             nonfinite = nonfinite | (active & ~torch.isfinite(e))
             evals.append(torch.where(active, e, torch.full_like(e, np.nan)))
             active = active & active_of(err_prev, err, it)
-            if not bool(active.any()):
+            if not _host_any(active):
                 break
     err = errs(H, W)
     if trace is not None:
         tr = (torch.stack(evals, dim=1) if evals
               else torch.zeros((R, 0), device=dev))
-        trace.append(SolverTelemetry(
-            trace=tr.cpu().numpy(), iters=iters.cpu().numpy(),
-            nonfinite=(nonfinite | ~torch.isfinite(err)).cpu().numpy(),
-            inner_iters=inner.cpu().numpy() if with_inner else None,
-            dna_fallback=((fb_sum / torch.clamp_min(iters.float(), 1.0))
-                          .cpu().numpy() if with_fallback else None)))
+        with host_read():
+            trace.append(SolverTelemetry(
+                trace=tr.cpu().numpy(), iters=iters.cpu().numpy(),
+                nonfinite=(nonfinite | ~torch.isfinite(err)).cpu().numpy(),
+                inner_iters=inner.cpu().numpy() if with_inner else None,
+                dna_fallback=((fb_sum / torch.clamp_min(iters.float(), 1.0))
+                              .cpu().numpy() if with_fallback else None)))
     return H, W, err
 
 
@@ -1034,10 +1048,11 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
         return (it < n_passes) & keep
 
     if trace is not None:
-        trace.append(err0.cpu().numpy())
+        with host_read():
+            trace.append(err0.cpu().numpy())
     act = active_of(err_prev, err, it)
     pass_no = 1     # every active lane has run this many passes
-    while bool(act.any()):
+    while _host_any(act):
         Hc, W, err_new = one_pass(Hc, W, it, act, pass_no)
         pass_no += 1
         err_prev = torch.where(act, err, err_prev)
@@ -1045,9 +1060,11 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
         it = it + act.to(torch.int32)
         act = act & active_of(err_prev, err, it)
         if trace is not None:
-            trace.append(err.cpu().numpy())
+            with host_read():
+                trace.append(err.cpu().numpy())
     if lane_passes is not None:
-        lane_passes.append(it.cpu().numpy())
+        with host_read():
+            lane_passes.append(it.cpu().numpy())
 
     err = torch.zeros(R, dtype=torch.float32, device=dev)
     for c, x in enumerate(chunks):

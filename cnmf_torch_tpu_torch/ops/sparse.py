@@ -37,6 +37,7 @@ import scipy.sparse as sp
 import torch
 
 from ..utils.envknobs import env_str
+from ..utils.sanitize import host_read
 
 __all__ = ["EPS", "SPARSE_DENSITY_THRESHOLD", "EllMatrix", "csr_to_ell",
            "ell_chunk_rows", "ell_row_width", "resolve_sparse_beta",
@@ -277,7 +278,8 @@ def _cast(vals, H, W, bf16: bool):
 
 
 def _eps_like(t):
-    return torch.tensor(EPS, dtype=t.dtype, device=t.device)
+    # a fill, not torch.tensor: a scalar copied from the host syncs
+    return torch.full((), EPS, dtype=t.dtype, device=t.device)
 
 
 def _slab(W, cols, c: int):
@@ -427,12 +429,16 @@ def ell_take_rows(x: EllMatrix, idx) -> EllMatrix:
     m, w = vals.shape
     g = int(x.g)
     dev = vals.device
-    pos = torch.nonzero(vals.reshape(-1) != 0).reshape(-1)
+    # the sampled encoding's sizes are host facts (chosen reads): the
+    # stored slots' count and the transpose width
+    with host_read():
+        pos = torch.nonzero(vals.reshape(-1) != 0).reshape(-1)
     genes = cols.reshape(-1)[pos].long()
     genes, order = torch.sort(genes, stable=True)
     pos = pos[order]
     counts = torch.bincount(genes, minlength=g)
-    t_width = _pad_width(int(counts.max()) if pos.numel() else 0)
+    with host_read():
+        t_width = _pad_width(int(counts.max()) if pos.numel() else 0)
     slot = (torch.arange(pos.numel(), device=dev)
             - (torch.cumsum(counts, 0) - counts)[genes])
     rows_t = torch.zeros((g, t_width), dtype=torch.int32, device=dev)

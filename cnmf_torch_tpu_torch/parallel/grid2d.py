@@ -35,6 +35,7 @@ Pallas kernel); its kernel label is ``dense``.
 from __future__ import annotations
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -266,12 +267,14 @@ def stage_x_grid(X, mesh: Mesh, stats=None, events=None):
 # ---------------------------------------------------------------------------
 
 _SIDE: dict = {}
+_SIDE_LOCK = threading.Lock()
 
 
 def _side_stream(dev):
-    if dev not in _SIDE:
-        _SIDE[dev] = torch.cuda.Stream(device=dev)
-    return _SIDE[dev]
+    with _SIDE_LOCK:
+        if dev not in _SIDE:
+            _SIDE[dev] = torch.cuda.Stream(device=dev)
+        return _SIDE[dev]
 
 
 def _overlapped_psum(fn, nblk: int, psum, overlap: bool):

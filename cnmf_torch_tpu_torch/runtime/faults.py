@@ -312,7 +312,8 @@ def maybe_tear(path) -> bool:
             continue
         try:
             size = os.path.getsize(path)
-            with open(path, "r+b") as f:
+            # tearing the artifact in place is this injector's job
+            with open(path, "r+b") as f:  # cnmf-lint: disable=artifact-nonatomic
                 f.truncate(max(1, size // 3))
             clause.injected += 1
             return True

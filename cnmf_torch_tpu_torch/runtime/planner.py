@@ -39,7 +39,8 @@ import os
 from dataclasses import asdict, dataclass, field, fields
 
 __all__ = [
-    "PLAN_VERSION", "PLAN_ENV", "DISPATCH_KNOBS",
+    "PLAN_VERSION", "PLAN_ENV", "DISPATCH_KNOBS", "PLAN_ACCESSORS",
+    "PLAN_OWNER_FILES",
     "KERNEL_LABELS", "InputStats", "DeviceInventory", "ExecutionPlan",
     "build_plan", "resolve_encoding", "apply_plan", "load_plan",
     "maybe_apply_plan_env", "render_plan", "plan_from_run_dir",
@@ -70,6 +71,32 @@ DISPATCH_KNOBS = frozenset({
     "CNMF_TPU_PLAN",
     "CNMF_TPU_AUTOTUNE",
 })
+
+# the resolver functions: outside PLAN_OWNER_FILES, the only code that
+# may read a DISPATCH_KNOBS name (the lint's knob-plan-bypass rule), one
+# resolution site a knob, which the dispatch sites and build_plan call
+# (the JAX package's set without resolve_pallas and _csr_transport)
+PLAN_ACCESSORS = frozenset({
+    "resolve_sparse_beta",       # ops/sparse.py          (encoding)
+    "resolve_recipe",            # ops/recipe.py          (solver recipe)
+    "resolve_consensus_sketch",  # ops/sketch.py          (consensus lane)
+    "resolve_bf16_ratio",        # ops/nmf.py             (kernel band)
+    "stream_threads",            # parallel/streaming.py
+    "stream_depth",              # parallel/streaming.py
+    "grid_overlap_enabled",      # parallel/grid2d.py
+    "grid_blocks",               # parallel/grid2d.py
+    "_grid_rc",                  # parallel/grid2d.py
+    "ooc_mode",                  # utils/shardstore.py
+    "resolve_backend",           # utils/storebackend.py
+    "resolve_buckets",           # serving/batcher.py
+})
+
+# files that own dispatch-knob resolution outright (relpath suffixes)
+PLAN_OWNER_FILES = (
+    "runtime/planner.py",
+    "utils/autotune.py",
+    "utils/envknobs.py",
+)
 
 # ops/kernels:kernel_label's labels
 KERNEL_LABELS = ("ell-cuda", "ell-torch", "dense-bf16", "dense")

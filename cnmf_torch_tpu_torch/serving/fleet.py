@@ -277,7 +277,7 @@ class SubprocessReplica:
         env.setdefault("CNMF_TPU_HEARTBEAT_S", "0.5")
         # an append-only crash log, not an artifact anyone parses — torn
         # tails are expected after SIGKILL chaos
-        log = open(self.log_path, "ab")
+        log = open(self.log_path, "ab")  # cnmf-lint: disable=artifact-nonatomic
         try:
             self.proc = subprocess.Popen(cmd, stdout=log, stderr=log,
                                          env=env)

@@ -82,6 +82,16 @@ def _device(device=None):
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+def _measure_device(device=None):
+    """The device a measurement runs on: the one named, else the one the
+    last ``maybe_autotune_*`` call named, else the port's default device
+    through ``resolve_device``, which raises without a card: a measurement
+    never quietly times the CPU."""
+    from ..device import resolve_device
+
+    return resolve_device(device if device is not None else _active_device)
+
+
 def device_fingerprint(device=None) -> str:
     """``v<package version>-<cuda|cpu>-<device name>-x<device count>``, the
     identity a measured point is valid for (spaces in the name become
@@ -191,7 +201,7 @@ def measure_rho_scales(device=None) -> dict:
     static flop ratio at the probe shape; returns the cache payload."""
     from ..ops.nmf import _apply_rate, _update_H, _update_W
 
-    dev = _device(device)
+    dev = _measure_device(device)
     n, g, k, R = _probe_shape(dev)
     _, H, W, Xd, E = _probe(dev)
     scales: dict = {}
@@ -251,7 +261,7 @@ def measure_plan_points(device=None) -> dict:
 
     from ..ops.nmf import _update_H, _update_W
 
-    dev = _device(device)
+    dev = _measure_device(device)
     n, g, _, _ = _probe_shape(dev)
     rng, H, W, Xd, E = _probe(dev)
     points: dict = {}
@@ -331,7 +341,9 @@ def _merge_write(path: str, updates: dict, device=None) -> dict:
 def _activate(device):
     global _active_device
     if device is not None:
-        _active_device = _device(device)
+        dev = _device(device)
+        with _memo_lock:
+            _active_device = dev
 
 
 def maybe_autotune_rho(cache_dir: str | None = None, force: bool = False,

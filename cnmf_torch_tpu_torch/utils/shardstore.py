@@ -241,10 +241,10 @@ def write_shard_store(store_dir, X, obs_names=None, var_names=None,
         # lands them atomically)
         buf = io.BytesIO()
         if fmt == "csr":
-            np.savez(buf, data=arrays[0], indices=arrays[1],
+            np.savez(buf, data=arrays[0], indices=arrays[1],  # cnmf-lint: disable=artifact-nonatomic
                      indptr=arrays[2])
         else:
-            np.savez(buf, block=arrays[0])
+            np.savez(buf, block=arrays[0])  # cnmf-lint: disable=artifact-nonatomic
         backend.put(fn, buf.getvalue(), op="slab", events=events)
         if fmt == "csr":
             nnz = int(block.nnz)
@@ -271,8 +271,9 @@ def write_shard_store(store_dir, X, obs_names=None, var_names=None,
                      else [str(s) for s in obs_names], dtype=object)
     var = np.asarray([] if var_names is None
                      else [str(s) for s in var_names], dtype=object)
+    # into memory: the backend lands the bytes atomically
     buf = io.BytesIO()
-    np.savez(buf, obs=obs, var=var)
+    np.savez(buf, obs=obs, var=var)  # cnmf-lint: disable=artifact-nonatomic
     backend.put(_NAMES, buf.getvalue(), op="meta", events=events)
     names_digest = _arrays_digest(
         (obs.astype(str).astype("U"), var.astype(str).astype("U")))

@@ -281,3 +281,19 @@ def test_the_tuned_crossover_decides_the_lane_the_sweeps_run(
     assert tuned.plan.sources["encoding"] == "autotuned"
     assert tuned.factorize_info["lane"] == "dense"
     assert np.array_equal(s_tuned, s_dense)
+
+
+def test_f7_measuring_without_a_card_raises(monkeypatch):
+    """No device named and no card visible: the measuring entry points
+    raise, as every entry point of the port does (``device.py:
+    resolve_device``), instead of timing the CPU. The cache readers, which
+    measure nothing, keep their lookup."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for measure in (autotune.measure_rho_scales,
+                    autotune.measure_plan_points):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            measure()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune.maybe_autotune_plan(force=True)
+    assert autotune.cached_plan_points() == {}
+    assert autotune.cached_rho_scale(1.0, ell=True) is None

@@ -24,6 +24,34 @@ from cnmf_torch_tpu_torch.ops.kernels.edge_cases import (EDGE_SHAPES,
 
 pytestmark = pytest.mark.cuda
 
+# the designated solver tests that CNMF_TPU_SANITIZE=1 runs under
+# utils/sanitize.py:sync_guard, fixture set-up included (the counterpart of
+# tests/conftest.py's sanitize subset): written guard-clean, their inputs
+# staged and their results fetched inside host_read(). Torch has no switch
+# like jax_debug_nans; they assert finite outputs instead.
+SANITIZE_SUBSET = (
+    "test_sync_guard_raises_on_an_implicit_sync",
+    "test_nmf_fit_batch_no_implicit_syncs",
+    "test_nmf_fit_online_kl_ell_no_implicit_syncs",
+    "test_nmf_fit_online_bf16_lanes_no_implicit_syncs",
+    "test_rowsharded_pass_no_implicit_syncs",
+    "test_batched_project_no_implicit_syncs",
+)
+
+
+@pytest.fixture(autouse=True)
+def _sanitize_guard(request):
+    """Opt-in sanitizer wrapper of the designated subset (above)."""
+    from cnmf_torch_tpu_torch.utils.sanitize import (sanitize_enabled,
+                                                     sync_guard)
+
+    if (request.node.originalname not in SANITIZE_SUBSET
+            or not sanitize_enabled() or not torch.cuda.is_available()):
+        yield
+        return
+    with sync_guard("cuda"):
+        yield
+
 
 @pytest.fixture
 def cuda_device():
@@ -1059,3 +1087,178 @@ def test_run_harmony_is_repeatable_on_the_card(cuda_device):
     assert len(runs[0].objective_harmony) == len(runs[2].objective_harmony)
     np.testing.assert_allclose(runs[0].Z_corr, runs[2].Z_corr, rtol=0,
                                atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the sanitizer: the solver paths under sync_guard (the counterparts of
+# tests/test_sanitize.py and test_serving.py::
+# test_serve_program_no_implicit_transfers)
+# ---------------------------------------------------------------------------
+
+def _stage(a, device):
+    """Host data onto the card as a chosen transfer (the guarded tests'
+    ``jax.device_put``)."""
+    from cnmf_torch_tpu_torch.utils.sanitize import host_read
+
+    with host_read():
+        if isinstance(a, sparse.EllMatrix):
+            return a.to(device)
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+
+def _fetch(*tensors):
+    """Results to the host as a chosen read (``jax.device_get``)."""
+    from cnmf_torch_tpu_torch.utils.sanitize import host_read
+
+    with host_read():
+        return [t.cpu().numpy() for t in tensors]
+
+
+def _guard_inputs(n=600, g=300, k=5, R=3, seed=30, density=0.08):
+    X, H, W = _lowrank(n, g, k=k, R=R, seed=seed, density=density)
+    return X, H.numpy(), W.numpy()
+
+
+def test_sync_guard_raises_on_an_implicit_sync(cuda_device):
+    """The negative control: a bare ``.item()`` under the guard raises, the
+    same read inside ``host_read()`` passes and is counted, and the mode
+    is restored on exit, after an exception too."""
+    from cnmf_torch_tpu_torch.utils.sanitize import host_read, sync_guard
+
+    x = torch.ones(4, device=cuda_device)
+    prev = torch.cuda.get_sync_debug_mode()
+    with sync_guard(cuda_device) as guard:
+        assert guard.active
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()
+        with host_read():
+            assert x.sum().item() == 4.0
+        assert torch.cuda.get_sync_debug_mode() == 2
+    assert guard.reads == 1
+    assert torch.cuda.get_sync_debug_mode() == prev
+    with pytest.raises(ValueError):
+        with sync_guard(cuda_device):
+            raise ValueError("inside the guard")
+    assert torch.cuda.get_sync_debug_mode() == prev
+
+
+@pytest.mark.parametrize("recipe", ["beta2", "dna"])
+def test_nmf_fit_batch_no_implicit_syncs(cuda_device, recipe):
+    """The batch solver under ``sync_guard``: beta=2 on a dense matrix,
+    and the dna recipe on the ELL lane (``h_newton_stats`` and
+    ``wh_at_nz``); the solver's own reads are the objective evaluations'
+    lane mask and the telemetry copy."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    X, H0, W0 = _guard_inputs()
+    Xd = _stage(sparse.csr_to_ell(X) if recipe == "dna" else X, cuda_device)
+    Hd, Wd = _stage(H0, cuda_device), _stage(W0, cuda_device)
+    kw = (dict(beta=1.0, kl_newton=True) if recipe == "dna"
+          else dict(beta=2.0))
+    kl_ell.reset_launches()
+    trace = []
+    with sync_guard(cuda_device) as guard:
+        H, W, err = nmf.nmf_fit_batch(Xd, Hd, Wd, tol=1e-4, max_iter=40,
+                                      trace=trace, **kw)
+        out = _fetch(H, W, err)
+    assert all(np.isfinite(o).all() for o in out)
+    assert guard.reads >= 2 and len(trace) == 1
+    if recipe == "dna":
+        assert kl_ell.launches["h_newton_stats"] > 0
+        assert kl_ell.launches["wh_at_nz"] > 0
+
+
+def test_nmf_fit_online_kl_ell_no_implicit_syncs(cuda_device):
+    """Online KL on the ELL lane under the bf16 chain, 4 passes in two
+    chunks, under ``sync_guard``: ``h_stats``, ``w_numer`` and
+    ``beta_err_partials`` launch, and the reads a pass are the lane masks
+    and the pass's trace."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    X, H0, W0 = _guard_inputs(n=640)
+    xc, _ = sparse.ell_chunk_rows(X, 320)
+    xcd = _stage(xc, cuda_device)
+    Hc = _stage(H0.reshape(3, 2, 320, 5), cuda_device)
+    Wd = _stage(W0, cuda_device)
+    kl_ell.reset_launches()
+    trace = []
+    with sync_guard(cuda_device) as guard:
+        Hc, W, err = nmf.nmf_fit_online(xcd, Hc, Wd, beta=1.0, tol=0.0,
+                                        h_tol=1e-2, h_tol_start=0.1,
+                                        chunk_max_iter=200, n_passes=4,
+                                        bf16_ratio=True, trace=trace)
+        out = _fetch(Hc, W, err)
+    assert all(np.isfinite(o).all() for o in out)
+    assert len(trace) == 4 and guard.reads >= 2 * len(trace)
+    for name in ("h_stats", "w_numer", "beta_err_partials"):
+        assert kl_ell.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("lane,beta", [("dense", 1.0), ("dense", 0.0),
+                                       ("ell", 0.0)])
+def test_nmf_fit_online_bf16_lanes_no_implicit_syncs(cuda_device, lane,
+                                                     beta):
+    """The bf16 ratio chain's other lanes under ``sync_guard``: dense KL
+    and IS, and the IS hybrid on the ELL lane, whose floors (``EPS`` on
+    the card) are fills, not scalars copied from the host each step."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    X, H0, W0 = _guard_inputs(n=640)
+    Xc = (sparse.ell_chunk_rows(X, 320)[0] if lane == "ell"
+          else X.reshape(2, 320, X.shape[1]))
+    xcd = _stage(Xc, cuda_device)
+    Hc = _stage(H0.reshape(3, 2, 320, 5), cuda_device)
+    Wd = _stage(W0, cuda_device)
+    with sync_guard(cuda_device):
+        Hc, W, err = nmf.nmf_fit_online(xcd, Hc, Wd, beta=beta, tol=0.0,
+                                        h_tol=1e-2, chunk_max_iter=100,
+                                        n_passes=3, bf16_ratio=True)
+        out = _fetch(Hc, W, err)
+    assert all(np.isfinite(o).all() for o in out)
+
+
+def test_rowsharded_pass_no_implicit_syncs(cuda_device):
+    """One block-coordinate pass of the row-sharded solver on one shard,
+    the ELL lane (KL), under ``sync_guard``."""
+    from cnmf_torch_tpu_torch.parallel.rowshard import _rowsharded_pass
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    X, H0, W0 = _guard_inputs(R=1)
+    x = _stage(sparse.csr_to_ell(X), cuda_device)
+    H, W = _stage(H0, cuda_device), _stage(W0, cuda_device)
+    kl_ell.reset_launches()
+    with sync_guard(cuda_device):
+        Hs, W, err, A, B = _rowsharded_pass([x], [H], W, 1.0, 0.05, 50,
+                                            0.0, 0.0, 0.0, 0.0)
+        out = _fetch(Hs[0], W, err)
+    assert A is None and B is None
+    assert all(np.isfinite(o).all() for o in out)
+    assert out[0].shape == (1, 600, 5) and out[1].shape == (1, 5, 300)
+    for name in ("h_stats", "w_numer", "beta_err_partials"):
+        assert kl_ell.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("beta", [1.0, 2.0])
+def test_batched_project_no_implicit_syncs(cuda_device, beta):
+    """The serving tier's batched program on a staged reference under
+    ``sync_guard``: the daemon's device work needs no read of its own
+    beyond the loop's lane mask."""
+    from cnmf_torch_tpu_torch.serving.batcher import batched_project
+    from cnmf_torch_tpu_torch.utils.sanitize import host_read, sync_guard
+
+    ref = _serve_reference(beta, g=800)
+    with host_read():
+        ref.stage(cuda_device)
+    rng = np.random.default_rng(31)
+    Xb = np.stack([_serve_query(ref, 256, 40 + i) for i in range(4)])
+    Xd = _stage(Xb, cuda_device)
+    Hd = _stage(rng.random((4, 256, 9), dtype=np.float32), cuda_device)
+    with sync_guard(cuda_device):
+        H, rel = batched_project(Xd, Hd, ref.Wd, ref.WWT, ref.w_colsum,
+                                 ref.h_tol_dev, beta=beta, max_iter=1000,
+                                 l1=0.0, l2=0.0)
+        H, rel = _fetch(H, rel)
+    assert np.isfinite(H).all() and (rel < 0.05).all()

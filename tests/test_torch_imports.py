@@ -171,6 +171,19 @@ try:
     raise AssertionError("an h5ad write without h5py")
 except ImportError as exc:
     assert "h5py" in str(exc)
+# lint and the sanitizer: the gate passes, the knob table prints, and a
+# guard on the CPU guards nothing
+from cnmf_torch_tpu_torch.analysis.gate import main as gate_main
+from cnmf_torch_tpu_torch.utils.sanitize import host_read, sync_guard
+assert gate_main() == 0
+try:
+    main(["lint", "--knob-table"])
+except SystemExit as exc:
+    assert exc.code == 0
+with sync_guard("cpu") as guard:
+    with host_read():
+        pass
+assert not guard.active and guard.reads == 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -238,7 +251,12 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "utils/anndata_lite.py", "utils/autotune.py",
                  "runtime/planner.py", "models/plots.py",
                  "models/preprocess.py", "ops/harmony.py", "ops/pca.py",
-                 "ops/seurat_v3.py", "ops/mutual_info.py"]
+                 "ops/seurat_v3.py", "ops/mutual_info.py",
+                 "analysis/__init__.py", "analysis/engine.py",
+                 "analysis/gate.py", "analysis/rules_artifacts.py",
+                 "analysis/rules_concurrency.py", "analysis/rules_knobs.py",
+                 "analysis/rules_sync.py", "analysis/rules_telemetry.py",
+                 "utils/sanitize.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -261,7 +279,8 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
-                                                               tmp_path):
+                                                               tmp_path,
+                                                               monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cNMF(output_dir=str(tmp_path), name="x")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -302,6 +321,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                  lambda: mutual_info_classif(X, np.arange(6) % 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the sanitizer's guard and the autotuner's measurements (F7)
+    from cnmf_torch_tpu_torch.utils import autotune
+    from cnmf_torch_tpu_torch.utils.sanitize import sync_guard
+
+    monkeypatch.setattr(autotune, "_active_device", None)
+    for call in (autotune.measure_rho_scales, autotune.measure_plan_points,
+                 lambda: sync_guard().__enter__()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     # asking for the CPU is the only way to run without a card
     assert cNMF(output_dir=str(tmp_path), name="y",
                 device="cpu").device.type == "cpu"
+    with sync_guard("cpu") as guard:
+        assert not guard.active

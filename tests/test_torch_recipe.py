@@ -167,7 +167,8 @@ def test_the_port_reads_no_unregistered_knob():
     # tests/test_torch_elastic.py, and the serving tier's of
     # tests/test_torch_serving.py and test_torch_fleet.py, and the h5ad
     # writer's and the planner's of tests/test_torch_formats.py,
-    # test_torch_planner.py and test_torch_autotune.py
+    # test_torch_planner.py and test_torch_autotune.py, and the
+    # sanitizer's of tests/test_torch_sanitize.py
     assert set(KNOBS) | {"CNMF_TPU_SPARSE_BETA", "CNMF_TPU_BF16_RATIO",
                          "CNMF_TPU_BUDGET_ELEMS", "CNMF_TPU_FAULT_SPEC",
                          "CNMF_TPU_MAX_RETRIES",
@@ -187,7 +188,8 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_STORE_BACKOFF_S", "CNMF_TPU_STORE_TIMEOUT_S",
                          "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
                          "CNMF_TPU_PERF_MODEL",
-                         "CNMF_TPU_PERF_GATE_BAND"} | set(
+                         "CNMF_TPU_PERF_GATE_BAND",
+                         "CNMF_TPU_SANITIZE"} | set(
         MULTI_DEVICE_KNOBS) | set(SERVING_KNOBS) | set(
         FORMAT_PLAN_KNOBS) == set(envknobs.KNOBS)
 
