@@ -324,6 +324,25 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     kernel launch under the guard. A sync error is not caught: it fails
     the run.
 
+16. The four tutorials (``cnmf_torch_tpu_torch/examples/``), each called
+    as a user calls it, ``main(dir, device="cuda")``, at the JAX package's
+    defaults: the simulated tutorial (1,000 cells x 1,500 genes, K 4-8 x
+    20), PBMC (2,700 x 3,000, K 5-11 x 20, K chosen at the stability
+    peak), batch correction (4,000 x 2,500 + 12 ADTs, Harmony over 3
+    batches, K 6 x 20) and the Seurat vignette (500 x 800, K 5 x 8). Each
+    tutorial's own assertions (planted-program recovery, batch mixing, the
+    exported trio's coherence) are the gates: a failure fails the run,
+    nothing is caught. The launch counts are set to 0 before each and must
+    stay 0 (the default Frobenius loss runs no kernel); each run's timings
+    TSV must hold the consensus staging's ``stage_dense:tpm`` rows
+    (``StreamStats.record_to``). The batch-correction tutorial returns the
+    density threshold its consensus kept (2.0 only after the density
+    filter's own ``DensityFilterError`` at 0.5; any other error fails the
+    run): the phase logs it and checks that its spectra are on disk. Without h5py the PBMC counts go as a 10x
+    directory and the sidecar's hand-off as ``.df.npz`` (D20), without
+    matplotlib the figures are skipped (D17). It prints each tutorial's
+    wall and peak device memory beside the card's name and power limit.
+
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
 ``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
@@ -5011,6 +5030,75 @@ def phase15(stages, Xn) -> dict:
     return {"a": lint_phase(stages), "b": sanitize_phase(stages, Xn)}
 
 
+# -- phase 16: the four tutorials --------------------------------------------
+
+# tutorial module -> its run name (``cnmf_tmp/<name>.timings.tsv``)
+TUTORIALS = {"simulated_tutorial": "sim_run", "pbmc_tutorial": "pbmc",
+             "batch_correction_tutorial": "islets",
+             "seurat_vignette": "vignette"}
+
+
+def stream_rows(tsv: str) -> list:
+    """The stream sub-phase rows (``<prefix>/<phase>``) of a timings TSV."""
+    with open(tsv) as f:
+        return [line.split("\t")[0] for line in f
+                if "/" in line.split("\t")[0]]
+
+
+def phase16(stages, smi) -> dict:
+    """The tutorials at their JAX defaults, on the card."""
+    import importlib
+
+    from cnmf_torch_tpu_torch.examples._common import have_h5py
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    out = {}
+    for name, run in TUTORIALS.items():
+        module = importlib.import_module(
+            f"cnmf_torch_tpu_torch.examples.{name}")
+        d = os.path.join(OUT, "tutorials", name)
+        shutil.rmtree(d, ignore_errors=True)
+        kl_ell.reset_launches()
+        result = stages.run(f"tutorial {name}",
+                            lambda: module.main(d, device=CARD))
+        launches = dict(kl_ell.launches)
+        _, wall, peak = stages.rows[-1]
+        check(sum(launches.values()) == 0,
+              f"16: {name} launched a kernel: {launches}")
+        rows = stream_rows(os.path.join(d, run, "cnmf_tmp",
+                                        run + ".timings.tsv"))
+        check("stage_dense:tpm/wall" in rows,
+              f"16: {name}'s timings TSV has no stage_dense rows: {rows}")
+        out[name] = {"wall_s": wall, "peak_gib": peak,
+                     "launches": launches, "stream_rows": rows}
+        if name == "batch_correction_tutorial":
+            # the consensus threshold it kept: 2.0 only after the density
+            # filter's own failure at 0.5; its spectra are on disk
+            dt = result[3]
+            spectra = os.path.join(
+                d, run, "cnmf_tmp",
+                run + ".spectra.k_6.dt_%s.consensus.df.npz"
+                % str(dt).replace(".", "_"))
+            check(dt in (0.5, 2.0) and os.path.exists(spectra),
+                  f"16: batch correction kept density threshold {dt!r}; "
+                  f"{spectra} exists {os.path.exists(spectra)}")
+            out[name]["density_threshold"] = dt
+            log(f"phase 16: batch correction's consensus at density "
+                f"threshold {dt}")
+    pbmc = os.path.join(OUT, "tutorials", "pbmc_tutorial")
+    tenx = os.path.exists(os.path.join(pbmc, "pbmc_like_counts_10x",
+                                       "matrix.mtx"))
+    check(tenx != have_h5py(), "16: the PBMC input took the wrong format "
+          f"(10x directory {tenx}, h5py importable {have_h5py()})")
+    out["pbmc_input"] = "10x .mtx (no h5py)" if tenx else "h5ad"
+    log(f"phase 16: the PBMC input as {out['pbmc_input']}; stream rows "
+        + ", ".join(f"{n} {len(out[n]['stream_rows'])}" for n in TUTORIALS))
+    out["launches"] = {k: sum(out[n]["launches"].get(k, 0)
+                              for n in TUTORIALS) for k in kl_ell.KERNELS}
+    torch.cuda.empty_cache()
+    return out
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -5287,6 +5375,13 @@ def main() -> int:
     log(f"phase 15 kernel launches under sync_guard: "
         f"{p15['b']['launches']}")
 
+    # -- phase 16: the tutorials ---------------------------------------------
+    n_stages = len(stages.rows)
+    p16 = phase16(stages, smi)
+    log(f"phase 16 stages on {smi}:")
+    for name, wall, peak in stages.rows[n_stages:]:
+        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+
     out = []
     for name in kl_ell.KERNELS:
         rec = dict(records[name])
@@ -5300,7 +5395,8 @@ def main() -> int:
                            + int(p12["launches"][name])
                            + int(p13["launches"][name])
                            + int(p14["launches"][name])
-                           + int(p15["b"]["launches"][name]))
+                           + int(p15["b"]["launches"][name])
+                           + int(p16["launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -5313,6 +5409,7 @@ def main() -> int:
               "phase9": p9, "phase9_kernels": atlas_records,
               "phase10": p10, "phase11": p11, "phase12": p12,
               "phase13": p13, "phase14": p14, "phase15": p15,
+              "phase16": p16,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}

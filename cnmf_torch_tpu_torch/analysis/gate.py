@@ -2,8 +2,9 @@
 
     python -m cnmf_torch_tpu_torch.analysis.gate
 
-Lints the ``cnmf_torch_tpu_torch`` package (every rule family and the
-``KNOBS.md`` drift check) against the checked-in baseline
+Lints the ``cnmf_torch_tpu_torch`` package, its tutorials
+(``examples/``) included (every rule family and the ``KNOBS.md`` drift
+check) against the checked-in baseline
 (``analysis/baseline.json``, shipped empty) and prints one line of counts,
 a family each, ``LINT_GATE: <family>=<n> ... baselined=<n>
 suppressed=<n> files=<n>``. Exit 0: clean; 1: findings (printed after the

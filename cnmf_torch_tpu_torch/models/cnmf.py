@@ -36,7 +36,10 @@ consensus sub-stages land in ``cnmf_tmp/<name>.timings.tsv`` and, under
 ``cnmf_tmp/<name>.events.jsonl`` (``utils/telemetry.py``) beside the
 dispatch decisions, one ``replicates`` record list per K, the guard's
 faults and a device-memory watermark after each stage;
-``CNMF_TPU_PROFILE_DIR`` traces each stage with ``torch.profiler``. One
+``CNMF_TPU_PROFILE_DIR`` traces each stage with ``torch.profiler``.
+Consensus keeps the dense matrices its refits read on the device once an
+object (:meth:`cNMF._stage_dense`), and each staging's phase walls land
+in the TSV as ``stage_dense:<key>/host_prep|h2d|device|wall``. One
 departure: the JAX package's ``consensus`` stage times a file probe, and
 here it times the ``consensus`` call itself.
 
@@ -68,6 +71,7 @@ import warnings
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from ..device import resolve_device
 from ..obs import metrics as obs_metrics
@@ -79,14 +83,15 @@ from ..ops.metrics import local_density as knn_local_density
 from ..ops.metrics import pairwise_euclidean, silhouette_score
 from ..ops.nmf import (beta_loss_to_float, dense_on_device, fit_h,
                        resolve_online_schedule, run_nmf, run_nmf_use_ell,
-                       sweep_x_mean)
+                       sweep_x_mean, takes_ell_lane)
 from ..ops.ols import ols_all_cols
 from ..ops.recipe import resolve_recipe
 from ..ops.sketch import project_rows, resolve_consensus_sketch
 from ..ops.sparse import (EllMatrix, csr_to_ell, ell_chunk_rows,
                           ell_row_width)
 from ..ops.stats import (cell_scale_factors, column_moments_staged,
-                         normalize_total, row_sums, scale_columns)
+                         normalize_total, row_sums, scale_columns,
+                         scale_hvg_columns_device)
 from ..parallel.replicates import (default_mesh, replicate_sweep,
                                    worker_filter)
 from ..runtime import faults, resilience
@@ -101,9 +106,14 @@ from ..utils.profiling import StageTimer, trace
 from ..utils.telemetry import EventLog, replicate_records
 from . import plots
 
-__all__ = ["cNMF"]
+__all__ = ["cNMF", "compute_tpm", "DensityFilterError"]
 
 _LEDGER_COLUMNS = ["n_components", "iter", "nmf_seed", "completed"]
+
+
+class DensityFilterError(RuntimeError):
+    """Consensus's density filter kept no replicate spectrum; a larger
+    ``density_threshold`` keeps more."""
 
 
 def _positions(names, wanted) -> np.ndarray:
@@ -119,6 +129,17 @@ def _positions(names, wanted) -> np.ndarray:
 
 def _ledger_ints(ledger: Frame, column: str) -> np.ndarray:
     return np.asarray(ledger.column(column), dtype=np.int64)
+
+
+def compute_tpm(input_counts: Counts, totals=None, device="cuda") -> Counts:
+    """Each cell scaled to 1e6 total counts (the JAX package's
+    ``compute_tpm``), on ``device``; ``totals`` threads precomputed row
+    sums through (one matrix pass). The names and the ``obs``/``var``
+    columns are carried over."""
+    X = normalize_total(input_counts.X, 1e6, totals,
+                        device=resolve_device(device))
+    return Counts(X, input_counts.obs_names, input_counts.var_names,
+                  obs=dict(input_counts.obs), var=dict(input_counts.var))
 
 
 def _timed(stage_name: str):
@@ -184,6 +205,63 @@ class cNMF:
         # the ExecutionPlan (runtime/planner.py) the last batched or
         # sequential factorize resolved its dispatch through
         self.plan = None
+        # consensus residency: key -> (content token, dense device
+        # tensor) of the matrices the refits read (:meth:`_stage_dense`)
+        self._dev_cache: dict = {}
+
+    # dense device bytes above which consensus matrices are not kept
+    # resident (the JAX package's budget)
+    _DEV_CACHE_BUDGET_BYTES = 2 << 30
+
+    def _stageable(self, X) -> bool:
+        n, g = X.shape
+        return (n < self.rowshard_threshold
+                and n * g * 4 <= self._DEV_CACHE_BUDGET_BYTES)
+
+    def _refits_dense(self, X) -> bool:
+        """True when every usage and spectra refit of ``X`` runs the dense
+        lane: neither ``X`` (the usage refits) nor ``X.T`` (the spectra
+        refits) takes the ELL lane (``ops/nmf.py:takes_ell_lane``). A
+        matrix that does stays on the host (the kernels' path)."""
+        beta = beta_loss_to_float(self._solver_params()["beta_loss"])
+        return not (takes_ell_lane(X, beta) or takes_ell_lane(X.T, beta))
+
+    @staticmethod
+    def _content_token(X) -> tuple:
+        """Shape, stored count, f64 sum and a strided 64-value sample: tells
+        two same-shape matrices apart for the residency cache."""
+        buf = X.data if sp.issparse(X) else np.asarray(X).ravel()
+        step = max(1, buf.size // 64)
+        return (tuple(X.shape), int(getattr(X, "nnz", buf.size)),
+                float(buf.sum(dtype=np.float64)),
+                buf[::step][:64].astype(np.float64).tobytes())
+
+    def _stage_dense(self, key: str, X):
+        """``X`` as a dense f32 tensor on the device, staged once per
+        matrix and reused by every later refit of this object (the JAX
+        package's residency cache). The upload runs through the pipelined
+        staging engine (``parallel/streaming.py``): a sparse matrix crosses
+        as CSR slabs and densifies on the card. Its phase walls land in the
+        timings TSV as ``stage_dense:<key>/...`` (:meth:`StreamStats.
+        record_to`) and in a ``stream`` event. Returns ``X`` unchanged
+        when it is over the residency budget, at or above
+        ``rowshard_threshold`` rows, or a sparse KL/IS matrix
+        (:meth:`_refits_dense`)."""
+        from ..parallel.streaming import StreamStats, stream_to_device
+
+        if not (self._stageable(X) and self._refits_dense(X)):
+            return X
+        token = self._content_token(X)
+        ent = self._dev_cache.get(key)
+        if ent is not None and ent[0] == token:
+            return ent[1]
+        stats = StreamStats()
+        Xd = stream_to_device(X, self.device, stats=stats,
+                              events=self._events)
+        stats.record_to(self._timer, f"stage_dense:{key}")
+        self._events.emit_stream(f"stage_dense:{key}", stats)
+        self._dev_cache[key] = (token, Xd)
+        return Xd
 
     # ------------------------------------------------------------------
     # prepare
@@ -204,8 +282,7 @@ class cNMF:
             # TPM = diag(1e6 / rowsum) @ counts: its moments and the
             # raw-count moments come from one pass over the counts
             totals = row_sums(counts.X, device=dev)
-            tpm = Counts(normalize_total(counts.X, 1e6, totals, device=dev),
-                         counts.obs_names, counts.var_names)
+            tpm = compute_tpm(counts, totals=totals, device=dev)
             counts_moments, tpm_moments = column_moments_staged(
                 counts.X, row_scale=cell_scale_factors(totals, 1e6),
                 device=dev)
@@ -215,6 +292,8 @@ class cNMF:
                 (".h5ad", ".mtx", ".mtx.gz")))
             tpm_moments, _ = column_moments_staged(tpm.X, device=dev)
             counts_moments, _ = column_moments_staged(counts.X, device=dev)
+        # a re-prepare invalidates the consensus residency
+        self._dev_cache.clear()
         save_matrix(self.paths["tpm"], tpm.X, tpm.obs_names, tpm.var_names)
         mean, var = tpm_moments
         save_df_to_npz(Frame(np.stack([mean, np.sqrt(var)], axis=1),
@@ -292,6 +371,7 @@ class cNMF:
         atomic, so a crash leaves a consistent pair."""
         from ..utils import shardstore
 
+        self._dev_cache.clear()
         mode = shardstore.ooc_mode()
         write_store = mode == "1" or (
             mode == "auto"
@@ -1685,7 +1765,10 @@ class cNMF:
         of ``X.T`` against ``usage.T``. At or above ``rowshard_threshold``
         rows the W subproblem is solved directly
         (``parallel/rowshard.py:refit_w_rowsharded``), whose row blocks
-        never become ``chunk x cells`` dense buffers."""
+        never become ``chunk x cells`` dense buffers. A staged tensor
+        (:meth:`_stage_dense`) transposes on the card; a sparse host
+        matrix that the lane rule keeps off the ELL lane is staged first,
+        its walls in the timings TSV as ``refit_spectra.stage/...``."""
         if X.shape[0] >= self.rowshard_threshold:
             from ..parallel.rowshard import refit_w_rowsharded
 
@@ -1695,7 +1778,23 @@ class cNMF:
                 beta=beta_loss_to_float(kw["beta_loss"]), h_tol=0.05,
                 max_iter=int(kw["online_chunk_max_iter"]),
                 l1_reg_W=float(kw["l1_ratio_W"]), device=self.device)
-        Xt = X.T.tocsr() if sp.issparse(X) else np.asarray(X).T
+        if isinstance(X, torch.Tensor):
+            Xt = X.T  # a staged matrix transposes on the card
+        elif sp.issparse(X):
+            beta = beta_loss_to_float(self._solver_params()["beta_loss"])
+            if takes_ell_lane(X.T, beta):
+                Xt = X.T.tocsr()  # the ELL lane's transposed refit
+            else:
+                # the dense lane: stage the row-major matrix slab by slab
+                # and transpose on the card (no dense copy on the host)
+                from ..parallel.streaming import StreamStats, stream_to_device
+
+                stats = StreamStats()
+                Xt = stream_to_device(X, self.device, stats=stats,
+                                      events=self._events).T
+                stats.record_to(self._timer, "refit_spectra.stage")
+        else:
+            Xt = np.asarray(X).T
         return self.refit_usage(Xt, np.asarray(usage).T).T
 
     # ------------------------------------------------------------------
@@ -1797,7 +1896,7 @@ class cNMF:
                                    cache)
             keep = density < density_threshold
             if not keep.any():
-                raise RuntimeError(
+                raise DensityFilterError(
                     "Zero components remain after density filtering. "
                     "Consider increasing density threshold")
             if keep.sum() < k:
@@ -1820,7 +1919,8 @@ class cNMF:
 
         with self._timer.stage("consensus.refit_usage"):
             if store is None:
-                usages = self.refit_usage(norm_counts.X, median)
+                usages = self.refit_usage(
+                    self._stage_dense("norm_counts", norm_counts.X), median)
             elif skip_density_and_return_after_stats:
                 # the usages feed only the prediction error, whose slab
                 # pass solves them itself
@@ -1855,7 +1955,8 @@ class cNMF:
         with self._timer.stage("consensus.refit_spectra"):
             tpm = load_matrix(self.paths["tpm"])
             tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
-            spectra_tpm = self.refit_spectra(tpm.X,
+            tpm_resident = self._stage_dense("tpm", tpm.X)
+            spectra_tpm = self.refit_spectra(tpm_resident,
                                              norm_usages.astype(np.float32))
         if normalize_tpm_spectra:
             spectra_tpm = (spectra_tpm / spectra_tpm.sum(axis=1,
@@ -1867,7 +1968,8 @@ class cNMF:
 
         if refit_usage:
             with self._timer.stage("consensus.final_refit"):
-                usages = self._final_refit(tpm, tpm_stats, spectra_tpm)
+                usages = self._final_refit(tpm, tpm_stats, spectra_tpm,
+                                           resident=tpm_resident)
 
         median_f = Frame(median.astype(np.float32), programs,
                          np.asarray(norm_counts.var_names))
@@ -2024,9 +2126,13 @@ class cNMF:
             out[kk] = max(x_sq - 2.0 * cross + hw_sq, 0.0)
         return out
 
-    def _final_refit(self, tpm: Counts, tpm_stats: Frame, spectra_tpm):
+    def _final_refit(self, tpm: Counts, tpm_stats: Frame, spectra_tpm,
+                     resident=None):
         """The final usage refit on the HVG TPM scaled to unit (ddof=1)
-        variance, with the spectra in the same units."""
+        variance, with the spectra in the same units. ``resident``: the
+        TPM staged by :meth:`_stage_dense`, whose HVG columns are cut and
+        scaled on the card (``ops/stats.py:scale_hvg_columns_device``,
+        the same f32 quotients as the host path)."""
         hv = _positions(tpm.var_names, self._hvgs())
         std = np.asarray(tpm_stats.column("__std"), np.float64)[hv]
         spectra_rf = spectra_tpm[:, hv] / std[None, :]
@@ -2035,6 +2141,9 @@ class cNMF:
         div = np.sqrt(std ** 2 * bessel).astype(np.float32)
         if sp.issparse(tpm.X):
             div[div == 0] = 1.0
+        if isinstance(resident, torch.Tensor):
+            X_rf = scale_hvg_columns_device(resident, hv, div)
+        elif sp.issparse(tpm.X):
             X_rf = tpm.X[:, hv].tocsr().astype(np.float32)
             X_rf.data = X_rf.data / div[X_rf.indices]
         else:

@@ -51,7 +51,7 @@ __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "nndsvd_init", "init_factors", "fit_h", "fit_h_default_init",
            "fit_h_slabbed", "gram_svd_base", "nndsvd_init_gram",
            "lane_health", "run_nmf", "run_nmf_use_ell", "sweep_x_mean",
-           "dense_update_cost"]
+           "takes_ell_lane", "dense_update_cost"]
 
 EPS = 1e-16
 EVAL_EVERY = 10
@@ -1270,12 +1270,21 @@ def stage_matrix(X, beta: float, device):
     else a dense f32 tensor."""
     if isinstance(X, EllMatrix):
         return X.to(device)
-    if sp.issparse(X):
-        n, g = X.shape
-        if resolve_sparse_beta(float(beta), density=X.nnz / max(n * g, 1),
-                               width=ell_row_width(X), g=g):
-            return csr_to_ell(X, transpose=False).to(device)
+    if takes_ell_lane(X, beta):
+        return csr_to_ell(X, transpose=False).to(device)
     return dense_on_device(X, device)
+
+
+def takes_ell_lane(X, beta: float) -> bool:
+    """The ELL lane rule for a host matrix solved row by row: ``X``
+    scipy-sparse, beta in {1, 0}, under the dispatch rule (density <= 0.10,
+    width <= genes/8; ``ops/sparse.py:resolve_sparse_beta``). A transposed
+    solve asks it of ``X.T``."""
+    if not sp.issparse(X):
+        return False
+    n, g = X.shape
+    return bool(resolve_sparse_beta(float(beta), density=X.nnz / max(n * g, 1),
+                                    width=ell_row_width(X), g=g))
 
 
 def fit_h(X, W, H_init=None, chunk_size: int = 5000,
@@ -1381,13 +1390,8 @@ def run_nmf_use_ell(X, beta: float, *, init: str = "random",
     """Does :func:`run_nmf` take the ELL lane for this input? A scipy-
     sparse ``X`` with beta in {1, 0}, the random init, ``algo='mu'``, f32,
     under the dispatch rule (density <= 0.10, width <= genes/8)."""
-    if not (sp.issparse(X) and init == "random" and algo == "mu"
-            and fp_precision == "float" and float(beta) in (1.0, 0.0)):
-        return False
-    n_s, g_s = X.shape
-    return bool(resolve_sparse_beta(
-        float(beta), density=X.nnz / max(n_s * g_s, 1),
-        width=ell_row_width(X), g=g_s))
+    return (init == "random" and algo == "mu" and fp_precision == "float"
+            and takes_ell_lane(X, beta))
 
 
 def run_nmf(X, n_components: int, init: str = "random",

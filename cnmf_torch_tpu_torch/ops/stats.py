@@ -18,7 +18,8 @@ import scipy.sparse as sp
 import torch
 
 __all__ = ["row_sums", "cell_scale_factors", "normalize_total",
-           "column_moments_staged", "column_mean_var", "scale_columns"]
+           "column_moments_staged", "column_mean_var", "scale_columns",
+           "scale_hvg_columns_device"]
 
 _BLOCK_ROWS = 65_536
 
@@ -173,3 +174,21 @@ def scale_columns(X, ddof: int = 1, zero_std_to_one: bool = True,
                                                dtype=torch.float64)
         out = (Xt / div_t[None, :]).to(out_t).cpu().numpy()
     return out, std
+
+
+def scale_hvg_columns_device(X_resident, hvg_idx, div):
+    """The HVG columns ``hvg_idx`` of a dense matrix already on the device,
+    divided by the per-column scale ``div`` (f32), on the device: the
+    consensus final refit's unit-variance HVG TPM without a host copy and
+    a second upload. ``div`` follows :func:`scale_columns`' conventions
+    (zero stds mapped to 1 on the sparse-input branch, left at 0 on the
+    dense one). A negative position (a name missing from the matrix)
+    raises ``KeyError``, as a host lookup would."""
+    idx_h = np.asarray(hvg_idx, dtype=np.int64)
+    if idx_h.size and idx_h.min() < 0:
+        raise KeyError(
+            f"{int((idx_h < 0).sum())} HVG name(s) missing from the matrix")
+    dev = X_resident.device
+    idx = torch.as_tensor(idx_h).to(dev)
+    d = torch.as_tensor(np.asarray(div, dtype=np.float32)).to(dev)
+    return torch.index_select(X_resident, 1, idx) / d[None, :]

@@ -211,6 +211,24 @@ class StreamStats:
         return (self.disk_nbytes / self.disk_s / 1e9) if self.disk_s > 0 \
             else 0.0
 
+    def record_to(self, timer, prefix: str):
+        """One row a phase, then the wall, in a ``StageTimer`` (the
+        timings TSV): ``<prefix>/disk`` (only after a disk read),
+        ``/host_prep``, ``/h2d``, ``/device`` and ``/wall`` with the JAX
+        package's fields. The walls are already read: ``device_s``
+        closes with the staging's synchronize."""
+        if timer is None:
+            return
+        if self.disk_s > 0:
+            timer.record(f"{prefix}/disk", self.disk_s,
+                         nbytes=self.disk_nbytes)
+        timer.record(f"{prefix}/host_prep", self.host_prep_s)
+        timer.record(f"{prefix}/h2d", self.h2d_s, nbytes=self.nbytes)
+        timer.record(f"{prefix}/device", self.device_s)
+        timer.record(f"{prefix}/wall", self.wall_s, nbytes=self.nbytes,
+                     slabs=self.slabs,
+                     overlap=round(self.overlap_fraction, 3))
+
     def __repr__(self):
         return (f"StreamStats(wall={self.wall_s:.3f}s "
                 f"prep={self.host_prep_s:.3f}s h2d={self.h2d_s:.3f}s "

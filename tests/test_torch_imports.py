@@ -184,6 +184,19 @@ with sync_guard("cpu") as guard:
     with host_read():
         pass
 assert not guard.active and guard.reads == 0
+# the tutorials: all four import, the Seurat vignette runs, and a counts
+# file meant as h5ad lands as the 10x trio the port reads natively
+from cnmf_torch_tpu_torch.examples import (_common, batch_correction_tutorial,
+                                           pbmc_tutorial, seurat_vignette,
+                                           simulated_tutorial)
+r_path = seurat_vignette.main(os.path.join(d, "seurat"), n_cells=60,
+                              n_genes=90, n_iter=4, k=3, device="cpu")
+assert os.path.exists(r_path)
+mtx = _common.write_counts(os.path.join(d, "pbmc.h5ad"), Counts(
+    _sparse.csr_matrix(counts), np.array(["c%d" % i for i in range(60)]),
+    np.array(["g%d" % j for j in range(90)])))
+assert mtx.endswith(os.path.join("pbmc_10x", "matrix.mtx"))
+assert np.array_equal(load_counts(mtx).X.toarray(), counts)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m])
 assert not leaked, leaked
@@ -256,7 +269,11 @@ SLICE_MODULES = ["runtime/__init__.py", "runtime/faults.py",
                  "analysis/gate.py", "analysis/rules_artifacts.py",
                  "analysis/rules_concurrency.py", "analysis/rules_knobs.py",
                  "analysis/rules_sync.py", "analysis/rules_telemetry.py",
-                 "utils/sanitize.py"]
+                 "utils/sanitize.py", "examples/__init__.py",
+                 "examples/_common.py", "examples/simulated_tutorial.py",
+                 "examples/pbmc_tutorial.py",
+                 "examples/batch_correction_tutorial.py",
+                 "examples/seurat_vignette.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
