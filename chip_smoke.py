@@ -161,11 +161,16 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    ``factorize_rowshard`` ``perf_model`` event on the dense lane under the
    phase-8 bounds, that factorize launched no kernel and the consensus
    refit ``h_stats``, and that no objective rose past 1e-6 from pass to
-   pass. Then the same run with ``CNMF_TPU_OOC=1`` (the store written, the
-   matrix file skipped) and ``CNMF_TPU_CKPT_EVERY_PASSES=1``: every iter
-   spectra file byte for byte the first run's, the streamed consensus
-   within ``1e-5`` and K-selection errors within ``1e-8`` of the resident
-   ones, the streamed host residency under the budget. (b)
+   pass. These stages run beside the child chains (below). Before them,
+   with no chain running, the store pair on the first 50,000 of those
+   cells (``STORE_CELLS``; the same genes, Ks and replicates, the
+   row-shard threshold at that count, so the row-sharded solver runs as
+   above): the pipeline in memory, then the same with ``CNMF_TPU_OOC=1``
+   (the store written, the matrix file skipped) and
+   ``CNMF_TPU_CKPT_EVERY_PASSES=1``: every iter spectra file byte for byte
+   the in-memory run's, the streamed consensus within ``1e-5`` and
+   K-selection errors within ``1e-8`` of the resident ones, the streamed
+   host residency under the budget. (b)
    ``nmf_fit_rowsharded`` on 1,000,000 x 2,000 CSR (built on the card in
    blocks of 50,000 rows, 6.9% nonzeros): the entry's CSR dispatch stages
    it as ELL (its ``rowshard_staging`` stream's host time and bytes
@@ -181,15 +186,18 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    (``CNMF_TPU_OOC_SHARD_BYTES`` 256 MiB) and the resident solve from the
    same init to convergence, the slab loop within ``2e-5`` of a plain
    group loop and within ``5e-3`` of the resident solve's refit objective,
-   its host residency under the budget; a CLI factorize SIGKILLed after its fourth pass checkpoint
-   (``kill:stage=pass``), resumed with ``--skip-completed-runs`` from
-   pass 4 to the uninterrupted bytes; a torn checkpoint
+   its host residency under the budget; a CLI factorize SIGKILLed after
+   its fourth pass checkpoint (``kill:stage=pass``), resumed with
+   ``--skip-completed-runs`` from pass 4 to the uninterrupted bytes, and
+   one whose checkpoint is torn before its kill (these three children are
+   a chain beside 9a's 250,000-cell stages, below); the torn checkpoint
    (``torn:artifact=ckpt``) discarded and its replicate restarted to the
    same bytes; a torn slab read (``shard_read``) detected, re-read and
    staged bit for bit.
 10. The remote object store: ``utils/netstore.py``'s server in this
     process on ``127.0.0.1`` (a loopback that cannot bind fails the
-    phase). (a) 9a's counts prepared with ``CNMF_TPU_OOC=1`` into
+    phase). (a) 9a's store paths' counts (its first 50,000 cells)
+    prepared with ``CNMF_TPU_OOC=1`` into
     ``http://127.0.0.1:<port>/atlas`` at K=9 with 9a's four replicates,
     factorized through it (the row-sharded solver, staged over HTTP
     through the read-through cache), combined, and brought to consensus
@@ -199,10 +207,10 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     takes it, streamed through the store (dense, no kernel). It checks that
     the store lives only at the endpoint, every iter spectra file byte for
     byte 9a's store-backed run's, the resident consensus artifacts within
-    ``1e-5`` of 9a's in-memory run's and the streamed ones within ``1e-5``
-    of 9a's streamed run's, the staging ``stream`` event's remote counters
-    and bytes, the ``consensus_stream`` event's (every slab read a cache
-    hit), and the cache's entries and bytes. (b) On a store of phase
+    ``1e-5`` of 9a's in-memory run of those cells and the streamed ones
+    within ``1e-5`` of 9a's streamed run's, the staging ``stream``
+    event's remote counters and bytes, the ``consensus_stream`` event's
+    (every slab read a cache hit), and the cache's entries and bytes. (b) On a store of phase
     3's normalized counts in 2,000-row slabs: ``netflake``, ``netslow``
     with the hedge at 0.1 s, ``nettorn``, and ``netdown`` against a warm
     cache each stage bit for bit the clean matrix, with their ``store_net``
@@ -222,10 +230,12 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     (d) the 2 x 2 grid within the same bands of one shard, the grid with
     no launch, its ``collective`` bytes, one pass timed with the overlap on
     and off, and its ``perf_model`` gate; (e) a host loss re-meshing 4 ->
-    3 shards; (f) ``run_parallel --engine multihost --rowshard`` with two
-    processes on a gloo group, within ``1e-5`` of one process; (g)
-    ``run_parallel --engine subprocess`` with two workers, within ``1e-4``
-    of one.
+    3 shards (one replicate of 9a's store-backed run); (f) ``run_parallel
+    --engine multihost --rowshard`` with two processes on a gloo group,
+    within ``1e-5`` of one process; (g) ``run_parallel --engine
+    subprocess`` with two workers, within ``1e-4`` of one. The children of
+    (f) (the multihost run beside the two ELL ranks) and of (g) are two
+    chains beside 9a (below); phase 11 checks what they wrote.
 12. Serving and the fleet (``serving/``, plain torch: the serve path
     launches no kernel of ours), each sub-phase with its own launch
     counts. (a) ``ServeDaemon`` over phase 3's k=9 consensus reference
@@ -246,7 +256,9 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     requests and cells a second, mean lanes a batch and the peak memory.
     (b) Phase 5's Frobenius reference (``W W^T`` resident): 16 requests
     under the same gates. (c) ``python -m cnmf_torch_tpu_torch fleet``
-    over phase 3's run, two ``serve`` subprocesses on the card, 4 tenants
+    (a chain beside 9a, below: this process's part of it uses no torch;
+    its solo refits are computed before) over phase
+    3's run, two ``serve`` subprocesses on the card, 4 tenants
     of load; a ``replicadeath`` clause kills replica 0, which respawns;
     then ``/rollover`` to phase 4's k=9 consensus spectra; then a poison
     tenant: no request fails outside it, every reply is within ``1e-5`` of
@@ -343,6 +355,54 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     matplotlib the figures are skipped (D17). It prints each tutorial's
     wall and peak device memory beside the card's name and power limit.
 
+17. The installed port. Beside phase 1's build, and joined before phase 2
+    times the kernels, a thread copies the files a wheel needs
+    (``pyproject.toml``, ``README.md`` and both package directories) into
+    a temporary directory outside the checkout, builds the wheel there
+    (``pip wheel --no-deps --no-build-isolation --no-index``), installs it
+    (``pip install --no-deps --no-index --target <tmp>/site``) and has a
+    child that imports the installed copy build its kernels at first use:
+    a fresh ``nvcc`` run from the installed ``csrc/kl_ell.cu`` into the
+    installed package's ``build/kernels``, its time logged. Then, as a
+    chain beside 9a (below), from a working directory outside the repo
+    with ``PYTHONPATH`` the install target only (and an empty temp
+    directory), phase 3's main path through the installed console script
+    ``<tmp>/site/bin/cnmf-tpu-torch``: ``prepare`` (phase 3's counts and
+    options; ``-n``, ``--seed``, ``--beta-loss`` and ``--show-clustering``
+    differ from the CLI's defaults), ``factorize``, ``combine``,
+    ``consensus -k 9`` and ``k_selection_plot``, telemetry on. It checks
+    that every child's manifest names the installed package, that the
+    factorize provenance reads lane ``ell``, kernel ``ell-cuda``, recipe
+    ``mu``, that the CLI's ``kernel launches`` lines show ``h_stats``,
+    ``w_numer`` and ``beta_err_partials`` in factorize and ``h_stats`` in
+    consensus, and that every iter spectra, merged, consensus and
+    K-selection artifact (and prepare's TPM moments) holds phase 3's
+    arrays byte for byte. The installed simulated tutorial (a chain of its
+    own) runs its own assertions, and the installed lint gate (``python -m
+    cnmf_torch_tpu_torch.analysis.gate``, beside the main path) must exit
+    0. It prints the wheel, install, ``nvcc`` and each step's walls beside
+    the card's name and power limit.
+
+The chains beside 9a. Work that uses no torch in this process (child
+processes, files, sockets) runs in threads while 9a's 250,000-cell
+stages keep the card busy: phase 17's main path through the installed
+port, 12c's fleet, 9c's CLI kills, 11f's two-process runs, 11g's two
+workers and phase 17's installed tutorial, in that order (the longest
+first), at most three at a time. They start at one point, after the
+store pair (9c's children resume its store-backed run), with the
+environment taken there, and are joined at one point, before 9b times
+the kernels; so 9a's walls and ``perf_model`` readings are read under
+that load, and no other phase's are. Each phase's check reads its
+chain's result and raises the chain's own error. Every child process
+leads a process group of its own; however the script ends (a failed
+check, an error, SIGTERM), it kills every process of those groups and
+joins the threads. Phase 17's set-up in phase 1 is such a chain too,
+beside phase 1's build.
+
+Each phase's wall on the host clock is logged as it ends (the report's
+``phase_walls``, where ``<chain> children (beside <where>)`` is a
+chain's own wall).
+
 Every bound in the kernel records is the larger of the bytes over the
 card's memory rate and the operations over its operation rate, both from
 ``cnmf_torch_tpu_torch/obs/costmodel.py:CHIP_PEAKS`` for the card the run
@@ -357,14 +417,19 @@ card the script exits 2.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import glob
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2051,6 +2116,14 @@ PIPELINE_STAGES = {"prepare": "prepare", "factorize": "factorize",
                    "k_selection": "k_selection_plot"}
 
 
+def npz_arrays(path) -> tuple:
+    """The bytes of every array of an ``.npz`` file (its zip container also
+    holds its write time, so the arrays are what two runs can share byte
+    for byte)."""
+    with np.load(path, allow_pickle=True) as f:
+        return tuple(np.asarray(f[key]).tobytes() for key in f.files)
+
+
 def artifact_arrays(obj, ks=KS, n_iter=REPLICATES, dt="0_5") -> dict:
     """The stored arrays of every iter spectra file and consensus artifact
     of a run, its K-selection statistics and prepare's f64 TPM moments
@@ -2058,22 +2131,16 @@ def artifact_arrays(obj, ks=KS, n_iter=REPLICATES, dt="0_5") -> dict:
     ``.npz`` zip container also holds its write time, so the arrays are
     what two runs can share byte for byte."""
     out = {}
-
-    def arrays(path):
-        with np.load(path, allow_pickle=True) as f:
-            return tuple(np.asarray(f[key]).tobytes() for key in f.files)
-
     for k in ks:
         for it in range(n_iter):
-            out[f"iter_spectra k={k} iter={it}"] = arrays(
+            out[f"iter_spectra k={k} iter={it}"] = npz_arrays(
                 obj.paths["iter_spectra"] % (k, it))
-    for key in ("consensus_spectra", "consensus_usages", "gene_spectra_tpm",
-                "gene_spectra_score", "starcat_spectra"):
-        out[key] = arrays(obj.paths[key] % (CONSENSUS_K, dt))
+    for key in CONSENSUS_KEYS:
+        out[key] = npz_arrays(obj.paths[key] % (CONSENSUS_K, dt))
         with open(obj.paths[key + "__txt"] % (CONSENSUS_K, dt), "rb") as f:
             out[key + "__txt"] = f.read()
-    out["k_selection_stats"] = arrays(obj.paths["k_selection_stats"])
-    out["tpm_stats"] = arrays(obj.paths["tpm_stats"])
+    out["k_selection_stats"] = npz_arrays(obj.paths["k_selection_stats"])
+    out["tpm_stats"] = npz_arrays(obj.paths["tpm_stats"])
     return out
 
 
@@ -2266,6 +2333,12 @@ ATLAS_CELLS, ATLAS_GENES, ATLAS_SCALE = 250_000, 3_000, 30.0
 ATLAS_KS = [9, 13]
 ATLAS_REPLICATES = 4
 ATLAS_BLOCK = 25_000
+# the store paths (9a's store-backed copy, 9c, 10a, 11e) run on the first
+# 50,000 cells of 9a's counts, with the same genes, Ks and replicates and
+# the row-shard threshold at that count, so they take the row-sharded
+# solver as 9a does: they test the store, not scale (9a in memory stays
+# the atlas path at 250,000 cells)
+STORE_CELLS = 50_000
 # 9b: the solver API at BASELINE.md config 5's scale (1M cells, 2,000
 # genes), built as CSR in blocks of 50,000 rows; 15 counts per unit of
 # usage give 6.9% nonzeros, the ELL lane
@@ -2281,8 +2354,12 @@ DENSE_PASSES = 3
 DENSE_SLACK_BYTES = 256 << 20
 # streamed against resident consensus: max |a - b| / max |a| of each
 # artifact and of the prediction errors, about 20 times the readings on
-# an H100 (at most 4.3e-7 and 4.3e-10: on this data the two refits stop
-# at the same iterations, unlike on the CPU tests' fixture)
+# an H100 at 250,000 cells (at most 4.3e-7 and 4.3e-10: on this data the
+# two refits stop at the same iterations, unlike on the CPU tests'
+# fixture). The store pair's 50,000 cells read 3.3e-7 in the artifacts;
+# their prediction errors read 3.2e-8 while the resident error summed
+# f32 squares in f32, and 1.1e-11 since both take them in f64 (NVIDIA
+# H100 80GB HBM3, 700 W)
 STREAM_RTOL = 1e-5
 STREAM_ERR_RTOL = 1e-8
 # 9c: the slab-looped tier's resident budget (33,554 rows a group at
@@ -2292,9 +2369,12 @@ STREAM_ERR_RTOL = 1e-8
 # many passes), and to the resident solve by one objective (each
 # spectra's usages refit on the staged matrix), by max |a - b| / max |a|
 # and by the cosine of matched spectra. Limits from the readings on an
-# H100 (16 and 57 passes): 1.1e-6 against the plain loop, objectives
-# 1.1e-3 apart, spectra 0.148 apart with matched cosines of 0.9927 and
-# above (the two solvers take different steps to nearby factors)
+# H100 at 250,000 cells, eight groups (16 and 57 passes): 1.1e-6 against
+# the plain loop, objectives 1.1e-3 apart, spectra 0.148 apart with
+# matched cosines of 0.9927 and above (the two solvers take different
+# steps to nearby factors). The store pair's 50,000 cells make two
+# groups (29 and 45 passes) and read less on each: 6.4e-7, 2.8e-4,
+# 0.073 and 0.9989 (NVIDIA H100 80GB HBM3, 700 W)
 OOC_SHARD_BYTES = 256 << 20
 OOC_REF_RTOL = 2e-5
 OOC_OBJ_RTOL = 5e-3
@@ -2323,23 +2403,29 @@ def card_counts(n, g, scale, seed, block):
         yield lo, hi, blk
 
 
-def atlas_counts(out: str) -> str:
-    """9a's counts, written as the dense ``.df.npz`` the port reads."""
+def atlas_counts(out: str) -> tuple:
+    """9a's counts, written as the dense ``.df.npz`` the port reads, and
+    their first ``STORE_CELLS`` rows as a file of their own (the store
+    paths' counts)."""
     from cnmf_torch_tpu_torch import Frame, save_df_to_npz
 
     counts = np.empty((ATLAS_CELLS, ATLAS_GENES), np.float32)
     for lo, hi, blk in card_counts(ATLAS_CELLS, ATLAS_GENES, ATLAS_SCALE,
                                    SEED, ATLAS_BLOCK):
         counts[lo:hi] = blk.cpu().numpy()
-    fn = os.path.join(out, "atlas_counts.df.npz")
-    save_df_to_npz(Frame(counts,
-                         np.asarray([f"c{i}" for i in range(ATLAS_CELLS)]),
-                         np.asarray([f"g{j}" for j in range(ATLAS_GENES)])),
-                   fn, compress=False)
-    log(f"9a counts {counts.shape}: {counts.sum() / ATLAS_CELLS:.1f} UMI a "
-        f"cell, {np.count_nonzero(counts) / counts.size:.4f} nonzeros, "
-        f"file {os.path.getsize(fn) / 2 ** 30:.2f} GiB")
-    return fn
+    cells = np.asarray([f"c{i}" for i in range(ATLAS_CELLS)])
+    genes = np.asarray([f"g{j}" for j in range(ATLAS_GENES)])
+    fns = []
+    for n, leaf in ((ATLAS_CELLS, "atlas_counts.df.npz"),
+                    (STORE_CELLS, "store_counts.df.npz")):
+        fn = os.path.join(out, leaf)
+        save_df_to_npz(Frame(counts[:n], cells[:n], genes), fn,
+                       compress=False)
+        log(f"9a counts {counts[:n].shape}: {counts[:n].sum() / n:.1f} UMI "
+            f"a cell, {np.count_nonzero(counts[:n]) / (n * ATLAS_GENES):.4f}"
+            f" nonzeros, file {os.path.getsize(fn) / 2 ** 30:.2f} GiB")
+        fns.append(fn)
+    return tuple(fns)
 
 
 def solver_csr():
@@ -2405,41 +2491,122 @@ def dense_peak_gate(stages, name, n, g):
     return peak
 
 
-def atlas_artifact_gap(a_obj, b_obj, dt="2_0") -> dict:
-    """max |a - b| / max |a| of the consensus artifacts of two runs."""
+CONSENSUS_KEYS = ("consensus_spectra", "consensus_usages",
+                  "gene_spectra_tpm", "gene_spectra_score",
+                  "starcat_spectra")
+
+
+def consensus_values(obj, dt="2_0") -> dict:
+    """A run's consensus artifacts at k=9 as f64 arrays, by path key."""
     from cnmf_torch_tpu_torch.utils.io import load_df_from_npz
 
+    return {key: np.asarray(load_df_from_npz(
+        obj.paths[key] % (CONSENSUS_K, dt)).values, np.float64)
+        for key in CONSENSUS_KEYS}
+
+
+def atlas_artifact_gap(a_obj, b_obj, dt="2_0") -> dict:
+    """max |a - b| / max |a| of the consensus artifacts of two runs."""
+    a, b = consensus_values(a_obj, dt), consensus_values(b_obj, dt)
     out = {}
-    for key in ("consensus_spectra", "consensus_usages", "gene_spectra_tpm",
-                "gene_spectra_score", "starcat_spectra"):
-        a = np.asarray(load_df_from_npz(a_obj.paths[key]
-                                        % (CONSENSUS_K, dt)).values,
-                       np.float64)
-        b = np.asarray(load_df_from_npz(b_obj.paths[key]
-                                        % (CONSENSUS_K, dt)).values,
-                       np.float64)
-        check(a.shape == b.shape and np.isfinite(b).all(),
-              f"9a {key}: {a.shape} against {b.shape}")
-        out[key] = float(np.abs(a - b).max() / np.abs(a).max())
+    for key in CONSENSUS_KEYS:
+        check(a[key].shape == b[key].shape and np.isfinite(b[key]).all(),
+              f"9a {key}: {a[key].shape} against {b[key].shape}")
+        out[key] = float(np.abs(a[key] - b[key]).max()
+                         / np.abs(a[key]).max())
     return out
 
 
-def atlas_pipeline(stages) -> dict:
-    """9a: prepare -> factorize (the row-sharded solver, engaged by the
-    cell count) -> combine -> consensus -> k_selection_plot at 250,000
-    cells, then the same with the shard store as the only copy and pass
-    checkpoints every pass."""
+def store_pair(stages) -> dict:
+    """9a's store paths: the pipeline on the first ``STORE_CELLS`` cells
+    (the row-shard threshold at that count) in memory, then the same with
+    the shard store as the only copy and pass checkpoints every pass.
+    Returns what 9a, 9c, 10a and 11e read: 9a's counts files, both runs
+    and the iter spectra bytes."""
     from cnmf_torch_tpu_torch import cNMF
-    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
-    from cnmf_torch_tpu_torch.utils import shardstore, telemetry
+    from cnmf_torch_tpu_torch.utils import shardstore
 
     out = {}
-    counts_fn = stages.run("9a counts", lambda: atlas_counts(OUT))
+    counts_fn, store_fn = stages.run("9a counts", lambda: atlas_counts(OUT))
+    small = cNMF(OUT, "atlas_small", device=CARD,
+                 rowshard_threshold=STORE_CELLS)
+    with knobs(CNMF_TPU_OOC="0"):
+        stages.run("9a small prepare", lambda: small.prepare(
+            store_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
+            seed=SEED, beta_loss="kullback-leibler",
+            num_highvar_genes=N_HVG, batch_size=CHUNK))
+        stages.run("9a small factorize", small.factorize)
+        stages.run("9a small combine", small.combine)
+        stages.run("9a small consensus", lambda: small.consensus(
+            CONSENSUS_K, density_threshold=2.0))
+        stats = stages.run("9a small k_selection_plot",
+                           small.k_selection_plot)
+    check(small.factorize_info["mode"] == "rowshard",
+          f"9a small: factorize ran {small.factorize_info['mode']}")
+    ref = iter_bytes(small, ATLAS_KS, ATLAS_REPLICATES)
+
+    obj2 = cNMF(OUT, "atlas_ooc", device=CARD,
+                rowshard_threshold=STORE_CELLS)
+    with knobs(CNMF_TPU_OOC="1", CNMF_TPU_CKPT_EVERY_PASSES="1"):
+        stages.run("9a ooc prepare", lambda: obj2.prepare(
+            store_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
+            seed=SEED, beta_loss="kullback-leibler",
+            num_highvar_genes=N_HVG, batch_size=CHUNK))
+        store = obj2._probe_store()
+        check(store is not None
+              and not os.path.exists(obj2.paths["normalized_counts"]),
+              "9a: CNMF_TPU_OOC=1 must write the store and skip the "
+              "matrix file")
+        out["store"] = {"slabs": len(store.slabs),
+                        "store_bytes": store.store_bytes,
+                        "slab_rows": store.manifest["slab_rows"]}
+        stages.run("9a ooc factorize (checkpoint every pass)",
+                   obj2.factorize)
+        check(obj2.factorize_info["mode"] == "rowshard"
+              and iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
+              f"9a: the store-backed run ({obj2.factorize_info['mode']}) "
+              "wrote other iter spectra than the in-memory run")
+        stages.run("9a ooc combine", obj2.combine)
+        stages.run("9a ooc consensus (streamed)", lambda: obj2.consensus(
+            CONSENSUS_K, density_threshold=2.0))
+        stats2 = stages.run("9a ooc k_selection_plot (streamed)",
+                            obj2.k_selection_plot)
+    gap = atlas_artifact_gap(small, obj2)
+    err_gap = float(np.abs(stats2.values[:, 3] - stats.values[:, 3]).max()
+                    / np.abs(stats.values[:, 3]).max())
+    peaks = {c: int(st.host_peak_bytes) for c, st in obj2.stream_stats.items()}
+    check(all(v <= STREAM_RTOL for v in gap.values())
+          and err_gap <= STREAM_ERR_RTOL,
+          f"9a: streamed consensus against resident {gap} (band "
+          f"{STREAM_RTOL}), prediction errors {err_gap} (band "
+          f"{STREAM_ERR_RTOL}) on {STORE_CELLS} cells")
+    check(peaks and max(peaks.values()) <= shardstore.ooc_budget_bytes(),
+          f"9a: streamed host residency {peaks} above the budget")
+    log(f"9a: {len(ref)} iter spectra files bit for bit the in-memory "
+        f"run's with the store as the only copy ({STORE_CELLS} cells); "
+        f"streamed consensus against resident (max |a-b| / max |a|) {gap}, "
+        f"prediction errors {err_gap:.3g}; streamed host peaks {peaks} "
+        f"bytes; store {out['store']}")
+    out.update(stream_gap=gap, error_gap=err_gap, stream_peaks=peaks)
+    return {"counts": counts_fn, "store_counts": store_fn, "small": small,
+            "ooc": obj2, "ref": ref, "report": out}
+
+
+def atlas_pipeline(stages, atlas) -> dict:
+    """9a: prepare -> factorize (the row-sharded solver, engaged by the
+    cell count) -> combine -> consensus -> k_selection_plot at 250,000
+    cells, with the child chains beside it (its walls are read under that
+    load). Adds its normalized matrix to ``atlas``."""
+    from cnmf_torch_tpu_torch import cNMF
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    out = {}
     obj = cNMF(OUT, "atlas", device=CARD)
     with knobs(CNMF_TPU_TELEMETRY="1", CNMF_TPU_OOC="0",
                CNMF_TPU_PERF_MODEL="1"):
         stages.run("9a prepare", lambda: obj.prepare(
-            counts_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
+            atlas["counts"], components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
             seed=SEED, beta_loss="kullback-leibler",
             num_highvar_genes=N_HVG, batch_size=CHUNK))
         kl_ell.reset_launches()
@@ -2477,50 +2644,9 @@ def atlas_pipeline(stages) -> dict:
     out.update(launches=launches, factorize_launches=after_f,
                consensus_launches=after_c, rises=rises,
                k_selection=stats.values.tolist())
-    ref = iter_bytes(obj, ATLAS_KS, ATLAS_REPLICATES)
 
-    obj2 = cNMF(OUT, "atlas_ooc", device=CARD)
-    with knobs(CNMF_TPU_OOC="1", CNMF_TPU_CKPT_EVERY_PASSES="1"):
-        stages.run("9a ooc prepare", lambda: obj2.prepare(
-            counts_fn, components=ATLAS_KS, n_iter=ATLAS_REPLICATES,
-            seed=SEED, beta_loss="kullback-leibler",
-            num_highvar_genes=N_HVG, batch_size=CHUNK))
-        store = obj2._probe_store()
-        check(store is not None
-              and not os.path.exists(obj2.paths["normalized_counts"]),
-              "9a: CNMF_TPU_OOC=1 must write the store and skip the "
-              "matrix file")
-        out["store"] = {"slabs": len(store.slabs),
-                        "store_bytes": store.store_bytes,
-                        "slab_rows": store.manifest["slab_rows"]}
-        stages.run("9a ooc factorize (checkpoint every pass)",
-                   obj2.factorize)
-        check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
-              "9a: the store-backed iter spectra differ from the in-memory "
-              "run's")
-        stages.run("9a ooc combine", obj2.combine)
-        stages.run("9a ooc consensus (streamed)", lambda: obj2.consensus(
-            CONSENSUS_K, density_threshold=2.0))
-        stats2 = stages.run("9a ooc k_selection_plot (streamed)",
-                            obj2.k_selection_plot)
-    gap = atlas_artifact_gap(obj, obj2)
-    err_gap = float(np.abs(stats2.values[:, 3] - stats.values[:, 3]).max()
-                    / np.abs(stats.values[:, 3]).max())
-    peaks = {c: int(st.host_peak_bytes) for c, st in obj2.stream_stats.items()}
-    check(all(v <= STREAM_RTOL for v in gap.values())
-          and err_gap <= STREAM_ERR_RTOL,
-          f"9a: streamed consensus against resident {gap} (band "
-          f"{STREAM_RTOL}), prediction errors {err_gap} (band "
-          f"{STREAM_ERR_RTOL})")
-    check(max(peaks.values()) <= shardstore.ooc_budget_bytes(),
-          f"9a: streamed host residency {peaks} above the budget")
-    log(f"9a: {len(ref)} iter spectra files bit for bit the in-memory "
-        f"run's with the store as the only copy; streamed consensus "
-        f"against resident (max |a-b| / max |a|) {gap}, prediction errors "
-        f"{err_gap:.3g}; streamed host peaks {peaks} bytes; store "
-        f"{out['store']}")
-    out.update(stream_gap=gap, error_gap=err_gap, stream_peaks=peaks)
-    return out, obj, obj2, ref, counts_fn
+    atlas["X"] = obj._read_norm_counts().X.tocsr()
+    return out
 
 
 def solver_api(stages, rows) -> dict:
@@ -2696,10 +2822,58 @@ def plain_slab_loop(Xd, init, passes):
     return W.cpu().numpy()
 
 
-def ooc_faults(stages, obj2, ref) -> dict:
-    """9c on 9a's store-backed run: the slab-looped tier against the
-    resident solve, a factorize killed at a pass boundary and resumed, a
-    torn checkpoint, and a torn slab read."""
+def ooc_cli_kills(obj2, ref, base_env) -> dict:
+    """9c's CLI children on the store pair's store-backed run, a chain
+    beside 9a (child processes and file reads only): a factorize
+    SIGKILLed after its fourth pass checkpoint and resumed with
+    ``--skip-completed-runs`` to the uninterrupted bytes, then one whose
+    checkpoint is torn before its kill (:func:`ooc_faults` resumes it).
+    Returns each child's wall."""
+    from cnmf_torch_tpu_torch.utils import telemetry
+
+    walls = {}
+
+    def child(name, env):
+        t0 = time.perf_counter()
+        proc = CHILDREN.run(cmd, 900, env=env, cwd=HERE)
+        walls[name] = time.perf_counter() - t0
+        return proc
+
+    env = dict(base_env, PYTHONPATH=HERE, CNMF_TPU_TELEMETRY="1")
+    cmd = [sys.executable, "-m", "cnmf_torch_tpu_torch", "factorize",
+           "--output-dir", OUT, "--name", "atlas_ooc", "--device", CARD,
+           "--rowshard", "--skip-completed-runs"]
+    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
+    killed = child("9c factorize killed at pass 4",
+                   dict(env, CNMF_TPU_FAULT_SPEC=KILL_SPEC))
+    ckpt = obj2.paths["pass_checkpoint"] % (CONSENSUS_K, 0)
+    check(killed.returncode == -9 and os.path.exists(ckpt),
+          f"9c: the killed factorize exited {killed.returncode}, "
+          f"checkpoint {os.path.exists(ckpt)}: {killed.stderr[-2000:]}")
+    resumed = child("9c resume (CLI --skip-completed-runs)", env)
+    check(resumed.returncode == 0, f"9c resume: {resumed.stderr[-2000:]}")
+    events = telemetry.read_events(os.path.join(
+        OUT, "atlas_ooc", "cnmf_tmp", "atlas_ooc.events.jsonl"))
+    resumes = [e["context"] for e in events if e["t"] == "checkpoint"
+               and e.get("action") == "resume"]
+    check(resumes and resumes[-1]["pass_idx"] == 4 and resumes[-1]["with_h"],
+          f"9c: checkpoint resume events {resumes}")
+    check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
+          "9c: the resumed iter spectra differ from the uninterrupted run's")
+    log(f"9c kill at a pass boundary: resumed from pass "
+        f"{resumes[-1]['pass_idx']} with H; every iter file bit for bit")
+    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
+    torn = child("9c factorize torn and killed",
+                 dict(env, CNMF_TPU_FAULT_SPEC=TORN_SPEC))
+    check(torn.returncode == -9, f"9c torn: exited {torn.returncode}")
+    return {"walls": walls, "killed_rc": killed.returncode,
+            "resumed_from_pass": resumes[-1]["pass_idx"]}
+
+
+def ooc_faults(stages, obj2, ref, kills) -> dict:
+    """9c on the store paths' store-backed run: the slab-looped tier
+    against the resident solve, the resume of :func:`ooc_cli_kills`' torn
+    checkpoint, and a torn slab read."""
     import warnings
 
     from cnmf_torch_tpu_torch import cNMF
@@ -2707,7 +2881,7 @@ def ooc_faults(stages, obj2, ref) -> dict:
     from cnmf_torch_tpu_torch.parallel.rowshard import (fit_h_rowsharded,
                                                         nmf_fit_rowsharded,
                                                         stream_rows_to_mesh)
-    from cnmf_torch_tpu_torch.utils import shardstore, telemetry
+    from cnmf_torch_tpu_torch.utils import shardstore
 
     out = {}
     store = shardstore.open_shard_store(obj2.paths["shard_store"])
@@ -2775,44 +2949,15 @@ def ooc_faults(stages, obj2, ref) -> dict:
                         "disk_gb_per_s": st.read_gb_per_s(),
                         "slabs_read": int(st.slabs)}
 
-    # a factorize killed at a pass boundary, then --skip-completed-runs
-    env = dict(os.environ, PYTHONPATH=HERE, CNMF_TPU_TELEMETRY="1")
-    cmd = [sys.executable, "-m", "cnmf_torch_tpu_torch", "factorize",
-           "--output-dir", OUT, "--name", "atlas_ooc", "--device", CARD,
-           "--rowshard", "--skip-completed-runs"]
-    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
-    killed = stages.run("9c factorize killed at pass 4", lambda: subprocess.run(
-        cmd, env=dict(env, CNMF_TPU_FAULT_SPEC=KILL_SPEC), cwd=HERE,
-        capture_output=True, text=True, timeout=900))
-    ckpt = obj2.paths["pass_checkpoint"] % (CONSENSUS_K, 0)
-    check(killed.returncode == -9 and os.path.exists(ckpt),
-          f"9c: the killed factorize exited {killed.returncode}, "
-          f"checkpoint {os.path.exists(ckpt)}: {killed.stderr[-2000:]}")
-    resumed = stages.run("9c resume (CLI --skip-completed-runs)",
-                         lambda: subprocess.run(
-                             cmd, env=env, cwd=HERE, capture_output=True,
-                             text=True, timeout=900))
-    check(resumed.returncode == 0, f"9c resume: {resumed.stderr[-2000:]}")
-    events = telemetry.read_events(os.path.join(
-        OUT, "atlas_ooc", "cnmf_tmp", "atlas_ooc.events.jsonl"))
-    resumes = [e["context"] for e in events if e["t"] == "checkpoint"
-               and e.get("action") == "resume"]
-    check(resumes and resumes[-1]["pass_idx"] == 4 and resumes[-1]["with_h"],
-          f"9c: checkpoint resume events {resumes}")
-    check(iter_bytes(obj2, ATLAS_KS, ATLAS_REPLICATES) == ref,
-          "9c: the resumed iter spectra differ from the uninterrupted run's")
-    out["kill_resume"] = {"killed_rc": killed.returncode,
-                          "resumed_from_pass": resumes[-1]["pass_idx"]}
-    log(f"9c kill at a pass boundary: resumed from pass "
-        f"{resumes[-1]['pass_idx']} with H; every iter file bit for bit")
-
-    # a torn checkpoint: discarded, its replicate restarts from scratch
-    os.unlink(obj2.paths["iter_spectra"] % (CONSENSUS_K, 0))
-    torn = stages.run("9c factorize torn and killed", lambda: subprocess.run(
-        cmd, env=dict(env, CNMF_TPU_FAULT_SPEC=TORN_SPEC), cwd=HERE,
-        capture_output=True, text=True, timeout=900))
-    check(torn.returncode == -9, f"9c torn: exited {torn.returncode}")
-    again = cNMF(OUT, "atlas_ooc", device=CARD)
+    # the CLI children's kill and torn checkpoint (ooc_cli_kills, a chain
+    # beside 9a) left the torn checkpoint: discarded, its replicate
+    # restarts from scratch
+    for name, wall in kills["walls"].items():
+        stages.add(name + " (beside 9a)", wall)
+    out["kill_resume"] = {"killed_rc": kills["killed_rc"],
+                          "resumed_from_pass": kills["resumed_from_pass"]}
+    again = cNMF(OUT, "atlas_ooc", device=CARD,
+                 rowshard_threshold=STORE_CELLS)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         stages.run("9c resume after a torn checkpoint",
@@ -2844,18 +2989,53 @@ def ooc_faults(stages, obj2, ref) -> dict:
     return out
 
 
-def phase9(stages, rows):
-    """Phase 9, the atlas path: 9a, 9b and 9c. Returns its report, the
-    R=1 kernel records and what phase 10 compares with: 9a's counts file,
-    its in-memory and store-backed runs and its iter spectra bytes."""
-    p9, obj, obj2, ref, counts_fn = atlas_pipeline(stages)
+# chains of child processes run at once beside 9a (:class:`Beside`)
+BESIDE_WORKERS = 3
+
+
+def start_beside(atlas, counts_fn, Xn, installed) -> Beside:
+    """The one start point of the child chains that run beside 9a's
+    250,000-cell stages, longest first: phase 17's main path through the
+    installed port (set up in phase 1), 12c's fleet, 9c's CLI kills (on
+    the store pair's store-backed run), 11f's two-process runs, 11g's two
+    workers and phase 17's installed tutorial. Their environment is taken
+    here, before 9a sets a knob, and 12c's solo refits are computed here
+    on this process's card."""
+    env = dict(os.environ)
+    fleet_in = fleet_inputs(Xn, env)
+    return Beside({
+        "17": lambda: installed_steps(installed, counts_fn),
+        "12c": lambda: fleet_phase(fleet_in),
+        "9c": lambda: ooc_cli_kills(atlas["ooc"], atlas["ref"], env),
+        "11f": lambda: multihost_chain(counts_fn, Xn, env),
+        "11g": lambda: subprocess_chain(counts_fn, env),
+        "17 tutorial": lambda: installed_tutorial(installed),
+    }, BESIDE_WORKERS)
+
+
+def phase9(stages, rows, counts_fn, Xn, installed):
+    """Phase 9, the atlas path: the store pair, then the child chains
+    (:func:`start_beside`) beside 9a's 250,000-cell stages, joined before
+    9b times the kernels, then 9b and 9c. Returns its report, the R=1
+    kernel records, what phases 10 and 11 read (:func:`store_pair`'s dict
+    with 9a's normalized matrix) and the chains."""
+    atlas = store_pair(stages)
+    beside = start_beside(atlas, counts_fn, Xn, installed)
+    p9 = atlas_pipeline(stages, atlas)
+    p9["store_pair"] = atlas["report"]
+    t0 = time.perf_counter()
+    beside.join()
+    p9["beside_wait_s"] = time.perf_counter() - t0
+    log(f"9: the chains beside 9a joined after a wait of "
+        f"{p9['beside_wait_s']:.1f} s; their walls {beside.walls}")
     p9["solver"], records = solver_api(stages, rows)
-    p9["faults"] = ooc_faults(stages, obj2, ref)
+    p9["faults"] = ooc_faults(stages, atlas["ooc"], atlas["ref"],
+                              beside.result("9c"))
     p9["kernel_launches"] = {
         name: int(p9["launches"][name]) + int(p9["solver"]["launches"][name])
         + int(p9["solver"]["dna_launches"][name])
         for name in ONLINE_KERNELS + BATCH_KERNELS}
-    return p9, records, (counts_fn, obj, obj2, ref)
+    return p9, records, atlas, beside
 
 
 # -- phase 10: the remote object store ----------------------------------------
@@ -2868,18 +3048,19 @@ NET_HEDGE_S = 0.1
 
 
 def remote_pipeline(stages, srv, counts_fn, atlas_obj, ooc_obj, ref) -> dict:
-    """10a: 9a's counts prepared store-only into the object store at K=9
-    with 9a's replicates, factorized and brought to consensus through it,
-    resident (``atlas_obj``, 9a's in-memory run, is its reference) and
+    """10a: the store paths' counts (9a's first ``STORE_CELLS`` cells)
+    prepared store-only into the object store at K=9 with 9a's replicates,
+    factorized and brought to consensus through it, resident
+    (``atlas_obj``, the store paths' in-memory run, is its reference) and
     streamed (``ooc_obj``, 9a's store-backed run); the iter spectra must be
-    9a's bytes."""
+    those runs' bytes."""
     from cnmf_torch_tpu_torch import cNMF
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
     from cnmf_torch_tpu_torch.utils import storebackend, telemetry
 
     out = {}
     name = "atlas_remote"
-    obj = cNMF(OUT, name, device=CARD)
+    obj = cNMF(OUT, name, device=CARD, rowshard_threshold=STORE_CELLS)
     uri = srv.url + "/atlas"
     with knobs(CNMF_TPU_OOC="1", CNMF_TPU_STORE_URI=uri,
                CNMF_TPU_TELEMETRY="1"):
@@ -3120,11 +3301,11 @@ def phase10(stages, Xn, atlas) -> dict:
     phase), then 10a, 10b and 10c."""
     from cnmf_torch_tpu_torch.utils.netstore import ObjectStoreServer
 
-    counts_fn, atlas_obj, ooc_obj, ref = atlas
     with ObjectStoreServer("127.0.0.1", 0) as srv:
         log(f"phase 10: object store fixture at {srv.url}")
-        p10, obj = remote_pipeline(stages, srv, counts_fn, atlas_obj,
-                                   ooc_obj, ref)
+        p10, obj = remote_pipeline(stages, srv, atlas["store_counts"],
+                                   atlas["small"], atlas["ooc"],
+                                   atlas["ref"])
         p10["faults"] = net_faults(stages, srv, Xn)
         p10["cold_netdown"] = cold_netdown(stages, obj, srv.url + "/atlas")
     return p10
@@ -3427,7 +3608,7 @@ def elastic_phase(atlas, stages) -> dict:
     from cnmf_torch_tpu_torch.parallel.mesh import Mesh
     from cnmf_torch_tpu_torch.utils import telemetry
 
-    obj2 = atlas[2]
+    obj2 = atlas["ooc"]
     with knobs(CNMF_TPU_TELEMETRY="1",
                CNMF_TPU_FAULT_SPEC="hostloss:context=pass,after=1"):
         stages.run("11e factorize, hostloss on 4 shards", lambda: (
@@ -3460,26 +3641,6 @@ def elastic_phase(atlas, stages) -> dict:
         f"iter {it} finite and non-negative")
     return {"faults": kinds, "remesh": remesh[-1],
             "resumed_from_pass": resumes[-1]["pass_idx"]}
-
-
-def _spawn_ranks(argv_of, timeout=300):
-    """Start one process a rank, wait for all (killing every one on the
-    first failure or past ``timeout``); returns their return codes."""
-    procs = [subprocess.Popen(argv) for argv in argv_of]
-    t0 = time.monotonic()
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            check(time.monotonic() - t0 < timeout,
-                  f"ranks still running after {timeout} s")
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    return [p.returncode for p in procs]
 
 
 def mesh_rank_main(rank: int, world: int, port: int, out: str,
@@ -3519,32 +3680,95 @@ def mesh_rank_main(rank: int, world: int, port: int, out: str,
     return 0
 
 
-def two_processes(counts_fn, Xn, stages) -> dict:
-    """11f: ``run_parallel --engine multihost`` with two processes on the
-    card (one cells shard each, a gloo group) running a row-sharded KL
-    factorize of phase 3's counts (K=9, 2 replicates): the cross-process
-    ``all_reduce`` ran (``collective`` events), and the spectra equal a
-    one-process run over two shards. Then two ranks solve phase 3's CSR
-    on the ELL lane over the same two-process mesh: the three kernels
-    launch in each, and W is the one-process two-shard solve's."""
+# 11f's multihost run and 11g's subprocess run: phase 3's counts, their
+# run names and options
+MH_PREP = ["-k", str(CONSENSUS_K), "-n", "2"]
+SP_KS = [5, CONSENSUS_K]
+SP_PREP = ["-k", *map(str, SP_KS), "-n", "4"]
+
+
+def _run_parallel_cmd(counts_fn, name, prep, *flags):
+    return [sys.executable, "-m", "cnmf_torch_tpu_torch", "run_parallel",
+            "-c", counts_fn, *prep, "--seed", str(SEED), "--numgenes",
+            str(N_HVG), "--beta-loss", "kullback-leibler", "--batch_size",
+            str(CHUNK), "--total-workers", "2", "--output-dir", OUT,
+            "--name", name, "--device", CARD, *flags]
+
+
+def _cli_child(name, cmd, env, timeout=600) -> float:
+    """One CLI child of a chain beside 9a, its output kept under
+    ``build/chip_smoke``; a nonzero exit fails its phase. Returns its
+    wall."""
+    t0 = time.perf_counter()
+    proc = CHILDREN.run(cmd, timeout, cwd=HERE, env=env)
+    with open(os.path.join(OUT, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def multihost_chain(counts_fn, Xn, base_env) -> dict:
+    """11f's chain beside 9a: ``run_parallel --engine multihost
+    --rowshard`` with two processes (telemetry on), beside the two ranks
+    of the ELL solve over a two-process mesh. Their inputs are written
+    here; :func:`two_processes` checks what they wrote."""
     import scipy.sparse as sp
 
-    from cnmf_torch_tpu_torch import cNMF, load_df_from_npz
-    from cnmf_torch_tpu_torch.launcher import run_pipeline
+    from cnmf_torch_tpu_torch.launcher import _free_port
     from cnmf_torch_tpu_torch.ops.nmf import random_init
+
+    sub = os.path.join(OUT, "mesh_ranks")
+    os.makedirs(sub, exist_ok=True)
+    n, g = Xn.shape
+    H0, W0 = random_init(SEED, n, g, CONSENSUS_K, float(Xn.sum()) / (n * g))
+    sp.save_npz(os.path.join(sub, "X.npz"), Xn.tocsr())
+    np.savez(os.path.join(sub, "init.npz"), H0=H0.numpy(), W0=W0.numpy())
+    env = dict(base_env, PYTHONPATH=HERE)
+    walls = {}
+    t0 = time.perf_counter()
+    port = _free_port()
+    ranks = [CHILDREN.popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "--mesh-world", "2", "--mesh-port", str(port), "--mesh-out", sub,
+         "--mesh-device", CARD], env=env)
+        for r in range(2)]
+    walls["11f run_parallel --engine multihost (2 processes)"] = \
+        _cli_child("11f_multihost", _run_parallel_cmd(
+            counts_fn, "mh", MH_PREP, "--engine", "multihost", "--rowshard"),
+            dict(env, CNMF_TPU_TELEMETRY="1"))
+    rcs = [p.wait(timeout=300) for p in ranks]
+    walls["11f two ranks, ELL solve"] = time.perf_counter() - t0
+    return {"walls": walls, "rank_rcs": rcs, "sub": sub,
+            "init": (H0.numpy(), W0.numpy())}
+
+
+def subprocess_chain(counts_fn, base_env) -> dict:
+    """11g's chain beside 9a: ``run_parallel --engine subprocess`` with
+    two workers under strict f32; :func:`subprocess_workers` checks it."""
+    env = dict(base_env, PYTHONPATH=HERE, CNMF_TPU_BF16_RATIO="0")
+    return {"walls": {
+        "11g run_parallel --engine subprocess (2 workers)": _cli_child(
+            "11g_subprocess", _run_parallel_cmd(counts_fn, "sp", SP_PREP),
+            env)}}
+
+
+def two_processes(kids, counts_fn, Xn, stages) -> dict:
+    """11f: ``run_parallel --engine multihost`` with two processes on the
+    card (one cells shard each, a gloo group) ran a row-sharded KL
+    factorize of phase 3's counts (K=9, 2 replicates): the cross-process
+    ``all_reduce`` ran (``collective`` events), and the spectra equal a
+    one-process run over two shards. Two ranks solved phase 3's CSR on the
+    ELL lane over the same two-process mesh: the three kernels launched in
+    each, and W is the one-process two-shard solve's. The children ran
+    beside 9a (:func:`multihost_chain`)."""
+    from cnmf_torch_tpu_torch import cNMF, load_df_from_npz
     from cnmf_torch_tpu_torch.parallel.mesh import Mesh
     from cnmf_torch_tpu_torch.parallel.rowshard import nmf_fit_rowsharded
     from cnmf_torch_tpu_torch.utils import telemetry
 
-    prep = dict(components=[CONSENSUS_K], n_iter=2, seed=SEED,
-                numgenes=N_HVG, beta_loss="kullback-leibler",
-                batch_size=CHUNK)
-    with knobs(CNMF_TPU_TELEMETRY="1"):
-        stages.run("11f run_parallel --engine multihost (2 processes)",
-                   lambda: run_pipeline(
-                       counts_fn, OUT, "mh", total_workers=2,
-                       engine="multihost", factorize_flags=["--rowshard"],
-                       device=CARD, timeout_s=600, **prep))
+    for name, wall in kids["walls"].items():
+        stages.add(name + " (beside 9a)", wall)
     mh = cNMF(OUT, "mh", device=CARD)
     colls = [e for e in telemetry.read_events(mh._events.path)
              if e["t"] == "collective"]
@@ -3554,13 +3778,13 @@ def two_processes(counts_fn, Xn, stages) -> dict:
                         for c in colls),
           f"11f: collective events {colls}")
     one = cNMF(OUT, "mh1", device=CARD)
-    one.prepare(counts_fn, components=prep["components"],
-                n_iter=prep["n_iter"], seed=SEED, num_highvar_genes=N_HVG,
-                beta_loss="kullback-leibler", batch_size=CHUNK)
+    one.prepare(counts_fn, components=[CONSENSUS_K], n_iter=2, seed=SEED,
+                num_highvar_genes=N_HVG, beta_loss="kullback-leibler",
+                batch_size=CHUNK)
     stages.run("11f one process, 2 shards", lambda: one.factorize(
         rowshard=True, mesh=Mesh([CARD] * 2, ("cells",))))
     gaps = []
-    for it in range(prep["n_iter"]):
+    for it in range(2):
         a = load_df_from_npz(mh.paths["iter_spectra"]
                              % (CONSENSUS_K, it)).values
         b = load_df_from_npz(one.paths["iter_spectra"]
@@ -3569,19 +3793,7 @@ def two_processes(counts_fn, Xn, stages) -> dict:
     check(max(gaps) <= P11_PROC_RTOL,
           f"11f: two processes against one process {gaps}")
     # the ELL lane over the two-process mesh
-    sub = os.path.join(OUT, "mesh_ranks")
-    os.makedirs(sub, exist_ok=True)
-    n, g = Xn.shape
-    H0, W0 = random_init(SEED, n, g, CONSENSUS_K, float(Xn.sum()) / (n * g))
-    sp.save_npz(os.path.join(sub, "X.npz"), Xn.tocsr())
-    np.savez(os.path.join(sub, "init.npz"), H0=H0.numpy(), W0=W0.numpy())
-    from cnmf_torch_tpu_torch.launcher import _free_port
-
-    port = _free_port()
-    rcs = stages.run("11f two ranks, ELL solve", lambda: _spawn_ranks(
-        [[sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-          "--mesh-world", "2", "--mesh-port", str(port), "--mesh-out", sub,
-          "--mesh-device", CARD] for r in range(2)]))
+    rcs, sub = kids["rank_rcs"], kids["sub"]
     check(rcs == [0, 0], f"11f ranks exited {rcs}")
     ranks = []
     for r in range(2):
@@ -3595,8 +3807,7 @@ def two_processes(counts_fn, Xn, stages) -> dict:
               f"{ranks[r]['collectives']}")
     _H, W1, _e = nmf_fit_rowsharded(
         Xn, CONSENSUS_K, beta_loss="kullback-leibler", n_passes=P11_PASSES,
-        init_factors=(H0.numpy(), W0.numpy()),
-        mesh=Mesh([CARD] * 2, ("cells",)))
+        init_factors=kids["init"], mesh=Mesh([CARD] * 2, ("cells",)))
     ell_gap = max(_rel(np.load(os.path.join(sub, f"W{r}.npy")), W1)
                   for r in range(2))
     check(ell_gap <= P11_PROC_RTOL,
@@ -3612,23 +3823,18 @@ def two_processes(counts_fn, Xn, stages) -> dict:
             "ell_gap": ell_gap}
 
 
-def subprocess_workers(counts_fn, stages) -> dict:
+def subprocess_workers(kids, counts_fn, stages) -> dict:
     """11g: ``run_parallel --engine subprocess`` with 2 workers on phase
-    3's counts (K in {5, 9}, 4 replicates) under strict f32, its merged
-    spectra against a single-worker run's."""
+    3's counts (K in {5, 9}, 4 replicates) under strict f32 (run beside 9a
+    by :func:`subprocess_chain`), its merged spectra against a
+    single-worker run's."""
     from cnmf_torch_tpu_torch import cNMF, load_df_from_npz
-    from cnmf_torch_tpu_torch.launcher import run_pipeline
 
-    ks = [5, CONSENSUS_K]
-    prep = dict(components=ks, n_iter=4, seed=SEED, numgenes=N_HVG,
-                beta_loss="kullback-leibler", batch_size=CHUNK)
+    for name, wall in kids["walls"].items():
+        stages.add(name + " (beside 9a)", wall)
     with knobs(CNMF_TPU_BF16_RATIO="0"):
-        stages.run("11g run_parallel --engine subprocess (2 workers)",
-                   lambda: run_pipeline(counts_fn, OUT, "sp",
-                                        total_workers=2, device=CARD,
-                                        **prep))
         one = cNMF(OUT, "sp1", device=CARD)
-        one.prepare(counts_fn, components=ks, n_iter=4, seed=SEED,
+        one.prepare(counts_fn, components=SP_KS, n_iter=4, seed=SEED,
                     num_highvar_genes=N_HVG, beta_loss="kullback-leibler",
                     batch_size=CHUNK)
         stages.run("11g one worker", one.factorize)
@@ -3636,27 +3842,28 @@ def subprocess_workers(counts_fn, stages) -> dict:
     sp_ = cNMF(OUT, "sp", device=CARD)
     gaps = {k: _rel(load_df_from_npz(sp_.paths["merged_spectra"] % k).values,
                     load_df_from_npz(one.paths["merged_spectra"] % k).values)
-            for k in ks}
+            for k in SP_KS}
     check(max(gaps.values()) <= 1e-4,
           f"11g: two workers against one {gaps}")
     log(f"11g: merged spectra of 2 workers against 1: {gaps}")
     return {"gaps": gaps}
 
 
-def phase11(stages, counts_fn, Xn, atlas, rows) -> dict:
-    """The multi-device layer on the one card, every mesh repeating it."""
+def phase11(stages, counts_fn, Xn, atlas, rows, beside) -> dict:
+    """The multi-device layer on the one card, every mesh repeating it;
+    (f) and (g) check their chains beside 9a."""
     from cnmf_torch_tpu_torch.ops.kernels import kl_ell
 
     out = {}
     out["a"] = replicate_axis(Xn, stages)
-    Xa = atlas[1]._read_norm_counts().X.tocsr()
+    Xa = atlas.pop("X")
     out["b"] = rowshard_shards(Xa, stages, rows)
     out["c"] = mesh_2d_sweep(Xa, stages)
     out["d"] = grid_phase(Xa, counts_fn, stages)
     del Xa
     out["e"] = elastic_phase(atlas, stages)
-    out["f"] = two_processes(counts_fn, Xn, stages)
-    out["g"] = subprocess_workers(counts_fn, stages)
+    out["f"] = two_processes(beside.result("11f"), counts_fn, Xn, stages)
+    out["g"] = subprocess_workers(beside.result("11g"), counts_fn, stages)
     # this process's launches on the phase's main paths (11a's mesh sweep
     # and 11b's solves; the children's are in 11f's rank records)
     out["launches"] = {name: int(out["a"]["launches"][name])
@@ -3990,58 +4197,28 @@ def _alive(pid) -> bool:
         return False
 
 
-def _children(pid) -> list:
-    """The live child processes of ``pid`` (from ``/proc``)."""
-    out = []
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit():
-            continue
-        try:
-            with open(f"/proc/{entry}/stat") as f:
-                fields = f.read().split(")")[-1].split()
-        except OSError:
-            continue
-        if int(fields[1]) == pid:
-            out.append(int(entry))
-    return out
-
-
-def _stop_fleet(proc, pids):
+def _stop_fleet(proc):
     """Stop a fleet started by 12c on any path: SIGTERM (the router
-    drains its replicas), then SIGKILL for the fleet and every replica
-    still alive."""
+    drains its replicas), then SIGKILL for every process of its group
+    still alive (the replicas are in it)."""
     if proc.poll() is None:
-        kids = _children(proc.pid)
         proc.terminate()
-        try:
+        with contextlib.suppress(subprocess.TimeoutExpired):
             proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
-        pids.update(kids)
-    for pid in pids:
-        if _alive(pid):
-            try:
-                os.kill(pid, 9)
-            except OSError:
-                pass
+    _kill_groups({proc.pid})
+    proc.wait(timeout=30)
 
 
 def _p99(vals):
     return float(np.percentile(vals, 99)) if vals else None
 
 
-def fleet_phase(stages, Xn) -> dict:
-    """12c: ``fleet`` over phase 3's run as a subprocess (two ``serve``
-    subprocesses on the card), a ``replicadeath`` under load from four
-    tenants, a rollover to phase 4's k=9 consensus spectra, then a poison
-    tenant and a clean shutdown."""
-    import threading
-
+def fleet_inputs(Xn, env) -> dict:
+    """12c's two references (phase 3's k=9 consensus and phase 4's), its
+    queries and their solo refits on the card: the part of 12c that runs
+    on this process's card, before :func:`fleet_phase`. ``env``: the
+    fleet's environment, taken before 9a sets a knob."""
     from cnmf_torch_tpu_torch.serving import load_reference
-    from cnmf_torch_tpu_torch.serving.fleet import FleetClient
-    from cnmf_torch_tpu_torch.utils.telemetry import (read_events,
-                                                      validate_events_file)
 
     run_dir = os.path.join(OUT, "pipeline")
     v2_path = os.path.join(OUT, "batch", "cnmf_tmp",
@@ -4052,22 +4229,38 @@ def fleet_phase(stages, Xn) -> dict:
     queries = [serve_rows(Xn, FLEET_SIZES[i % len(FLEET_SIZES)], 500 + i)
                for i in range(FLEET_QUERIES)]
     wants = [[serve_solo(r, X) for X in queries] for r in refs]
+    return {"run_dir": run_dir, "v2_path": v2_path, "queries": queries,
+            "wants": wants, "env": dict(env)}
+
+
+def fleet_phase(inputs) -> dict:
+    """12c: ``fleet`` over phase 3's run as a subprocess (two ``serve``
+    subprocesses on the card), a ``replicadeath`` under load from four
+    tenants, a rollover to phase 4's k=9 consensus spectra, then a poison
+    tenant and a clean shutdown. It uses no torch in this process: a
+    chain beside 9a."""
+    from cnmf_torch_tpu_torch.serving.fleet import FleetClient
+    from cnmf_torch_tpu_torch.utils.telemetry import (read_events,
+                                                      validate_events_file)
+
+    run_dir, v2_path = inputs["run_dir"], inputs["v2_path"]
+    queries, wants = inputs["queries"], inputs["wants"]
     ev_path = os.path.join(run_dir, "cnmf_tmp", "pipeline.fleet.events.jsonl")
     if os.path.exists(ev_path):
         os.unlink(ev_path)
     sock = os.path.join(OUT, "fleet12.sock")
-    env = dict(os.environ, CNMF_TPU_TELEMETRY="1",
+    env = dict(inputs["env"], CNMF_TPU_TELEMETRY="1",
                CNMF_TPU_SERVE_WARM_START="0",
                CNMF_TPU_FLEET_HEALTH_S=str(FLEET_HEALTH_S),
                CNMF_TPU_FLEET_WARM_TIMEOUT_S=str(FLEET_WARM_TIMEOUT_S),
                CNMF_TPU_FAULT_SPEC=f"replicadeath:context=fleet,worker=0,"
                                    f"after={FLEET_DEATH_AFTER}",
                PYTHONPATH=os.pathsep.join(
-                   [HERE] + ([os.environ["PYTHONPATH"]]
-                             if os.environ.get("PYTHONPATH") else [])))
+                   [HERE] + ([inputs["env"]["PYTHONPATH"]]
+                             if inputs["env"].get("PYTHONPATH") else [])))
     log_f = open(os.path.join(OUT, "fleet12.log"), "wb")
     t_spawn = time.perf_counter()
-    proc = subprocess.Popen(
+    proc = CHILDREN.popen(
         [sys.executable, "-m", "cnmf_torch_tpu_torch", "fleet", run_dir,
          "-k", str(CONSENSUS_K), "--local-density-threshold", "0.5",
          "--replicas", "2", "--socket", sock, "--device", CARD],
@@ -4181,7 +4374,7 @@ def fleet_phase(stages, Xn) -> dict:
         stop.set()
         time.sleep(0.5)
         alive = [p for p in pids if _alive(p)]
-        _stop_fleet(proc, pids)
+        _stop_fleet(proc)
         log_f.close()
     check(not alive, f"12c: replica processes outlived the fleet: {alive}")
     check(not os.path.exists(sock), "12c: the fleet left its socket")
@@ -4219,13 +4412,15 @@ def fleet_phase(stages, Xn) -> dict:
     return out
 
 
-def phase12(stages, Xn) -> dict:
-    """Serving and the fleet on the card."""
+def phase12(stages, Xn, beside) -> dict:
+    """Serving on the card: 12a and 12b, and 12c's fleet, a chain beside
+    9a (:func:`fleet_phase`, which checks it there; its error is raised
+    here)."""
     out = {"a": serve_phase(stages, Xn)}
     out["b"] = serve_b2_phase(stages, Xn)
-    out["c"] = stages.run("serve 12c fleet", lambda: fleet_phase(stages,
-                                                                 Xn))
     torch.cuda.empty_cache()
+    out["c"] = beside.result("12c")
+    stages.add("serve 12c fleet (beside 9a)", beside.walls["12c"])
     out["launches"] = {name: int(out["a"]["launches"].get(name, 0))
                        + int(out["b"]["launches"].get(name, 0))
                        for name in out["a"]["launches"]}
@@ -5099,6 +5294,391 @@ def phase16(stages, smi) -> dict:
     return out
 
 
+# -- phase 17: the installed port ---------------------------------------------
+
+# what a wheel of the repo is built from
+WHEEL_FILES = ("pyproject.toml", "README.md", "cnmf_torch_tpu",
+               "cnmf_torch_tpu_torch")
+# the installed copy's first use of its kernels, in a child that imports it
+FIRST_USE = (
+    "import json, cnmf_torch_tpu_torch\n"
+    "from cnmf_torch_tpu_torch.ops.kernels import kl_ell\n"
+    "kl_ell.build()\n"
+    "print(json.dumps(dict(package=cnmf_torch_tpu_torch.__file__,\n"
+    "    source=kl_ell.SOURCE, build_dir=kl_ell.BUILD_DIR,\n"
+    "    library=kl_ell.build_info['library'],\n"
+    "    seconds=kl_ell.build_info['seconds'],\n"
+    "    command=kl_ell.build_info['command'])))\n")
+
+
+class InstalledPort:
+    """Phase 17's set-up (:meth:`setup`): the files a wheel needs copied
+    into a temporary directory outside the checkout (which so gets no
+    ``egg-info``), the wheel built there (``pip wheel --no-deps
+    --no-build-isolation --no-index``), installed with ``pip install
+    --no-deps --no-index --target <tmp>/site``, and the installed copy's
+    kernels built by a fresh ``nvcc`` run into its own build directory, by
+    a child that imports the installed copy from a working directory
+    outside the repo. ``walls`` has each step's seconds. ``base_env``: the
+    children's environment, taken before 9a sets a knob."""
+
+    def __init__(self, base_env: dict):
+        self.root = tempfile.mkdtemp(prefix="cnmf_installed_")
+        atexit.register(shutil.rmtree, self.root, True)
+        self.site = os.path.join(self.root, "site")
+        self.work = os.path.join(self.root, "work")
+        self.tmp = os.path.join(self.root, "tmp")
+        self.walls, self.build = {}, None
+        self.base_env = {k: v for k, v in base_env.items()
+                         if k != "PYTHONPATH"}
+
+    def env(self, **extra) -> dict:
+        """The children's environment: ``PYTHONPATH`` the install target
+        and nothing else, and an empty temp directory (so no autotune cache
+        of another run decides a dispatch)."""
+        return dict(self.base_env, PYTHONPATH=self.site, TMPDIR=self.tmp,
+                    **extra)
+
+    def run(self, name, cmd, cwd, env=None, timeout=600):
+        """Run one step, its output kept under ``build/chip_smoke``; a
+        nonzero exit fails the run."""
+        t0 = time.perf_counter()
+        proc = CHILDREN.run(cmd, timeout, cwd=cwd, env=env or self.env())
+        self.walls[name] = time.perf_counter() - t0
+        with open(os.path.join(OUT, f"phase17_{name}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        check(proc.returncode == 0, f"17 {name} exited {proc.returncode}: "
+              f"{(proc.stdout + proc.stderr)[-2000:]}")
+        return proc.stdout
+
+    def setup(self):
+        src, dist = (os.path.join(self.root, d) for d in ("src", "dist"))
+        for d in (src, self.work, self.tmp):
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        skip = shutil.ignore_patterns("__pycache__", "build", "*.so")
+        for name in WHEEL_FILES:
+            path = os.path.join(HERE, name)
+            if os.path.isdir(path):
+                shutil.copytree(path, os.path.join(src, name), ignore=skip)
+            else:
+                shutil.copy2(path, src)
+        self.walls["copy"] = time.perf_counter() - t0
+        self.run("wheel", [sys.executable, "-m", "pip", "wheel", "--no-deps",
+                           "--no-build-isolation", "--no-index", "-w", dist,
+                           src], cwd=src)
+        (wheel,) = glob.glob(os.path.join(dist, "*.whl"))
+        self.run("install", [sys.executable, "-m", "pip", "install",
+                             "--no-deps", "--no-index", "--target",
+                             self.site, wheel], cwd=self.root)
+        build_dir = os.path.join(self.site, "cnmf_torch_tpu_torch", "build",
+                                 "kernels")
+        check(not os.path.exists(build_dir),
+              f"17: the wheel shipped a build directory {build_dir}")
+        self.build = json.loads(self.run(
+            "nvcc", [sys.executable, "-c", FIRST_USE],
+            cwd=self.work).splitlines()[-1])
+
+
+def run_arrays(obj) -> dict:
+    """Phase 3's artifacts a later run of its main path must hold byte for
+    byte (:func:`artifact_arrays`), with each K's merged spectra and the
+    consensus K's local densities."""
+    out = artifact_arrays(obj)
+    for k in KS:
+        out[f"merged_spectra k={k}"] = npz_arrays(
+            obj.paths["merged_spectra"] % k)
+    out["local_density_cache"] = npz_arrays(
+        obj.paths["local_density_cache"] % CONSENSUS_K)
+    return out
+
+
+def _launch_line(stdout: str) -> dict:
+    """The counts of the CLI's ``kernel launches: {...}`` line ({} when the
+    stage printed none)."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("kernel launches: ")]
+    return json.loads(lines[-1].split(": ", 1)[1]) if lines else {}
+
+
+def installed_steps(inst, counts_fn) -> dict:
+    """Phase 17's main-path chain (beside 9a; its walls are read under
+    that load): phase 3's main path through the installed console script
+    from a working directory outside the repo, telemetry on, with the
+    installed lint gate beside it. Returns each step's stdout and the
+    gate's output; :func:`phase17` checks them."""
+    script = os.path.join(inst.site, "bin", "cnmf-tpu-torch")
+    check(os.access(script, os.X_OK), f"17: no console script {script}")
+    where = ["--output-dir", inst.work, "--name", INSTALLED_RUN,
+             "--device", CARD]
+    # phase 3's counts and options; -n, --seed, --beta-loss and
+    # --show-clustering differ from the CLI's defaults
+    steps = [
+        ("prepare", ["prepare", "-c", counts_fn, "-k", *map(str, KS),
+                     "-n", str(REPLICATES), "--seed", str(SEED),
+                     "--beta-loss", "kullback-leibler", "--numgenes",
+                     str(N_HVG), "--batch_size", str(CHUNK)]),
+        ("factorize", ["factorize"]),
+        ("combine", ["combine"]),
+        ("consensus", ["consensus", "-k", str(CONSENSUS_K),
+                       "--local-density-threshold", "0.5",
+                       "--show-clustering"]),
+        ("k_selection_plot", ["k_selection_plot"]),
+    ]
+    # the lint gate reads files only: it runs beside the main path
+    gate = CHILDREN.popen(
+        [sys.executable, "-m", "cnmf_torch_tpu_torch.analysis.gate"],
+        cwd=inst.work, env=inst.env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    env = inst.env(CNMF_TPU_TELEMETRY="1")
+    out = {"steps": {}}
+    for step, argv in steps:
+        out["steps"][step] = inst.run(step, [script, *argv, *where],
+                                      cwd=inst.work, env=env)
+    out["gate"], _ = gate.communicate(timeout=300)
+    out["gate_rc"] = gate.returncode
+    return out
+
+
+def installed_tutorial(inst):
+    """Phase 17's second chain beside 9a: the installed simulated
+    tutorial, its own assertions, telemetry on."""
+    inst.run("tutorial", [
+        sys.executable, "-m",
+        "cnmf_torch_tpu_torch.examples.simulated_tutorial",
+        os.path.join(inst.work, "tutorial"), "--device", CARD],
+        cwd=inst.work, env=inst.env(CNMF_TPU_TELEMETRY="1"))
+
+
+INSTALLED_RUN = "installed"
+
+
+def phase17(stages, inst, kids, ref_arrays, smi) -> dict:
+    """The installed port: the checks of :class:`InstalledPort`'s set-up
+    and of :func:`installed_steps`' and :func:`installed_tutorial`'s
+    runs.
+    Every child imported the installed copy, the kernels were built from
+    the installed source, the main path launched the kernels of its lane
+    and wrote phase 3's artifacts byte for byte; the installed tutorial
+    and lint gate passed."""
+    import types
+
+    from cnmf_torch_tpu_torch.utils.paths import build_paths
+    from cnmf_torch_tpu_torch.utils.telemetry import read_events
+
+    pkg = os.path.join(inst.site, "cnmf_torch_tpu_torch")
+    build = inst.build
+    check(os.path.dirname(build["package"]) == pkg
+          and build["source"] == os.path.join(pkg, "csrc", "kl_ell.cu")
+          and build["build_dir"] == os.path.join(pkg, "build", "kernels")
+          and os.path.dirname(build["library"]) == build["build_dir"]
+          and os.path.exists(build["library"])
+          and build["source"] in build["command"],
+          f"17: the installed copy's kernel build {build}")
+    log(f"17: wheel {inst.walls['wheel']:.2f} s, install "
+        f"{inst.walls['install']:.2f} s (copy {inst.walls['copy']:.2f} s); "
+        f"nvcc from the installed source {build['seconds']:.2f} s into "
+        f"{build['build_dir']} (the child's wall {inst.walls['nvcc']:.2f} "
+        f"s); all beside phase 1's build, on {smi}")
+    for step in ["wheel", "install", "nvcc"]:
+        stages.add(f"17 {step} (installed, beside phase 1's build)",
+                   inst.walls[step])
+    for step in [*kids["steps"], "tutorial"]:
+        stages.add(f"17 {step} (installed, beside 9a)", inst.walls[step])
+    gate_out = kids["gate"]
+    with open(os.path.join(OUT, "phase17_gate.log"), "w") as f:
+        f.write(gate_out)
+    check(kids["gate_rc"] == 0 and "LINT_GATE:" in gate_out,
+          f"17: the installed lint gate exited {kids['gate_rc']}: "
+          f"{gate_out[-2000:]}")
+    launches = {step: _launch_line(stdout)
+                for step, stdout in kids["steps"].items()}
+
+    # every child imported the installed copy (the manifests' package path)
+    def package_paths(d, leaf):
+        return [e["package_path"] for e in read_events(os.path.join(
+            d, leaf, "cnmf_tmp", leaf + ".events.jsonl"))
+            if e["t"] == "manifest"]
+
+    name = INSTALLED_RUN
+    run_dir = os.path.join(inst.work, name)
+    sim = TUTORIALS["simulated_tutorial"]
+    paths = {name: package_paths(inst.work, name),
+             sim: package_paths(os.path.join(inst.work, "tutorial"), sim)}
+    check(len(paths[name]) == len(kids["steps"]) and paths[sim]
+          and all(p == pkg for v in paths.values() for p in v),
+          f"17: the children's package paths {paths} (want one a CLI step "
+          f"and the tutorial's, all {pkg})")
+    with open(os.path.join(run_dir, "cnmf_tmp",
+                           name + ".factorize_provenance.w0.yaml")) as f:
+        eff = json.load(f)["effective_params"]
+    check((eff["lane"], eff["kernel"], eff["solver_recipe"])
+          == ("ell", "ell-cuda", "mu"),
+          f"17: factorize ran {eff['lane']}/{eff['kernel']}/"
+          f"{eff['solver_recipe']}")
+    for kname in ONLINE_KERNELS:
+        check(launches["factorize"].get(kname, 0) > 0,
+              f"17: the installed factorize launched no {kname}: "
+              f"{launches['factorize']}")
+    check(launches["consensus"].get("h_stats", 0) > 0,
+          f"17: the installed consensus refit launched no h_stats: "
+          f"{launches['consensus']}")
+    mine = run_arrays(types.SimpleNamespace(
+        paths=build_paths(inst.work, name, create=False)))
+    differ = sorted(key for key in ref_arrays
+                    if mine.get(key) != ref_arrays[key])
+    check(not differ, f"17: artifacts differ from phase 3's: {differ[:6]}")
+    log(f"17: {len(ref_arrays)} artifacts byte for byte phase 3's; every "
+        f"child imported {pkg}; launches {launches}; provenance "
+        f"{eff['lane']}/{eff['kernel']}/{eff['solver_recipe']}; "
+        f"{gate_out.splitlines()[0]}")
+    total = {k: sum(int(v.get(k, 0)) for v in launches.values())
+             for k in ONLINE_KERNELS + BATCH_KERNELS}
+    return {"walls": dict(inst.walls), "build": build, "launches": launches,
+            "total_launches": total, "artifacts": len(ref_arrays),
+            "package_paths": paths, "gate": gate_out.splitlines()[0]}
+
+
+class Children:
+    """Every child process the script starts, each the leader of a process
+    group of its own (``start_new_session``), so that :meth:`stop` reaches
+    what it starts in turn (a fleet's replicas, a launcher's workers).
+    :func:`main` stops them however it ends, then joins the threads of
+    :class:`Beside`."""
+
+    def __init__(self):
+        self.procs, self.threads = [], []
+        self._lock = threading.Lock()
+
+    def popen(self, argv, **kw) -> subprocess.Popen:
+        proc = subprocess.Popen(argv, start_new_session=True, **kw)
+        with self._lock:
+            self.procs.append(proc)
+        return proc
+
+    def run(self, argv, timeout, **kw) -> subprocess.CompletedProcess:
+        """``subprocess.run(argv, capture_output=True, text=True)`` for a
+        registered child; past ``timeout`` its group is killed."""
+        proc = self.popen(argv, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, **kw)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except BaseException:
+            _kill_groups({proc.pid})
+            proc.communicate()
+            raise
+        return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+    def stop(self, timeout=60.0) -> list:
+        """SIGKILL every live process of every registered group (found in
+        ``/proc``, so a group whose leader has exited is reached too), reap
+        the leaders and join the threads. Returns the pids it killed."""
+        with self._lock:
+            procs, threads = list(self.procs), list(self.threads)
+        killed = _kill_groups({p.pid for p in procs})
+        for p in procs:
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=timeout)
+        for t in threads:
+            t.join(timeout)
+        return killed
+
+
+def _kill_groups(pgids) -> list:
+    """SIGKILL every live process whose process group is in ``pgids``."""
+    killed = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[-1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z" and int(fields[2]) in pgids:
+            with contextlib.suppress(OSError):
+                os.kill(int(entry), 9)
+                killed.append(int(entry))
+    return killed
+
+
+CHILDREN = Children()
+
+
+class Beside:
+    """Chains of child processes that run in threads beside this
+    process's stages (``where`` names them): started at one point (at
+    most ``workers`` at a time, in the order given: the longest first)
+    and joined at one point. A chain uses no torch in this process; its
+    phase's check reads :meth:`result`, which raises the chain's own error
+    there. ``walls`` holds each chain's wall."""
+
+    def __init__(self, chains: dict, workers: int, where: str = "9a"):
+        self.where = where
+        self.results, self.errors, self.walls = {}, {}, {}
+        self._queue = list(chains.items())
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(min(workers, len(self._queue)))]
+        CHILDREN.threads.extend(self._threads)
+        for t in self._threads:
+            t.start()
+
+    def _worker(self):
+        while True:
+            with self._lock:
+                if not self._queue:
+                    return
+                name, fn = self._queue.pop(0)
+            t0 = time.perf_counter()
+            try:
+                self.results[name] = fn()
+            except BaseException as exc:    # raised by result()
+                self.errors[name] = exc
+            self.walls[name] = time.perf_counter() - t0
+            log(f"phase {name}'s children (beside {self.where}) ended "
+                f"after {self.walls[name]:.1f} s"
+                + (f": {self.errors[name]!r}"[:500]
+                   if name in self.errors else ""))
+
+    def join(self):
+        for t in self._threads:
+            t.join()
+
+    def result(self, name: str):
+        if name in self.errors:
+            raise RuntimeError(f"phase {name}'s children (run beside "
+                               f"{self.where}) failed") from self.errors[name]
+        return self.results[name]
+
+
+class PhaseClock:
+    """Each phase's wall on the host clock, from the end of the one before
+    (the report's ``phase_walls``)."""
+
+    def __init__(self, t0):
+        self.t0 = self.last = t0
+        self.walls = {}
+
+    def done(self, phase: str, beside: Beside | None = None,
+             chain: str | None = None):
+        """``beside``: the phase's chain (``chain``, default ``phase``)
+        ran there; its wall is the phase's too, under ``<chain> children
+        (beside <where>)``."""
+        now = time.perf_counter()
+        self.walls[phase] = now - self.last
+        self.last = now
+        extra = ""
+        if beside is not None:
+            chain = chain or phase
+            self.walls[f"{chain} children (beside {beside.where})"] = \
+                beside.walls[chain]
+            extra = (f"; its children {beside.walls[chain]:.1f} s beside "
+                     f"{beside.where}")
+        log(f"phase {phase}: {self.walls[phase]:.1f} s (the script at "
+            f"{now - self.t0:.1f} s){extra}")
+
+
 class Stages:
     """Wall time (host clock after a synchronize) and peak device memory of
     each pipeline stage."""
@@ -5118,8 +5698,40 @@ class Stages:
         log(f"stage {name}: {wall:.3f} s, peak device memory {peak:.3f} GiB")
         return out
 
+    def add(self, name, wall):
+        """A child process's wall, timed where it ran (no peak of this
+        process: ``None``)."""
+        self.rows.append((name, wall, None))
+        log(f"stage {name}: {wall:.3f} s (a child process)")
+
+    def table(self, since: int, title: str):
+        """Log the rows from ``since`` on under ``title``."""
+        log(title)
+        for name, wall, peak in self.rows[since:]:
+            mem = "a child process" if peak is None else \
+                f"peak {peak:7.3f} GiB"
+            log(f"  {name:48s} {wall:8.3f} s  {mem}")
+
+
+def stopping_children(body) -> int:
+    """Run ``body``; however it ends (a failed check, an error, SIGTERM
+    under :func:`main`), kill every process of the groups it started and
+    join the threads of its chains."""
+    try:
+        return body()
+    finally:
+        killed = CHILDREN.stop()
+        if killed:
+            log(f"stopped {len(killed)} child processes still alive: "
+                f"{killed}")
+
 
 def main() -> int:
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    return stopping_children(_main)
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -5130,6 +5742,7 @@ def main() -> int:
     from cnmf_torch_tpu_torch.ops.sparse import csr_to_ell, ell_chunk_rows
 
     t_start = time.perf_counter()
+    clock = PhaseClock(t_start)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -5144,6 +5757,10 @@ def main() -> int:
     from cnmf_torch_tpu_torch.utils import autotune
 
     autotune.set_cache_dir(os.path.join(OUT, "autotune"))
+    # phase 17's wheel, install and installed nvcc build, beside this
+    # phase's own build, joined before phase 2 times the kernels
+    installed = InstalledPort(dict(os.environ))
+    setup = Beside({"17": installed.setup}, 1, where="phase 1's build")
     kl_ell.build()
     log(f"built {SOURCE} in {kl_ell.build_info['seconds']:.2f} s: "
         f"{kl_ell.build_info['command']}")
@@ -5155,6 +5772,9 @@ def main() -> int:
 
     # -- data: the pipeline's counts --------------------------------------
     counts_fn, Xn = prepared_counts(OUT)
+    setup.join()
+    setup.result("17")
+    clock.done("1", setup, "17")
 
     # -- phase 2: kernels at the main path's shapes -----------------------
     xc, _ = ell_chunk_rows(Xn, CHUNK)
@@ -5188,6 +5808,7 @@ def main() -> int:
     log("kernels (median of CUDA-event timed launches, L2-warm inputs):")
     for line in rows:
         log(line)
+    clock.done("2")
 
     # -- phase 3: the main path --------------------------------------------
     stages = Stages()
@@ -5224,6 +5845,7 @@ def main() -> int:
     rises = check_online_traces(info, KS, "kl", first=1)
     log(f"pass-to-pass objective rises after the second pass: {rises}")
     check_artifacts(obj, stats)
+    p3_arrays = run_arrays(obj)
     prof_rows = []
     profile = {"online": profile_window(
         f"online sweep, k=13, {REPLICATES} replicates",
@@ -5232,6 +5854,7 @@ def main() -> int:
         "counted):")
     for line in prof_rows:
         log(line)
+    clock.done("3")
 
     # -- phase 4: the batch path -------------------------------------------
     # prepare writes mode "online"; a user asks for the batch solver by
@@ -5275,6 +5898,7 @@ def main() -> int:
         "counted):")
     for line in prof_rows:
         log(line)
+    clock.done("4")
 
     # -- phase 5: the default loss (dense lane, plain torch) ---------------
     n_stages = len(stages.rows)
@@ -5285,102 +5909,107 @@ def main() -> int:
         "ours runs there):")
     for line in prof_rows:
         log(line)
+    clock.done("5")
 
     # -- phase 6: HALS and Itakura-Saito ------------------------------------
     other, other_retries = other_solvers_phase(counts_fn, stages)
-    log(f"phases 5-6 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:32s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phases 5-6 stages on {smi}:")
+    clock.done("6")
 
     # -- phase 7: retries, quarantine, resume, sequential, nndsvd, double,
     #    sketch -------------------------------------------------------------
     n_stages = len(stages.rows)
     p7 = phase7(counts_fn, Xn, stages)
     p7_launches = phase7_launches(p7)
-    log(f"phase 7 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 7 stages on {smi}:")
     log(f"phase 7 kernel launches: {p7_launches}")
+    clock.done("7")
 
     # -- phase 8: the telemetry base on the main path ----------------------
     n_stages = len(stages.rows)
     p8 = telemetry_phase(counts_fn, stages, obj, launches)
-    log(f"phase 8 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 8 stages on {smi}:")
+    clock.done("8")
 
     # -- phase 9: the atlas path ---------------------------------------------
     n_stages = len(stages.rows)
     atlas_rows = []
-    p9, atlas_records, atlas = phase9(stages, atlas_rows)
-    log(f"phase 9 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:40s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    p9, atlas_records, atlas, beside = phase9(stages, atlas_rows, counts_fn,
+                                              Xn, installed)
+    stages.table(n_stages, f"phase 9 stages on {smi} (9a's 250,000-cell "
+                 "stages beside the child chains):")
     log("phase 9 kernels at R=1 (median of CUDA-event timed launches):")
     for line in atlas_rows:
         log(line)
     log(f"phase 9 kernel launches: {p9['kernel_launches']}")
+    clock.done("9", beside, "9c")
 
     # -- phase 10: the remote object store -----------------------------------
     n_stages = len(stages.rows)
     p10 = phase10(stages, Xn, atlas)
-    log(f"phase 10 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:44s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 10 stages on {smi}:")
     log(f"phase 10 kernel launches: {p10['launches']}")
+    clock.done("10")
 
     # -- phase 11: the multi-device layer ------------------------------------
     n_stages = len(stages.rows)
     mesh_rows = []
-    p11 = phase11(stages, counts_fn, Xn, atlas, mesh_rows)
-    log(f"phase 11 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    p11 = phase11(stages, counts_fn, Xn, atlas, mesh_rows, beside)
+    stages.table(n_stages, f"phase 11 stages on {smi}:")
     log("phase 11 kernels a shard at R=1, k=9 (median of CUDA-event timed "
         "launches):")
     for line in mesh_rows:
         log(line)
     log(f"phase 11 kernel launches: {p11['launches']}")
+    clock.done("11", beside, "11f")
+    clock.walls["11g children (beside 9a)"] = beside.walls["11g"]
 
-    # -- phase 12: serving and the fleet ------------------------------------
+    # -- phase 12: serving (12c's fleet ran beside 9a) ---------------------
     n_stages = len(stages.rows)
-    p12 = phase12(stages, Xn)
-    log(f"phase 12 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    p12 = phase12(stages, Xn, beside)
+    stages.table(n_stages, f"phase 12 stages on {smi}:")
     log(f"phase 12 kernel launches: {p12['launches']}")
+    clock.done("12", beside, "12c")
 
     # -- phase 13: formats and the planner ----------------------------------
     n_stages = len(stages.rows)
     p13 = phase13(stages, counts_fn, obj, smi)
-    log(f"phase 13 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 13 stages on {smi}:")
     log(f"phase 13 kernel launches: {p13['launches']}")
+    clock.done("13")
 
     # -- phase 14: the preprocess sidecar ------------------------------------
     n_stages = len(stages.rows)
     p14 = phase14(stages, smi)
-    log(f"phase 14 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 14 stages on {smi}:")
     log(f"phase 14 kernel launches: {p14['launches']}")
+    clock.done("14")
 
     # -- phase 15: lint and the sanitizer ------------------------------------
     n_stages = len(stages.rows)
     p15 = phase15(stages, Xn)
-    log(f"phase 15 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 15 stages on {smi}:")
     log(f"phase 15 kernel launches under sync_guard: "
         f"{p15['b']['launches']}")
+    clock.done("15")
 
     # -- phase 16: the tutorials ---------------------------------------------
     n_stages = len(stages.rows)
     p16 = phase16(stages, smi)
-    log(f"phase 16 stages on {smi}:")
-    for name, wall, peak in stages.rows[n_stages:]:
-        log(f"  {name:48s} {wall:8.3f} s  peak {peak:7.3f} GiB")
+    stages.table(n_stages, f"phase 16 stages on {smi}:")
+    clock.done("16")
+
+    # -- phase 17: the installed port (its children ran beside 9a) --------
+    n_stages = len(stages.rows)
+    beside.result("17 tutorial")
+    p17 = phase17(stages, installed, beside.result("17"), p3_arrays, smi)
+    stages.table(n_stages, f"phase 17 stages on {smi} (child processes "
+                 "beside 9a):")
+    log(f"phase 17 kernel launches in the installed children: "
+        f"{p17['total_launches']}")
+    clock.done("17", beside)
+    clock.walls["17 tutorial children (beside 9a)"] = \
+        beside.walls["17 tutorial"]
 
     out = []
     for name in kl_ell.KERNELS:
@@ -5396,7 +6025,8 @@ def main() -> int:
                            + int(p13["launches"][name])
                            + int(p14["launches"][name])
                            + int(p15["b"]["launches"][name])
-                           + int(p16["launches"][name]))
+                           + int(p16["launches"][name])
+                           + int(p17["total_launches"][name]))
         out.append(rec)
     report = {"kernels": out, "batch_shape_kernels": batch_extra,
               "launches": {"online": launches, "batch": b_launches,
@@ -5409,7 +6039,8 @@ def main() -> int:
               "phase9": p9, "phase9_kernels": atlas_records,
               "phase10": p10, "phase11": p11, "phase12": p12,
               "phase13": p13, "phase14": p14, "phase15": p15,
-              "phase16": p16,
+              "phase16": p16, "phase17": p17,
+              "phase_walls": clock.walls,
               "bundles": frob["bundles"],
               "bundle_vs_batch": frob["bundle_vs_batch"],
               "stages": [{"stage": s, "seconds": w, "peak_gib": p}
@@ -5419,7 +6050,7 @@ def main() -> int:
               "profile": profile, "card": smi, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT, "report.json"), "w") as f:
-        json.dump(report, f, indent=1, default=str)
+        json.dump(report, f, indent=1, default=str, allow_nan=False)
     log(f"total {report['seconds']:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -428,11 +428,11 @@ def format_json(result: LintResult) -> str:
     }, indent=1)
 
 
-def main(argv=None) -> int:
+def main(argv=None, prog: str = "python -m cnmf_torch_tpu_torch lint") -> int:
     import argparse
 
     parser = argparse.ArgumentParser(
-        prog="python -m cnmf_torch_tpu_torch lint",
+        prog=prog,
         description="Codebase-aware static analysis of the port: host "
                     "syncs and global RNG on the solver paths, knob "
                     "hygiene, artifact atomicity, telemetry schema, lock "

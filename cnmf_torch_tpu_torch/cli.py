@@ -26,7 +26,11 @@ dispatch, the same signature and the same files bit for bit. ``prepare``
 reads ``.df.npz``, tab-delimited text, a 10x ``.mtx[.gz]`` directory and
 ``.h5ad`` (with h5py).
 
-Run as ``python -m cnmf_torch_tpu_torch ...``. ``k_selection_plot`` writes
+Run as ``cnmf-tpu-torch ...`` (the console script an install of the
+repo's package puts on the path) or ``python -m cnmf_torch_tpu_torch ...``;
+``--help`` and usage errors name the command that was typed. A stage
+that launched the CUDA kernels prints one line of their launch counts,
+``kernel launches: {...}``. ``k_selection_plot`` writes
 the K-selection statistics (``<name>.k_selection_stats.df.npz``) and the
 figure (``<name>.k_selection.png``), and ``consensus --show-clustering``
 the clustergram; without matplotlib a figure is skipped with a warning
@@ -55,10 +59,21 @@ import sys
 
 __all__ = ["main", "build_parser"]
 
+# the console script's name (pyproject.toml's [project.scripts])
+SCRIPT = "cnmf-tpu-torch"
+
+
+def _prog() -> str:
+    """The command the user typed: the console script, else ``python -m
+    cnmf_torch_tpu_torch``."""
+    argv0 = os.path.basename(sys.argv[0]) if sys.argv else ""
+    return SCRIPT if argv0.startswith(SCRIPT) else \
+        "python -m cnmf_torch_tpu_torch"
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="python -m cnmf_torch_tpu_torch",
+        prog=_prog(),
         description="consensus NMF (cNMF) pipeline on PyTorch and CUDA")
     parser.add_argument(
         "command", type=str,
@@ -261,7 +276,7 @@ def main(argv=None):
         # --baseline, ...: analysis/engine.py) and touches no device
         from .analysis.engine import main as lint_main
 
-        raise SystemExit(lint_main(argv[1:]))
+        raise SystemExit(lint_main(argv[1:], prog=f"{_prog()} lint"))
     if argv and argv[0] == "benchdiff":
         # two positionals do not fit the stage parser's optional run_dir,
         # so the command owns its arguments and dispatches first
@@ -270,10 +285,9 @@ def main(argv=None):
     # intermixed, so flags may precede or follow the optional run_dir
     args = parser.parse_intermixed_args(argv)
     if args.command == "lint":     # e.g. `--name x lint`
-        parser.error("lint takes its own options; use: python -m "
-                     "cnmf_torch_tpu_torch lint [paths ...] [--format "
-                     "text|json] [--baseline FILE] [--write-baseline] "
-                     "[--no-doc-check] [--knob-table]")
+        parser.error(f"lint takes its own options; use: {_prog()} lint "
+                     "[paths ...] [--format text|json] [--baseline FILE] "
+                     "[--write-baseline] [--no-doc-check] [--knob-table]")
     if (args.command not in ("report", "trace", "serve", "fleet", "plan")
             and args.run_dir is not None):
         # a stray positional (e.g. `consensus 9` meaning `-k 9`) fails
@@ -370,6 +384,15 @@ def main(argv=None):
                           close_clustergram_fig=True)
     elif args.command == "k_selection_plot":
         obj.k_selection_plot(close_fig=True)
+    _print_launches()
+
+
+def _print_launches() -> None:
+    """One line of the CUDA kernels' launch counts, when this stage
+    launched any (a CPU run launches none and prints nothing)."""
+    kl = sys.modules.get("cnmf_torch_tpu_torch.ops.kernels.kl_ell")
+    if kl is not None and any(kl.launches.values()):
+        print(f"kernel launches: {json.dumps(kl.launches)}", flush=True)
 
 
 def _serve(parser, args) -> int:
@@ -463,7 +486,7 @@ def _benchdiff(argv) -> int:
     from .obs.regress import diff_snapshots, load_snapshot, render_diff
 
     bp = argparse.ArgumentParser(
-        prog="python -m cnmf_torch_tpu_torch benchdiff",
+        prog=f"{_prog()} benchdiff",
         description="Compare two bench snapshots (the obs.regress schema) "
                     "with noise-aware relative bands; exit 1 when any "
                     "lane regresses past the band.")

@@ -39,7 +39,41 @@ import sys
 import time
 import warnings
 
-__all__ = ["run_pipeline", "respawn_delay"]
+__all__ = ["run_pipeline", "respawn_delay", "port_command", "port_env"]
+
+# the directory this copy of the port is imported from: a checkout's root,
+# an install's site directory or a ``pip install --target`` directory
+_PKG_PARENT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_command(*args) -> list:
+    """The command a child runs the port's CLI with: this interpreter with
+    ``-P`` (Python 3.11+), so the child's working directory never puts
+    another copy of the port ahead of the one on :func:`port_env`'s
+    path."""
+    safe = ["-P"] if sys.version_info >= (3, 11) else []
+    return [sys.executable, *safe, "-m", "cnmf_torch_tpu_torch", *args]
+
+
+def port_env(env: dict) -> dict:
+    """``env`` for a child that imports the same copy of the port as this
+    process: the copy's parent directory first on ``PYTHONPATH``, unless it
+    is a site directory of this interpreter (an install), which the child
+    finds by itself and which must not go ahead of the standard
+    library."""
+    import site
+
+    env = dict(env)
+    rest = [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+            if p and os.path.abspath(p) != _PKG_PARENT]
+    site_dirs = {os.path.abspath(p) for p in site.getsitepackages()
+                 + [site.getusersitepackages()]}
+    first = [] if _PKG_PARENT in site_dirs else [_PKG_PARENT]
+    if first or rest:
+        env["PYTHONPATH"] = os.pathsep.join(first + rest)
+    else:
+        env.pop("PYTHONPATH", None)
+    return env
 
 
 def respawn_delay(backoff_s: float, attempt: int, worker_i: int) -> float:
@@ -59,8 +93,8 @@ def _free_port() -> int:
 
 
 def _worker_cmd(output_dir: str, name: str, extra: list) -> list:
-    return [sys.executable, "-m", "cnmf_torch_tpu_torch", "factorize",
-            "--output-dir", output_dir, "--name", name] + list(extra)
+    return port_command("factorize", "--output-dir", output_dir,
+                        "--name", name, *extra)
 
 
 def _kill_all(procs) -> None:
@@ -405,12 +439,8 @@ def run_pipeline(counts: str, output_dir: str, name: str, components,
                 max_NMF_iter=max_nmf_iter, batch_size=batch_size,
                 total_workers=max(total_workers, 1))
 
-    base_env = dict(os.environ)
-    # workers import this package whatever their working directory
-    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    base_env["PYTHONPATH"] = os.pathsep.join(
-        [pkg_root] + ([base_env["PYTHONPATH"]]
-                      if base_env.get("PYTHONPATH") else []))
+    # workers import this copy of the port whatever their working directory
+    base_env = port_env(os.environ)
     if env_extra:
         base_env.update({k: str(v) for k, v in env_extra.items()})
 

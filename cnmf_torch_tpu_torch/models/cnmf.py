@@ -2268,7 +2268,17 @@ def _frobenius_prediction_error(X, H, W) -> float:
     H = np.asarray(H, dtype=np.float64)
     W = np.asarray(W, dtype=np.float64)
     if sp.issparse(X):
-        x_sq = float(X.multiply(X).sum())
+        # the squares and their sum in f64, as the streamed pass takes them
+        # (an f32 sum of f32 squares is off by about 1e-6 of ||X||^2);
+        # numpy's pairwise sum, not a BLAS dot, whose order follows the
+        # thread count
+        Xc = X.tocsr()
+        if not Xc.has_canonical_format:
+            Xc = Xc.copy()
+            Xc.sum_duplicates()
+        data = Xc.data.astype(np.float64)
+        data *= data
+        x_sq = float(data.sum())
         HtX = np.asarray((X.T @ H).T)
     else:
         Xd = np.asarray(X, dtype=np.float64)

@@ -4,15 +4,16 @@ Own copy of the JAX package's ``cnmf_torch_tpu/native``: the header (banner
 and size line) parses in Python, the body in one multi-threaded C++ pass
 over the raw buffer (``mtx_reader.cpp``), loaded through ``ctypes``.
 
-The shared library is compiled with ``g++`` at first use into
-``build/native/`` beside the package (named by the source's content
-digest, as the CUDA kernels are in ``build/kernels/``), never next to the
-source. Each building process writes a process-unique temp file and
-renames it into place, so concurrent workers racing the build each
-install a whole library. ``scipy.io.mmread`` reads what the parser does not take
-(symmetric and array-format files, complex fields) and every file on a
-machine without a toolchain; :func:`native_available` says which reader
-runs.
+The shared library is compiled with ``g++`` at first use into the
+package's own ``build/native/`` (``utils/builddir.py``; named by the
+source's content digest, as the CUDA kernels are in ``build/kernels/``),
+never next to the source. Each building process writes a process-unique
+temp file and renames it into place, so concurrent workers racing the
+build each install a whole library. A build directory this process cannot
+write raises, naming it. ``scipy.io.mmread`` reads what the parser does
+not take (symmetric and array-format files, complex fields) and every file
+on a machine without a toolchain; :func:`native_available` says which
+reader runs.
 """
 
 from __future__ import annotations
@@ -28,12 +29,13 @@ import threading
 import numpy as np
 import scipy.sparse as sp
 
+from ..utils import builddir
+
 __all__ = ["read_mtx", "native_available", "BUILD_DIR", "SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "mtx_reader.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "native")
+BUILD_DIR = builddir.build_dir("native")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,8 +54,8 @@ def _build(path: str) -> bool:
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", SOURCE,
            "-o", tmp]
+    builddir.writable_build_dir(BUILD_DIR, "the .mtx reader is built")
     try:
-        os.makedirs(BUILD_DIR, exist_ok=True)
         res = subprocess.run(cmd, capture_output=True, timeout=120)
         if res.returncode != 0 or not os.path.exists(tmp):
             return False

@@ -1,7 +1,8 @@
 """CUDA kernels for the ELL KL statistics, their wrappers and launch counts.
 
 Source: ``cnmf_torch_tpu_torch/csrc/kl_ell.cu``, built with ``nvcc`` for
-``sm_90a`` into ``build/kernels/`` at first use and bound through ctypes
+``sm_90a`` into the package's own ``build/kernels/`` at first use
+(``utils/builddir.py``) and bound through ctypes
 (a plain C interface: pointers and the stream as ``c_void_p``). Each wrapper
 checks device, dtype, shape and contiguity (on the CPU too, so the CPU
 tests hold callers to the kernels' layout), allocates its outputs,
@@ -114,6 +115,7 @@ import time
 import torch
 
 from .. import sparse
+from ...utils import builddir
 
 __all__ = ["KERNELS", "launches", "reset_launches", "build", "build_info",
            "h_stats", "h_stats_launch", "w_numer", "beta_err_partials",
@@ -139,10 +141,9 @@ MAX_K = 64
 # still reports it)
 build_info: dict = {}
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "kl_ell.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+SOURCE = os.path.join(builddir.PACKAGE_DIR, "csrc", "kl_ell.cu")
+# <package>/build/kernels, in a checkout and in an install alike
+BUILD_DIR = builddir.build_dir("kernels")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -166,7 +167,9 @@ def _nvcc() -> str:
 
 
 def build():
-    """Compile ``kl_ell.cu`` (once per source content) and load it."""
+    """Compile ``kl_ell.cu`` (once per source content) into ``BUILD_DIR``
+    and load it. A library already built there loads as it is; otherwise
+    a directory this process cannot write raises, naming it."""
     global _lib
     from ...utils.io import atomic_artifact
 
@@ -175,15 +178,18 @@ def build():
             return _lib
         with open(SOURCE, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"libkl_ell_{digest}.so")
         tmp = f"{so}.{os.getpid()}.tmp"    # concurrent builds never share it
         t0 = time.perf_counter()
         log = ""
+        built = os.path.exists(so)
+        if not built:
+            builddir.writable_build_dir(BUILD_DIR,
+                                        "the CUDA kernels are built")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", tmp, SOURCE]
-        if not os.path.exists(so):
+        if not built:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:

@@ -51,11 +51,10 @@ import os
 import queue
 import signal
 import subprocess
-import sys
 import threading
 import time
 
-from ..launcher import respawn_delay
+from ..launcher import port_command, port_env, respawn_delay
 from ..obs import metrics as obs_metrics
 from ..obs import slo as obs_slo
 from ..runtime import faults
@@ -249,10 +248,9 @@ class SubprocessReplica:
         return self.proc.pid if self.proc is not None else None
 
     def start(self):
-        cmd = [sys.executable, "-m", "cnmf_torch_tpu_torch", "serve",
-               self.run_dir, "--socket", self.socket_path,
-               "--replica-index", str(self.ordinal),
-               "--device", self.device]
+        cmd = port_command("serve", self.run_dir, "--socket",
+                           self.socket_path, "--replica-index",
+                           str(self.ordinal), "--device", self.device)
         if self.k is not None:
             cmd += ["-k", str(self.k)]
         if self.density_threshold is not None:
@@ -260,13 +258,9 @@ class SubprocessReplica:
                     str(self.density_threshold)]
         if self.spectra_path is not None:
             cmd += ["--spectra", self.spectra_path]
-        env = dict(os.environ)
-        # the replica imports this package whatever its working directory
-        pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        env["PYTHONPATH"] = os.pathsep.join(
-            [pkg_root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                          else []))
+        # the replica imports this copy of the port whatever its working
+        # directory
+        env = port_env(os.environ)
         if not self._telemetry:
             # N replicas of one run dir would otherwise multi-count
             # serve_request in the merged report; the router's own

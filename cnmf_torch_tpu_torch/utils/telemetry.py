@@ -7,9 +7,10 @@ other:
 
   * :class:`EventLog` — append-only JSON-lines event stream at
     ``<run_dir>/cnmf_tmp/<name>.events.jsonl`` with a versioned schema.
-    A run manifest (package, torch and CUDA versions, devices, ``CNMF_*``
-    env knobs, seed summary) is emitted once, automatically, before the
-    first event. Emission is a no-op unless ``CNMF_TPU_TELEMETRY=1``.
+    A run manifest (package version and path, torch and CUDA versions,
+    devices, ``CNMF_*`` env knobs, seed summary) is emitted once,
+    automatically, before the first event. Emission is a no-op unless
+    ``CNMF_TPU_TELEMETRY=1``.
   * :data:`EVENT_TYPES` — every event type of the JAX package, those whose
     producers the port has not reached yet (the serving and fleet
     events, ``collective``, ``plan``, ``perf_model``) included, so the
@@ -310,8 +311,12 @@ def _manifest_fields(device=None) -> dict:
         from ..version import __version__ as pkg_version
     except Exception:
         pkg_version = "unknown"
+    from .builddir import PACKAGE_DIR
+
+    # package_path: the copy of the port this process imported (a
+    # checkout's or an install's)
     fields = {"package_version": pkg_version,
-              "jax_version": "unavailable"}
+              "jax_version": "unavailable", "package_path": PACKAGE_DIR}
     try:
         import torch
 
