@@ -2460,6 +2460,33 @@ class EventRecorder:
         self.streams[context] = stats
 
 
+class BeatLog:
+    """A liveness target with ``runtime.elastic.Heartbeat.beat``'s
+    signature that records every ``(phase, cursor)`` and writes nothing."""
+
+    def __init__(self):
+        self.beats = []
+
+    def beat(self, phase=None, cursor=None, force=False):
+        self.beats.append((phase, cursor))
+        return True
+
+
+def staging_beats_gate(label, beats, slabs: int) -> dict:
+    """One ``stage:`` beat a committed slab, cursors ``0..slabs-1`` in
+    order, under one phase (the staging's liveness, F8)."""
+    phases = sorted({p for p, _ in beats})
+    check(len(phases) == 1 and phases[0].startswith("stage:"),
+          f"{label}: staging beats under {phases}")
+    check([c for _, c in beats] == list(range(slabs)),
+          f"{label}: {len(beats)} staging beats for {slabs} slabs, cursors "
+          f"{[c for _, c in beats][:8]}...")
+    log(f"{label} liveness: {len(beats)} stage beats, {slabs} slabs "
+        f"({phases[0] if phases else None})")
+    return {"beats": len(beats), "slabs": int(slabs),
+            "phase": phases[0] if phases else None}
+
+
 def pass_rises(traces, label) -> int:
     """Every replicate's per-pass objectives finite and none above the
     previous pass's by more than ``MONOTONE_RTOL``; returns the count of
@@ -2661,6 +2688,7 @@ def solver_api(stages, rows) -> dict:
     from cnmf_torch_tpu_torch.parallel.rowshard import (nmf_fit_rowsharded,
                                                         stream_ell_to_mesh,
                                                         stream_rows_to_mesh)
+    from cnmf_torch_tpu_torch.parallel.streaming import StreamStats
 
     out = {}
     X = stages.run("9b CSR 1M x 2,000", solver_csr)
@@ -2756,9 +2784,18 @@ def solver_api(stages, rows) -> dict:
         del x, H, W0
         torch.cuda.empty_cache()
     # the same matrix staged dense: the pass's row blocks keep the device
-    # peak to X and a fixed scratch
+    # peak to X and a fixed scratch. The staging stamps its liveness once
+    # a committed slab; rows at both ends and the middle are the matrix's
+    beats, stage_stats = BeatLog(), StreamStats()
     Xd = stages.run("9b stage 1M dense", lambda: stream_rows_to_mesh(
-        X, CARD)[0])
+        X, CARD, stats=stage_stats, liveness=beats)[0])
+    out["stage_liveness"] = staging_beats_gate(
+        "9b stage 1M dense", beats.beats, stage_stats.slabs)
+    n_x = X.shape[0]
+    for lo in (0, n_x // 2, n_x - 1000):
+        check(np.array_equal(Xd[lo:lo + 1000].cpu().numpy(),
+                             X[lo:lo + 1000].toarray()),
+              f"9b stage 1M dense: rows {lo}:{lo + 1000} differ from X")
     dense_payloads = []
     stages.run(f"9b dense row-sharded solve 1M ({DENSE_PASSES} passes)",
                lambda: nmf_fit_rowsharded(

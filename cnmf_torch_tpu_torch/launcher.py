@@ -39,7 +39,8 @@ import sys
 import time
 import warnings
 
-__all__ = ["run_pipeline", "respawn_delay", "port_command", "port_env"]
+__all__ = ["run_pipeline", "respawn_delay", "port_command", "port_env",
+           "heartbeat_fresh"]
 
 # the directory this copy of the port is imported from: a checkout's root,
 # an install's site directory or a ``pip install --target`` directory
@@ -108,6 +109,18 @@ def _kill_all(procs) -> None:
             pass
 
 
+def heartbeat_fresh(rec, within_s: float) -> bool:
+    """Whether a worker's last heartbeat stamp (``Heartbeat.read``'s
+    record, or None) is at most ``within_s`` seconds old: the straggler
+    check's liveness evidence."""
+    if not rec:
+        return False
+    try:
+        return time.time() - float(rec["ts"]) <= within_s
+    except (KeyError, TypeError, ValueError):
+        return False
+
+
 def _run_subprocess_workers(output_dir: str, name: str, total_workers: int,
                             factorize_flags: list, base_env: dict,
                             poll_s: float = 0.05, events=None) -> tuple:
@@ -170,14 +183,8 @@ def _run_subprocess_workers(output_dir: str, name: str, total_workers: int,
             [{"index": i, "age_s": age, "phase": rec.get("phase"),
               "cursor": rec.get("cursor")}])
 
-    def heartbeat_fresh(i: int, within_s: float) -> bool:
-        rec = read_heartbeat(i)
-        if not rec:
-            return False
-        try:
-            return time.time() - float(rec["ts"]) <= within_s
-        except (KeyError, TypeError, ValueError):
-            return False
+    def worker_fresh(i: int, within_s: float) -> bool:
+        return heartbeat_fresh(read_heartbeat(i), within_s)
 
     now = time.monotonic
     procs = {i: spawn(i, False) for i in range(total_workers)}
@@ -263,7 +270,7 @@ def _run_subprocess_workers(output_dir: str, name: str, total_workers: int,
                             and (attempts[i] < respawn_limit
                                  or adoptions[i] < 1)
                             and now() - started[i] > baseline_s + straggler_s
-                            and not heartbeat_fresh(i, stale_window)):
+                            and not worker_fresh(i, stale_window)):
                         warnings.warn(
                             "factorize worker %d is a straggler (%.0fs "
                             "elapsed vs the fleet's %.0fs shard wall + "

@@ -1131,7 +1131,8 @@ class cNMF:
                 if grid:
                     Xd_, _, _ = stage_x_grid(
                         store if store is not None else norm.X, mesh_,
-                        stats=stage_stats, events=self._events)
+                        stats=stage_stats, events=self._events,
+                        liveness=heartbeat)
                     n_orig_ = int(n)
                 else:
                     if store is not None:
@@ -1147,7 +1148,8 @@ class cNMF:
                     else:
                         Xd_, n_orig_ = prepare_rowsharded(
                             store if store is not None else norm.X, mesh_,
-                            stats=stage_stats, events=self._events)
+                            stats=stage_stats, events=self._events,
+                            liveness=heartbeat)
             except (ShardUploadError, ShardStallError, TornShardError,
                     RemoteStoreError) as exc:
                 kind = ("shard_stall" if isinstance(exc, ShardStallError)
@@ -1398,7 +1400,8 @@ class cNMF:
             heartbeat.beat(phase="stage_x_2d", force=True)
         elastic_on = elastic.elastic_enabled() and process_count() == 1
         x_src = store if store is not None else norm.X
-        Xd = stage_x_2d(x_src, mesh, events=self._events)
+        Xd = stage_x_2d(x_src, mesh, events=self._events,
+                        liveness=heartbeat)
         beta = beta_loss_to_float(kw["beta_loss"])
         _, n_passes, _ = resolve_online_schedule(beta, 0.05,
                                                  kw.get("n_passes"))
@@ -1453,7 +1456,8 @@ class cNMF:
                         "%d x %d mesh over %d of %d devices and rerunning "
                         "k=%d" % (exc, *mesh.devices.shape, mesh.size,
                                   old_n, k), RuntimeWarning, stacklevel=2)
-                    Xd = stage_x_2d(x_src, mesh, events=self._events)
+                    Xd = stage_x_2d(x_src, mesh, events=self._events,
+                                    liveness=heartbeat)
                     self._events.emit(
                         "fault", kind="remesh",
                         context={"context": "sweep2d",

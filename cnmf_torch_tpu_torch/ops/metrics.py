@@ -29,24 +29,34 @@ def pairwise_euclidean(A, device="cuda") -> np.ndarray:
     return _pairwise(_as_f32(A, device)).cpu().numpy()
 
 
-def local_density(l2_spectra, n_neighbors: int, device="cuda"):
+def _distances(A, D, device):
+    """The pairwise distances of the rows of ``A`` on ``device``, or the
+    caller's own ``D`` there as f32."""
+    return _pairwise(_as_f32(A, device)) if D is None else _as_f32(D, device)
+
+
+def local_density(l2_spectra, n_neighbors: int, D=None, device="cuda"):
     """Per-row mean distance to the ``n_neighbors`` nearest rows (self
     excluded: the n+1 smallest include the zero self distance). Returns
-    ``(density (R,), D (R, R))`` as numpy."""
-    D = _pairwise(_as_f32(l2_spectra, device))
+    ``(density (R,), D (R, R))`` as numpy. ``D``: a distance matrix the
+    caller already has (the one this function returns), used as it is
+    instead of recomputing it."""
+    D = _distances(l2_spectra, D, device)
     n_neighbors = int(n_neighbors)
     small = torch.topk(D, n_neighbors + 1, dim=1, largest=False).values
     dens = small.sum(1) / n_neighbors
     return dens.cpu().numpy(), D.cpu().numpy()
 
 
-def silhouette_score(X, labels, k: int | None = None, device="cuda") -> float:
+def silhouette_score(X, labels, k: int | None = None, D=None,
+                     device="cuda") -> float:
     """Mean silhouette coefficient, euclidean metric; singletons score 0
-    and empty clusters are excluded from the nearest-other minimum."""
+    and empty clusters are excluded from the nearest-other minimum.
+    ``D``: the rows' pairwise distances when the caller has them."""
     lab = torch.as_tensor(np.asarray(labels, dtype=np.int64)).to(device)
     if k is None:
         k = int(lab.max().item()) + 1
-    D = _pairwise(_as_f32(X, device))
+    D = _distances(X, D, device)
     onehot = torch.nn.functional.one_hot(lab, k).to(D.dtype)
     counts = onehot.sum(0)
     sums = D @ onehot

@@ -692,6 +692,7 @@ def _batch_loop(X, H0, W0, beta, tol, max_iter, step, trace,
 def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
                   max_iter: int = 200, l1_H: float = 0.0, l2_H: float = 0.0,
                   l1_W: float = 0.0, l2_W: float = 0.0,
+                  update_W_flag: bool = True,
                   inner_repeats: int = 1, kl_newton: bool = False,
                   trace: list | None = None, sketch_dim: int = 0,
                   sketch_exact_every: int = 1, sketch_rows=None):
@@ -701,7 +702,9 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
     ``X``: a dense ``(n, g)`` tensor or an unchunked :class:`EllMatrix`
     with its transpose index set (beta in {1, 0}), shared by every lane;
     ``H0 (R, n, k)``, ``W0 (R, k, g)``. Returns ``(H, W, err (R,))``;
-    ``trace`` receives one :class:`SolverTelemetry`.
+    ``trace`` receives one :class:`SolverTelemetry`. ``update_W_flag=False``
+    keeps ``W0`` fixed (the returned W is ``W0``'s values) and solves H
+    alone, under the same stopping rule.
 
     Recipes: ``inner_repeats > 1`` (amu) runs up to that many H updates
     per W update, each lane leaving early once its relative H change falls
@@ -764,7 +767,9 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
         H_new, inner_n, fb = h_step(H, W, active)
         it = it_w[0]
         it_w[0] += 1
-        if kl_newton and not ell:
+        if not update_W_flag:
+            W_new = W
+        elif kl_newton and not ell:
             W_new, fb_w = _dna_w_step(X, H_new, W, l1_W, l2_W)
             fb = 0.5 * (fb + fb_w)
         elif (sketch_dim and it % max(int(sketch_exact_every), 1) != 0

@@ -7,8 +7,12 @@ ranking must match the reference's f64 numerics). A CSR matrix never
 densifies: its ``data``/``indices`` go to the device, and its row and
 column sums are ordered segment sums (the values sorted by column for
 the column sums), never atomic scatters, so a rerun on the card gives
-the same bits and the CPU the bits of a sequential sum; dense matrices
-reduce in row blocks.
+the same bits and the CPU the bits of a sequential sum; a dense matrix
+crosses to the device ``block_rows`` rows at a time, so a result depends
+on ``block_rows`` only within f64 rounding. The default is the JAX
+package's block (:data:`_BLOCK_ROWS`), but a block here is f64 on the
+device where JAX's is f32, and the moments hold about four block-sized
+temporaries, so no block exceeds :data:`_DEVICE_BLOCK_ROWS` rows.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ __all__ = ["row_sums", "cell_scale_factors", "normalize_total",
            "column_moments_staged", "column_mean_var", "scale_columns",
            "scale_hvg_columns_device"]
 
-_BLOCK_ROWS = 65_536
+_BLOCK_ROWS = 262_144
+# the most rows of one f64 block on the device, whatever ``block_rows``
+_DEVICE_BLOCK_ROWS = 65_536
 
 
 def _csr_parts(X, device):
@@ -38,13 +44,26 @@ def _segment_sums(values, lengths):
     return torch.segment_reduce(values, "sum", lengths=lengths, unsafe=True)
 
 
-def row_sums(X, device="cuda") -> np.ndarray:
+def _row_blocks(Xd, block_rows: int, device):
+    """``(first row, f64 block on device)`` of a dense host matrix,
+    ``block_rows`` rows at a time (at most :data:`_DEVICE_BLOCK_ROWS`)."""
+    step = min(max(int(block_rows), 1), _DEVICE_BLOCK_ROWS)
+    for lo in range(0, Xd.shape[0], step):
+        yield lo, torch.as_tensor(Xd[lo:lo + step]).to(
+            device=device, dtype=torch.float64)
+
+
+def row_sums(X, block_rows: int = _BLOCK_ROWS,
+             device="cuda") -> np.ndarray:
     """Per-row totals (counts per cell), float64."""
     if sp.issparse(X):
         _, data, _, row_nnz = _csr_parts(X, device)
         return _segment_sums(data, row_nnz).cpu().numpy()
-    Xt = torch.as_tensor(np.asarray(X)).to(device=device, dtype=torch.float64)
-    return Xt.sum(1).cpu().numpy()
+    Xd = np.asarray(X)
+    out = np.empty((Xd.shape[0],), dtype=np.float64)
+    for lo, b in _row_blocks(Xd, block_rows, device):
+        out[lo:lo + b.shape[0]] = b.sum(1).cpu().numpy()
+    return out
 
 
 def cell_scale_factors(totals, target_sum: float) -> np.ndarray:
@@ -59,7 +78,7 @@ def normalize_total(X, target_sum: float = 1e6, totals=None, device="cuda"):
     """Scale each cell to ``target_sum`` total counts; f32 values, each the
     f32 product of the f32 count and the f32 cell factor."""
     if totals is None:
-        totals = row_sums(X, device)
+        totals = row_sums(X, device=device)
     scale = torch.as_tensor(cell_scale_factors(totals, target_sum)).to(
         device=device, dtype=torch.float32)
     if sp.issparse(X):
@@ -75,7 +94,8 @@ def normalize_total(X, target_sum: float = 1e6, totals=None, device="cuda"):
     return (Xt * scale[:, None]).cpu().numpy()
 
 
-def column_moments_staged(X, row_scale=None, device="cuda"):
+def column_moments_staged(X, row_scale=None,
+                          block_rows: int = _BLOCK_ROWS, device="cuda"):
     """Population (ddof=0) column moments of ``X`` and, with ``row_scale``,
     of ``diag(row_scale) @ X``, in one pass (two-pass centered sums in
     float64). Returns ``((mean, var), (scaled_mean, scaled_var) | None)``
@@ -112,9 +132,7 @@ def column_moments_staged(X, row_scale=None, device="cuda"):
         s1 = [torch.zeros(g, dtype=f64, device=device) for _ in range(2)]
 
         def blocks():
-            for lo in range(0, n, _BLOCK_ROWS):
-                b = torch.as_tensor(Xd[lo:lo + _BLOCK_ROWS]).to(
-                    device=device, dtype=f64)
+            for lo, b in _row_blocks(Xd, block_rows, device):
                 if scale is None:
                     yield b, None
                 else:
@@ -136,9 +154,11 @@ def column_moments_staged(X, row_scale=None, device="cuda"):
     return out[0], (out[1] if scale is not None else None)
 
 
-def column_mean_var(X, ddof: int = 0, device="cuda"):
+def column_mean_var(X, ddof: int = 0, block_rows: int = _BLOCK_ROWS,
+                    device="cuda"):
     """Per-column mean and variance (population for ``ddof=0``)."""
-    (mean, var), _ = column_moments_staged(X, device=device)
+    (mean, var), _ = column_moments_staged(X, block_rows=block_rows,
+                                           device=device)
     if ddof:
         var = var * (np.float64(X.shape[0]) / (X.shape[0] - ddof))
     return mean, var

@@ -200,14 +200,16 @@ class GridX:
         return out
 
 
-def stage_x_grid(X, mesh: Mesh, stats=None, events=None):
+def stage_x_grid(X, mesh: Mesh, stats=None, events=None, liveness=None):
     """Stage a host matrix (dense or CSR), a :class:`ShardStore` or a
     :class:`SlabCursor` as (cells, genes) tiles: one full-width row stripe
     at a time (a store reads only the slabs that overlap this process's
     stripes), split into its column tiles on the host and copied to each
     tile's device. Padding is exact zeros (padded rows collapse their
     usages, padded gene columns are masked to zero in W). Returns
-    ``(GridX, row_pad, col_pad)``."""
+    ``(GridX, row_pad, col_pad)``. ``liveness`` (a
+    ``runtime.elastic.Heartbeat``) is stamped after each stripe lands, as
+    ``stage:stage_x_grid`` with the stripe's index."""
     from ..runtime.faults import maybe_fail
 
     maybe_fail("upload", context="stage_x_grid")
@@ -240,7 +242,7 @@ def stage_x_grid(X, mesh: Mesh, stats=None, events=None):
         r, c = (int(v) for v in mesh.coords(i))
         stripes.setdefault(r, []).append((i, c))
     tiles: dict = {}
-    for r, entries in sorted(stripes.items()):
+    for i_stripe, (r, entries) in enumerate(sorted(stripes.items())):
         t0 = time.perf_counter()
         lo, hi = r * rows_per, min((r + 1) * rows_per, n)
         dense = np.zeros((rows_per, g_pad), np.float32)
@@ -257,6 +259,8 @@ def stage_x_grid(X, mesh: Mesh, stats=None, events=None):
         if stats is not None:
             stats.add(host_prep_s=t1 - t0, h2d_s=time.perf_counter() - t1,
                       slabs=1, nbytes=rows_per * g_pad * 4)
+        if liveness is not None:
+            liveness.beat(phase="stage:stage_x_grid", cursor=i_stripe)
     if stats is not None:
         stats.wall_s += time.perf_counter() - t_wall
     return GridX(tiles, mesh, n_pad, g_pad), n_pad - n, g_pad - g
@@ -738,7 +742,8 @@ def nmf_fit_grid2d(X, k: int, mesh: Mesh, beta_loss="frobenius",
     else:
         n_orig = int(X.shape[0]) if n_orig is None else n_orig
         g_orig = int(X.shape[1]) if g_orig is None else g_orig
-        gx, _, _ = stage_x_grid(X, mesh, events=events)
+        gx, _, _ = stage_x_grid(X, mesh, events=events,
+                                liveness=heartbeat)
     n_pad, g_pad = gx.shape
     if recipe is None:
         from ..ops.recipe import resolve_recipe

@@ -312,14 +312,19 @@ def _local_rows(mesh: Mesh) -> list:
     return sorted({int(mesh.coords(i)[0]) for i in mesh.local_ids()})
 
 
-def stage_x_2d(X, mesh: Mesh, events=None, stats=None) -> dict:
+def stage_x_2d(X, mesh: Mesh, events=None, stats=None,
+               liveness=None) -> dict:
     """Stage a host matrix or shard store for repeated 2-D sweeps: rows
     sharded over the cells axis, replicated over the replicate axis (a
     shard whose device another row already holds is shared, not copied);
     a store streams only the slabs that overlap this process's shards.
-    Returns ``{row: RowShards}`` for this process's replicate rows."""
+    Returns ``{row: RowShards}`` for this process's replicate rows.
+    ``liveness`` (a ``runtime.elastic.Heartbeat``) is stamped after every
+    committed slab, cursors counting over the whole call."""
     from .rowshard import RowShards, stream_rows_to_mesh
+    from .streaming import running_liveness
 
+    liveness = running_liveness(liveness)
     out: dict = {}
     staged: dict = {}
     for r in _local_rows(mesh):
@@ -329,7 +334,8 @@ def stage_x_2d(X, mesh: Mesh, events=None, stats=None) -> dict:
             first = staged[key]
             out[r] = RowShards(first.parts, fib, first.n, first.g)
             continue
-        shards, _ = stream_rows_to_mesh(X, fib, stats=stats, events=events)
+        shards, _ = stream_rows_to_mesh(X, fib, stats=stats, events=events,
+                                        liveness=liveness)
         staged[key] = out[r] = shards
     return out
 

@@ -68,7 +68,8 @@ from ..ops.sparse import (EllMatrix, _as_clean_csr, _pad_width, csr_to_ell,
 from ..utils.shardstore import ShardStore, SlabCursor
 from .mesh import Mesh, single_device_mesh
 from .replicates import TRACE_LEN
-from .streaming import StreamStats, put_arrays, stream_store, stream_to_device
+from .streaming import (StreamStats, put_arrays, running_liveness,
+                        stream_store, stream_to_device)
 
 __all__ = ["nmf_fit_rowsharded", "fit_h_rowsharded", "refit_w_rowsharded",
            "pad_rows_to_mesh", "stream_rows_to_mesh", "stream_ell_to_mesh",
@@ -161,7 +162,8 @@ def _shard_bounds(n: int, mesh: Mesh, multiple: int):
 
 
 def stream_rows_to_mesh(X, device, pad_multiple: int | None = None,
-                        stats: StreamStats | None = None, events=None):
+                        stats: StreamStats | None = None, events=None,
+                        liveness=None):
     """A host matrix (dense or CSR) or a shard store (:class:`ShardStore`
     or :class:`SlabCursor`) as dense f32 on ``device`` through the
     pipelined stream (``parallel/streaming.py``): the dense matrix never
@@ -170,7 +172,10 @@ def stream_rows_to_mesh(X, device, pad_multiple: int | None = None,
     tensor, rows zero-padded to ``pad_multiple``, default 1) or a
     :class:`Mesh` (a :class:`RowShards` over its cells axis, rows padded
     to ``pad_multiple``, default the shard count). Returns ``(staged,
-    pad)``; the staged values are the same bits whatever the source."""
+    pad)``; the staged values are the same bits whatever the source.
+    ``liveness`` (a ``runtime.elastic.Heartbeat``) is stamped after every
+    committed slab, cursors counting over the whole call
+    (``parallel/streaming.py:run_pipeline``)."""
     from ..runtime.faults import maybe_fail
 
     maybe_fail("upload", context="stream_rows_to_mesh")
@@ -182,15 +187,17 @@ def stream_rows_to_mesh(X, device, pad_multiple: int | None = None,
                       else SlabCursor(X, events=events))
             pad = (-cursor.n_rows) % multiple
             return stream_store(cursor, dev, stats=stats, events=events,
-                                pad_rows=pad), pad
+                                liveness=liveness, pad_rows=pad), pad
         pad = (-int(X.shape[0])) % multiple
         return stream_to_device(X, dev, pad_rows=pad, stats=stats,
-                                events=events), pad
+                                events=events, liveness=liveness), pad
     mesh = _cells_mesh(device)
     if not isinstance(_stage_target(mesh), Mesh):
         out, pad = stream_rows_to_mesh(X, mesh.device_of(0), pad_multiple,
-                                       stats=stats, events=events)
+                                       stats=stats, events=events,
+                                       liveness=liveness)
         return _shards_of(out, mesh), pad
+    liveness = running_liveness(liveness)
     if isinstance(X, SlabCursor):
         X = X.store
     n, g = int(X.shape[0]), int(X.shape[1])
@@ -204,14 +211,16 @@ def stream_rows_to_mesh(X, device, pad_multiple: int | None = None,
             if hi > lo:
                 parts.append(stream_store(
                     SlabCursor(X, rows=(lo, hi), events=events), dev,
-                    stats=stats, events=events, pad_rows=tail))
+                    stats=stats, events=events, liveness=liveness,
+                    pad_rows=tail))
             else:
                 parts.append(torch.zeros((rows_per, g), dtype=torch.float32,
                                          device=dev))
         else:
             Xc = X.tocsr() if sp.issparse(X) else np.asarray(X)
             parts.append(stream_to_device(Xc[lo:hi], dev, pad_rows=tail,
-                                          stats=stats, events=events))
+                                          stats=stats, events=events,
+                                          liveness=liveness))
     return RowShards(parts, mesh, n_pad, g), n_pad - n
 
 
@@ -240,7 +249,8 @@ def _t_width(blocks, g: int) -> int:
 
 def stream_ell_to_mesh(X, device, width: int | None = None,
                        transpose: bool = True,
-                       stats: StreamStats | None = None, events=None):
+                       stats: StreamStats | None = None, events=None,
+                       liveness=None):
     """A host CSR matrix or a CSR :class:`ShardStore` as the dual ELL
     encoding — the beta != 2 sparse staging: bytes scale with ``rows x
     width``, not ``rows x genes``, and the KL statistics run on the stored
@@ -254,7 +264,10 @@ def stream_ell_to_mesh(X, device, width: int | None = None,
     of one encoding a shard, every shard at the one global row width and
     the one global transpose width (the JAX package's per-shard transpose
     set); a store reads only the slabs that overlap each shard. Returns
-    ``(staged, pad)``."""
+    ``(staged, pad)``. ``liveness`` is stamped
+    after each shard's encoding lands, as ``stage:stream_ell`` with the
+    shard's index (the JAX package's staging pipeline runs one task a
+    shard)."""
     t_wall = time.perf_counter()
     if not isinstance(X, ShardStore) and not sp.issparse(X):
         raise TypeError(
@@ -273,6 +286,8 @@ def stream_ell_to_mesh(X, device, width: int | None = None,
         leaves = [ell.vals, ell.cols] + ([ell.rows_t, ell.perm_t]
                                          if transpose else [])
         out = put_arrays(leaves, resolve_device(device), stats=stats)
+        if liveness is not None:
+            liveness.beat(phase="stage:stream_ell", cursor=0)
         if stats is not None:
             stats.add(host_prep_s=t1 - t0)
             stats.wall_s += time.perf_counter() - t_wall
@@ -282,7 +297,7 @@ def stream_ell_to_mesh(X, device, width: int | None = None,
     if not isinstance(_stage_target(mesh), Mesh):
         out, pad = stream_ell_to_mesh(X, mesh.device_of(0), width=width,
                                       transpose=transpose, stats=stats,
-                                      events=events)
+                                      events=events, liveness=liveness)
         return _shards_of(out, mesh), pad
     n, g = int(X.shape[0]), int(X.shape[1])
     n_pad, rows_per, bounds = _shard_bounds(n, mesh, mesh.size)
@@ -308,7 +323,7 @@ def stream_ell_to_mesh(X, device, width: int | None = None,
     blocks = {pos: take(pos) for pos in range(mesh.size)}
     t_width = _t_width(blocks.values(), g) if transpose else None
     parts = []
-    for pos, _lo, _hi, dev in bounds:
+    for i, (pos, _lo, _hi, dev) in enumerate(bounds):
         t0 = time.perf_counter()
         ell = csr_to_ell(blocks[pos], width=int(width), t_width=t_width,
                          transpose=transpose)
@@ -320,18 +335,23 @@ def stream_ell_to_mesh(X, device, width: int | None = None,
             stats.add(host_prep_s=t1 - t0)
         parts.append(EllMatrix(out[0], out[1], g,
                                *(out[2:] if transpose else (None, None))))
+        if liveness is not None:
+            liveness.beat(phase="stage:stream_ell", cursor=i)
     if stats is not None:
         stats.wall_s += time.perf_counter() - t_wall
     return RowShards(parts, mesh, n_pad, g), n_pad - n
 
 
 def prepare_rowsharded(X, device, stats: StreamStats | None = None,
-                       events=None):
+                       events=None, liveness=None):
     """Stage a counts matrix (host or store) once for many row-sharded
     solves: ``(staged, n_orig)`` for :func:`nmf_fit_rowsharded` and
-    :func:`fit_h_rowsharded` (``device`` a device or a :class:`Mesh`)."""
+    :func:`fit_h_rowsharded` (``device`` a device or a :class:`Mesh`).
+    ``liveness`` (a ``runtime.elastic.Heartbeat``) is stamped per
+    committed slab."""
     n_orig = int(X.shape[0])
-    Xd, _ = stream_rows_to_mesh(X, device, stats=stats, events=events)
+    Xd, _ = stream_rows_to_mesh(X, device, stats=stats, events=events,
+                                liveness=liveness)
     return Xd, n_orig
 
 
@@ -889,13 +909,14 @@ def _fit_rowsharded_ooc(store, k, beta, seed, tol, h_tol, n_passes,
 
     def stage_group(gi):
         out = []
+        live = running_liveness(heartbeat)
         for pos, dev in local:
             lo = min(gi * group_rows + pos * per_dev, n_orig)
             hi = min(lo + per_dev, n_orig)
             if hi > lo:
                 out.append(stream_store(
                     SlabCursor(store, rows=(lo, hi), events=events), dev,
-                    stats=stats, events=events,
+                    stats=stats, events=events, liveness=live,
                     pad_rows=per_dev - (hi - lo)))
             else:
                 out.append(torch.zeros((per_dev, g), dtype=torch.float32,
@@ -962,7 +983,7 @@ def _fit_rowsharded_ooc(store, k, beta, seed, tol, h_tol, n_passes,
     def boundary():
         obs_metrics.counter_inc("cnmf_rowshard_passes_total")
         if heartbeat is not None:
-            heartbeat.beat(phase="pass", cursor=cur.it)
+            heartbeat.beat(phase="ooc_pass", cursor=cur.it)
         maybe_hostloss(context="pass")
 
     if ran_pass and cur.due(ckpt):
@@ -1048,10 +1069,11 @@ def nmf_fit_rowsharded(X, k: int, beta_loss="frobenius", seed: int = 0,
     ``ops/nmf.py:nndsvd_init_gram``, one process only). ``checkpoint``: a
     ``runtime.checkpoint.PassCheckpointer`` (see
     :func:`_fit_rowsharded_loop`); ``heartbeat``: a
-    ``runtime.elastic.Heartbeat`` stamped every pass. ``recipe``: the
-    resolved ``SolverRecipe`` (``dna`` threads Newton usage steps into the
-    pass, ``sketch`` the sampled W statistics), else resolved from the
-    knobs for ``rowshard``. ``events`` receives the staging of a host
+    ``runtime.elastic.Heartbeat`` stamped every pass and, while X stages,
+    every committed slab. ``recipe``: the resolved ``SolverRecipe``
+    (``dna`` threads Newton usage steps into the pass, ``sketch`` the
+    sampled W statistics), else resolved from the knobs for
+    ``rowshard``. ``events`` receives the staging of a host
     matrix or store as the ``rowshard_staging`` stream, the slab-looped
     tier's as ``rowshard_ooc_passes``, and, where the cells axis spans
     processes, the solve's sums as one ``collective`` event.
@@ -1094,20 +1116,20 @@ def nmf_fit_rowsharded(X, k: int, beta_loss="frobenius", seed: int = 0,
             shards = None
         elif use_ell:
             shards, _ = stream_ell_to_mesh(store, target, stats=stats,
-                                           events=events)
+                                           events=events, liveness=heartbeat)
         else:
             shards, _ = stream_rows_to_mesh(store, target, stats=stats,
-                                            events=events)
+                                            events=events, liveness=heartbeat)
     else:
         n_orig = int(X.shape[0])
         if (sp.issparse(X) and init == "random" and resolve_sparse_beta(
                 beta, density=X.nnz / max(X.shape[0] * X.shape[1], 1),
                 width=ell_row_width(X), g=X.shape[1])):
             shards, _ = stream_ell_to_mesh(X, target, stats=stats,
-                                           events=events)
+                                           events=events, liveness=heartbeat)
         else:
             shards, _ = stream_rows_to_mesh(X, target, stats=stats,
-                                            events=events)
+                                            events=events, liveness=heartbeat)
     if shards is not None:
         shards = _shards_of(shards, mesh)
     if events is not None and not ooc_deep and stats.nbytes:

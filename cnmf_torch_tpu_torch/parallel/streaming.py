@@ -60,9 +60,9 @@ from ..utils.envknobs import env_str as _env_str
 
 __all__ = ["StreamStats", "SlabBufferPool", "run_pipeline", "nnz_bucket",
            "stream_threads", "stream_depth", "stream_to_device",
-           "stream_store", "put_arrays", "SLAB_ROWS", "PIN_CHUNK_BYTES",
-           "ShardStallError",
-           "ShardUploadError", "shard_retries", "stream_stall_s"]
+           "stream_store", "put_arrays", "running_liveness", "SLAB_ROWS",
+           "PIN_CHUNK_BYTES", "ShardStallError", "ShardUploadError",
+           "shard_retries", "stream_stall_s"]
 
 # rows per slab of an in-memory matrix's staging
 SLAB_ROWS = 65_536
@@ -377,7 +377,7 @@ def _retrying(prep, context: str | None, events, heartbeat: dict | None = None,
 
 def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
                  threads: int | None = None, fault_context: str | None = None,
-                 events=None, source=None):
+                 events=None, liveness=None, source=None):
     """Sliding-window pipeline: ``prep(task)`` on worker threads, at most
     ``depth`` tasks prepared but not committed; ``commit(task, payload)``
     on the caller thread in submission order. ``depth <= 1``,
@@ -390,7 +390,14 @@ def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
 
     Every prep runs under :func:`_retrying`; on the threaded path the
     commit side enforces the ``CNMF_TPU_STREAM_STALL_S`` watchdog and
-    abandons (does not join) a stalled worker."""
+    abandons (does not join) a stalled worker.
+
+    ``liveness``: an optional ``runtime.elastic.Heartbeat`` (anything with
+    its ``beat(phase=, cursor=, force=)``), stamped on the committing
+    thread after every committed slab as ``stage:<fault_context>`` with
+    the slab's index, so a worker in a long staging reads as alive to the
+    launcher's straggler check. ``Heartbeat.beat`` is throttled and never
+    raises."""
     tasks = list(tasks)
     if threads is None:
         threads = stream_threads()
@@ -398,17 +405,24 @@ def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
         depth = stream_depth(threads=threads)
     stall_s = stream_stall_s()
     read_context = f"{fault_context or 'stream'}:read"
+    phase = f"stage:{fault_context or 'stream'}"
+
+    def committed(i: int):
+        if liveness is not None:
+            liveness.beat(phase=phase, cursor=i)
 
     if depth <= 1 or threads <= 0 or len(tasks) <= 1:
         if source is not None:
             src_serial = _retrying(source, read_context, events)
             prep_serial = _retrying(prep, fault_context, events)
-            for t in tasks:
+            for i, t in enumerate(tasks):
                 commit(t, prep_serial(t, src_serial(t)))
+                committed(i)
             return
         serial_prep = _retrying(prep, fault_context, events)
-        for t in tasks:
+        for i, t in enumerate(tasks):
             commit(t, serial_prep(t))
+            committed(i)
         return
     import concurrent.futures
 
@@ -453,6 +467,7 @@ def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
                     from None
 
     pending = collections.deque()
+    n_done = 0
     ex = concurrent.futures.ThreadPoolExecutor(
         max_workers=min(threads, len(tasks)),
         thread_name_prefix="cnmf-stream")
@@ -461,6 +476,8 @@ def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
             if len(pending) >= depth:
                 tt, fut = pending.popleft()
                 commit(tt, await_result(tt, fut))
+                committed(n_done)
+                n_done += 1
             if src_ex is not None:
                 pending.append((t, ex.submit(prep, t,
                                              src_ex.submit(src_wrapped, t))))
@@ -469,6 +486,8 @@ def run_pipeline(tasks, prep, commit, *, depth: int | None = None,
         while pending:
             tt, fut = pending.popleft()
             commit(tt, await_result(tt, fut))
+            committed(n_done)
+            n_done += 1
     except ShardStallError:
         cancelled.set()
         if src_ex is not None:
@@ -584,9 +603,33 @@ def _densify(out, lo: int, hi: int, vals, cols, indptr):
     out[lo:hi].index_put_((rows, cols.long()), vals.to(out.dtype))
 
 
+class _RunningLiveness:
+    """The liveness target of a staging call that runs several pipelines
+    in turn (one a shard, or one a replicate row): every beat carries the
+    call's running count of committed slabs as its cursor, so the cursors
+    of the whole call run ``0..n-1`` as one pipeline's do."""
+
+    def __init__(self, liveness):
+        self.liveness = liveness
+        self.done = 0
+
+    def beat(self, phase=None, cursor=None, force: bool = False):
+        self.done += 1
+        return self.liveness.beat(phase=phase, cursor=self.done - 1,
+                                  force=force)
+
+
+def running_liveness(liveness):
+    """``liveness`` as a :class:`_RunningLiveness` (None and an already
+    running one are returned as they are)."""
+    if liveness is None or isinstance(liveness, _RunningLiveness):
+        return liveness
+    return _RunningLiveness(liveness)
+
+
 def _stage(n_out: int, g: int, tasks, prep_host, commit_host, device,
            dtype, stats, events, fault_context, slab_bytes, source=None,
-           depth_cap=None):
+           depth_cap=None, liveness=None):
     """The shared staging loop: ``prep_host(task[, raw]) -> (arrays,
     meta)`` on the workers, each slab's arrays copied to ``device``;
     ``commit_host(out, task, tensors, meta)`` on the caller thread."""
@@ -618,7 +661,8 @@ def _stage(n_out: int, g: int, tasks, prep_host, commit_host, device,
             stats.add(device_s=time.perf_counter() - t0)
 
     run_pipeline(tasks, prep, commit, depth=depth, threads=threads,
-                 fault_context=fault_context, events=events, source=source)
+                 fault_context=fault_context, events=events,
+                 liveness=liveness, source=source)
     t0 = time.perf_counter()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -629,12 +673,16 @@ def _stage(n_out: int, g: int, tasks, prep_host, commit_host, device,
 
 
 def stream_to_device(X, device, dtype=torch.float32, pad_rows: int = 0,
-                     stats: StreamStats | None = None, events=None):
+                     stats: StreamStats | None = None, events=None,
+                     liveness=None):
     """One host matrix (dense or scipy-sparse) as a dense tensor on
     ``device``, with ``pad_rows`` zero rows appended, through the
     pipeline: CSR slabs of :data:`SLAB_ROWS` rows cross as (values,
     columns, indptr) and densify on the card (the dense matrix never
-    exists on the host); dense slabs cross as they are."""
+    exists on the host); dense slabs cross as they are. The staging
+    contexts are the JAX package's: ``stream_csr:csr`` (its CSR
+    transport, the port's only one) and ``stream_dense``; ``liveness`` is
+    stamped per committed slab (:func:`run_pipeline`)."""
     _maybe_fail_fault("upload", context="stream_to_device")
     n, g = X.shape
     n_out = n + int(pad_rows)
@@ -651,6 +699,8 @@ def stream_to_device(X, device, dtype=torch.float32, pad_rows: int = 0,
 
         def commit_host(out, task, t, meta):
             _densify(out, task[0], task[1], *t)
+
+        context = "stream_csr:csr"
     else:
         Xd = np.asarray(X)
         slab_bytes = SLAB_ROWS * g * 4
@@ -661,13 +711,16 @@ def stream_to_device(X, device, dtype=torch.float32, pad_rows: int = 0,
 
         def commit_host(out, task, t, meta):
             out[task[0]:task[1]].copy_(t[0])
+
+        context = "stream_dense"
     return _stage(n_out, g, tasks, prep_host, commit_host, device,
-                  dtype, stats, events, "stream_to_device", slab_bytes)
+                  dtype, stats, events, context, slab_bytes,
+                  liveness=liveness)
 
 
 def stream_store(cursor, device, dtype=torch.float32, *,
                  stats: StreamStats | None = None, events=None,
-                 pad_rows: int = 0):
+                 liveness=None, pad_rows: int = 0):
     """A shard-store row range straight from disk into a dense tensor on
     ``device``: slab reads on the disk-producer thread, slicing and the
     copy on the workers, placement on the caller thread. The whole matrix
@@ -676,7 +729,9 @@ def stream_store(cursor, device, dtype=torch.float32, *,
     realized peak lands in ``stats.host_peak_bytes``. Values are placed,
     never summed, so the result is bit for bit the in-memory matrix's
     staging. ``cursor``: a :class:`~..utils.shardstore.SlabCursor`;
-    ``pad_rows`` zero rows are appended (no disk read)."""
+    ``pad_rows`` zero rows are appended (no disk read). ``liveness`` is
+    stamped per committed slab as ``stage:stream_store``
+    (:func:`run_pipeline`)."""
     from ..utils.shardstore import ooc_budget_bytes
     from ..utils.storebackend import backend_counter_snapshot
 
@@ -720,7 +775,8 @@ def stream_store(cursor, device, dtype=torch.float32, *,
     out = _stage(n_out, g, segs, prep_host, commit_host, device,
                  dtype, stats, events, "stream_store", task_bytes,
                  source=source,
-                 depth_cap=ooc_budget_bytes() // (task_bytes * 3))
+                 depth_cap=ooc_budget_bytes() // (task_bytes * 3),
+                 liveness=liveness)
     if stats is not None:
         stats.host_peak_bytes = max(stats.host_peak_bytes, residency.peak)
         stats.fold_store_counters(bk_before, backend_counter_snapshot(store))

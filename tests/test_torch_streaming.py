@@ -282,7 +282,7 @@ def test_abandoned_worker_skips_fresh_prep_after_stall(monkeypatch):
 def test_stall_fault_injection_through_staging(monkeypatch):
     monkeypatch.setattr(tst, "SLAB_ROWS", 8)
     monkeypatch.setenv("CNMF_TPU_FAULT_SPEC",
-                       "stall:context=stream_to,seconds=3")
+                       "stall:context=stream_csr,seconds=3")
     monkeypatch.setenv("CNMF_TPU_STREAM_STALL_S", "0.3")
     monkeypatch.setenv("CNMF_TPU_STREAM_THREADS", "2")
     X = _skewed_csr(n=64, g=16, seed=2)

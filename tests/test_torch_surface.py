@@ -9,6 +9,13 @@ A name with neither needs a ``NOT_PORTED`` row with its reason and the
 fails here, and so does a row whose name no longer exists on its side.
 The same holds for the tutorials, ``examples/*.py`` against
 ``cnmf_torch_tpu_torch/examples/*.py``.
+
+Parameters are held the same way: every parameter of a public JAX
+function or method (``__init__`` included) whose counterpart the port
+has must be in the counterpart's signature, or have a ``PARAMS_RENAMED``
+row (the port's name for it) or a ``PARAMS_NOT_PORTED`` row (why a user
+of the port sees no difference, and the ``ROADMAP.md`` item). A row that
+names nothing fails, and so does a reason of 20 characters or fewer.
 """
 
 import ast
@@ -104,6 +111,166 @@ NOT_PORTED = {
 }
 
 
+# "func.jax_param" -> (the port's parameter, why the name differs)
+_DEVICE_NOT_MESH = ("a device or the port's Mesh (parallel/mesh.py) names "
+                    "where the rows go; JAX names a jax Mesh")
+_TRACE_LIST = ("the solver's SolverTelemetry goes into the caller's trace "
+               "list instead of being returned when a flag is set")
+_BF16 = ("the bf16 ratio chain's switch, one short name across the port's "
+         "ELL statistics and kernel wrappers")
+_SEED = ("an integer seed of a CPU torch.Generator stands for the threefry "
+         "key: torch has no key objects")
+PARAMS_RENAMED = {
+    "EllMatrix.astype.dtype": (
+        "vals", "the port re-values an encoding with the cast values "
+        "themselves: ell.with_vals(ell.vals.to(dtype))"),
+    "atomic_artifact.filename": (
+        "path", "the port's atomic writer (utils/io.py) takes a path of "
+        "any kind, not only an artifact's file name"),
+    "check_knob_docs.readme_path": (
+        "doc_path", "the port's knob table lives in "
+        "cnmf_torch_tpu_torch/KNOBS.md, not in the README"),
+    "chip_peaks.device_kind": (
+        "device_name", "a card is named by torch.cuda.get_device_name, "
+        "where JAX reads a TPU's device_kind"),
+    "ell_device_put.x": (
+        "self", "ell_device_put is the method EllMatrix.to in the port; "
+        "the encoding is its receiver"),
+    "ell_device_put.sharding": ("device", _DEVICE_NOT_MESH),
+    "measure_collectives.Xd": (
+        "gx", "the staged grid is a GridX of tiles (stage_x_grid), not a "
+        "sharded jax.Array"),
+    "normalize_total.adata": (
+        "X", "the port normalizes the count matrix itself and returns the "
+        "matrix; a Counts is not needed to carry it"),
+    "plan_degraded_mesh.lost_devices": (
+        "lost_ids", "the port's mesh entries are ids into Mesh.devices, "
+        "since one card may stand at several entries"),
+    "prepare_rowsharded.mesh": ("device", _DEVICE_NOT_MESH),
+    "stream_rows_to_mesh.mesh": ("device", _DEVICE_NOT_MESH),
+    "stream_ell_to_mesh.mesh": ("device", _DEVICE_NOT_MESH),
+    "stream_put_leaves.shardings": (
+        "device", "one controller copies every leaf to the one device it "
+        "names (D10); a sharding per leaf has nothing to choose"),
+    "stream_store_sharded.sharding": ("device", _DEVICE_NOT_MESH),
+    "write_h5ad.adata": (
+        "counts", "h5ad output writes the port's Counts "
+        "(utils/anndata_lite.py), its stand-in for AnnDataLite"),
+    "nmf_fit_batch.telemetry": ("trace", _TRACE_LIST),
+    "nmf_fit_batch_bundled.telemetry": ("trace", _TRACE_LIST),
+    "nmf_fit_batch_hals.telemetry": ("trace", _TRACE_LIST),
+    "nmf_fit_online.telemetry": ("trace", _TRACE_LIST),
+    "ell_is_h_stats.bf16_ratio": ("bf16", _BF16),
+    "ell_is_w_stats.bf16_ratio": ("bf16", _BF16),
+    "ell_kl_h_stats.bf16_ratio": ("bf16", _BF16),
+    "ell_kl_w_numer.bf16_ratio": ("bf16", _BF16),
+    "ell_kl_w_stats.bf16_ratio": ("bf16", _BF16),
+    "pallas_kl_h_stats.bf16_ratio": ("bf16", _BF16),
+    "pallas_kl_w_numer.bf16_ratio": ("bf16", _BF16),
+    "pallas_kl_w_stats.bf16_ratio": ("bf16", _BF16),
+    "fit_h_default_init.key": ("seed", _SEED),
+    "init_factors.key": ("seed", _SEED),
+    "nndsvd_init.key": ("seed", _SEED),
+    "nndsvd_init_gram.key": ("seed", _SEED),
+    "random_init.key": ("seed", _SEED),
+}
+
+# "func.param" -> (why a user of the port sees no difference, ROADMAP item)
+_STATIC = ("pads to a static width so one compiled XLA program serves every "
+           "K; torch compiles nothing and the results are the unpadded "
+           "call's", "Not to port")
+_NO_PALLAS = ("the Pallas switch: the port has no degrade path, its ELL "
+              "statistics launch the CUDA kernels whenever the tensors are "
+              "on a card", "D16")
+_W_TABLE = ("a pre-gathered W slab table JAX hoists out of its loops; the "
+            "CUDA kernels gather W into shared memory themselves and the "
+            "statistics are the same", "Not to port")
+_INTERPRET = ("runs the Pallas kernel in interpret mode on the CPU; the "
+              "port's wrappers take the plain version for a CPU tensor",
+              "Not to port")
+_AXIS = ("the name of the jax Mesh axis the rows shard over; the port's "
+         "row-sharded staging always uses the cells axis of its Mesh",
+         "Not to port")
+_F32 = ("the element type of the staged or drawn matrix; the port stages "
+        "and draws f32 only, as its kernels and solvers take f32, and no "
+        "caller in the JAX package asks for another type", "Not to port")
+_REFIT_KEY = ("no caller in the JAX package passes a key, so its usage refit "
+              "starts from the fixed key 0's draw, as the port's does "
+              "(fit_h_default_init, seed 0); another start goes in through "
+              "H_init", "Not to port")
+_FETCH = ("fetch=False leaves the results as unfetched jax Arrays so JAX's "
+          "factorize overlaps the next dispatch with the host copy; torch "
+          "runs eagerly, so the port's sweep returns numpy once its work "
+          "is done", "Not to port")
+PARAMS_NOT_PORTED = {
+    "fit_h.key": _REFIT_KEY,
+    "fit_h_slabbed.key": _REFIT_KEY,
+    "random_init.dtype": _F32,
+    "stream_rows_to_mesh.dtype": _F32,
+    "stage_x_grid.dtype": _F32,
+    "stage_x_2d.dtype": _F32,
+    "stream_ell_to_mesh.pad_multiple": (
+        "pads rows to a multiple for XLA's static shard shapes; no caller "
+        "in the JAX package passes it, so its rows pad to the shard count, "
+        "as the port's do", "Not to port"),
+    "ell_device_put.stats": (
+        "timings of the four leaf uploads; no caller in the JAX package "
+        "passes it, and the port's ELL staging records its copies in "
+        "stream_ell_to_mesh's stats", "Not to port"),
+    "SolverRecipe.signature.kernel": (
+        "only JAX's planner passes it, and only when the Pallas kernels "
+        "engage (runtime/planner.py); the port has no such switch and its "
+        "kernel label is fixed by the device", "D16"),
+    "replicate_sweep_packed.telemetry_sink": (
+        "JAX's packed sweep emits its replicate telemetry there; in the "
+        "port the packed adapter has no caller, and factorize runs the "
+        "per-K sweeps, whose replicate_sweep takes the sink", "D12"),
+    "replicate_sweep.fetch": _FETCH,
+    "replicate_sweep_2d.fetch": _FETCH,
+    "replicate_sweep_packed.fetch": _FETCH,
+    "auto_replicates_per_batch.n_dev": (
+        "JAX rounds a slice to a multiple of its mesh size; the port's "
+        "sweep slices each device's replicates by that device's own "
+        "budget, one device after another (D10)", "D10"),
+    "cNMF.refit_usage.k_pad": _STATIC,
+    "fit_h.k_pad": _STATIC,
+    "kmeans.k_pad": _STATIC,
+    "kmeans.n_rows": _STATIC,
+    "kmeans.mask": (
+        "clusters the masked rows at the full array's static shape so a "
+        "density sweep compiles once; the port clusters X[mask] itself, "
+        "as JAX's own callers read only the masked rows' labels",
+        "Not to port"),
+    "silhouette_score.k_pad": _STATIC,
+    "silhouette_score.n_rows": _STATIC,
+    "beta_divergence.use_pallas": _NO_PALLAS,
+    "kernel_label.use_pallas": _NO_PALLAS,
+    "nmf_fit_batch.use_pallas": _NO_PALLAS,
+    "nmf_fit_online.use_pallas": _NO_PALLAS,
+    "ell_is_h_stats.w_table": _W_TABLE,
+    "ell_kl_h_newton_stats.w_table": _W_TABLE,
+    "ell_kl_h_stats.w_table": _W_TABLE,
+    "ell_kl_w_numer.w_table": _W_TABLE,
+    "ell_kl_w_stats.w_table": _W_TABLE,
+    "ell_wh_at_nz.w_table": _W_TABLE,
+    "pallas_kl_beta_err.interpret": _INTERPRET,
+    "pallas_kl_h_newton_stats.interpret": _INTERPRET,
+    "pallas_kl_h_stats.interpret": _INTERPRET,
+    "pallas_kl_w_numer.interpret": _INTERPRET,
+    "pallas_kl_w_stats.interpret": _INTERPRET,
+    "pallas_wh_at_nz.interpret": _INTERPRET,
+    "stream_rows_to_mesh.axis": _AXIS,
+    "stream_ell_to_mesh.axis": _AXIS,
+    "measure_collectives.mesh": (
+        "the port's GridX carries the mesh it was staged on, so a second "
+        "argument could only disagree with it", "Not to port"),
+    "normalize_total.inplace": (
+        "the port takes and returns the matrix, so there is no object to "
+        "update; counts.X = normalize_total(counts.X) is the in-place form",
+        "Not to port"),
+}
+
+
 def _module_body(nodes):
     """Statements at module (or class) level, through ``if``/``try``."""
     for node in nodes:
@@ -155,9 +322,60 @@ def public_names(path: str) -> dict:
     return out
 
 
+def _params(node) -> list:
+    a = node.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+def signatures(path: str) -> dict:
+    """``{name: [parameter lists]}`` of every public top-level function
+    and every public method (and ``__init__``) of a public class, named
+    as :func:`public_names` names them; a name defined in several files
+    has one list a definition."""
+    out: dict = {}
+    for d, _, names in os.walk(path):
+        if "__pycache__" in d:
+            continue
+        for f in sorted(names):
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(d, f)) as fh:
+                tree = ast.parse(fh.read())
+            for node in _module_body(tree.body):
+                if getattr(node, "name", "_").startswith("_"):
+                    continue
+                if isinstance(node, (ast.FunctionDef,
+                                     ast.AsyncFunctionDef)):
+                    out.setdefault(node.name, []).append(_params(node))
+                elif isinstance(node, ast.ClassDef):
+                    for m in _module_body(node.body):
+                        if (isinstance(m, (ast.FunctionDef,
+                                           ast.AsyncFunctionDef))
+                                and (m.name == "__init__"
+                                     or not m.name.startswith("_"))):
+                            out.setdefault(f"{node.name}.{m.name}",
+                                           []).append(_params(m))
+    return out
+
+
 @pytest.fixture(scope="module")
 def surfaces():
     return public_names(JAX_PKG), public_names(PORT_PKG)
+
+
+@pytest.fixture(scope="module")
+def params():
+    """``(jax, port)``: ``{function name: set of parameters}``, the
+    parameters of every definition of the name together."""
+    return tuple({name: set().union(*map(set, lists))
+                  for name, lists in signatures(pkg).items()}
+                 for pkg in (JAX_PKG, PORT_PKG))
+
+
+def _split(row: str):
+    """``"func.param"`` as ``(func, param)`` (func may be Class.method)."""
+    func, _, param = row.rpartition(".")
+    return func, param
 
 
 def test_every_public_jax_name_has_a_counterpart(surfaces):
@@ -212,3 +430,58 @@ def test_every_tutorial_has_its_counterpart(tutorial):
     port = public_names(os.path.join(PORT_PKG, "examples", tutorial + ".py"))
     assert "main" in jax
     assert set(jax) <= set(port), sorted(set(jax) - set(port))
+
+
+def test_every_jax_parameter_is_ported_or_has_a_row(params):
+    jax, port = params
+    missing = []
+    for name, jparams in sorted(jax.items()):
+        pname = RENAMED.get(name, name)
+        if pname not in port:
+            continue
+        for p in sorted(jparams - {"self", "cls"}):
+            row = f"{name}.{p}"
+            if (p not in port[pname] and row not in PARAMS_RENAMED
+                    and row not in PARAMS_NOT_PORTED):
+                missing.append(f"{row} (port: {pname})")
+    assert not missing, ("JAX parameters the port's counterpart lacks, with "
+                         "no PARAMS_RENAMED or PARAMS_NOT_PORTED row: "
+                         + "; ".join(missing))
+
+
+def test_every_parameter_row_names_something(params):
+    jax, port = params
+    bad = []
+    for row, (new, reason) in PARAMS_RENAMED.items():
+        func, p = _split(row)
+        pfunc = RENAMED.get(func, func)
+        if (func not in jax or p not in jax[func] or pfunc not in port
+                or new not in port[pfunc] or p in port[pfunc]):
+            bad.append(f"{row} -> {new}")
+        if len(reason) <= 20:
+            bad.append(f"{row}: reason too short")
+    for row, (reason, item) in PARAMS_NOT_PORTED.items():
+        func, p = _split(row)
+        pfunc = RENAMED.get(func, func)
+        if (func not in jax or p not in jax[func] or pfunc not in port
+                or p in port[pfunc]):
+            bad.append(row)
+        if len(reason) <= 20 or not item:
+            bad.append(f"{row}: reason too short or no ROADMAP item")
+    both = sorted(set(PARAMS_RENAMED) & set(PARAMS_NOT_PORTED))
+    assert not bad and not both, (bad, both)
+
+
+@pytest.mark.parametrize("name, param", [
+    ("run_pipeline", "liveness"), ("stream_store_sharded", "liveness"),
+    ("stream_rows_to_mesh", "liveness"), ("stream_ell_to_mesh", "liveness"),
+    ("prepare_rowsharded", "liveness"), ("stage_x_grid", "liveness"),
+    ("stage_x_2d", "liveness"), ("local_density", "D"),
+    ("silhouette_score", "D"), ("ols_all_cols", "precision"),
+    ("row_sums", "block_rows"), ("column_mean_var", "block_rows"),
+    ("column_moments_staged", "block_rows"),
+    ("nmf_fit_batch", "update_W_flag")])
+def test_the_parameters_that_carry_behaviour_are_ported(params, name, param):
+    jax, port = params
+    assert param in jax[name]
+    assert param in port[RENAMED.get(name, name)]
