@@ -179,8 +179,14 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    ``beta_err_partials`` launch (counts printed); the three kernels at
    R=1 on the first 250,000 rows
    against their plain versions (``rtol 2e-5``, two launches
-   bit-identical) and timed beside their bounds at 250,000 and 1,000,000
-   rows (``t_w`` and the encoding's bytes printed); a 250,000-row solve
+   bit-identical), the JAX package's one-replicate call of six ELL
+   statistics there (``kl_h_stats``, ``kl_w_stats``, ``kl_beta_err``,
+   ``beta_divergence``, ``kl_h_newton_stats``, ``kl_wh_at_nz`` on ``H (n,
+   k)``, ``W (k, g)``: each the batched call's lane at R=1 bit for bit, in
+   JAX's shapes, one launch of each of its kernels; comparisons, which no
+   count of the kernels' record takes), and the three timed beside their
+   bounds at 250,000 and 1,000,000 rows (``t_w`` and the encoding's bytes
+   printed); a 250,000-row solve
    under a pinned ``dna`` recipe launches ``h_newton_stats`` and
    ``wh_at_nz``. (c) On (a)'s store: the slab-looped tier
    (``CNMF_TPU_OOC_SHARD_BYTES`` 256 MiB) and the resident solve from the
@@ -193,7 +199,9 @@ Phases, each of which ends the run with a nonzero exit when it fails:
    a chain beside 9a's 250,000-cell stages, below); the torn checkpoint
    (``torn:artifact=ckpt``) discarded and its replicate restarted to the
    same bytes; a torn slab read (``shard_read``) detected, re-read and
-   staged bit for bit.
+   staged bit for bit. After 9a's stages it logs this process's peak
+   resident set (``utils/shardstore.py:host_rss_peak_bytes``, read while
+   the chains still run beside it; no gate reads it).
 10. The remote object store: ``utils/netstore.py``'s server in this
     process on ``127.0.0.1`` (a loopback that cannot bind fails the
     phase). (a) 9a's store paths' counts (its first 50,000 cells)
@@ -334,7 +342,18 @@ Phases, each of which ends the run with a nonzero exit when it fails:
     rows. It prints each solve's wall, chosen host reads (a pass, for the
     online sweep) and launches; every output must be finite and every
     kernel launch under the guard. A sync error is not caught: it fails
-    the run.
+    the run. (c) The perf gate: ``python -m
+    cnmf_torch_tpu_torch.obs.perf_gate`` as a child, as a user runs it
+    (the pinned dense beta=2 lane at 96 x 64, k=7, 150 iterations on the
+    card, with ``CNMF_TPU_PERF_GATE_N=60``: its benchdiff self-test,
+    the two measurements' samples in turns, green on a re-measurement and
+    red on doubled walls), which must exit 0 with its summary line naming
+    the card; then in this process, with ``BASELINE_DIR`` in a temporary
+    directory and the collector frozen, a baseline written on this card
+    gates green and the same baseline with its walls halved red (exit 1);
+    the wall, its samples and GFLOP/s are logged, and the gate's own noise
+    (no check): 80 consecutive calls of the lane, and how far apart two
+    min-of-N walls of them read, taken one after the other and in turns.
 
 16. The four tutorials (``cnmf_torch_tpu_torch/examples/``), each called
     as a user calls it, ``main(dir, device="cuda")``, at the JAX package's
@@ -419,6 +438,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import gc
 import glob
 import json
 import os
@@ -2764,6 +2784,7 @@ def solver_api(stages, rows) -> dict:
             errs["w_numer"] = w_numer_check(kl_ell, x, H, W0, False, tag)
             errs["beta_err_partials"], _ = beta_err_check(kl_ell, x, H, W0,
                                                           tag)
+            out["one_replicate"] = one_replicate_check(x, H[0], W0[0])
         shape = {"rows": n_rows, "w": x.width, "t_w": x.t_width, "nnz": nnz,
                  "encoding_bytes": nbytes, "encode_s": enc_s}
         for name in ONLINE_KERNELS:
@@ -2822,6 +2843,56 @@ def solver_api(stages, rows) -> dict:
               f"9b dna: {name} never launched")
     log(f"9b dna solve launches {out['dna_launches']}")
     return out, records
+
+
+def one_replicate_check(x, H, W) -> dict:
+    """9b: the JAX package's one-replicate call of the ELL statistics on
+    the card at the atlas path's R=1 shape (``x`` 9b's first 250,000 rows,
+    ``H (n, k)``, ``W (k, g)``, k=9), each against the batched call at
+    R=1: the same bits, JAX's shapes, and one launch of each of its
+    kernels. These launches are comparisons, not a path's, so no count of
+    the kernels' record takes them."""
+    from cnmf_torch_tpu_torch.ops import nmf
+    from cnmf_torch_tpu_torch.ops.kernels import kl_ell
+
+    n, k = H.shape
+    g = W.shape[1]
+    calls = {
+        "kl_h_stats": (kl_ell.kl_h_stats, ("h_stats",)),
+        "kl_w_stats": (kl_ell.kl_w_stats, ("w_numer",)),
+        "kl_beta_err": (kl_ell.kl_beta_err, ("beta_err_partials",)),
+        "beta_divergence": (lambda x, H, W: nmf.beta_divergence(
+            x, H, W, beta=1.0), ("beta_err_partials",)),
+        "kl_h_newton_stats": (kl_ell.kl_h_newton_stats,
+                              ("h_newton_stats",)),
+        "kl_wh_at_nz": (kl_ell.kl_wh_at_nz, ("wh_at_nz",)),
+    }
+    out = {}
+    for label, (fn, kernels) in calls.items():
+        before = dict(kl_ell.launches)
+        one = fn(x, H, W)
+        torch.cuda.synchronize()
+        launched = {kern: kl_ell.launches[kern] - before[kern]
+                    for kern in before}
+        batched = fn(x, H[None], W[None])
+        torch.cuda.synchronize()
+        check(launched == {kern: int(kern in kernels) for kern in before},
+              f"9b {label}: the one-replicate call launched {launched}")
+        one = one if isinstance(one, tuple) else (one,)
+        batched = batched if isinstance(batched, tuple) else (batched,)
+        for a, b in zip(one, batched):
+            check(tuple(a.shape) == tuple(b.shape[1:])
+                  and torch.equal(a, b[0]),
+                  f"9b {label}: the one-replicate call is not the batched "
+                  f"lane at R=1 bit for bit ({tuple(a.shape)} against "
+                  f"{tuple(b.shape)})")
+        out[label] = {"shapes": [list(a.shape) for a in one],
+                      "launched": {kern: v for kern, v in launched.items()
+                                   if v}}
+    log(f"9b one-replicate ELL statistics at R=1, {n} rows x {g} genes, "
+        f"k={k}, ELL width {x.width}: each the batched call's bits, one "
+        f"launch a kernel: {out}")
+    return out
 
 
 def matched_cosines(A, B):
@@ -3056,10 +3127,18 @@ def phase9(stages, rows, counts_fn, Xn, installed):
     9b times the kernels, then 9b and 9c. Returns its report, the R=1
     kernel records, what phases 10 and 11 read (:func:`store_pair`'s dict
     with 9a's normalized matrix) and the chains."""
+    from cnmf_torch_tpu_torch.utils.shardstore import host_rss_peak_bytes
+
     atlas = store_pair(stages)
     beside = start_beside(atlas, counts_fn, Xn, installed)
     p9 = atlas_pipeline(stages, atlas)
     p9["store_pair"] = atlas["report"]
+    # this process's peak resident set after 9a's stages (a host reading,
+    # taken while the chains still run beside it)
+    p9["host_rss_peak_bytes"] = host_rss_peak_bytes()
+    log(f"9a: host_rss_peak_bytes {p9['host_rss_peak_bytes']} "
+        f"({p9['host_rss_peak_bytes'] / 2 ** 30:.3f} GiB, this process's "
+        "peak after 9a's stages, read beside the chains)")
     t0 = time.perf_counter()
     beside.join()
     p9["beside_wait_s"] = time.perf_counter() - t0
@@ -5257,9 +5336,139 @@ def sanitize_phase(stages, Xn) -> dict:
             "negative_control": caught.strip().splitlines()[0]}
 
 
+GATE_TIMEOUT_S = 300     # 15c's child gate
+# 15c's samples a wall (CNMF_TPU_PERF_GATE_N) for the child and the
+# in-process legs. Both the self-test's red leg and the halved baseline's
+# need the later wall above 0.8 of the earlier one. The lane is
+# host-bound, the card's host slows it for seconds at a time, and its
+# fastest calls are rare (on an H100's host, one call of 80 at 62.3 ms
+# against a median of 86.0 ms), so a min of 30 samples still read 0.82
+# of another taken in turns with it; each wall takes the min of 60
+GATE_N = 60
+# 15c's noise reading: this many consecutive calls of the lane, and the
+# sample counts whose windows it compares
+GATE_NOISE_CALLS = 80
+GATE_NOISE_NS = (3, 10, 30)
+
+
+def window_ratios(walls, n) -> dict:
+    """The extremes of the second wall over the first, each a min of
+    ``n`` of ``walls`` (consecutive calls): taken one after the other
+    (``walls[i:i+n]`` then ``walls[i+n:i+2n]``) and in turns (the even
+    and the odd calls of ``walls[i:i+2n]``), over every offset ``i``."""
+    seq = [min(walls[i + n:i + 2 * n]) / min(walls[i:i + n])
+           for i in range(len(walls) - 2 * n + 1)]
+    turns = [min(walls[i + 1:i + 2 * n:2]) / min(walls[i:i + 2 * n:2])
+             for i in range(len(walls) - 2 * n + 1)]
+    return {"n": n, "after": [min(seq), max(seq)],
+            "turns": [min(turns), max(turns)]}
+
+
+def _gate_main(perf_gate, argv) -> tuple:
+    """``perf_gate.main(argv)`` in this process: its exit code, standard
+    output and standard error."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = perf_gate.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def perf_gate_phase(stages) -> dict:
+    """15c, the perf gate: ``python -m cnmf_torch_tpu_torch.obs.perf_gate``
+    as a user runs it (a child on the card), then its baseline leg in this
+    process with ``BASELINE_DIR`` in a temporary directory: a baseline
+    written on this card gates green, the same baseline with its walls
+    halved red."""
+    from cnmf_torch_tpu_torch.obs import perf_gate
+    from cnmf_torch_tpu_torch.obs.regress import load_snapshot, save_snapshot
+
+    card = torch.cuda.get_device_name(0).replace(" ", "_")
+    t0 = time.perf_counter()
+    with knobs(CNMF_TPU_PERF_GATE_N=str(GATE_N)):
+        proc = CHILDREN.run([sys.executable, "-m",
+                             "cnmf_torch_tpu_torch.obs.perf_gate"],
+                            GATE_TIMEOUT_S, cwd=HERE)
+    child_s = time.perf_counter() - t0
+    stages.add("15c perf gate (child)", child_s)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith("perf gate: self-test green")
+          and f"-cuda-{card}-x" in lines[-1],
+          f"15c: the perf gate failed (rc {proc.returncode}): "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    log(f"15c {lines[-1]} ({child_s:.2f} s, a child)")
+
+    # this process holds the whole run's host data (11.7 GiB after 9a): a
+    # cyclic collection inside a timed sample stretched the in-process
+    # walls on an H100 to 97-122 ms against the child's 69.9 ms, enough
+    # for an honest re-measurement to pass for a 2x slowdown's half, so the
+    # collector is frozen around the legs
+    saved = perf_gate.BASELINE_DIR
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT) as base_dir, \
+            knobs(CNMF_TPU_PERF_GATE_N=str(GATE_N)):
+        perf_gate.BASELINE_DIR = base_dir
+        gc.collect()
+        gc.freeze()
+        try:
+            rc_w, out_w, err_w = _gate_main(perf_gate, ["--write-baseline"])
+            check(rc_w == 0 and "baseline written to" in out_w,
+                  f"15c: --write-baseline exited {rc_w}: {out_w}{err_w}")
+            (name,) = os.listdir(base_dir)
+            path = os.path.join(base_dir, name)
+            base = load_snapshot(path)
+            rc_g, out_g, err_g = _gate_main(perf_gate, [])
+            check(rc_g == 0 and "within band of baseline" in out_g,
+                  f"15c: the gate against its own baseline exited {rc_g}: "
+                  f"{out_g}{err_g}")
+            save_snapshot(perf_gate._scaled_walls(base, 0.5), path)
+            rc_r, out_r, err_r = _gate_main(perf_gate, [])
+            check(rc_r == 1 and "regressed" in out_r
+                  and "regression vs recorded baseline" in err_r,
+                  f"15c: the gate against the halved baseline exited "
+                  f"{rc_r}: {out_r}{err_r}")
+            # the gate's own noise (logged, no gate): consecutive calls of
+            # the lane, and how far apart two min-of-N walls of them read
+            cpu0, wall0 = time.process_time(), time.perf_counter()
+            walls = perf_gate._measure(GATE_NOISE_CALLS, CARD)["samples"]
+            host_busy = ((time.process_time() - cpu0)
+                         / (time.perf_counter() - wall0))
+        finally:
+            gc.unfreeze()
+            perf_gate.BASELINE_DIR = saved
+    leg_s = time.perf_counter() - t0
+    raw = base["tiers"]["gate"]["raw"]
+    samples = base["tiers"]["gate"]["metrics"]["update_wall_s"]["samples"]
+    log(f"15c baseline leg: {name} written, green against it, red against "
+        f"it halved ({leg_s:.2f} s); the baseline's min-of-"
+        f"{len(samples)} wall {1e3 * raw['update_wall_s']:.4f} ms "
+        f"(samples {[round(1e3 * s, 4) for s in samples]} ms), "
+        f"{raw['achieved_gflops']:.4f} GFLOP/s at {perf_gate.GATE_SHAPE} "
+        f"x {perf_gate.GATE_ITERS}")
+    ratios = [window_ratios(walls, n) for n in GATE_NOISE_NS]
+    ordered = sorted(walls)
+    log(f"15c noise: {len(walls)} consecutive calls of the lane, min "
+        f"{1e3 * ordered[0]:.4f} ms, median "
+        f"{1e3 * ordered[len(walls) // 2]:.4f} ms, max "
+        f"{1e3 * ordered[-1]:.4f} ms, this process's host CPU time "
+        f"{host_busy:.4f} of the wall; second/first of two min-of-N walls "
+        + "; ".join(f"N={r['n']}: one after the other "
+                    f"{r['after'][0]:.4f}-{r['after'][1]:.4f}, in turns "
+                    f"{r['turns'][0]:.4f}-{r['turns'][1]:.4f}"
+                    for r in ratios))
+    return {"child_line": lines[-1], "child_s": child_s, "leg_s": leg_s,
+            "fingerprint_file": name, "wall_s": raw["update_wall_s"],
+            "samples_s": samples, "gflops": raw["achieved_gflops"],
+            "noise_walls_s": walls, "noise_ratios": ratios,
+            "noise_host_busy": host_busy}
+
+
 def phase15(stages, Xn) -> dict:
-    """Lint and the sanitizer."""
-    return {"a": lint_phase(stages), "b": sanitize_phase(stages, Xn)}
+    """Lint, the sanitizer and the perf gate."""
+    return {"a": lint_phase(stages), "b": sanitize_phase(stages, Xn),
+            "c": perf_gate_phase(stages)}
 
 
 # -- phase 16: the four tutorials --------------------------------------------

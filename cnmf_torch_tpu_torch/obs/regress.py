@@ -13,7 +13,9 @@ diffed as a regression.
 samples (max-of-N for higher-is-better), holds each metric to a relative
 band before it can regress, never gates a perf-exempt tier, and reports
 improvements apart from regressions. ``python -m cnmf_torch_tpu_torch
-benchdiff BASE NEW`` renders it and exits 1 on a regression.
+benchdiff BASE NEW`` renders it and exits 1 on a regression; the perf gate
+(``obs/perf_gate.py``) runs that command on two measurements of a pinned
+lane.
 """
 
 from __future__ import annotations
@@ -25,18 +27,21 @@ import os
 __all__ = ["BENCH_SCHEMA", "BENCH_SCHEMA_VERSION", "build_snapshot",
            "validate_bench", "extract_metrics", "save_snapshot",
            "load_snapshot", "diff_snapshots", "render_diff",
-           "GATE_BAND_ENV", "DEFAULT_BAND", "gate_band"]
+           "GATE_BAND_ENV", "GATE_N_ENV", "DEFAULT_BAND", "DEFAULT_N",
+           "gate_band", "gate_n"]
 
 BENCH_SCHEMA = "cnmf-bench"
 BENCH_SCHEMA_VERSION = 1
 
 GATE_BAND_ENV = "CNMF_TPU_PERF_GATE_BAND"
+GATE_N_ENV = "CNMF_TPU_PERF_GATE_N"
 
 # relative band a comparable metric must move past before the diff
 # calls it (the JAX package's default, set for walls on an
 # oversubscribed host); calm dedicated hardware can tighten it through
 # CNMF_TPU_PERF_GATE_BAND
 DEFAULT_BAND = 0.6
+DEFAULT_N = 3
 
 
 def gate_band() -> float:
@@ -44,6 +49,14 @@ def gate_band() -> float:
     from ..utils.envknobs import env_float
 
     return float(env_float(GATE_BAND_ENV, DEFAULT_BAND))
+
+
+def gate_n() -> int:
+    """Min-of-N sample count of the perf gate's walls
+    (CNMF_TPU_PERF_GATE_N, default 3; at least 1)."""
+    from ..utils.envknobs import env_int
+
+    return max(1, int(env_int(GATE_N_ENV, DEFAULT_N)))
 
 
 # ---------------------------------------------------------------------------

@@ -452,9 +452,11 @@ def wh_at_nz(cols, H, W):
 
 
 # ---------------------------------------------------------------------------
-# the statistics the solver calls
+# the statistics the solver calls (batched, and in the JAX package's
+# one-replicate form, which launches the same kernels at R=1)
 # ---------------------------------------------------------------------------
 
+@sparse.one_replicate_form
 def kl_h_stats(x, H, W, bf16: bool = False):
     """``(numer, denom)`` of the KL H update; ``denom = W.sum(genes)``
     broadcast stays torch."""
@@ -462,10 +464,12 @@ def kl_h_stats(x, H, W, bf16: bool = False):
     return numer, W.sum(-1)[:, None, :].expand(H.shape)
 
 
+@sparse.one_replicate_form
 def kl_w_numer(x, H, W, bf16: bool = False):
     return w_numer(x.vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
 
 
+@sparse.one_replicate_form
 def kl_w_stats(x, H, W, bf16: bool = False):
     """``(numer, denom)`` of the KL W update; ``denom = H.sum(rows)``
     broadcast stays torch."""
@@ -473,6 +477,7 @@ def kl_w_stats(x, H, W, bf16: bool = False):
     return numer, H.sum(1)[:, :, None].expand(W.shape)
 
 
+@sparse.one_replicate_form
 def kl_w_stats_rows(x, H, W, idx):
     """``(numer, denom)`` of the sketch recipe's KL W update from the row
     subsample ``idx`` (``ops/sparse.py:ell_kl_w_stats_rows``): the sampled
@@ -484,12 +489,14 @@ def kl_w_stats_rows(x, H, W, idx):
                       W)
 
 
+@sparse.one_replicate_form
 def kl_beta_err(x, H, W):
     """``D_KL(X || HW)`` per replicate ``(R,)`` f32."""
     rows = beta_err_partials(x.vals, x.cols, H, W)
     return rows.sum(1) + sparse.total_wh(H, W)
 
 
+@sparse.one_replicate_form
 def kl_h_newton_stats(x, H, W):
     """``(numer, denom, hess)`` of the DNA H step; the ``denom = W.sum(
     genes)`` broadcast of the MU fallback candidate stays torch."""
@@ -497,6 +504,7 @@ def kl_h_newton_stats(x, H, W):
     return numer, W.sum(-1)[:, None, :].expand(H.shape), hess
 
 
+@sparse.one_replicate_form
 def kl_wh_at_nz(x, H, W):
     """``WH`` at the stored coordinates of ``x``, ``(R, n, w)`` f32."""
     return wh_at_nz(x.cols, H, W)

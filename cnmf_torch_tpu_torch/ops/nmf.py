@@ -37,9 +37,10 @@ from ..utils.envknobs import env_flag
 from ..utils.sanitize import host_read
 from .kernels import kl_ell
 from .recipe import SolverRecipe, resolve_recipe
-from .sparse import (EllMatrix, csr_to_ell, ell_beta_err, ell_chunk_rows,
-                     ell_is_h_stats, ell_is_w_stats, ell_row_width,
-                     is_per_elem, kl_nz_term, resolve_sparse_beta)
+from .sparse import (EllMatrix, _lane0, _one_replicate, csr_to_ell,
+                     ell_beta_err, ell_chunk_rows, ell_is_h_stats,
+                     ell_is_w_stats, ell_row_width, is_per_elem, kl_nz_term,
+                     resolve_sparse_beta)
 
 __all__ = ["EPS", "EVAL_EVERY", "INNER_STAG_TOL", "BETA_LOSS",
            "SolverTelemetry", "beta_loss_to_float", "beta_divergence",
@@ -137,7 +138,10 @@ def beta_divergence(X, H, W, beta: float = 2.0):
     """``D_beta(X || HW)`` per replicate, ``(R,)`` f32. ``X`` may be an
     :class:`EllMatrix` for beta in {1, 0}: KL's nonzero terms run in the
     ``beta_err_partials`` kernel on the card, IS is the dense-WH hybrid
-    (``ops/sparse.py:ell_beta_err``)."""
+    (``ops/sparse.py:ell_beta_err``). JAX's one-replicate call (``H (n,
+    k)``, ``W (k, g)``) returns a 0-d tensor."""
+    if _one_replicate(H, W):
+        return beta_divergence(X, H[None], W[None], beta)[0]
     if isinstance(X, EllMatrix):
         if beta == 1.0:
             return kl_ell.kl_beta_err(X, H, W)
@@ -616,6 +620,23 @@ def _hals_sweep(M, G, C, l1, l2):
     return M
 
 
+def _solo(solver, call: dict, h: str, w: str, sinks=("trace",)):
+    """The JAX package's one-replicate call of a batched solver: ``call``
+    (the solver's arguments by name) with a replicate axis of 1 added to
+    the factors ``call[h]`` and ``call[w]``, solved, and lane 0 returned
+    (the batched call's bits at R=1); each list named in ``sinks`` receives
+    lane 0 of what the solve appended to it."""
+    call = dict(call)
+    call[h], call[w] = call[h][None], call[w][None]
+    lists = {s: call[s] for s in sinks if call[s] is not None}
+    for s in lists:
+        call[s] = []
+    out = solver(**call)
+    for s, sink in lists.items():
+        sink.extend(_lane0(v) for v in call[s])
+    return _lane0(out)
+
+
 def _batch_loop(X, H0, W0, beta, tol, max_iter, step, trace,
                 with_inner=False, with_fallback=False, errs=None,
                 select=None):
@@ -722,7 +743,14 @@ def nmf_fit_batch(X, H0, W0, beta: float = 2.0, tol: float = 1e-4,
 
     The solve keeps the dtype of its operands: f64 ``X``, ``H0`` and
     ``W0`` (dense) run the whole solve in f64.
+
+    JAX's one-replicate call, ``H0 (n, k)`` and ``W0 (k, g)``, solves at
+    R=1 and returns ``(H (n, k), W (k, g), err ())``; ``trace`` then
+    receives that lane's record.
     """
+    if _one_replicate(H0, W0):
+        # first, so locals() is exactly the call's arguments
+        return _solo(nmf_fit_batch, locals(), "H0", "W0")
     inner_repeats = int(inner_repeats)
     sketch_dim = int(sketch_dim)
     if kl_newton and beta != 1.0:
@@ -796,7 +824,11 @@ def nmf_fit_batch_hals(X, H0, W0, tol: float = 1e-4, max_iter: int = 200,
     (against ``W W^T``, ``X W^T``) then one of W (against ``H^T H``, ``(H^T
     X)^T``). Dense ``X``; the stopping rule, the per-lane latch and the
     telemetry are :func:`nmf_fit_batch`'s (one sweep counts as one inner
-    update). Returns ``(H, W, err (R,))``."""
+    update). Returns ``(H, W, err (R,))``; JAX's one-replicate call as
+    :func:`nmf_fit_batch`'s."""
+    if _one_replicate(H0, W0):
+        return _solo(nmf_fit_batch_hals, locals(), "H0", "W0")
+
     def step(H, W, active):
         H_new = _hals_sweep(H, W @ W.mT, X @ W.mT, l1_H, l2_H)
         W_new = _hals_sweep(W.mT, H_new.mT @ H_new, (H_new.mT @ X).mT,
@@ -950,7 +982,14 @@ def nmf_fit_online(Xc, Hc0, W0, beta: float = 2.0, tol: float = 1e-4,
     ``trace`` receives the ``(R,)`` objectives after every pass (a
     stopped lane repeats its last one); ``lane_passes`` receives, once,
     the ``(R,)`` passes each lane ran.
+
+    JAX's one-replicate call, ``Hc0 (C, chunk, k)`` and ``W0 (k, g)``,
+    solves at R=1 and returns ``(Hc (C, chunk, k), W (k, g), err ())``;
+    ``trace`` and ``lane_passes`` then receive that lane's values.
     """
+    if _one_replicate(Hc0, W0, extra=1):
+        return _solo(nmf_fit_online, locals(), "Hc0", "W0",
+                     ("trace", "lane_passes"))
     if kl_newton and beta != 1.0:
         raise ValueError(
             f"kl_newton is the beta=1 (KL) Newton recipe, got beta={beta}")
@@ -1476,14 +1515,14 @@ def run_nmf(X, n_components: int, init: str = "random",
     if fp_precision == "double":
         Xd = dense_on_device(X, dev).double()
         H0, W0 = init_factors(Xd, k, init, seed)
-        H0, W0 = H0.double()[None], W0.double()[None]
+        H0, W0 = H0.double(), W0.double()
         batch_kw = dict(tol=float(tol), max_iter=int(batch_max_iter),
                         l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
         if algo == "halsvar":
             H, W, err = nmf_fit_batch_hals(Xd, H0, W0, **batch_kw)
         else:
             H, W, err = nmf_fit_batch(Xd, H0, W0, beta=beta, **batch_kw)
-        return H[0].cpu().numpy(), W[0].cpu().numpy(), float(err[0])
+        return H.cpu().numpy(), W.cpu().numpy(), float(err)
     if use_ell:
         if mode == "online":
             Xs, pad = ell_chunk_rows(X, chunk)
@@ -1500,26 +1539,24 @@ def run_nmf(X, n_components: int, init: str = "random",
                   sketch_exact_every=int(recipe.sketch_exact_every))
     if mode == "batch" and algo == "halsvar":
         H, W, err = nmf_fit_batch_hals(
-            Xs, H0[None], W0[None], tol=float(tol),
-            max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
-            l2_W=l2_W)
-        H = H[0]
+            Xs, H0, W0, tol=float(tol), max_iter=int(batch_max_iter),
+            l1_H=l1_H, l2_H=l2_H, l1_W=l1_W, l2_W=l2_W)
     elif mode == "batch":
         H, W, err = nmf_fit_batch(
-            Xs, H0[None], W0[None], beta=beta, tol=float(tol),
+            Xs, H0, W0, beta=beta, tol=float(tol),
             max_iter=int(batch_max_iter), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
             l2_W=l2_W, inner_repeats=int(recipe.inner_repeats),
             kl_newton=bool(recipe.kl_newton), **sketch)
-        H = H[0]
     else:
         if use_ell:
             Xc = Xs
             Hc = torch.nn.functional.pad(H0, (0, 0, 0, pad)).reshape(
-                1, Xc.vals.shape[0], chunk, k)
+                Xc.vals.shape[0], chunk, k)
         else:
             Xc, Hc, _ = _chunk_rows(Xs, H0, chunk)
+            Hc = Hc[0]
         Hc, W, err = nmf_fit_online(
-            Xc, Hc, W0[None], beta=beta, tol=float(tol),
+            Xc, Hc, W0, beta=beta, tol=float(tol),
             h_tol=float(online_h_tol),
             chunk_max_iter=int(online_chunk_max_iter),
             n_passes=int(n_passes), l1_H=l1_H, l2_H=l2_H, l1_W=l1_W,
@@ -1527,7 +1564,7 @@ def run_nmf(X, n_components: int, init: str = "random",
             bf16_ratio=resolve_bf16_ratio(beta, mode),
             kl_newton=bool(recipe.kl_newton), algo=algo, **sketch)
         H = Hc.reshape(-1, k)[:n]
-    return H.cpu().numpy(), W[0].cpu().numpy(), float(err[0])
+    return H.cpu().numpy(), W.cpu().numpy(), float(err)
 
 
 # ---------------------------------------------------------------------------

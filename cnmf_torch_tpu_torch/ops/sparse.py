@@ -16,9 +16,11 @@ The statistics here are the PLAIN versions of the CUDA kernels in
 ``ops/kernels/kl_ell.py``: the kernels are held against them on the card,
 and every CPU tensor takes them. They are batched over replicates: ``H``
 is ``(R, n, k)``, ``W`` is ``(R, k, g)`` and the encoding is shared by all
-``R`` lanes. With ``bf16`` the operands and the ratio chain round to
-bfloat16 at the same places as the JAX bf16 chain, and every numerator
-product is rounded to bf16 before an f32 sum.
+``R`` lanes; each ``ell_*`` statistic also takes the JAX package's
+one-replicate call, ``H (n, k)`` and ``W (k, g)``
+(:func:`one_replicate_form`). With ``bf16`` the operands and the ratio
+chain round to bfloat16 at the same places as the JAX bf16 chain, and
+every numerator product is rounded to bf16 before an f32 sum.
 
 The Itakura-Saito statistics (:func:`ell_is_h_stats`,
 :func:`ell_is_w_stats`, :func:`ell_beta_err` at beta=0) are the JAX
@@ -30,6 +32,7 @@ device (the JAX package ran them without Pallas too).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -267,6 +270,52 @@ def resolve_sparse_beta(beta: float, density: float | None = None,
 
 
 # ---------------------------------------------------------------------------
+# the JAX package's one-replicate call form
+# ---------------------------------------------------------------------------
+
+def _one_replicate(H, W, extra: int = 0) -> bool:
+    """Whether ``(H, W)`` is the JAX package's one-replicate call, ``W (k,
+    g)`` with ``H`` of rank ``2 + extra``, rather than the port's batched
+    one, ``W (R, k, g)`` with ``H`` of rank ``3 + extra`` (``extra`` 1 for
+    the online solver's chunked usages). Any other pair of ranks raises.
+    Reads ``.ndim`` only, so it costs no host sync."""
+    if W.ndim == 3 and H.ndim == 3 + extra:
+        return False
+    if W.ndim == 2 and H.ndim == 2 + extra:
+        return True
+    raise ValueError(
+        f"H {tuple(H.shape)} with W {tuple(W.shape)}: expected the batched "
+        f"form (W (R, k, g), H of rank {3 + extra}) or one replicate's "
+        f"(W (k, g), H of rank {2 + extra})")
+
+
+def _lane0(out):
+    """Lane 0 of a batched result: a tensor's or array's first entry, each
+    item of a tuple, each field of a record (``None`` stays ``None``)."""
+    if out is None:
+        return None
+    if hasattr(out, "_replace"):    # a NamedTuple record
+        return out._replace(**{f: _lane0(v)
+                               for f, v in out._asdict().items()})
+    if isinstance(out, tuple):
+        return tuple(_lane0(v) for v in out)
+    return out[0]
+
+
+def one_replicate_form(fn):
+    """Let a batched statistic ``fn(x, H (R, n, k), W (R, k, g), ...)``
+    also answer the JAX package's call ``fn(x, H (n, k), W (k, g), ...)``:
+    that call runs ``fn`` at R=1 and returns lane 0, so its bits are the
+    batched call's at R=1."""
+    @functools.wraps(fn)
+    def call(x, H, W, *args, **kwargs):
+        if not _one_replicate(H, W):
+            return fn(x, H, W, *args, **kwargs)
+        return _lane0(fn(x, H[None], W[None], *args, **kwargs))
+    return call
+
+
+# ---------------------------------------------------------------------------
 # plain statistics (the CUDA kernels' reference versions)
 # ---------------------------------------------------------------------------
 
@@ -351,6 +400,7 @@ def ell_w_numer(vals, cols, rows_t, perm_t, H, W, bf16: bool = False):
     return ell_w_numer_from_ratio(rows_t, perm_t, r_flat, H, bf16)
 
 
+@one_replicate_form
 def ell_kl_h_stats(x: EllMatrix, H, W, bf16: bool = False):
     """KL H-update statistics on the stored nonzeros: ``numer (R, n, k)``
     f32 and the data-independent ``denom = W.sum(-1)`` broadcast."""
@@ -364,6 +414,7 @@ def ell_wh_slots(cols, H, W):
     return _wh_at_nz(cols, H.float(), W.float())
 
 
+@one_replicate_form
 def ell_wh_at_nz(x: EllMatrix, H, W):
     """The SDDMM ``H @ W`` at the stored coordinates, ``(R, n, w)`` f32
     (``ell_wh_at_nz`` of the JAX package, with the replicate axis)."""
@@ -388,6 +439,7 @@ def ell_h_newton(vals, cols, H, W):
     return torch.stack(numers, dim=-1), torch.stack(hesses, dim=-1)
 
 
+@one_replicate_form
 def ell_kl_h_newton_stats(x: EllMatrix, H, W):
     """KL H statistics of the Diagonalized-Newton recipe on the stored
     nonzeros: ``(numer, denom, hess)``, the data-independent ``denom =
@@ -402,6 +454,7 @@ def _need_transpose(x: EllMatrix):
                          "(rows_t/perm_t); encode with transpose=True")
 
 
+@one_replicate_form
 def ell_kl_w_numer(x: EllMatrix, H, W, bf16: bool = False):
     """KL W-update numerator ``H^T (X / WH)`` through the transpose index
     set: ``(R, k, g)`` f32."""
@@ -409,6 +462,7 @@ def ell_kl_w_numer(x: EllMatrix, H, W, bf16: bool = False):
     return ell_w_numer(x.vals, x.cols, x.rows_t, x.perm_t, H, W, bf16)
 
 
+@one_replicate_form
 def ell_kl_w_stats(x: EllMatrix, H, W, bf16: bool = False):
     numer = ell_kl_w_numer(x, H, W, bf16)
     return numer, H.sum(1)[:, :, None].expand(W.shape)
@@ -448,6 +502,7 @@ def ell_take_rows(x: EllMatrix, idx) -> EllMatrix:
     return EllMatrix(vals, cols, g, rows_t, perm_t)
 
 
+@one_replicate_form
 def ell_kl_w_stats_rows(x: EllMatrix, H, W, idx):
     """KL W-update statistics from the row subsample ``idx`` of the sketch
     recipe: the numerator ``H[idx]^T (X[idx] / WH[idx])`` on the sampled
@@ -484,6 +539,7 @@ def _is_ratio(x: EllMatrix, inv):
     return x.vals.to(inv.dtype) * inv_nz * inv_nz
 
 
+@one_replicate_form
 def ell_is_h_stats(x: EllMatrix, H, W, bf16: bool = False):
     """IS H-update statistics: the numerator ``(X/WH^2) @ W^T`` on the
     stored slots (:func:`_h_numer`) and the dense denominator ``(1/WH) @
@@ -495,6 +551,7 @@ def ell_is_h_stats(x: EllMatrix, H, W, bf16: bool = False):
     return _h_numer(x.cols, _is_ratio(x, inv), Wb), denom
 
 
+@one_replicate_form
 def ell_is_w_stats(x: EllMatrix, H, W, bf16: bool = False):
     """IS W-update statistics: the numerator ``H^T (X/WH^2)`` through the
     transpose index set (:func:`ell_w_numer_from_ratio`) and the dense
@@ -556,6 +613,7 @@ def total_wh(H, W):
     return (H.float().sum(1) * W.float().sum(-1)).sum(-1)
 
 
+@one_replicate_form
 def ell_beta_err(x: EllMatrix, H, W, beta: float = 1.0):
     """``D_beta(X || HW)`` per replicate from the ELL encoding (f32), for
     beta in {1, 0}. KL: the stored slots' terms plus ``sum_all WH``. IS:

@@ -159,6 +159,10 @@ REGISTRY: dict[str, Knob] = _knobs(
     Knob("CNMF_TPU_PERF_GATE_BAND", "float", "`0.6`",
          "relative band a bench metric must move past before benchdiff "
          "calls it (default 0.6)"),
+    Knob("CNMF_TPU_PERF_GATE_N", "int", "`3`",
+         "the perf gate's sample count (obs/perf_gate.py): each wall is "
+         "measured N times and compared min-of-N (default 3, at least "
+         "1)"),
     # -- the multi-device layer (parallel/mesh.py, parallel/multihost.py,
     # parallel/grid2d.py, runtime/elastic.py, launcher.py), the JAX text
     Knob("CNMF_TPU_GRID_OVERLAP", "flag", "`1`",

@@ -38,6 +38,7 @@ import hashlib
 import io
 import json
 import os
+import sys
 import threading
 import warnings
 import zipfile
@@ -65,6 +66,7 @@ __all__ = [
     "ooc_shard_bytes",
     "shard_reread_retries",
     "host_matrix_bytes",
+    "host_rss_peak_bytes",
     "write_shard_store",
     "open_shard_store",
     "probe_shard_store",
@@ -135,6 +137,21 @@ def host_matrix_bytes(X) -> int:
         Xc = X.tocsr()
         return int(Xc.data.nbytes + Xc.indices.nbytes + Xc.indptr.nbytes)
     return int(np.asarray(X).nbytes)
+
+
+def host_rss_peak_bytes() -> int:
+    """This process's lifetime peak resident set size in bytes, 0 where
+    the platform does not report it. ``ru_maxrss`` is KiB on Linux and
+    bytes on macOS. A host reading only: it says nothing of a card."""
+    try:
+        import resource
+    except ImportError:
+        return 0
+    try:
+        raw = int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+    except OSError:
+        return 0
+    return raw if sys.platform == "darwin" else raw * 1024
 
 
 class HostResidency:

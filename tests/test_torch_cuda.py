@@ -1262,3 +1262,49 @@ def test_batched_project_no_implicit_syncs(cuda_device, beta):
                                  l1=0.0, l2=0.0)
         H, rel = _fetch(H, rel)
     assert np.isfinite(H).all() and (rel < 0.05).all()
+
+
+# the JAX package's one-replicate call of each ELL statistic on the card ->
+# the kernel it launches
+ONE_REPLICATE_CALLS = {
+    "kl_h_stats": ("h_stats",), "kl_w_numer": ("w_numer",),
+    "kl_w_stats": ("w_numer",), "kl_beta_err": ("beta_err_partials",),
+    "kl_h_newton_stats": ("h_newton_stats",), "kl_wh_at_nz": ("wh_at_nz",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONE_REPLICATE_CALLS))
+@pytest.mark.parametrize("n,g,k", [(997, 611, 13), (257, 300, 1)])
+def test_one_replicate_call_is_the_batched_lane(cuda_device, name, n, g, k):
+    """``fn(x, H (n, k), W (k, g))`` on the card launches each of its
+    kernels once and equals ``fn(x, H[None], W[None])``'s lane bit for
+    bit, in the JAX package's unbatched shapes."""
+    x, H, W = edge_inputs(n, g, k, 1, 0.06, 7, cuda_device, zero_rows=3)
+    fn = getattr(kl_ell, name)
+    kl_ell.reset_launches()
+    one = fn(x, H[0], W[0])
+    torch.cuda.synchronize()
+    assert kl_ell.launches == {
+        kern: int(kern in ONE_REPLICATE_CALLS[name])
+        for kern in kl_ell.KERNELS}
+    batched = fn(x, H, W)
+    torch.cuda.synchronize()
+    one = one if isinstance(one, tuple) else (one,)
+    batched = batched if isinstance(batched, tuple) else (batched,)
+    for a, b in zip(one, batched):
+        assert a.is_cuda and tuple(a.shape) == tuple(b.shape[1:])
+        assert torch.equal(a, b[0])
+
+
+def test_one_replicate_beta_divergence_on_the_card(cuda_device):
+    """The objective's one-replicate call: a 0-d tensor, the batched
+    call's bits, one ``beta_err_partials`` launch."""
+    from cnmf_torch_tpu_torch.ops.nmf import beta_divergence
+
+    x, H, W = edge_inputs(1001, 2000, 13, 1, 0.06, 8, cuda_device)
+    kl_ell.reset_launches()
+    one = beta_divergence(x, H[0], W[0], beta=1.0)
+    torch.cuda.synchronize()
+    assert kl_ell.launches["beta_err_partials"] == 1
+    assert one.shape == ()
+    assert torch.equal(one, beta_divergence(x, H, W, beta=1.0)[0])

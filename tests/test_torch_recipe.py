@@ -163,7 +163,8 @@ def test_the_port_reads_no_unregistered_knob():
     # out-of-core layer's of tests/test_torch_shardstore.py,
     # test_torch_streaming.py and test_torch_checkpoint.py, and the
     # remote store's and the cost model's of tests/test_torch_remote.py
-    # and test_torch_regress.py, and the multi-device layer's of
+    # and test_torch_regress.py (the perf gate's two), and the
+    # multi-device layer's of
     # tests/test_torch_elastic.py, and the serving tier's of
     # tests/test_torch_serving.py and test_torch_fleet.py, and the h5ad
     # writer's and the planner's of tests/test_torch_formats.py,
@@ -189,6 +190,7 @@ def test_the_port_reads_no_unregistered_knob():
                          "CNMF_TPU_STORE_HEDGE_S", "CNMF_TPU_STORE_CACHE_BYTES",
                          "CNMF_TPU_PERF_MODEL",
                          "CNMF_TPU_PERF_GATE_BAND",
+                         "CNMF_TPU_PERF_GATE_N",
                          "CNMF_TPU_SANITIZE"} | set(
         MULTI_DEVICE_KNOBS) | set(SERVING_KNOBS) | set(
         FORMAT_PLAN_KNOBS) == set(envknobs.KNOBS)

@@ -186,15 +186,39 @@ def test_diff_missing_tier_and_metric_reported_not_gated():
     assert d["ok"] is True
 
 
-def test_gate_band_knob(monkeypatch):
-    assert rg.gate_band() == rg.DEFAULT_BAND == jrg.DEFAULT_BAND
-    monkeypatch.setenv(rg.GATE_BAND_ENV, "0.25")
-    assert rg.gate_band() == 0.25
-    d = rg.diff_snapshots(_snap(), _snap())
-    assert d["band"] == 0.25
-    monkeypatch.setenv(rg.GATE_BAND_ENV, "wide")
-    with pytest.raises(ValueError, match=rg.GATE_BAND_ENV):
-        rg.gate_band()
+# knob -> (the port's and JAX's readers, the variable, the default, (word,
+# value) pairs the two packages read alike, a word both refuse)
+GATE_KNOBS = {
+    "band": (rg.gate_band, jrg.gate_band, rg.GATE_BAND_ENV,
+             rg.DEFAULT_BAND, [("0.25", 0.25)], "wide"),
+    # the sample count floors at 1
+    "n": (rg.gate_n, jrg.gate_n, rg.GATE_N_ENV, rg.DEFAULT_N,
+          [("5", 5), ("0", 1), ("-3", 1)], "three"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(GATE_KNOBS))
+def test_gate_band_knob(monkeypatch, knob):
+    """The perf gate's knobs (the band and the sample count) read as the
+    JAX package reads them."""
+    mine, theirs, env, default, words, bad = GATE_KNOBS[knob]
+    assert (rg.GATE_BAND_ENV, rg.GATE_N_ENV, rg.DEFAULT_BAND,
+            rg.DEFAULT_N) == (jrg.GATE_BAND_ENV, jrg.GATE_N_ENV,
+                              jrg.DEFAULT_BAND, jrg.DEFAULT_N)
+    monkeypatch.delenv(env, raising=False)
+    assert mine() == theirs() == default
+    for word, value in words:
+        monkeypatch.setenv(env, word)
+        assert mine() == theirs() == value
+    if knob == "band":
+        d = rg.diff_snapshots(_snap(), _snap())
+        assert d["band"] == 0.25
+    monkeypatch.setenv(env, bad)
+    with pytest.raises(ValueError, match=env) as caught:
+        mine()
+    with pytest.raises(Exception) as caught_jax:
+        theirs()
+    assert type(caught.value) is type(caught_jax.value)
 
 
 def test_zero_baseline_edge():

@@ -489,3 +489,15 @@ def test_an_atlas_run_reports_as_the_jax_package_renders_it(tmp_path,
     run_dir = str(tmp_path / "a")
     assert ttel.render_report(run_dir) == jtel.render_report(run_dir)
     assert "ingestion" in ttel.summarize_events(events)
+
+
+def test_host_rss_peak_bytes_reads_as_jax_reads_it():
+    """The process's peak resident set in bytes: between JAX's readings
+    just before and just after (a peak never falls), above 0 on Linux."""
+    before = jss.host_rss_peak_bytes()
+    mine = tss.host_rss_peak_bytes()
+    after = jss.host_rss_peak_bytes()
+    assert before <= mine <= after
+    if os.uname().sysname == "Linux":
+        assert mine > 0
+    assert "host_rss_peak_bytes" in tss.__all__

@@ -16,10 +16,17 @@ has must be in the counterpart's signature, or have a ``PARAMS_RENAMED``
 row (the port's name for it) or a ``PARAMS_NOT_PORTED`` row (why a user
 of the port sees no difference, and the ``ROADMAP.md`` item). A row that
 names nothing fails, and so does a reason of 20 characters or fewer.
+
+Every ``NOT_PORTED`` and ``PARAMS_NOT_PORTED`` row cites "Not to port" or
+departures that ``ROADMAP.md`` lists, never an open queue item. Each file
+of the JAX repo's ``scripts/`` has a ``SCRIPTS`` row: the port module or
+the ``chip_smoke.py`` phases that do its job on the card (each phase named
+in that script's docstring), or its "Not to port" reason.
 """
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -91,10 +98,6 @@ NOT_PORTED = {
                                  "no degrade path from a kernel", "D16"),
     "ExecutionPlan.stream_transport": ("one transport, CSR slabs through "
                                        "pinned pieces", "D5, D16"),
-    "gate_n": ("the perf gate's sample count (CNMF_TPU_PERF_GATE_N) comes "
-               "with the port's benchmark", "D9"),
-    "host_rss_peak_bytes": ("only bench.py reads it; it comes with the "
-                            "port's benchmark", "Order of work, item 3"),
     "SolverRecipe.is_identity": (
         "JAX reads it only to key its compiled-program cache "
         "(parallel/replicates.py:432); the port compiles no program",
@@ -269,6 +272,57 @@ PARAMS_NOT_PORTED = {
         "update; counts.X = normalize_total(counts.X) is the in-place form",
         "Not to port"),
 }
+
+
+# a file of the JAX repo's scripts/ -> (the port module that does its job,
+# the chip_smoke.py phases that run it on the card, what they cover), or
+# (None, (), a "Not to port" reason)
+SCRIPTS = {
+    "accel_smoke.py": (None, ("3", "4", "6"),
+                       "the recipes on the card: mu online, dna in batch, "
+                       "HALS and amu"),
+    "chaos_smoke.py": (None, ("7a", "7b", "7c", "9c", "11e"),
+                       "retry, quarantine, torn artifacts, a SIGKILLed "
+                       "factorize resumed, a host loss"),
+    "fleet_smoke.py": (None, ("12c",),
+                       "the fleet: a replica's death, a rollover, a poison "
+                       "tenant"),
+    "lint_gate.py": ("cnmf_torch_tpu_torch.analysis.gate", ("15a",),
+                     "the lint gate over the port"),
+    "netstore_smoke.py": (None, ("10a", "10b", "10c"),
+                          "the remote store and its four network faults"),
+    "obs_smoke.py": (None, ("8", "12a"),
+                     "events, metrics, spans and report on the main path; "
+                     "the serving events"),
+    "ooc_smoke.py": (None, ("9a", "9c"),
+                     "the store pair (in memory and store-only) and the "
+                     "slab-looped tier"),
+    "pallas_smoke.py": (None, ("2", "3"),
+                        "each kernel against its plain version, and the "
+                        "kernels on the main path"),
+    "perf_gate.py": ("cnmf_torch_tpu_torch.obs.perf_gate", ("15c",),
+                     "the perf gate as a user runs it, and its baseline "
+                     "leg"),
+    "plan_smoke.py": (None, ("13c",),
+                      "one plan event, its dump and a byte-for-byte "
+                      "replay"),
+    "serve_smoke.py": (None, ("12a",),
+                       "the daemon, batching, solo parity and a poison "
+                       "tenant"),
+    "sketch_smoke.py": (None, ("7g",),
+                        "the sketch recipe in batch and online, and "
+                        "sketched consensus"),
+    "telemetry_smoke.py": (None, ("8",),
+                           "every event of the main path valid, report "
+                           "rendered"),
+    "verify_tier1.sh": (None, (), (
+        "Not to port: JAX's tier-1 driver (its pytest line, then each "
+        "script above); the port's tests run under the same pytest line "
+        "and chip_smoke.py runs the scripts' jobs in one process on the "
+        "card")),
+}
+# scripts the port added to scripts/ for itself
+PORT_SCRIPTS = {"beta_err_probe.py", "multicard_check.py"}
 
 
 def _module_body(nodes):
@@ -485,3 +539,59 @@ def test_the_parameters_that_carry_behaviour_are_ported(params, name, param):
     jax, port = params
     assert param in jax[name]
     assert param in port[RENAMED.get(name, name)]
+
+
+def _departures() -> set:
+    """The departures ``ROADMAP.md`` lists (``- **D<n>**`` bullets)."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        return set(re.findall(r"^- \*\*(D\d+)\*\*", f.read(), re.M))
+
+
+@pytest.mark.parametrize("table", ["NOT_PORTED", "PARAMS_NOT_PORTED"])
+def test_every_row_cites_a_reason_of_record(table):
+    """"Not to port" or departures ROADMAP.md lists; no open item (a
+    queue entry such as A1, or "Order of work")."""
+    departures = _departures()
+    assert {"D5", "D10", "D12", "D16"} <= departures
+    bad = []
+    for name, (_, item) in globals()[table].items():
+        if item == "Not to port":
+            continue
+        cited = [c.strip() for c in item.split(",")]
+        if not all(re.fullmatch(r"D\d+", c) and c in departures
+                   for c in cited):
+            bad.append(f"{name}: {item}")
+    assert not bad, f"rows citing no departure of record: {bad}"
+
+
+def test_every_jax_script_has_a_row():
+    files = set(os.listdir(os.path.join(ROOT, "scripts"))) - {"__pycache__"}
+    assert PORT_SCRIPTS <= files
+    assert set(SCRIPTS) == files - PORT_SCRIPTS, sorted(
+        set(SCRIPTS) ^ (files - PORT_SCRIPTS))
+
+
+def _smoke_phases() -> dict:
+    """``chip_smoke.py``'s docstring as ``{phase number: its text}``."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        doc = ast.get_docstring(ast.parse(f.read()))
+    parts = re.split(r"^(\d+)\. ", doc, flags=re.M)
+    return {num: text for num, text in zip(parts[1::2], parts[2::2])}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_each_script_names_where_the_port_does_its_job(script):
+    module, phases, what = SCRIPTS[script]
+    if module is None and not phases:
+        assert what.startswith("Not to port: ") and len(what) > 40
+        return
+    assert len(what) > 20
+    if module is not None:
+        path = os.path.join(ROOT, *module.split(".")) + ".py"
+        assert os.path.isfile(path), module
+    doc = _smoke_phases()
+    for phase in phases:
+        num, sub = re.fullmatch(r"(\d+)([a-z]?)", phase).groups()
+        assert num in doc, f"chip_smoke.py has no phase {num}"
+        if sub:
+            assert f"({sub})" in doc[num], f"phase {num} has no ({sub})"
